@@ -40,18 +40,11 @@
 // mbarriers, warp specialisation and a persistent schedule are left for later
 // work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, s, n;  // element strides of a (B, S, N, D) view; D is contiguous
-};
+using namespace svi;
 
 struct Params {
   const void* q;
@@ -68,18 +61,6 @@ struct Params {
   Strides qs, ks, vs, os;
 };
 
-__device__ __forceinline__ float warp_max_xor(float x, int width) {
-  for (int off = 1; off < width; off <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum_xor(float x, int width) {
-  for (int off = 1; off < width; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 __device__ __forceinline__ float lse_of(float m, float l) {
   const float mm = (m == -INFINITY) ? -1e30f : m / kLog2e;
   return mm + logf(fmaxf(l, 1e-30f));
@@ -92,67 +73,6 @@ __device__ __forceinline__ float lse_of(float m, float l) {
 constexpr int kBr16 = 64;   // query rows per CTA (4 warps x 16)
 constexpr int kBc16 = 64;   // keys per tile
 constexpr int kThreads16 = 128;
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16 row-major bf16) * b (16x8 col-major bf16), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + ROWS) of one head into shared memory (row stride
-// LD), zero-filling rows at or beyond nrows; optionally rotate pairs.
-template <int D, int ROWS, bool ROPE>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long row_stride, long long row0,
-                                               long long nrows, const float* cos,
-                                               const float* sin) {
-  constexpr int LD = D + 8;
-  constexpr int kVec = 8;  // 8 bf16 = 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads16) {
-    const int r = idx / kPerRow;
-    const int cv = idx % kPerRow;
-    const long long gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + gr * row_stride + cv * kVec);
-      if (ROPE) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-        const float* cp = cos + gr * (D / 2) + cv * (kVec / 2);
-        const float* sp = sin + gr * (D / 2) + cv * (kVec / 2);
-#pragma unroll
-        for (int i = 0; i < kVec / 2; ++i) {
-          const float x0 = __bfloat162float(e[2 * i]);
-          const float x1 = __bfloat162float(e[2 * i + 1]);
-          const float c = cp[i], s = sp[i];
-          e[2 * i] = __float2bfloat16_rn(__fsub_rn(__fmul_rn(x0, c), __fmul_rn(x1, s)));
-          e[2 * i + 1] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c)));
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + cv * kVec) = val;
-  }
-}
 
 template <int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads16) flash_fwd_bf16_kernel(Params p) {
@@ -178,7 +98,7 @@ __global__ void __launch_bounds__(kThreads16) flash_fwd_bf16_kernel(Params p) {
       reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.n;
   __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(p.out) + b * p.os.b + h * p.os.n;
 
-  load_tile_bf16<D, kBr16, ROPE>(sQ, qb, p.qs.s, q0, p.sq, p.cos, p.sin);
+  load_tile_bf16<D, kBr16, ROPE, kThreads16>(sQ, qb, p.qs.s, q0, p.sq, p.cos, p.sin);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, kept in registers
@@ -206,8 +126,8 @@ __global__ void __launch_bounds__(kThreads16) flash_fwd_bf16_kernel(Params p) {
   for (long long j = 0; j < n_tiles; ++j) {
     const long long k0 = j * kBc16;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile_bf16<D, kBc16, ROPE>(sK, kb, p.ks.s, k0, p.sk, p.cos, p.sin);
-    load_tile_bf16<D, kBc16, false>(sV, vb, p.vs.s, k0, p.sk, nullptr, nullptr);
+    load_tile_bf16<D, kBc16, ROPE, kThreads16>(sK, kb, p.ks.s, k0, p.sk, p.cos, p.sin);
+    load_tile_bf16<D, kBc16, false, kThreads16>(sV, vb, p.vs.s, k0, p.sk, nullptr, nullptr);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys

@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels (nvcc -> .so -> ctypes).
 
-The sources under ``svi_tpu_torch/csrc`` are compiled at first use into
-``svi_tpu_torch/kernels/_build`` (listed in ``.gitignore``), one library per
-source hash, so a fresh checkout builds itself and an edited source rebuilds.
-The library has a plain C interface: no PyTorch headers, so a build takes
-seconds instead of minutes.
+Each source `svi_tpu_torch/csrc/*.cu` is compiled at first use into its own
+library in `svi_tpu_torch/kernels/_build` (listed in `.gitignore`), named by
+a hash of the source and the headers beside it, so a fresh checkout builds
+itself and an edited source rebuilds. The libraries have a plain C interface:
+no PyTorch headers, so a build takes seconds instead of minutes.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "flash_fwd.cu"
+CSRC = PACKAGE_DIR / "csrc"
+SOURCE = CSRC / "flash_fwd.cu"
+BWD_SOURCE = CSRC / "flash_bwd.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -58,8 +61,10 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
 
 
 def library_path(source: Path = SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Path = SOURCE) -> BuildResult:
@@ -78,23 +83,48 @@ def build(source: Path = SOURCE) -> BuildResult:
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed for {source.name} ({proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return BuildResult(out, seconds, log)
+
+
+def build_all() -> dict[str, BuildResult]:
+    """Every source under csrc/, one nvcc each, all started together."""
+    sources = sorted(CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip((s.name for s in sources), pool.map(build, sources)))
+
+
+_i64, _ptr = ctypes.c_int64, ctypes.c_void_p
+_STRIDES = ctypes.POINTER(_i64)
 
 
 @functools.lru_cache(maxsize=None)
 def load_flash_fwd() -> ctypes.CDLL:
     """Build (if needed) and load the flash-forward library once per process."""
-    lib = ctypes.CDLL(str(build().path))
-    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    lib = ctypes.CDLL(str(build(SOURCE).path))
     lib.svi_flash_fwd.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # is_bf16, head_dim, rope
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, lse, cos, sin
-        i64, i64, i64, i64, i64,  # batch, heads, sq, sk, kv_len
+        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse, cos, sin
+        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
         ctypes.c_float,  # scale
-        ctypes.POINTER(i64),  # 12 strides
-        ptr,  # cudaStream_t
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
     ]
     lib.svi_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_bwd() -> ctypes.CDLL:
+    """Build (if needed) and load the flash-backward library once per process."""
+    lib = ctypes.CDLL(str(build(BWD_SOURCE).path))
+    head = [ctypes.c_int, _ptr, _ptr, _ptr, _ptr,  # head_dim, q, k, v, dO
+            _ptr, _ptr, _ptr, _ptr]  # lse, delta, cos, sin
+    tail = [_i64, _i64, _i64, _i64, ctypes.c_float, _STRIDES, _ptr]  # b, n, sq, sk, scale, ., stream
+    lib.svi_flash_bwd_onepass.argtypes = head + [_ptr, _ptr, _ptr, _ptr] + tail  # dq32, dq, dk, dv
+    lib.svi_flash_bwd_dq.argtypes = head + [_ptr] + tail  # dq
+    lib.svi_flash_bwd_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
+    for fn in (lib.svi_flash_bwd_onepass, lib.svi_flash_bwd_dq, lib.svi_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
     return lib

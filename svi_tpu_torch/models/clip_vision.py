@@ -126,7 +126,7 @@ class ClipVision(ParamTree):
         return self.forward_tokens((x - mean) / std)
 
 
-def init_params(cfg: ClipVisionConfig = VIT_H_14, seed: int = 0, device="cpu") -> ClipVision:
+def init_params(cfg: ClipVisionConfig = VIT_H_14, seed: int = 0, device="cuda") -> ClipVision:
     """Seeded random weights with the JAX package's distributions."""
     r = Init(seed, device, cfg.dtype)
     gain = 1.0 / math.sqrt(cfg.dim)

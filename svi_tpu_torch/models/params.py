@@ -18,18 +18,19 @@ from torch import nn
 
 
 class ParamTree(nn.Module):
-    """An nn.Module over a nested dict (and lists) of tensors."""
+    """An nn.Module over a nested dict (and lists) of tensors. Frozen unless
+    `trainable` (the base weights are frozen; training adapters are not)."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         self._tree_keys = tuple(tree)
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable))
             elif isinstance(val, (list, tuple)):
-                self.add_module(key, nn.ModuleList(ParamTree(x) for x in val))
+                self.add_module(key, nn.ModuleList(ParamTree(x, trainable) for x in val))
             else:
-                self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(val, requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

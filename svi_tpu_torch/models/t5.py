@@ -113,7 +113,7 @@ class T5Encoder(ParamTree):
                            torch.zeros((), dtype=emb.dtype, device=emb.device))
 
 
-def init_params(cfg: T5Config = UMT5_XXL, seed: int = 0, device="cpu") -> T5Encoder:
+def init_params(cfg: T5Config = UMT5_XXL, seed: int = 0, device="cuda") -> T5Encoder:
     """Seeded random weights with the JAX package's distributions. Projection
     weights are stored (out, in)."""
     r = Init(seed, device, cfg.dtype)

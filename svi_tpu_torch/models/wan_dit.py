@@ -1,18 +1,23 @@
-"""Wan 2.1 video diffusion transformer (DiT), bf16 forward.
+"""Wan 2.1 video diffusion transformer (DiT), bf16, forward and training.
 
 Port of svi_tpu/models/wan_dit.py: configs, seeded init, patchify /
 unpatchify, time embedding, the plain DiT block (self-attention with 3D RoPE
 through the flash kernel, text + image cross-attention), the CLIP-feature
-MLP, the head, and the split prelude / blocks / head forward that TeaCache
-needs. Quantized weights, LoRA, multitalk/customtalk and remat are not part
-of this port. Activations are in cfg.dtype; norm and softmax statistics f32.
+MLP, the head, the split prelude / blocks / head forward that TeaCache
+needs, the unfused LoRA side path of training, and rematerialisation of the
+block stack (per block, or in square-root groups). Quantized weights,
+multitalk/customtalk, the save-attention remat policy and host-offloaded
+carries are not part of this port. Activations are in cfg.dtype; norm and
+softmax statistics f32; base weights are frozen.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention, flash_attention_flat
 from ..ops.norms import gelu_tanh, layer_norm, modulate, rms_norm
@@ -46,6 +51,30 @@ WAN_14B_T2V = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
 WAN_14B_I2V = WanDiTConfig(
     dim=5120, in_dim=36, ffn_dim=13824, num_heads=40, num_layers=40, has_image_input=True
 )
+
+
+def dense_lora(p: ParamTree, x: torch.Tensor, lora, scale: float) -> torch.Tensor:
+    """Dense with an unfused LoRA side path (`_dense_lora`): y = xW + scale·((xA)B),
+    A (in, r) and B (r, out) cast to x's dtype; the f32 masters stay with the
+    optimizer."""
+    y = dense(p, x)
+    if lora is not None:
+        y = y + ((x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)) * scale
+    return y
+
+
+def _l(lora, key):
+    return None if lora is None else lora.get(key)
+
+
+def pick_remat_group(num_layers: int) -> int:
+    """Divisor of num_layers closest to sqrt(num_layers) (sqrt-remat group)."""
+    best = 1
+    target = num_layers ** 0.5
+    for g in range(1, num_layers + 1):
+        if num_layers % g == 0 and abs(g - target) < abs(best - target):
+            best = g
+    return best
 
 
 class WanDiT(ParamTree):
@@ -85,16 +114,19 @@ class WanDiT(ParamTree):
         t_mod = dense(self["time_projection"]["1"], tp).reshape(t.shape[0], 6, self.cfg.dim)
         return t, t_mod
 
-    def _self_attention(self, p, x, cos, sin):
+    def _self_attention(self, p, x, cos, sin, lora=None, lora_scale: float = 1.0):
         cfg = self.cfg
         # q/k RMS norm over the full dim, before the heads are split
-        q = rms_norm(dense(p["q"], x), p["norm_q"]["w"], eps=cfg.eps)
-        k = rms_norm(dense(p["k"], x), p["norm_k"]["w"], eps=cfg.eps)
-        v = dense(p["v"], x)
+        q = rms_norm(dense_lora(p["q"], x, _l(lora, "q"), lora_scale), p["norm_q"]["w"],
+                     eps=cfg.eps)
+        k = rms_norm(dense_lora(p["k"], x, _l(lora, "k"), lora_scale), p["norm_k"]["w"],
+                     eps=cfg.eps)
+        v = dense_lora(p["v"], x, _l(lora, "v"), lora_scale)
         o = flash_attention_flat(q, k, v, cfg.head_dim, cos=cos, sin=sin)
-        return dense(p["o"], o)
+        return dense_lora(p["o"], o, _l(lora, "o"), lora_scale)
 
-    def _cross_attention(self, p, x, ctx, num_img_tokens: int):
+    def _cross_attention(self, p, x, ctx, num_img_tokens: int, lora=None,
+                         lora_scale: float = 1.0):
         """Text (+ image) cross attention; ctx = [image tokens | text tokens]."""
         cfg = self.cfg
         b, s, d = x.shape
@@ -103,9 +135,11 @@ class WanDiT(ParamTree):
             img, txt = ctx[:, :num_img_tokens], ctx[:, num_img_tokens:]
         else:
             img, txt = None, ctx
-        q = rms_norm(dense(p["q"], x), p["norm_q"]["w"], eps=cfg.eps).reshape(b, s, n, hd)
-        k = rms_norm(dense(p["k"], txt), p["norm_k"]["w"], eps=cfg.eps)
-        v = dense(p["v"], txt)
+        q = rms_norm(dense_lora(p["q"], x, _l(lora, "q"), lora_scale), p["norm_q"]["w"],
+                     eps=cfg.eps).reshape(b, s, n, hd)
+        k = rms_norm(dense_lora(p["k"], txt, _l(lora, "k"), lora_scale), p["norm_k"]["w"],
+                     eps=cfg.eps)
+        v = dense_lora(p["v"], txt, _l(lora, "v"), lora_scale)
         lk = txt.shape[1]
         o = flash_attention(q, k.reshape(b, lk, n, hd), v.reshape(b, lk, n, hd))
         if img is not None:
@@ -113,22 +147,25 @@ class WanDiT(ParamTree):
             v_img = dense(p["v_img"], img)
             li = img.shape[1]
             o = o + flash_attention(q, k_img.reshape(b, li, n, hd), v_img.reshape(b, li, n, hd))
-        return dense(p["o"], o.reshape(b, s, d))
+        return dense_lora(p["o"], o.reshape(b, s, d), _l(lora, "o"), lora_scale)
 
-    def dit_block(self, p, x, context, t_mod, cos, sin, num_img_tokens: int = 257):
-        """One adaLN-modulated DiT block."""
+    def dit_block(self, p, x, context, t_mod, cos, sin, num_img_tokens: int = 257, lora=None,
+                  lora_scale: float = 1.0):
+        """One adaLN-modulated DiT block; `lora` is this block's adapters or None."""
         cfg = self.cfg
         mod = p["modulation"].to(t_mod.dtype) + t_mod  # (b, 6, d)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
             mod[:, i:i + 1] for i in range(6))
         input_x = modulate(layer_norm(x, eps=1e-6), shift_msa, scale_msa)
-        x = x + gate_msa * self._self_attention(p["self_attn"], input_x, cos, sin)
+        x = x + gate_msa * self._self_attention(p["self_attn"], input_x, cos, sin,
+                                                _l(lora, "self_attn"), lora_scale)
         x = x + self._cross_attention(
             p["cross_attn"], layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps),
-            context, num_img_tokens)
+            context, num_img_tokens, _l(lora, "cross_attn"), lora_scale)
         input_x = modulate(layer_norm(x, eps=1e-6), shift_mlp, scale_mlp)
-        h = gelu_tanh(dense(p["ffn"]["0"], input_x))
-        return x + gate_mlp * dense(p["ffn"]["2"], h)
+        ffn_lora = _l(lora, "ffn")
+        h = gelu_tanh(dense_lora(p["ffn"]["0"], input_x, _l(ffn_lora, "0"), lora_scale))
+        return x + gate_mlp * dense_lora(p["ffn"]["2"], h, _l(ffn_lora, "2"), lora_scale)
 
     def _img_mlp(self, x: torch.Tensor) -> torch.Tensor:
         """CLIP-feature MLP: LN, Linear, GELU (exact, f32), Linear, LN."""
@@ -165,24 +202,67 @@ class WanDiT(ParamTree):
         tokens, grid = self.patchify(x)
         return tokens, ctx, t, t_mod, grid
 
-    def forward_blocks(self, tokens, ctx, t_mod, grid, num_img_tokens: int = 257):
+    def forward_blocks(self, tokens, ctx, t_mod, grid, num_img_tokens: int = 257, lora=None,
+                       lora_scale: float = 1.0, use_remat: bool = False,
+                       remat_granularity: int = 1, save_attention: bool = False,
+                       offload_carries: bool = False):
+        """The block stack. lora: the adapters (training.lora), whose
+        ["blocks"][i] feeds block i. use_remat: each block runs under
+        torch.utils.checkpoint, so only its input carry is saved; with
+        remat_granularity g > 1 dividing the depth (and below it), groups of g
+        blocks are checkpointed around the per-block checkpoints, saving L/g
+        + g carries instead of L (`scan_blocks_remat`)."""
+        if save_attention or offload_carries:
+            raise NotImplementedError(
+                "save_attention and offload_carries are not ported yet (ROADMAP)")
         cos, sin = rope_angles_for_grid(tuple(grid), self.cfg.head_dim)
         cos = torch.from_numpy(cos).to(tokens.device)
         sin = torch.from_numpy(sin).to(tokens.device)
-        for p in self["blocks"]:
-            tokens = self.dit_block(p, tokens, ctx, t_mod, cos, sin, num_img_tokens)
+        blocks = self["blocks"]
+        lora_blocks = None if lora is None else lora["blocks"]
+
+        def run(tok, i):
+            lbp = None if lora_blocks is None else lora_blocks[i]
+            return self.dit_block(blocks[i], tok, ctx, t_mod, cos, sin, num_img_tokens, lbp,
+                                  lora_scale)
+
+        def run_remat(tok, i):
+            return checkpoint(run, tok, i, use_reentrant=False)
+
+        n = len(blocks)
+        group = remat_granularity if use_remat else None
+        if not group or group <= 1 or n % group or n == group:
+            step = run_remat if use_remat else run
+            for i in range(n):
+                tokens = step(tokens, i)
+            return tokens
+
+        def run_group(tok, first):
+            for i in range(first, first + group):
+                tok = run_remat(tok, i)
+            return tok
+
+        for first in range(0, n, group):
+            tokens = checkpoint(run_group, tokens, first, use_reentrant=False)
         return tokens
 
     def forward_head(self, tokens, t, grid):
         return self.unpatchify(self.apply_head(tokens, t), grid)
 
-    def forward(self, x, timestep, context, clip_feature=None, y=None):
+    def forward(self, x, timestep, context, clip_feature=None, y=None, lora=None,
+                lora_scale: float = 1.0, use_remat: bool = False, remat_granularity: int = 1,
+                save_attention: bool = False, offload_carries: bool = False):
         """x: (b, in_dim - y channels, f, h, w) latents; timestep (b,) or scalar;
-        context (b, L, text_dim); clip_feature (b, 257, clip_dim); y: (b, c, f, h, w)."""
+        context (b, L, text_dim); clip_feature (b, 257, clip_dim); y: (b, c, f, h, w).
+        The rest as `forward_blocks` (training)."""
         tokens, ctx, t, t_mod, grid = self.forward_prelude(x, timestep, context, clip_feature, y)
         n_img = clip_feature.shape[1] if (self.cfg.has_image_input
                                           and clip_feature is not None) else 257
-        tokens = self.forward_blocks(tokens, ctx, t_mod, grid, num_img_tokens=n_img)
+        tokens = self.forward_blocks(tokens, ctx, t_mod, grid, num_img_tokens=n_img, lora=lora,
+                                     lora_scale=lora_scale, use_remat=use_remat,
+                                     remat_granularity=remat_granularity,
+                                     save_attention=save_attention,
+                                     offload_carries=offload_carries)
         return self.forward_head(tokens, t, grid)
 
 
@@ -191,7 +271,7 @@ class WanDiT(ParamTree):
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: WanDiTConfig, seed: int = 0, device="cpu") -> WanDiT:
+def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
     """Seeded random weights with the JAX package's distributions (init_params)."""
     r = Init(seed, device, cfg.dtype)
     d, f = cfg.dim, cfg.ffn_dim

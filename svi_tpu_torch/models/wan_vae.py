@@ -321,7 +321,7 @@ def _init_layer(r: Init, kind, cin, cout):
     raise ValueError(kind)
 
 
-def init_params(cfg: WanVAEConfig = WAN_VAE, seed: int = 0, device="cpu") -> WanVAE:
+def init_params(cfg: WanVAEConfig = WAN_VAE, seed: int = 0, device="cuda") -> WanVAE:
     """Seeded random weights with the JAX package's distributions."""
     r = Init(seed, device, cfg.dtype)
     z2 = cfg.z_dim * 2

@@ -1,22 +1,30 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain versions.
 
-Port of the forward surface of svi_tpu/ops/attention.py. Two kernel entry
-points, each with its own launch counter (`.launches`, a plain int that
-counts kernel launches and nothing else):
+Port of svi_tpu/ops/attention.py. Five kernel entry points, each with its own
+launch counter (`.launches`, a plain int that counts kernel launches and
+nothing else):
 
   * `flash_fwd_flat`  -- K1's contract (`_fwd_kernel_flat`): q, k, v flat
     (B, S, N*D), optional fused interleaved-pair RoPE, keys >= kv_len masked;
     returns out (B, Sq, N*D) in q's dtype and base-e lse (B, N, Sq) f32;
-  * `flash_fwd_bnsd` -- K2's contract (`_fwd_kernel`): the same on (B, N, S, D).
+  * `flash_fwd_bnsd` -- K2's contract (`_fwd_kernel`): the same on (B, N, S, D);
+  * `flash_bwd_onepass` -- K4's contract (`_bwd_onepass_kernel_flat`): dq, dk,
+    dv in one pass over KV tiles, dq summed across them in f32;
+  * `flash_bwd_dq`, `flash_bwd_dkv` -- K5a's and K5b's contracts
+    (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward.
 
-Both launch one kernel (svi_tpu_torch/csrc/flash_fwd.cu); a layout is only
-strides. Dispatch: tensors on the CPU take the plain PyTorch version
-(`_flash_fwd_reference`, which mirrors the JAX package's `_flash_fwd_xla`);
-CUDA tensors launch the kernel or raise. There is no fallback between them.
-The public ops (`flash_attention`, `flash_attention_rope`,
-`flash_attention_flat`, `flash_attention_with_lse`) route head dims the way
-the JAX package does: the flat kernel when D % 128 == 0 or N == 1, the
-(B, N, S, D) entry otherwise (CLIP's D = 80).
+The forward entries launch csrc/flash_fwd.cu (a layout is only strides), the
+backward entries csrc/flash_bwd.cu. Dispatch: tensors on the CPU take the
+plain PyTorch version (`_flash_fwd_reference`, `_flash_bwd_reference`, which
+mirror the JAX package's `_flash_fwd_xla` and `_flash_bwd_xla`); CUDA tensors
+launch the kernel or raise. There is no fallback between them. The public ops
+(`flash_attention`, `flash_attention_rope`, `flash_attention_flat`) are
+differentiable in q, k and v and route as the JAX package does: forward
+through the flat kernel when D % 128 == 0 or N == 1 and the (B, N, S, D)
+entry otherwise (CLIP's D = 80); backward through K4 for long self-attention
+and K5a + K5b otherwise (`flash_bwd_flat`). `flash_attention_with_lse` is
+forward only.
 """
 
 from __future__ import annotations
@@ -110,32 +118,45 @@ def _check_inputs(q4, k4, v4, cos, sin, kv_len: int) -> None:
             raise ValueError(f"rope tables {tuple(cos.shape)} do not cover ({need}, {d // 2})")
 
 
-def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
-    out4 is a preallocated (B, Sq, N, D) view; returns lse (B, N, Sq)."""
-    tensors = [q4, k4, v4, out4] + ([cos, sin] if cos is not None else [])
+def _check_kernel_tensors(what: str, named: dict, head_dims: dict, cos, sin) -> None:
+    """Device, type, head dim, stride and alignment checks of a kernel launch;
+    raises on anything the kernel does not take."""
+    tensors = list(named.values()) + ([cos, sin] if cos is not None else [])
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise RuntimeError("flash forward: every tensor must be on one CUDA device "
+        raise RuntimeError(f"{what}: every tensor must be on one CUDA device "
                            f"(got {sorted({str(t.device) for t in tensors})})")
-    b, sq, n, d = q4.shape
-    dtype = q4.dtype
-    if dtype not in _KERNEL_HEAD_DIMS:
-        raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
-    if d not in _KERNEL_HEAD_DIMS[dtype]:
-        raise ValueError(f"flash forward kernel: head_dim {d} not built for {dtype} "
-                         f"(built: {_KERNEL_HEAD_DIMS[dtype]})")
-    for name, t in (("q", q4), ("k", k4), ("v", v4), ("out", out4)):
+    dtype, d = named["q"].dtype, named["q"].shape[-1]
+    if dtype not in head_dims or any(t.dtype != dtype for t in named.values()):
+        raise TypeError(f"{what} kernel takes {sorted(map(str, head_dims))} inputs of one "
+                        f"dtype, not {sorted({str(t.dtype) for t in named.values()})}")
+    if d not in head_dims[dtype]:
+        raise ValueError(f"{what} kernel: head_dim {d} not built for {dtype} "
+                         f"(built: {head_dims[dtype]})")
+    for name, t in named.items():
         if t.stride(-1) != 1:
-            raise ValueError(f"flash forward kernel: {name} must be contiguous in its last dim")
+            raise ValueError(f"{what} kernel: {name} must be contiguous in its last dim")
         if dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"flash forward kernel: bf16 {name} must be 16-byte aligned "
+            raise ValueError(f"{what} kernel: bf16 {name} must be 16-byte aligned "
                              "with strides that are multiples of 8")
     if cos is not None:
         if cos.dtype != torch.float32 or sin.dtype != torch.float32 \
                 or not cos.is_contiguous() or not sin.is_contiguous():
             raise ValueError("rope tables must be contiguous float32")
+
+
+def _strides12(*views) -> ctypes.Array:
+    """(b, s, n) element strides of four (B, S, N, D) views, for the C interface."""
+    return (ctypes.c_int64 * 12)(*(s for t in views for s in t.stride()[:3]))
+
+
+def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+    out4 is a preallocated (B, Sq, N, D) view; returns lse (B, N, Sq)."""
+    _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
+                          _KERNEL_HEAD_DIMS, cos, sin)
+    b, sq, n, d = q4.shape
+    dtype = q4.dtype
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q4.device)
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q4, k4, v4, out4) for s in t.stride()[:3]))
     from ..kernels.build import load_flash_fwd
 
     err = load_flash_fwd().svi_flash_fwd(
@@ -143,7 +164,7 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> torch.Tens
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
         cos.data_ptr() if cos is not None else None,
         sin.data_ptr() if sin is not None else None,
-        b, n, sq, k4.shape[1], kv_len, float(scale), strides,
+        b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4),
         torch.cuda.current_stream(q4.device).cuda_stream,
     )
     if err != 0:
@@ -205,16 +226,255 @@ def _flat_ok(n: int, head_dim: int) -> bool:
     return head_dim % 128 == 0 or n == 1
 
 
+# ---------------------------------------------------------------------------
+# Backward: the plain version, three kernel entry points, and the router
+# ---------------------------------------------------------------------------
+
+_BWD_HEAD_DIMS = {torch.bfloat16: (64, 128)}
+
+
+def _flash_bwd_reference(q4, k4, v4, out4, lse, g4, cos, sin, kv_len: int, scale: float):
+    """Plain PyTorch backward (mirrors `_flash_bwd_xla` and the RoPE handling
+    around it in `_flash_core_flat_bwd`): p recomputed from lse in f32 over key
+    blocks and query-row chunks (one f32 score tile stays under 1 GiB),
+    delta = rowsum(dO * O). q4, out4, g4: (B, Sq, N, D); k4, v4: (B, Sk, N, D);
+    lse (B, N, Sq). Returns (dq4, dk4, dv4) in the inputs' dtypes; with RoPE
+    the gradients are rotated back by -theta."""
+    b, sq, n, d = q4.shape
+    sk = k4.shape[1]
+    if cos is not None:
+        q4 = _apply_rope_reference(q4, cos[:sq], sin[:sq])
+        k4 = _apply_rope_reference(k4, cos[:sk], sin[:sk])
+    qt, kt, vt, gt = (t.transpose(1, 2).float() for t in (q4, k4, v4, g4))
+    delta = (gt * out4.transpose(1, 2).float()).sum(-1, keepdim=True)
+    lse = lse[..., None]
+    block_k = _reference_block_k(sk, d)
+    rows = max(1, min(sq, _REFERENCE_TILE_BYTES // (4 * b * n * block_k)))
+    dq = torch.zeros_like(qt)
+    dks, dvs = [], []
+    for j0 in range(0, sk, block_k):
+        kj, vj = kt[:, :, j0:j0 + block_k], vt[:, :, j0:j0 + block_k]
+        masked = torch.arange(j0, j0 + kj.shape[2], device=q4.device) >= kv_len
+        dkj, dvj = torch.zeros_like(kj), torch.zeros_like(vj)
+        for r0 in range(0, sq, rows):
+            qc, gc = qt[:, :, r0:r0 + rows], gt[:, :, r0:r0 + rows]
+            s = (qc @ kj.transpose(-1, -2)) * scale
+            p = torch.exp(s.masked_fill(masked, _NEG_INF) - lse[:, :, r0:r0 + rows])
+            ds = p * (gc @ vj.transpose(-1, -2) - delta[:, :, r0:r0 + rows])
+            dq[:, :, r0:r0 + rows] += (ds @ kj) * scale
+            dkj += (ds.transpose(-1, -2) @ qc) * scale
+            dvj += p.transpose(-1, -2) @ gc
+        dks.append(dkj)
+        dvs.append(dvj)
+    dq4 = dq.to(q4.dtype).transpose(1, 2)
+    dk4 = torch.cat(dks, dim=2).to(k4.dtype).transpose(1, 2)
+    dv4 = torch.cat(dvs, dim=2).to(v4.dtype).transpose(1, 2)
+    if cos is not None:  # the rotation is orthogonal: its gradient is the inverse rotation
+        dq4 = _apply_rope_reference(dq4, cos[:sq], -sin[:sq])
+        dk4 = _apply_rope_reference(dk4, cos[:sk], -sin[:sk])
+    return dq4, dk4, dv4
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _onepass_bwd_ok(sq_p: int, sk: int, head_dim: int) -> bool:
+    """The JAX package's gate for the one-pass backward (K4), kept as is so
+    the port takes the kernel the TPU takes: D = 128, both sequences >= 4096,
+    and Sq within the one-pass kernel's resident-row budget."""
+    if head_dim != 128:
+        return False
+    return sq_p >= 4096 and sk >= 4096 and 8 * sq_p * head_dim <= 36 * 1024 * 1024
+
+
+def _bwd_route(n: int, head_dim: int, sq: int, sk: int, kv_len: int) -> str:
+    """The backward `_flash_core_flat_bwd` takes for these shapes: 'onepass'
+    (K4), 'split' (K5a + K5b), or 'xla' (kv_len < Sk, or a head dim the flat
+    layout cannot take), which has no kernel."""
+    if kv_len < sk or not _flat_ok(n, head_dim):
+        return "xla"
+    return "onepass" if _onepass_bwd_ok(_ceil_to(sq, 1024), sk, head_dim) else "split"
+
+
+def _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin):
+    """Checks shapes and returns the (B, S, N, D) views of the flat tensors."""
+    n = q.shape[-1] // head_dim
+    q4, k4, v4, o4, g4 = (t.unflatten(-1, (n, head_dim)) for t in (q, k, v, out, g))
+    _check_inputs(q4, k4, v4, cos, sin, k.shape[1])
+    if o4.shape != q4.shape or g4.shape != q4.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(g.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (q.shape[0], n, q.shape[1]):
+        raise ValueError(f"lse {tuple(lse.shape)} must be (B, N, Sq)")
+    return q4, k4, v4, o4, g4
+
+
+def _launch_bwd(entry: str, q4, k4, v4, o4, lse, g4, cos, sin, scale: float, outs) -> None:
+    """Launch one backward entry of csrc/flash_bwd.cu on the current stream.
+    delta = rowsum(dO * O) in f32 is computed here, outside the kernel, as the
+    JAX package computes it outside its kernels."""
+    _check_kernel_tensors("flash backward", dict(q=q4, k=k4, v=v4, dO=g4), _BWD_HEAD_DIMS,
+                          cos, sin)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous float32 (B, N, Sq)")
+    delta = torch.einsum("bsnd,bsnd->bns", g4.float(), o4.float()).contiguous()
+    b, sq, n, d = q4.shape
+    from ..kernels.build import load_flash_bwd
+
+    err = getattr(load_flash_bwd(), entry)(
+        d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None, *(t.data_ptr() for t in outs),
+        b, n, sq, k4.shape[1], float(scale), _strides12(q4, k4, v4, g4),
+        torch.cuda.current_stream(q4.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash backward kernel {entry} launch failed: cudaError {err}")
+
+
+def _plain_bwd_flat(views, lse, cos, sin, kv_len, scale):
+    q4, k4, v4, o4, g4 = views
+    return tuple(t.flatten(2) for t in _flash_bwd_reference(q4, k4, v4, o4, lse, g4, cos, sin,
+                                                           kv_len, scale))
+
+
+def flash_bwd_onepass(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
+                      scale: Optional[float] = None):
+    """K4's contract (`_bwd_onepass_kernel_flat`): q, k, v, out, dO flat
+    (B, S, N*D), lse (B, N, Sq) from the forward, cos/sin (>= S, D/2) RoPE
+    tables of the forward. Returns (dq, dk, dv), flat, contiguous, in q's
+    dtype; dq is summed across KV tiles in f32 before it is rounded."""
+    views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    if _on_cpu(q, k, v, out, lse, g, cos, sin):
+        return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)
+    if head_dim != 128:
+        raise ValueError(f"flash_bwd_onepass: head_dim {head_dim}; the kernel is built for 128")
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("svi_flash_bwd_onepass", *views[:4], lse, views[4], cos, sin, scale,
+                (dq32, dq, dk, dv))
+    flash_bwd_onepass.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_onepass.launches = 0
+
+
+def flash_bwd_dq(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """K5a's contract (`_bwd_dq_kernel_flat`): arguments as `flash_bwd_onepass`;
+    returns dq (B, Sq, N*D), rotated back when RoPE is given."""
+    views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    if _on_cpu(q, k, v, out, lse, g, cos, sin):
+        return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("svi_flash_bwd_dq", *views[:4], lse, views[4], cos, sin, scale, (dq,))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
+                  scale: Optional[float] = None):
+    """K5b's contract (`_bwd_dkv_kernel_flat`): arguments as `flash_bwd_onepass`;
+    returns (dk, dv) (B, Sk, N*D), dk rotated back when RoPE is given."""
+    views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    if _on_cpu(q, k, v, out, lse, g, cos, sin):
+        return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)[1:]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("svi_flash_bwd_dkv", *views[:4], lse, views[4], cos, sin, scale, (dk, dv))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
+                   kv_len: Optional[int] = None, scale: Optional[float] = None):
+    """The attention backward on flat (B, S, N*D) tensors, routed as the JAX
+    package routes it (`_flash_core_flat_bwd`): K4 for long self-attention,
+    K5a + K5b otherwise. CPU tensors take the plain version, including for
+    kv_len < Sk; on CUDA tensors kv_len < Sk and the (B, N, S, D) head dims
+    have no kernel and raise."""
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else min(int(kv_len), sk)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    if _on_cpu(q, k, v, out, lse, g, cos, sin):
+        views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
+        return _plain_bwd_flat(views, lse, cos, sin, kv_len, scale)
+    n = q.shape[-1] // head_dim
+    route = _bwd_route(n, head_dim, q.shape[1], sk, kv_len)
+    if route == "xla":
+        if kv_len < sk:
+            raise NotImplementedError(
+                f"attention backward with kv_len {kv_len} < Sk {sk} (sequence-parallel "
+                "shards): no kernel on the card yet (ROADMAP Slice E)")
+        raise NotImplementedError(
+            f"attention backward for {n} heads of {head_dim}: the (B, N, S, D) route has "
+            "no backward kernel")
+    args = (q, k, v, out, lse, g, head_dim, cos, sin, scale)
+    if route == "onepass":
+        return flash_bwd_onepass(*args)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+# ---------------------------------------------------------------------------
+# Differentiable public ops
+# ---------------------------------------------------------------------------
+
+
+def _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale):
+    """Flat (B, S, N*D) forward through whichever entry the JAX package uses."""
+    n = q.shape[-1] // head_dim
+    if _flat_ok(n, head_dim):
+        return flash_fwd_flat(q, k, v, head_dim, cos=cos, sin=sin, kv_len=kv_len, scale=scale)
+    q4, k4, v4 = (t.unflatten(-1, (n, head_dim)).transpose(1, 2) for t in (q, k, v))
+    out, lse = flash_fwd_bnsd(q4, k4, v4, kv_len=kv_len, scale=scale, cos=cos, sin=sin)
+    return out.transpose(1, 2).flatten(2), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Mirrors `_flash_core_flat` + `_attn_with_saved`: the forward kernel,
+    saving (q, k, v, cos, sin, out, lse); the backward through
+    `flash_bwd_flat`. Gradients flow to q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, head_dim, kv_len, scale):
+        out, lse = _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
+        ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        ctx.args = (head_dim, kv_len, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        head_dim, kv_len, scale = ctx.args
+        dq, dk, dv = flash_bwd_flat(q, k, v, out, lse, g.contiguous(), head_dim, cos=cos,
+                                    sin=sin, kv_len=kv_len, scale=scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale):
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    return _FlashAttention.apply(q, k, v, cos, sin, head_dim, kv_len, scale)
+
+
 def _attention4(q, k, v, cos, sin, kv_len, scale):
-    """(B, S, N, D) in and out, through whichever entry point the JAX package uses."""
+    """(B, S, N, D) in and out."""
     n, d = q.shape[2], q.shape[3]
-    if _flat_ok(n, d):
-        out, _ = flash_fwd_flat(q.flatten(2), k.flatten(2), v.flatten(2), d, cos=cos,
-                                sin=sin, kv_len=kv_len, scale=scale)
-        return out.unflatten(-1, (n, d))
-    out, _ = flash_fwd_bnsd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            kv_len=kv_len, scale=scale, cos=cos, sin=sin)
-    return out.transpose(1, 2)
+    out = _attention_flat(q.flatten(2), k.flatten(2), v.flatten(2), d, cos, sin, kv_len, scale)
+    return out.unflatten(-1, (n, d))
 
 
 def _rope_tables(cos, sin, s: int, device):
@@ -224,8 +484,9 @@ def _rope_tables(cos, sin, s: int, device):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
-    """Full (non-causal) attention. q: (B, Sq, N, D); k, v: (B, Sk, N, D).
-    Keys at positions >= kv_len are masked. Returns (B, Sq, N, D) in q.dtype."""
+    """Full (non-causal) attention, differentiable in q, k and v.
+    q: (B, Sq, N, D); k, v: (B, Sk, N, D). Keys at positions >= kv_len are
+    masked. Returns (B, Sq, N, D) in q.dtype."""
     return _attention4(q, k, v, None, None, kv_len, scale)
 
 
@@ -243,21 +504,14 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
                          scale: Optional[float] = None,
                          quant: Optional[str] = None) -> torch.Tensor:
     """Flat-layout entry: q, k, v (B, S, N*head_dim) straight from the
-    projections, optional RoPE. quant ('qk8' | 'qk8pv8', the int8 forward of
-    the JAX package) is not ported yet and raises."""
+    projections, optional RoPE, differentiable in q, k and v. quant ('qk8' |
+    'qk8pv8', the int8 forward of the JAX package) is not ported yet and raises."""
     if quant is not None:
         raise NotImplementedError(
             f"quant={quant!r}: the int8 attention forward (K6) is not ported yet")
     if cos is not None:
         cos, sin = _rope_tables(cos, sin, q.shape[1], q.device)
-    n = q.shape[-1] // head_dim
-    if _flat_ok(n, head_dim):
-        out, _ = flash_fwd_flat(q, k, v, head_dim, cos=cos, sin=sin, kv_len=kv_len,
-                                scale=scale)
-        return out
-    out4 = _attention4(*(t.unflatten(-1, (n, head_dim)) for t in (q, k, v)), cos, sin,
-                       kv_len, scale)
-    return out4.flatten(2)
+    return _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

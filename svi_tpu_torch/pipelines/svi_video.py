@@ -114,9 +114,15 @@ class SVIVideoPipeline:
     # -- conditioning -----------------------------------------------------------
 
     def encode_images_adaptive(self, first_frames, random_ref_frame, num_frames, height, width,
-                               ref_pad_cfg=False, ref_pad_num=None):
+                               use_first_aug=False, ref_pad_cfg=False, ref_pad_num=None):
         """`y` = (4-ch temporal mask | VAE latent of [condition frames |
-        padding]) and the CLIP features of the first frame, all encoded in f32."""
+        padding]) and the CLIP features of the first frame, all encoded in f32.
+        use_first_aug (scripts/train_svi.py's first-frame augmentation, PIL
+        code in the JAX package) is not ported and raises when true."""
+        if use_first_aug:
+            raise NotImplementedError(
+                "use_first_aug: the PIL first-frame augmentation (svi_tpu/pipelines/base.py) "
+                "is not ported yet")
         if not isinstance(first_frames, (list, tuple)):
             first_frames = [first_frames]
         n_cond = len(first_frames)

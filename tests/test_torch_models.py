@@ -174,9 +174,9 @@ def test_seeded_init_is_reproducible(module):
                                       num_layers=1, mlp_ratio=2),
         tt5: tt5.T5Config(vocab=50, dim=16, dim_attn=16, dim_ffn=32, num_heads=2, num_layers=1),
     }
-    a = module.init_params(cfgs[module], seed=5).state_dict()
-    b = module.init_params(cfgs[module], seed=5).state_dict()
-    c = module.init_params(cfgs[module], seed=6).state_dict()
+    a = module.init_params(cfgs[module], seed=5, device="cpu").state_dict()
+    b = module.init_params(cfgs[module], seed=5, device="cpu").state_dict()
+    c = module.init_params(cfgs[module], seed=6, device="cpu").state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert any(not torch.equal(a[k], c[k]) for k in a)

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +26,7 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.models.wan_dit, svi_tpu_torch.models.wan_vae\n"
         "import svi_tpu_torch.models.clip_vision, svi_tpu_torch.models.t5\n"
         "import svi_tpu_torch.pipelines.svi_video\n"
+        "import svi_tpu_torch.training, svi_tpu_torch.training.lora\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -47,6 +49,48 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
     assert rel in ignored, f"{rel} is not listed in .gitignore"
     # the library name follows the source: an edited kernel rebuilds
     assert out.name.startswith("libflash_fwd_") and out.suffix == ".so"
+    # each source under csrc/ builds into a library of its own
+    assert build.library_path(build.BWD_SOURCE).name.startswith("libflash_bwd_")
+    assert build.BWD_SOURCE in build.CSRC.glob("*.cu")
+
+
+@pytest.mark.parametrize("entry", ["wan_dit", "t5", "clip_vision", "wan_vae", "pipeline",
+                                   "trainer"])
+def test_entry_points_default_to_the_card(entry):
+    import inspect
+
+    from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.training import ErrorRecyclingTrainer
+
+    fn = {"wan_dit": wan_dit.init_params, "t5": t5.init_params,
+          "clip_vision": clip_vision.init_params, "wan_vae": wan_vae.init_params,
+          "pipeline": SVIVideoPipeline, "trainer": ErrorRecyclingTrainer}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_unported_training_options_raise():
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
+
+    cfg = wan_dit.WanDiTConfig(dim=32, in_dim=4, ffn_dim=64, out_dim=4, text_dim=8,
+                               freq_dim=16, num_heads=1, num_layers=2, dtype=torch.float32)
+    dit = wan_dit.init_params(cfg, device="cpu")
+    for bad in (dict(train_architecture="customtalk"), dict(train_pose=True),
+                dict(shard_optimizer_state=True), dict(save_attention_activations=True),
+                dict(use_gradient_checkpointing_offload=True)):
+        with pytest.raises(NotImplementedError):
+            ErrorRecyclingTrainer(dit, TrainerConfig(**bad), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ErrorRecyclingTrainer(dit, TrainerConfig(), mesh=object(), device="cpu")
+    x = torch.zeros(1, 4, 1, 4, 4)
+    for bad in (dict(save_attention=True), dict(offload_carries=True)):
+        with pytest.raises(NotImplementedError):
+            dit(x, torch.zeros(1), torch.zeros(1, 3, 8), **bad)
+    with pytest.raises(NotImplementedError, match="use_first_aug"):
+        SVIVideoPipeline(device="cpu").encode_images_adaptive(
+            [np.zeros((16, 16, 3), np.uint8)], None, 5, 16, 16, use_first_aug=True)
 
 
 @pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
