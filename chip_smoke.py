@@ -10,11 +10,17 @@ non-zero exit and no result line:
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
-     and the least time the card could take for the work);
+     and the least time the card could take for the work); for context, the
+     int8 GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
   4. the SVI-Shot slice: (a) a tiny pipeline on the card against the same
      pipeline on the CPU, then (b) two clips at the full width of
      Wan2.1-I2V-14B-480P with seeded random weights: 480x832, 9 frames,
      4 steps, CFG 5, motion-frame recycling, TeaCache on clip 2;
+     (c) a tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
+     card against the same on the CPU; (d) quantized inference at full
+     width: (b)'s DiT quantized in place to int4_w4a8, one DiT forward
+     against the bf16 one (each also profiled: device time by kind of
+     kernel), then two clips with qk8 and qk8pv8 attention;
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
      card against the same trainer on the CPU, then (b) 4 training steps of
      rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
@@ -26,6 +32,8 @@ Needs one CUDA card and nvcc; exits non-zero without them.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -52,10 +60,50 @@ F32_BOUND = 1e-4
 # gradient once to bf16 (2^-8 relative); K4 sums dq with f32 atomics in an
 # order that changes from run to run.
 BF16_GRAD_REL_BOUND = 2e-2
+# int4 unpack + requantization (K3) is held bit for bit (torch.equal): one f32
+# product and one round-half-to-even per weight on both sides.
+# int8 attention forward (K6) against its plain version at the kernel's
+# 64-key tiles: the same integer scores, row max and f32 steps, and both
+# round out to bf16 the same way (qk8pv8: in v8 units, then again after the
+# vss product). What remains is exp2 (a few f32 ulps) and the order of sums,
+# which can put the two on neighbouring bf16 values (one ulp, at most 2^-7
+# of the value), and for qk8pv8 a P that rounds to the other int8 level (one
+# level of 127 in one of thousands of terms). The out bound is a share of the
+# plain version's largest |out| (printed beside the typical |out|, a few
+# 0.01 at the DiT shapes): 2.5 to 5 bf16 ulps there, while a wrong scale or
+# V channel moves out by a share of its own size.
+Q8_OUT_REL, Q8_LSE_BOUND = 2e-2, 1e-3
+# The tiny W4A8 + qk8pv8 DiT (f32, TF32 off), card against CPU. The
+# correctness gate is one forward on the same inputs: it agrees to f32 sums
+# in another order (the W4A8 linears are bit-equal: K3 is bit-exact and the
+# int32 products exact; measured 1.7e-7 of the output's scale): bound 1e-3,
+# ten times below the jump of one int8 level (~1% of a row's largest
+# value). The pipeline after it is a smoke check: the DiT's inputs come from
+# the VAE and CLIP, which differ by ~1e-6 between card and CPU; that moves
+# some activation across an int8 rounding boundary, the first DiT output
+# jumps by ~1e-2 and CFG 5 carries it through the steps. The card drifts
+# that far at both seeds, and a witness on the CPU alone (the prompt
+# embeddings moved by 1e-6) drifts as far at seed 0 (at seed 1 that move
+# crosses no boundary). The pipeline's bounds are about four times the
+# largest of those readings (PERF.md, PR 3), so they catch only an error of
+# the latents' own size (~1): a wrong scale, packing or rounding mode.
+SMALL_Q_FWD_REL = 1e-3
+SMALL_Q_LAT_MAX, SMALL_Q_LAT_MEAN, SMALL_Q_FRAME_LEVELS = 0.5, 0.1, 32
+SMALL_Q_SEEDS = (0, 1)
+# The 14B forward, int4_w4a8 + qk8 against bf16 on the same inputs: a sanity
+# bound, not a fidelity gate. int4 with 8 levels a side costs a few percent
+# per linear on random weights (measured 0.114 mean relative difference over
+# the 40 blocks); a wrong scale or packing at the 14B shapes moves the output
+# by its own size.
+QUANT_FWD_REL = 0.3
 
-# The card's published peaks (H100 SXM, dense): bf16 tensor cores, f32 on
-# CUDA cores, HBM bandwidth. The f32 kernel path is scalar FMA.
-PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# The card's published peaks (H100 SXM, dense): bf16 and int8 tensor cores,
+# f32 on CUDA cores, HBM bandwidth. The f32 kernel path is scalar FMA.
+# Bounds: K1, K2, K4, K5 and K6 are bound by tensor-core (or f32) operations
+# at the DiT shapes: K6 runs Q.K^T at the int8 rate and P.V at the bf16 rate
+# (qk8) or the int8 rate (qk8pv8). K3 is bound by bytes: it reads half a byte
+# and writes one per weight, plus the ratio table.
+PEAK_BF16, PEAK_INT8, PEAK_F32, HBM_BYTES_PER_S = 989e12, 1979e12, 67e12, 3.35e12
 
 SLICE_H, SLICE_W, SLICE_FRAMES, SLICE_STEPS, MOTION = 480, 832, 9, 4, 1
 # training: 21 frames -> 6 latent frames -> 6 x 30 x 52 = 9360 tokens (K4's gate)
@@ -67,13 +115,18 @@ KERNELS = {  # entry -> (source, the TPU kernel it replaces)
     "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:721"),
     "flash_bwd_dq": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:585"),
     "flash_bwd_dkv": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:646"),
+    "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
+                            "svi_tpu/ops/quant_matmul.py:33"),
+    "flash_fwd_flat_q8": ("svi_tpu_torch/csrc/flash_fwd_q8.cu", "svi_tpu/ops/attention.py:289"),
 }
+QUANT_KERNELS = ("unpack_requant_int4", "flash_fwd_flat_q8")
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat": "dit_self_attn_rope", "flash_fwd_bnsd": "clip_vit_h",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
               "flash_bwd_dq": "dit_text_cross_attn_bwd",
-              "flash_bwd_dkv": "dit_text_cross_attn_bwd"}
+              "flash_bwd_dkv": "dit_text_cross_attn_bwd", "unpack_requant_int4": "ffn_0",
+              "flash_fwd_flat_q8": "dit_self_attn_q8_qk8"}
 
 
 def log(msg: str) -> None:
@@ -110,8 +163,9 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 def launch_counters():
     from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.ops import quant_matmul as Q
 
-    return {name: getattr(A, name) for name in KERNELS}
+    return {name: getattr(Q if name == "unpack_requant_int4" else A, name) for name in KERNELS}
 
 
 def zero_counts() -> None:
@@ -138,7 +192,9 @@ def kernel_cases():
     and the work (FLOP and bytes per entry) for the bound."""
     import torch.nn.functional as F
 
+    from svi_tpu_torch.models import wan_dit
     from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.ops import quant_matmul as Q
     from svi_tpu_torch.ops.rope import rope_angles_for_grid
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -310,6 +366,89 @@ def kernel_cases():
     yield bwd_case("dit_image_cross_attn_bwd", 1, 9360, 257, 40, 128)
     yield bwd_case("short_self_attn_bwd_split_rope", 1, 1560, 1560, 40, 128, grid=(1, 30, 52))
 
+    def unpack_case(name, n, k):
+        """K3 on a weight of the 14B DiT's shape (out n, in k), quantized by
+        the port's own quantizer."""
+        packed, scale = wan_dit._quantize_leaf_int4(randn((n, k), torch.bfloat16) * 0.02)
+        r, _ = wan_dit._w4a8_leaves(scale)
+        del scale
+
+        def kernel():
+            return Q.unpack_requant_int4(packed, r)
+
+        def plain():
+            return Q._unpack_requant_reference(packed, r)
+
+        def run():
+            got, ref = kernel(), plain()
+            diff = 0.0 if torch.equal(got, ref) else max(
+                1.0, (got.int() - ref.int()).abs().max().item())
+            return {"unpack_requant_int4": (diff, 0.0)}
+
+        return dict(case=name, shape=[n, k], dtype="int4->int8", run=run,
+                    kernels={"unpack_requant_int4": kernel}, plain=plain, library=None,
+                    work={"unpack_requant_int4": (n * k, _nbytes(packed, r) + n * k, PEAK_F32)})
+
+    # W4A8 linears of the 14B DiT: ffn.0, ffn.2, a 5120 x 5120 projection and
+    # the time embedding's first linear (K = 256)
+    yield unpack_case("ffn_0", 13824, 5120)
+    yield unpack_case("ffn_2", 5120, 13824)
+    yield unpack_case("self_attn_q", 5120, 5120)
+    yield unpack_case("time_embedding_0", 5120, 256)
+
+    def q8_case(name, quant, b, sq, sk, n, d, grid=None, kv_len=None):
+        """K6 on `_quant_prep`'s operands (the prep is torch code, outside the
+        kernel, as the JAX package keeps it in XLA)."""
+        pv8 = quant == "qk8pv8"
+        q = randn((b, sq, n * d), torch.bfloat16)
+        k = randn((b, sk, n * d), torch.bfloat16) + 0.5  # biased channels, for the centring
+        v = randn((b, sk, n * d), torch.bfloat16)
+        cos, sin = tables(grid, d) if grid else (None, None)
+        kv = sk if kv_len is None else kv_len
+        q8, qs, k8, kscale, v8, vss = A._quant_prep(q, k, v, cos, sin, d, pv8)
+        v_in = v8 if pv8 else v
+        qh, kh = (heads_first(t, n, d, cos, sin) for t in (q, k))
+        vh = heads_first(v, n, d)
+        del q, k
+        mask = None if kv == sk else (torch.arange(sk, device="cuda") < kv)[None, None, None]
+
+        def kernel():
+            return A.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv)
+
+        def plain():
+            return A._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
+                                             torch.bfloat16, block_k=A.Q8_BLOCK_K)
+
+        def run():
+            (out, lse), (ref_out, ref_lse) = kernel(), plain()
+            size = ref_out.float().abs()
+            out_max, out_mean = size.max().item(), size.mean().item()
+            del size
+            out_err, out_bound = err(out, ref_out), Q8_OUT_REL * out_max
+            log(f"[q8] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} "
+                f"({Q8_OUT_REL} of the largest |out| {out_max:.3e}; mean |out| {out_mean:.3e})")
+            return {"flash_fwd_flat_q8": worst((out_err, out_bound),
+                                               (err(lse, ref_lse), Q8_LSE_BOUND))}
+
+        io = _nbytes(q8, qs, k8, kscale, v_in, *([vss] if pv8 else [])) + 2 * q8.numel() \
+            + 4 * b * n * sq  # out bf16, lse f32
+        # Q.K^T at the int8 rate, P.V at the int8 (qk8pv8) or bf16 (qk8) rate
+        peak = PEAK_INT8 if pv8 else 2 / (1 / PEAK_INT8 + 1 / PEAK_BF16)
+        return dict(case=name, shape=[b, sq, sk, n, d], dtype=f"int8 {quant}", run=run,
+                    kernels={"flash_fwd_flat_q8": kernel}, plain=plain,
+                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                    work={"flash_fwd_flat_q8": (4 * b * n * sq * kv * d, io, peak)})
+
+    for quant in ("qk8", "qk8pv8"):
+        # the 14B self-attention at 81 frames (production), at the slice's 9
+        # frames (CFG batch 2), and the slice's shape with a masked tail
+        yield q8_case(f"dit_self_attn_q8_{quant}", quant, 1, 32760, 32760, 40, 128,
+                      grid=(21, 30, 52))
+        yield q8_case(f"slice_self_attn_q8_{quant}", quant, 2, 4680, 4680, 40, 128,
+                      grid=(3, 30, 52))
+        yield q8_case(f"masked_kv_len_q8_{quant}", quant, 2, 4680, 4680, 40, 128,
+                      grid=(3, 30, 52), kv_len=4100)
+
 
 def phase_kernels(card: str):
     """Every case's kernels against the plain version; one row per (case, kernel)."""
@@ -318,13 +457,13 @@ def phase_kernels(card: str):
         results = case["run"]()
         torch.cuda.synchronize()
         plain_ms = median_ms(case["plain"], 2)
-        library_ms = median_ms(case["library"], 5)
+        library_ms = None if case["library"] is None else median_ms(case["library"], 5)
         for entry, kernel in case["kernels"].items():
             max_err, err_bound = results[entry]
             flops, nbytes, peak = case["work"][entry]
             bound_ms, bound_by = bound(flops, nbytes, peak)
             ms = median_ms(kernel, 5)
-            row = dict(case=case["case"], entry=entry, shape_b_sq_sk_n_d=case["shape"],
+            row = dict(case=case["case"], entry=entry, shape=case["shape"],
                        dtype=case["dtype"], max_abs_err=max_err, err_bound=err_bound, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms, flops=flops, bytes=nbytes,
                        bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
@@ -338,38 +477,89 @@ def phase_kernels(card: str):
     return rows
 
 
+def int8_gemm_context(card: str) -> None:
+    """For context only (no kernel of the port): the int8 product of a W4A8
+    linear, torch._int_mm (cuBLASLt) on w8.t(), against F.linear in bf16, at
+    ffn.0's shape with the slice's 9360 tokens; and a check that w8.t() is
+    taken as it is, with no copy of the weight."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    m, k, n = 9360, 5120, 13824
+
+    def int8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    a, w = int8((m, k)), int8((n, k))
+    y = torch._int_mm(a, w.t())
+    exact = torch.equal(y[:64, :256].double(), a[:64].double() @ w[:256].double().t())
+    del y
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = torch._int_mm(a, w.t())
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - y.numel() * y.element_size()
+    del y
+    int8_ms = median_ms(lambda: torch._int_mm(a, w.t()), 5)
+    ab, wb = torch.randn((m, k), device="cuda", dtype=torch.bfloat16), w.to(torch.bfloat16)
+    bf16_ms = median_ms(lambda: F.linear(ab, wb), 5)
+    flops = 2 * m * k * n
+    log(f"[int8-gemm] context only: torch._int_mm ({m}x{k} int8) x ({k}x{n} int8, w8.t()) "
+        f"{int8_ms:.3f} ms ({flops / int8_ms / 1e9:.1f} TOP/s), F.linear bf16 {bf16_ms:.3f} ms "
+        f"({flops / bf16_ms / 1e9:.1f} TFLOP/s); exact int32 {exact}; bytes allocated beyond "
+        f"the output {extra} (a copy of w8 would be {w.numel()}); {card}")
+    if not exact or extra >= w.numel():
+        raise RuntimeError("torch._int_mm on w8.t() is not exact or copied the weight")
+    del a, w, ab, wb
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the inference slice
 # ---------------------------------------------------------------------------
 
 
-def tiny_pipeline(device):
+def tiny_pipeline(device, quantized: bool = False):
+    """A tiny f32 pipeline; quantized=True gives its DiT one head of 128 (the
+    int8 attention takes the flat layout), qk8pv8 attention (the mode the
+    kernel takes in f32) and int4_w4a8 weights quantized on `device` (groups
+    of 16, every linear of 1024 weights or more)."""
     from svi_tpu_torch.models import clip_vision, wan_dit, wan_vae
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
 
     pipe = SVIVideoPipeline(device=device, torch_dtype=torch.float32)
     pipe.vae = wan_vae.init_params(wan_vae.WanVAEConfig(dim=16, z_dim=4), seed=1,
                                    device="cpu").to(device)
+    width = dict(dim=128, ffn_dim=256, num_heads=1, attention_quant="qk8pv8") if quantized \
+        else dict(dim=64, ffn_dim=128, num_heads=2)
     pipe.dit = wan_dit.init_params(wan_dit.WanDiTConfig(
-        dim=64, in_dim=12, ffn_dim=128, out_dim=4, text_dim=48, freq_dim=32, num_heads=2,
-        num_layers=2, has_image_input=True, clip_feature_dim=64, dtype=torch.float32),
-        seed=2, device="cpu").to(device)
+        in_dim=12, out_dim=4, text_dim=48, freq_dim=32, num_layers=2, has_image_input=True,
+        clip_feature_dim=64, dtype=torch.float32, **width), seed=2, device="cpu").to(device)
+    if quantized:
+        pipe.dit = wan_dit.quantize_params_for_inference(pipe.dit, "int4_w4a8", min_size=1024,
+                                                         group=16, consume=True)
     pipe.image_encoder = clip_vision.init_params(clip_vision.ClipVisionConfig(
         image_size=28, patch_size=14, dim=64, mlp_ratio=2, num_heads=2, num_layers=2),
         seed=3, device="cpu").to(device)
     return pipe
 
 
+def tiny_call_kwargs() -> dict:
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)
+    ctx = rng.standard_normal((1, 12, 48)).astype(np.float32)
+    return dict(input_image=img, random_ref_frame=img, seed=0, height=64, width=64, num_frames=9,
+                cfg_scale=5.0, num_inference_steps=3, prompt_emb_posi=ctx,
+                prompt_emb_nega=ctx * 0.5, ref_pad_num=-1, return_latents=True)
+
+
 def phase_small_reference():
     """The port on the card against the same port on the CPU (plain attention)."""
     from svi_tpu_torch.ops import attention as A
 
-    rng = np.random.default_rng(0)
-    img = rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)
-    ctx = rng.standard_normal((1, 12, 48)).astype(np.float32)
-    kw = dict(input_image=img, random_ref_frame=img, seed=0, height=64, width=64, num_frames=9,
-              cfg_scale=5.0, num_inference_steps=3, prompt_emb_posi=ctx,
-              prompt_emb_nega=ctx * 0.5, ref_pad_num=-1, return_latents=True)
+    kw = tiny_call_kwargs()
     launches = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches
     frames_gpu, lat_gpu = tiny_pipeline("cuda")(**kw)
     used = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches - launches
@@ -383,6 +573,59 @@ def phase_small_reference():
         f"(bound 1e-3), frames max diff {px_err} levels (bound 2), kernel launches {used}")
     if not ok:
         raise RuntimeError("the port on the card disagrees with the port on the CPU")
+
+
+def phase_small_quantized():
+    """The tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
+    card (K3, K6, torch._int_mm) against the same on the CPU (the plain
+    versions and an int32 matmul); the quantizers are bit-exact on both, so
+    both start from the same int4 weights. First one DiT forward on the same
+    inputs, then the pipeline."""
+    pipes = {dev: tiny_pipeline(dev, quantized=True) for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(3)
+    inputs = [rng.standard_normal(shape).astype(np.float32) for shape in
+              ((2, 4, 3, 8, 8), (2, 12, 48), (2, 5, 64), (2, 8, 3, 8, 8))]
+    outs = {}
+    with torch.inference_mode():
+        for dev, pipe in pipes.items():
+            x, ctx, clip, y = (torch.from_numpy(a).to(dev) for a in inputs)
+            outs[dev] = pipe.dit(x, torch.tensor([731.0], device=dev), ctx, clip_feature=clip,
+                                 y=y).cpu()
+    fwd_rel = ((outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+
+    ok = fwd_rel <= SMALL_Q_FWD_REL
+    log(f"[small-quant] card vs CPU, tiny int4_w4a8 + qk8pv8 DiT: one forward on the same "
+        f"inputs, max abs err {fwd_rel:.3e} of the output's scale (bound {SMALL_Q_FWD_REL})")
+
+    def drift(a, b):
+        (frames_a, lat_a), (frames_b, lat_b) = a, b
+        d = (lat_a.cpu() - lat_b).abs()
+        px = int(np.abs(np.stack(frames_a).astype(int) - np.stack(frames_b).astype(int)).max())
+        return d.max().item(), d.mean().item(), px
+
+    for seed in SMALL_Q_SEEDS:
+        kw = dict(tiny_call_kwargs(), seed=seed)
+        zero_counts()
+        got = pipes["cuda"](**kw)
+        counts = read_counts()
+        ref = pipes["cpu"](**kw)
+        # the witness, on the CPU alone: the prompt embeddings moved by 1e-6
+        # of their size, as the VAE and CLIP move the DiT's inputs on the card
+        nudge = np.float32(1 + 1e-6)
+        moved = pipes["cpu"](**dict(kw, prompt_emb_posi=kw["prompt_emb_posi"] * nudge,
+                                    prompt_emb_nega=kw["prompt_emb_nega"] * nudge))
+        (lat_max, lat_mean, px_err), witness = drift(got, ref), drift(moved, ref)
+        ok = (ok and lat_max <= SMALL_Q_LAT_MAX and lat_mean <= SMALL_Q_LAT_MEAN
+              and px_err <= SMALL_Q_FRAME_LEVELS and bool(torch.isfinite(got[1]).all())
+              and min(counts[k] for k in QUANT_KERNELS) > 0)
+        log(f"[small-quant] seed {seed}, the pipeline (smoke check): card vs CPU latents max "
+            f"abs err {lat_max:.3e} (bound {SMALL_Q_LAT_MAX}), mean {lat_mean:.3e} (bound "
+            f"{SMALL_Q_LAT_MEAN}), frames max diff {px_err} levels (bound "
+            f"{SMALL_Q_FRAME_LEVELS}); witness, CPU vs CPU with the prompt embeddings moved by "
+            f"1e-6: max {witness[0]:.3e}, mean {witness[1]:.3e}, {witness[2]} levels; card "
+            f"launches {counts}")
+    if not ok:
+        raise RuntimeError("the quantized port on the card disagrees with the port on the CPU")
 
 
 class PhaseTimer:
@@ -466,38 +709,12 @@ def phase_slice():
 
     # the main path's run: counters from zero, read right after
     zero_counts()
-    motion, all_frames, skipped = first, [], 0
     t_run = time.perf_counter()
-    for clip in range(2):
-        t0 = time.perf_counter()
-        frames, latents = pipe(
-            input_image=motion, random_ref_frame=anchor, seed=clip,
-            height=SLICE_H, width=SLICE_W, num_frames=SLICE_FRAMES, cfg_scale=5.0,
-            num_inference_steps=SLICE_STEPS, tiled=False,
-            prompt_emb_posi=ctx_pos, prompt_emb_nega=ctx_neg, ref_pad_num=-1,
-            tea_cache_l1_thresh=0.3 if clip == 1 else None,
-            tea_cache_model_id="Wan2.1-I2V-14B-480P", return_latents=True,
-        )
-        if not torch.isfinite(latents).all():
-            raise RuntimeError(f"clip {clip + 1}: latents are not finite")
-        if len(frames) != SLICE_FRAMES:
-            raise RuntimeError(f"clip {clip + 1}: {len(frames)} frames, expected {SLICE_FRAMES}")
-        if clip == 1:
-            skipped = pipe.last_tea_cache.skipped_steps
-        all_frames += frames if clip == 0 else frames[MOTION:]
-        motion = frames[-MOTION:]
-        log(f"[slice] clip {clip + 1}: {len(frames)} frames in {time.perf_counter() - t0:.2f}s")
-    torch.cuda.synchronize()
+    video, skipped = two_clips(pipe, first, anchor, ctx_pos, ctx_neg, "slice",
+                               tea_cache_clip2=True)
     run_s = time.perf_counter() - t_run
     launches = read_counts()
-
-    video = np.stack(all_frames)
-    expect = (SLICE_FRAMES + SLICE_FRAMES - MOTION, SLICE_H, SLICE_W, 3)
-    if video.shape != expect or video.dtype != np.uint8:
-        raise RuntimeError(f"video {video.shape} {video.dtype}, expected {expect} uint8")
     std = float(video.astype(np.float32).std())
-    if not std > 1.0:
-        raise RuntimeError(f"pixel std {std} <= 1.0")
     if min(launches["flash_fwd_flat"], launches["flash_fwd_bnsd"]) <= 0:
         raise RuntimeError(f"a kernel was not launched on the main path: {launches}")
     secs = timer.seconds
@@ -509,6 +726,164 @@ def phase_slice():
     log(f"[slice] two clips {run_s:.2f}s, {video.shape[0]} frames, pixel std {std:.2f}, "
         f"TeaCache skipped {skipped} of {SLICE_STEPS} steps in clip 2, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+    return launches, dict(pipe=pipe, ctx_pos=ctx_pos, ctx_neg=ctx_neg, first=first,
+                          anchor=anchor)
+
+
+def two_clips(pipe, first, anchor, ctx_pos, ctx_neg, tag: str, tea_cache_clip2: bool = False,
+              attention=None):
+    """Two clips as the clip loop drives them: clip 2 is conditioned on clip
+    1's last frame. attention: the DiT's attention_quant for each clip (None:
+    leave it). Checks finite latents, the frame count, a uint8 video and
+    pixel std > 1; returns the video and TeaCache's skipped steps in clip 2."""
+    motion, all_frames, skipped = first, [], 0
+    for clip in range(2):
+        if attention is not None:
+            pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant=attention[clip])
+        t0 = time.perf_counter()
+        frames, latents = pipe(
+            input_image=motion, random_ref_frame=anchor, seed=clip,
+            height=SLICE_H, width=SLICE_W, num_frames=SLICE_FRAMES, cfg_scale=5.0,
+            num_inference_steps=SLICE_STEPS, tiled=False,
+            prompt_emb_posi=ctx_pos, prompt_emb_nega=ctx_neg, ref_pad_num=-1,
+            tea_cache_l1_thresh=0.3 if clip == 1 and tea_cache_clip2 else None,
+            tea_cache_model_id="Wan2.1-I2V-14B-480P", return_latents=True,
+        )
+        if not torch.isfinite(latents).all():
+            raise RuntimeError(f"{tag} clip {clip + 1}: latents are not finite")
+        if len(frames) != SLICE_FRAMES:
+            raise RuntimeError(f"{tag} clip {clip + 1}: {len(frames)} frames, expected "
+                               f"{SLICE_FRAMES}")
+        if clip == 1 and tea_cache_clip2:
+            skipped = pipe.last_tea_cache.skipped_steps
+        all_frames += frames if clip == 0 else frames[MOTION:]
+        motion = frames[-MOTION:]
+        quant = f" ({pipe.dit.cfg.attention_quant} attention)" if attention is not None else ""
+        log(f"[{tag}] clip {clip + 1}{quant}: {len(frames)} frames in "
+            f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.synchronize()
+    video = np.stack(all_frames)
+    expect = (SLICE_FRAMES + SLICE_FRAMES - MOTION, SLICE_H, SLICE_W, 3)
+    if video.shape != expect or video.dtype != np.uint8:
+        raise RuntimeError(f"{tag}: video {video.shape} {video.dtype}, expected {expect} uint8")
+    std = float(video.astype(np.float32).std())
+    if not std > 1.0:
+        raise RuntimeError(f"{tag}: pixel std {std} <= 1.0")
+    return video, skipped
+
+
+def device_time_breakdown(fn) -> str:
+    """Runs fn() once under torch.profiler (CUDA activity) and returns its
+    device time by kind of kernel, the device-busy share of the wall time
+    (which the profiler slows a little) and the largest kernels; or 'not
+    measured' when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, kernels = {}, []
+    for evt in prof.key_averages():
+        sec = getattr(evt, "self_device_time_total", 0.0) / 1e6
+        if sec <= 0:
+            continue
+        name = evt.key
+        low = name.lower()
+        if "unpack_requant" in name:
+            group = "K3"
+        elif "flash_fwd_q8" in name:
+            group = "K6"
+        elif "flash_fwd" in name:
+            group = "K1/K2"
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
+            group = "GEMMs"
+        else:
+            group = "elementwise and other"
+        groups[group] = groups.get(group, 0.0) + sec
+        kernels.append((sec, evt.count, name[:70]))
+    total = sum(groups.values())
+    if total == 0:
+        return "not measured (the profiler recorded no device time)"
+    parts = ", ".join(f"{g} {t:.3f}s ({100 * t / total:.1f}%)"
+                      for g, t in sorted(groups.items(), key=lambda kv: -kv[1]))
+    top = "; ".join(f"{name} x{n} {t:.3f}s" for t, n, name in sorted(kernels, reverse=True)[:8])
+    return (f"wall {wall:.3f}s, device busy {total:.3f}s ({100 * total / wall:.1f}%): {parts}; "
+            f"largest: {top}")
+
+
+def phase_quantized_slice(state: dict):
+    """Quantized inference at full width on phase 4b's pipeline: one DiT
+    forward (480x832x9, batched CFG) in bf16, then the DiT quantized in place
+    to int4_w4a8 (consume=True frees each bf16 weight as its int4 leaves are
+    made) and the same forward with qk8 attention; then two clips, clip 1
+    with qk8 and clip 2 with qk8pv8 attention, no TeaCache."""
+    from svi_tpu_torch.models import wan_dit
+
+    pipe, ctx_pos, ctx_neg = state["pipe"], state["ctx_pos"], state["ctx_neg"]
+    timer = PhaseTimer()
+    lt, lh, lw = (SLICE_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
+    with torch.inference_mode():
+        emb = pipe.encode_images_adaptive(state["first"], state["anchor"], SLICE_FRAMES,
+                                          SLICE_H, SLICE_W, ref_pad_num=-1)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        lat = torch.randn((1, 16, lt, lh, lw), generator=gen, device="cuda").to(torch.bfloat16)
+        args = (torch.cat([lat, lat]), pipe.scheduler.timesteps[:1].cuda(),
+                torch.cat([ctx_pos, ctx_neg]), torch.cat([emb["clip_feature"]] * 2),
+                torch.cat([emb["y"]] * 2))
+        out_bf16 = timer.wrap("forward_bf16", pipe.dit)(*args)
+        log(f"[quant] profile of the bf16 forward: {device_time_breakdown(lambda: pipe.dit(*args))}")
+    dit_bytes_bf16 = sum(p.numel() * p.element_size() for p in pipe.dit.parameters())
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pipe.dit = wan_dit.quantize_params_for_inference(pipe.dit, "int4_w4a8", consume=True)
+    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant="qk8")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dit_bytes = sum(p.numel() * p.element_size() for p in pipe.dit.parameters())
+    n_q4 = sum(1 for name, _ in pipe.dit.named_parameters() if name.endswith("w_q4"))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out_q = timer.wrap("forward_w4a8_qk8", pipe.dit)(*args)
+        log("[quant] profile of the W4A8 + qk8 forward: "
+            f"{device_time_breakdown(lambda: pipe.dit(*args))}")
+    if not torch.isfinite(out_q).all():
+        raise RuntimeError("the quantized DiT forward is not finite")
+    rel = ((out_q.float() - out_bf16.float()).abs().mean()
+           / out_bf16.float().abs().mean()).item()
+    log(f"[quant] DiT int4_w4a8: {n_q4} linears packed in {quantize_s:.2f}s, DiT bytes "
+        f"{dit_bytes / 2**30:.2f} GiB (bf16 {dit_bytes_bf16 / 2**30:.2f} GiB); one forward "
+        f"(B2 S{lt * lh * lw // 4}) bf16 {timer.seconds['forward_bf16'][0]:.3f}s, W4A8 + qk8 "
+        f"{timer.seconds['forward_w4a8_qk8'][0]:.3f}s; mean relative difference of the "
+        f"outputs {rel:.4f} (bound {QUANT_FWD_REL})")
+    if not rel <= QUANT_FWD_REL:
+        raise RuntimeError("the quantized DiT forward is as far from the bf16 one as its size")
+
+    pipe.image_encoder.encode_image = timer.wrap("clip", pipe.image_encoder.encode_image)
+    pipe.vae.encode = timer.wrap("vae_encode", pipe.vae.encode)
+    pipe.vae.decode = timer.wrap("vae_decode", pipe.vae.decode)
+    pipe._sample = timer.wrap("denoise", pipe._sample)
+    # the quantized path's run: counters from zero, read right after
+    zero_counts()
+    t_run = time.perf_counter()
+    video, _ = two_clips(pipe, state["first"], state["anchor"], ctx_pos, ctx_neg, "quant",
+                         attention=("qk8", "qk8pv8"))
+    run_s = time.perf_counter() - t_run
+    launches = read_counts()
+    std = float(video.astype(np.float32).std())
+    if min(launches[k] for k in QUANT_KERNELS) <= 0:
+        raise RuntimeError(f"a kernel was not launched on the quantized path: {launches}")
+    secs = timer.seconds
+    per_step = [s / SLICE_STEPS for s in secs["denoise"]]
+    log(f"[quant] seconds: clip {secs['clip']}, vae_encode {secs['vae_encode']}, denoise step "
+        f"qk8 {per_step[0]:.3f}, qk8pv8 {per_step[1]:.3f}, vae_decode {secs['vae_decode']}")
+    log(f"[quant] two clips {run_s:.2f}s, {video.shape[0]} frames, pixel std {std:.2f}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, DiT "
+        f"{dit_bytes / 2**30:.2f} GiB, launches {launches}")
     return launches
 
 
@@ -670,7 +1045,7 @@ def phase_training():
     # clean_buffer_update_prob draw
     if not (totals[-1] > 0 and all(b >= a for a, b in zip(totals, totals[1:]))):
         raise RuntimeError(f"the error buffers did not grow: {totals}")
-    if min(launches.values()) <= 0:
+    if min(n for k, n in launches.items() if k not in QUANT_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     del trainer, dit
     torch.cuda.empty_cache()
@@ -706,26 +1081,36 @@ def main() -> int:
             + " | ".join(ptxas))
     build.load_flash_fwd()
     build.load_flash_bwd()
+    build.load_flash_fwd_q8()
+    build.load_quant_unpack()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")
 
     # 3. kernels against plain
     rows = phase_kernels(card)
+    int8_gemm_context(card)
 
-    # 4. the inference slice
+    # 4. the inference slice, in bf16 and quantized
     phase_small_reference()
-    infer_launches = phase_slice()
+    infer_launches, state = phase_slice()
+    phase_small_quantized()
+    quant_launches = phase_quantized_slice(state)
+    del state
+    gc.collect()  # the pipeline's timer wrappers refer back to it
+    torch.cuda.empty_cache()
 
     # 5. the training slice
     phase_small_trainer()
     train_launches, _, _ = phase_training()
 
-    # 6. results: the forward kernels' launches are the inference path's, the
-    # backward kernels' the training path's
+    # 6. results: the forward kernels' launches are the bf16 inference path's,
+    # the backward kernels' the training path's, K3's and K6's the quantized
+    # inference path's
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (infer_launches if entry.startswith("flash_fwd") else train_launches)[entry]
+        launches = (quant_launches if entry in QUANT_KERNELS else infer_launches
+                    if entry.startswith("flash_fwd") else train_launches)[entry]
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches,
                         "max_abs_err": max(r["max_abs_err"] for r in mine),

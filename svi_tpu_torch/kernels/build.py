@@ -24,6 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
+Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
+UNPACK_SOURCE = CSRC / "quant_unpack.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -127,4 +129,34 @@ def load_flash_bwd() -> ctypes.CDLL:
     lib.svi_flash_bwd_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
     for fn in (lib.svi_flash_bwd_onepass, lib.svi_flash_bwd_dq, lib.svi_flash_bwd_dkv):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_fwd_q8() -> ctypes.CDLL:
+    """Build (if needed) and load the int8 flash-forward library (K6) once."""
+    lib = ctypes.CDLL(str(build(Q8_SOURCE).path))
+    lib.svi_flash_fwd_q8.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pv8, out_f32, head_dim
+        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q8, qs, k8, kscale, v (bf16 or int8), vss
+        _ptr, _ptr,  # out, lse
+        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
+        ctypes.c_float,  # scale
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_flash_fwd_q8.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_quant_unpack() -> ctypes.CDLL:
+    """Build (if needed) and load the int4 unpack/requant library (K3) once."""
+    lib = ctypes.CDLL(str(build(UNPACK_SOURCE).path))
+    lib.svi_unpack_requant_int4.argtypes = [
+        _ptr, _ptr, _ptr,  # packed (N, K/2) int8, r (N, K/G) f32, out (N, K) int8
+        _i64, _i64, ctypes.c_int,  # n_rows, kh = K/2, group
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_unpack_requant_int4.restype = ctypes.c_int
     return lib

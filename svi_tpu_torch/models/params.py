@@ -41,6 +41,25 @@ class ParamTree(nn.Module):
     def get(self, key: str, default=None):
         return getattr(self, key) if key in self._tree_keys else default
 
+    def tree(self, consume: bool = False) -> dict:
+        """The nested dict (and lists) of this module's tensors, detached.
+        consume=True also removes them from the module, so the returned tree
+        holds the only references the module had."""
+        out = {}
+        for key in self._tree_keys:
+            val = getattr(self, key)
+            if isinstance(val, ParamTree):
+                out[key] = val.tree(consume)
+            elif isinstance(val, nn.ModuleList):
+                out[key] = [m.tree(consume) for m in val]
+            else:
+                out[key] = val.detach()
+        if consume:
+            for key in self._tree_keys:
+                delattr(self, key)
+            self._tree_keys = ()
+        return out
+
 
 def dense(p: ParamTree, x: torch.Tensor) -> torch.Tensor:
     """x @ w.T + b with the port's (out, in) weights."""
@@ -58,14 +77,20 @@ def to_torch(arr, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype) if t.is_floating_point() else t
 
 
-def convert_tree(tree, dtype: torch.dtype, leaf_fn: Callable, path: tuple = ()):
+def convert_tree(tree, dtype: torch.dtype, leaf_fn: Callable, path: tuple = (),
+                 keep_f32: frozenset = frozenset()):
     """numpy pytree -> torch tree; leaf_fn(path, array) rearranges a leaf
-    (e.g. transposes a weight) before conversion."""
+    (e.g. transposes a weight) before conversion. Floating leaves become
+    `dtype`, except those whose key is in keep_f32 (quantization scales),
+    which become float32."""
     if isinstance(tree, dict):
-        return {k: convert_tree(v, dtype, leaf_fn, path + (k,)) for k, v in tree.items()}
+        return {k: convert_tree(v, dtype, leaf_fn, path + (k,), keep_f32)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [convert_tree(v, dtype, leaf_fn, path + (i,)) for i, v in enumerate(tree)]
-    return to_torch(leaf_fn(path, np.asarray(tree)), dtype)
+        return [convert_tree(v, dtype, leaf_fn, path + (i,), keep_f32)
+                for i, v in enumerate(tree)]
+    leaf_dtype = torch.float32 if path and path[-1] in keep_f32 else dtype
+    return to_torch(leaf_fn(path, np.asarray(tree)), leaf_dtype)
 
 
 def unstack(tree, n: int) -> list:

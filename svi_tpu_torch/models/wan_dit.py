@@ -4,25 +4,31 @@ Port of svi_tpu/models/wan_dit.py: configs, seeded init, patchify /
 unpatchify, time embedding, the plain DiT block (self-attention with 3D RoPE
 through the flash kernel, text + image cross-attention), the CLIP-feature
 MLP, the head, the split prelude / blocks / head forward that TeaCache
-needs, the unfused LoRA side path of training, and rematerialisation of the
-block stack (per block, or in square-root groups). Quantized weights,
-multitalk/customtalk, the save-attention remat policy and host-offloaded
-carries are not part of this port. Activations are in cfg.dtype; norm and
-softmax statistics f32; base weights are frozen.
+needs, the unfused LoRA side path of training, rematerialisation of the
+block stack (per block, or in square-root groups), and quantized inference:
+the weight quantizers (`quantize_params_for_inference`, modes
+`QUANTIZE_MODES`), the dense's quantized branches with the W4A8 / W8A8 int8
+execution (`_int8_exec`), and the int8 self-attention forward
+(`WanDiTConfig.attention_quant`). Multitalk/customtalk, the save-attention
+remat policy and host-offloaded carries are not part of this port.
+Activations are in cfg.dtype; norm and softmax statistics f32; base weights
+are frozen.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import flash_attention, flash_attention_flat
+from ..ops.attention import div_exact, flash_attention, flash_attention_flat
 from ..ops.norms import gelu_tanh, layer_norm, modulate, rms_norm
+from ..ops.quant_matmul import unpack_int4, unpack_requant_int4
 from ..ops.rope import rope_angles_for_grid, sinusoidal_embedding_1d
-from .params import Init, ParamTree, convert_tree, dense, linear_leaf, unstack
+from .params import Init, ParamTree, convert_tree, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +46,15 @@ class WanDiTConfig:
     has_image_input: bool = False
     clip_feature_dim: int = 1280
     dtype: torch.dtype = torch.bfloat16
+    # int8 SELF-attention forward: "none" | "qk8" | "qk8pv8" (K6,
+    # ops.attention.flash_fwd_flat_q8). Inference only: a backward through it
+    # raises, and the trainer refuses it.
+    attention_quant: str = "none"
+
+    def __post_init__(self):
+        if self.attention_quant not in ("none", "qk8", "qk8pv8"):
+            raise ValueError(f"attention_quant={self.attention_quant!r}: expected 'none', "
+                             "'qk8', or 'qk8pv8'")
 
     @property
     def head_dim(self) -> int:
@@ -51,6 +66,78 @@ WAN_14B_T2V = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
 WAN_14B_I2V = WanDiTConfig(
     dim=5120, in_dim=36, ffn_dim=13824, num_heads=40, num_layers=40, has_image_input=True
 )
+
+
+def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32, exact. The JAX package
+    leaves this product to XLA; here it is torch._int_mm (cuBLASLt on the
+    card), with w.t() as the column-major operand, so no copy of w is made.
+    cuBLASLt needs M > 16: the time-embedding linears run at M = batch, so
+    their rows are padded with zeros to 17 (each int32 row is computed on its
+    own) and cut off again."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        return torch._int_mm(F.pad(a, (0, 0, 0, 17 - m)), w.t())[:m]
+    return torch._int_mm(a, w.t())
+
+
+class _Int8Exec(torch.autograd.Function):
+    """Dynamic per-token int8 activations x int8 weights (`_int8_exec`):
+    y = (Qtok(x) @ w8iᵀ) · xs · col_scale ≈ x @ (w8i · col_scale)ᵀ. w8i is
+    (out, in) int8, col_scale (out, 1) f32. The backward is the
+    straight-through linearization dx = (g · col_scale) @ w8i in g's dtype
+    (`_int8_exec_bwd`); the weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w8i, col_scale):
+        ctx.save_for_backward(w8i, col_scale)
+        xf = x.float()
+        xs = div_exact(xf.abs().amax(-1, keepdim=True), 127.0) + 1e-12
+        xq = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
+        y32 = _int8_matmul(xq.reshape(-1, xq.shape[-1]), w8i).reshape(*x.shape[:-1], -1)
+        return (y32.float() * xs * col_scale.reshape(-1)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w8i, col_scale = ctx.saved_tensors
+        gs = g * col_scale.reshape(-1).to(g.dtype)
+        return gs @ w8i.to(g.dtype), None, None
+
+
+def _int8_exec(x: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor) -> torch.Tensor:
+    return _Int8Exec.apply(x, w8i, col_scale)
+
+
+def _plus_bias(p: ParamTree, y: torch.Tensor) -> torch.Tensor:
+    b = p.get("b")
+    return y if b is None else y + b.to(y.dtype)
+
+
+def dense(p: ParamTree, x: torch.Tensor) -> torch.Tensor:
+    """The DiT's linear layer (`_dense`) over whichever weight the leaf holds,
+    all (out, in):
+      * w_q4 + r_q4 (W4A8): K3 unpacks and requantizes the int4 weight to
+        per-channel int8, then `_int8_exec` with s8_q4;
+      * w_q4 alone (int4 storage): dequantized in x's dtype (the product is
+        rounded to x's dtype, as the JAX package does) for a plain matmul;
+      * w_q8 (W8A8): `_int8_exec` with scale8;
+      * w_q (int8 storage): dequantized in x's dtype;
+      * w: x @ wᵀ + b."""
+    if "w_q4" in p:
+        if "r_q4" in p:
+            return _plus_bias(p, _int8_exec(x, unpack_requant_int4(p["w_q4"], p["r_q4"]),
+                                            p["s8_q4"]))
+        scale = p["scale_q4"]  # (out, in // G)
+        w8 = unpack_int4(p["w_q4"])
+        n, k = w8.shape
+        w = (w8.reshape(n, scale.shape[1], -1).to(x.dtype)
+             * scale[:, :, None].to(x.dtype)).reshape(n, k)
+        return _plus_bias(p, F.linear(x, w))
+    if "w_q8" in p:
+        return _plus_bias(p, _int8_exec(x, p["w_q8"], p["scale8"]))
+    if "w_q" in p:
+        return _plus_bias(p, F.linear(x, p["w_q"].to(x.dtype) * p["scale"].to(x.dtype)))
+    return F.linear(x, p["w"], p.get("b"))
 
 
 def dense_lora(p: ParamTree, x: torch.Tensor, lora, scale: float) -> torch.Tensor:
@@ -122,7 +209,8 @@ class WanDiT(ParamTree):
         k = rms_norm(dense_lora(p["k"], x, _l(lora, "k"), lora_scale), p["norm_k"]["w"],
                      eps=cfg.eps)
         v = dense_lora(p["v"], x, _l(lora, "v"), lora_scale)
-        o = flash_attention_flat(q, k, v, cfg.head_dim, cos=cos, sin=sin)
+        quant = None if cfg.attention_quant == "none" else cfg.attention_quant
+        o = flash_attention_flat(q, k, v, cfg.head_dim, cos=cos, sin=sin, quant=quant)
         return dense_lora(p["o"], o, _l(lora, "o"), lora_scale)
 
     def _cross_attention(self, p, x, ctx, num_img_tokens: int, lora=None,
@@ -314,9 +402,176 @@ def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
     return WanDiT(cfg, tree)
 
 
+_QUANT_LEAVES = ("w_q4", "scale_q4", "r_q4", "s8_q4", "w_q8", "scale8", "w_q", "scale")
+_F32_LEAVES = frozenset(("scale_q4", "r_q4", "s8_q4", "scale8", "scale"))
+
+
+def _dit_leaf(path: tuple, arr):
+    """JAX (in, out) linears -> (out, in); every 2-D quantized leaf is
+    transposed the same way, and made contiguous for the kernels."""
+    if arr.ndim != 2:
+        return arr
+    if path[-1] == "w":
+        return arr.T
+    return np.ascontiguousarray(arr.T) if path[-1] in _QUANT_LEAVES else arr
+
+
 def params_from_jax(params: dict, cfg: WanDiTConfig) -> WanDiT:
     """The svi_tpu pytree (after jax.tree.map(np.asarray, ...)) -> WanDiT:
-    block arrays unstacked, (in, out) linears transposed."""
+    block arrays unstacked, (in, out) linears transposed. A quantized tree
+    (quantize_params_int4 / _w8a8 / _int8) comes across in the port's layout:
+    w_q4 (out, in/2), scale_q4 and r_q4 (out, in/G), s8_q4, scale8 and scale
+    (out, 1), w_q8 and w_q (out, in); the scales stay f32."""
     tree = dict(params)
     tree["blocks"] = unstack(params["blocks"], cfg.num_layers)
-    return WanDiT(cfg, convert_tree(tree, cfg.dtype, linear_leaf))
+    return WanDiT(cfg, convert_tree(tree, cfg.dtype, _dit_leaf, keep_f32=_F32_LEAVES))
+
+
+# ---------------------------------------------------------------------------
+# Quantized weights for inference
+# ---------------------------------------------------------------------------
+
+INT4_GROUP = 128  # inputs per int4 quantization group
+
+QUANTIZE_MODES = ("int8", "w8a8", "int4", "int4_w4a8")
+
+
+def _quantize_leaf_int4(w: torch.Tensor, group: int = INT4_GROUP):
+    """(out, in) float -> packed (out, in // 2) int8 + (out, in // group) f32
+    scales (`_quantize_leaf_int4`, transposed). Symmetric per group:
+    q = clip(round(w / scale), -8, 7), scale = max|w| over the group / 7.
+    HALF-SPLIT packing: byte [n, i] holds inputs i and i + in // 2 as its
+    (low, high) nibbles. Runs on w's device."""
+    cout, cin = w.shape
+    if cin % 2 or cin % group:
+        raise ValueError(f"int4 quantization needs in ({cin}) divisible by 2 and by the "
+                         f"group ({group})")
+    wf = w.to(torch.float32).reshape(cout, cin // group, group)
+    scale = div_exact(wf.abs().amax(-1), 7.0).clamp_min(1e-12)  # (out, in // G)
+    q = torch.round(wf / scale[:, :, None]).clamp_(-8, 7).to(torch.int16).reshape(cout, cin)
+    packed = (q[:, :cin // 2] & 0xF) | ((q[:, cin // 2:] & 0xF) << 4)  # bytes as 0..255
+    packed = torch.where(packed > 127, packed - 256, packed).to(torch.int8)
+    return packed, scale
+
+
+def _w4a8_leaves(scale: torch.Tensor):
+    """Per-output-channel int8 execution scales for W4A8 from the int4 group
+    scales (`_w4a8_leaves`). scale: (out, in // G). Returns (r, s8): r =
+    scale / smax · 127/7 (out, in // G), so the requantized |w4 · r| <= 127,
+    and s8 = smax · 7/127 (out, 1), the per-channel int8 dequantization
+    scale."""
+    smax = scale.amax(-1, keepdim=True).clamp_min(1e-12)
+    return (scale / smax) * (127.0 / 7.0), smax * (7.0 / 127.0)
+
+
+def _map_weights(tree, quantize, consume: bool):
+    """Rebuild a nested dict/list tree, replacing each dict's "w" leaf for
+    which quantize(w) returns new leaves. consume=True takes the leaves out of
+    `tree` as it goes, so each float weight is freed once its quantized leaves
+    exist (if nothing else holds it)."""
+    if isinstance(tree, list):
+        out = []
+        for i in range(len(tree)):
+            item = tree[i]
+            if consume:
+                tree[i] = None
+            out.append(_map_weights(item, quantize, consume))
+            del item
+        return out
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k) if consume else tree[k]
+        new = quantize(v) if k == "w" and torch.is_tensor(v) else None
+        if new is not None:
+            out.update(new)
+        elif isinstance(v, (dict, list)):
+            out[k] = _map_weights(v, quantize, consume)
+        else:
+            out[k] = v
+        del v
+    return out
+
+
+# Leaf choice: key "w", 2-D, at least min_size elements, and for int4 `in`
+# (the LAST dim here) divisible by the group: patch_embedding (in 144) stays
+# float under int4 but not under w8a8. The JAX package applies min_size to its
+# stacked (L, in, out) block arrays; at the default 1 << 16 every block
+# linear is far above it either way.
+def _is_linear(w: torch.Tensor, min_size: int) -> bool:
+    return w.ndim == 2 and w.numel() >= min_size
+
+
+def quantize_params_int4(params: dict, min_size: int = 1 << 16, group: int = INT4_GROUP,
+                         w4a8: bool = False, consume: bool = False) -> dict:
+    """Large linear weights -> packed int4 (w_q4) with group-wise scales
+    (scale_q4); w4a8=True adds the per-channel int8 execution scales (r_q4,
+    s8_q4), so `dense` runs the product in int8. Small tensors stay as they
+    are. Apply after any LoRA fusion."""
+
+    def quantize(w):
+        if not (_is_linear(w, min_size) and w.shape[-1] % group == 0):
+            return None
+        packed, scale = _quantize_leaf_int4(w, group)
+        out = {"w_q4": packed, "scale_q4": scale}
+        if w4a8:
+            out["r_q4"], out["s8_q4"] = _w4a8_leaves(scale)
+        return out
+
+    return _map_weights(params, quantize, consume)
+
+
+def _quantize_int8_channels(w: torch.Tensor):
+    """(out, in) float -> int8 (out, in) and per-output-channel f32 scales
+    (out, 1): scale = max|w| over the inputs / 127."""
+    wf = w.to(torch.float32)
+    scale = div_exact(wf.abs().amax(-1, keepdim=True), 127.0).clamp_min(1e-12)
+    return torch.round(wf / scale).clamp_(-127, 127).to(torch.int8), scale
+
+
+def quantize_params_w8a8(params: dict, min_size: int = 1 << 16, consume: bool = False) -> dict:
+    """Large linear weights -> int8 (w_q8, scale8) for W8A8 execution: dynamic
+    per-token int8 activations at run time (`_int8_exec`)."""
+
+    def quantize(w):
+        if not _is_linear(w, min_size):
+            return None
+        w8, scale = _quantize_int8_channels(w)
+        return {"w_q8": w8, "scale8": scale}
+
+    return _map_weights(params, quantize, consume)
+
+
+def quantize_params_int8(params: dict, min_size: int = 1 << 16, consume: bool = False) -> dict:
+    """Large linear weights -> int8 storage (w_q, scale), dequantized per use
+    in `dense`; the products stay in x's dtype."""
+
+    def quantize(w):
+        if not _is_linear(w, min_size):
+            return None
+        w8, scale = _quantize_int8_channels(w)
+        return {"w_q": w8, "scale": scale}
+
+    return _map_weights(params, quantize, consume)
+
+
+def quantize_params_for_inference(dit, mode: str, min_size: int = 1 << 16,
+                                  group: int = INT4_GROUP, consume: bool = False):
+    """Quantize a DiT for inference (`quantize_params_for_inference`). `dit` is
+    a WanDiT (returns a new WanDiT with its config) or a nested dict tree
+    (returns a dict). `mode` is one of QUANTIZE_MODES: int8 = int8 weight
+    storage (matmuls in x's dtype), w8a8 = int8 execution, int4 / int4_w4a8 =
+    packed int4 storage, the latter with int8 execution. The work runs block
+    by block on the device that holds the weights. consume=True empties `dit`
+    and frees each float weight as its quantized leaves are made, so peak
+    memory stays below the float model's. Apply after any LoRA fusion."""
+    fns = {"int4": lambda t: quantize_params_int4(t, min_size, group, False, consume),
+           "int4_w4a8": lambda t: quantize_params_int4(t, min_size, group, True, consume),
+           "w8a8": lambda t: quantize_params_w8a8(t, min_size, consume),
+           "int8": lambda t: quantize_params_int8(t, min_size, consume)}
+    if mode not in fns:
+        raise ValueError(f"quantize mode {mode!r}; choose from {QUANTIZE_MODES}")
+    if isinstance(dit, WanDiT):
+        return WanDiT(dit.cfg, fns[mode](dit.tree(consume=consume)))
+    return fns[mode](dit)

@@ -12,19 +12,26 @@ nothing else):
   * `flash_bwd_onepass` -- K4's contract (`_bwd_onepass_kernel_flat`): dq, dk,
     dv in one pass over KV tiles, dq summed across them in f32;
   * `flash_bwd_dq`, `flash_bwd_dkv` -- K5a's and K5b's contracts
-    (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward.
+    (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward;
+  * `flash_fwd_flat_q8` -- K6's contract (`_fwd_kernel_flat_q8`): the int8
+    forward on operands quantized by `_quant_prep` (the torch version of
+    `_quant_prep_xla`), modes qk8 (int8 Q.K^T, bf16 P.V) and qk8pv8 (int8
+    P.V too).
 
 The forward entries launch csrc/flash_fwd.cu (a layout is only strides), the
-backward entries csrc/flash_bwd.cu. Dispatch: tensors on the CPU take the
-plain PyTorch version (`_flash_fwd_reference`, `_flash_bwd_reference`, which
-mirror the JAX package's `_flash_fwd_xla` and `_flash_bwd_xla`); CUDA tensors
+backward entries csrc/flash_bwd.cu, the int8 forward csrc/flash_fwd_q8.cu.
+Dispatch: tensors on the CPU take the plain PyTorch version
+(`_flash_fwd_reference`, `_flash_bwd_reference`, which mirror the JAX
+package's `_flash_fwd_xla` and `_flash_bwd_xla`, and
+`_flash_fwd_q8_reference`, which mirrors `_fwd_kernel_flat_q8`); CUDA tensors
 launch the kernel or raise. There is no fallback between them. The public ops
 (`flash_attention`, `flash_attention_rope`, `flash_attention_flat`) are
 differentiable in q, k and v and route as the JAX package does: forward
 through the flat kernel when D % 128 == 0 or N == 1 and the (B, N, S, D)
 entry otherwise (CLIP's D = 80); backward through K4 for long self-attention
-and K5a + K5b otherwise (`flash_bwd_flat`). `flash_attention_with_lse` is
-forward only.
+and K5a + K5b otherwise (`flash_bwd_flat`). `flash_attention_flat(quant=...)`
+runs the int8 forward, inference only: its backward raises.
+`flash_attention_with_lse` is forward only.
 """
 
 from __future__ import annotations
@@ -429,6 +436,224 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
 
 
 # ---------------------------------------------------------------------------
+# Int8 forward (K6): the operand prep, the plain version, the kernel entry
+# ---------------------------------------------------------------------------
+
+_LOG2E = 1.4426950408889634
+_LOG2_127 = 6.9886846867721655  # log2(127): the qk8pv8 shift that puts P in [0, 127]
+Q8_BLOCK_K = 64  # keys per tile of csrc/flash_fwd_q8.cu: its row max runs per tile
+_Q8_HEAD_DIMS = (64, 128)
+
+
+def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as an IEEE division. On CUDA, dividing by a Python
+    scalar multiplies by its reciprocal instead, which can differ in the last
+    bit; a one-element tensor divisor keeps the quantizers (here and in
+    models.wan_dit) bit-equal to the JAX package's on every device."""
+    return x / x.new_full((1,), c)
+
+
+def _quant_prep(q, k, v, cos, sin, head_dim: int, pv8: bool):
+    """The torch version of `_quant_prep_xla`: RoPE on q and k (once); q
+    quantized per token, scales qs (B, N, Sq); k centred per (batch, head,
+    channel) over its tokens (softmax-invariant) and quantized with one scale
+    per (batch, head), kscale (B, N); with pv8, v quantized per (batch, head,
+    channel), vss (B, N, D). q, k, v: (B, S, N*D). Returns (q8, qs, k8,
+    kscale, v8, vss), the int8 tensors flat (B, S, N*D); v8 and vss are None
+    without pv8."""
+    b, sq, nd = q.shape
+    sk = k.shape[1]
+    n = nd // head_dim
+    q4 = q.unflatten(-1, (n, head_dim))
+    k4 = k.unflatten(-1, (n, head_dim))
+    if cos is not None:
+        q4 = _apply_rope_reference(q4, cos[:sq], sin[:sq])
+        k4 = _apply_rope_reference(k4, cos[:sk], sin[:sk])
+    q4 = q4.float()
+    qs = div_exact(q4.abs().amax(3, keepdim=True), 127.0) + 1e-12  # (b, sq, n, 1)
+    q8 = torch.round(q4 / qs).to(torch.int8).reshape(b, sq, nd)
+    qs = qs[..., 0].transpose(1, 2).contiguous()
+    k4 = k4.float()
+    k4 = k4 - k4.mean(1, keepdim=True)
+    kscale = div_exact(k4.abs().amax((1, 3)), 127.0) + 1e-12  # (b, n)
+    k8 = torch.round(k4 / kscale[:, None, :, None]).to(torch.int8).reshape(b, sk, nd)
+    if not pv8:
+        return q8, qs, k8, kscale, None, None
+    v4 = v.unflatten(-1, (n, head_dim)).float()
+    vss = div_exact(v4.abs().amax(1), 127.0) + 1e-12  # (b, n, d)
+    v8 = torch.round(v4 / vss[:, None]).to(torch.int8).reshape(b, sk, nd)
+    return q8, qs, k8, kscale, v8, vss
+
+
+def _flash_fwd_q8_reference(q8, qs, k8, kscale, v, vss, kv_len: int, scale: float,
+                            out_dtype: torch.dtype, block_k: int = Q8_BLOCK_K, nsub: int = 1):
+    """Plain PyTorch version of K6 (mirrors `_fwd_kernel_flat_q8` step by
+    step). The keys are zero-padded to a multiple of block_k and walked in
+    sub-blocks of block_k // nsub; each sub-block's row max is taken on the
+    integer scores of all its keys, the masked and the padded ones too, as
+    the TPU kernel does. P's rounding depends on that running max, so the
+    sub-block width is an argument: the JAX package's `block_k // nsub`
+    (`_choose_blocks_flat`) to match it, the kernel's Q8_BLOCK_K to match
+    the card. Integer products are computed in f32, exactly (each sum stays
+    below 2^24). v is v's float (qk8) or v8 (qk8pv8, with vss). Returns out
+    (B, Sq, N*D) in out_dtype and lse (B, N, Sq) of the centred logits."""
+    b, sq, nd = q8.shape
+    sk = k8.shape[1]
+    n = qs.shape[1]
+    d = nd // n
+    pv8 = vss is not None
+    sk_p = _ceil_to(max(sk, 1), block_k)
+    h = block_k // nsub
+    masked = kv_len < sk_p
+    heads = lambda t: t.unflatten(-1, (n, d)).transpose(1, 2)  # noqa: E731
+    qt = heads(q8).float()
+    kt = torch.nn.functional.pad(heads(k8).float(), (0, 0, 0, sk_p - sk))
+    vt = torch.nn.functional.pad(heads(v), (0, 0, 0, sk_p - sk))
+    p_dtype = torch.float32 if pv8 else v.dtype
+    vt = vt.float()
+    c_row = qs[..., None] * (kscale * scale * _LOG2E)[:, :, None, None]  # (b, n, sq, 1)
+    p_shift = _LOG2_127 if pv8 else 0.0
+    rows = max(1, min(sq, _REFERENCE_TILE_BYTES // (4 * b * n * h)))
+    outs, lses = [], []
+    for r0 in range(0, sq, rows):
+        qc, cc = qt[:, :, r0:r0 + rows], c_row[:, :, r0:r0 + rows]
+        m = torch.full(cc.shape, _NEG_INF, dtype=torch.float32, device=q8.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qc.shape, dtype=torch.float32, device=q8.device)
+        for j0 in range(0, sk_p, h):
+            s = qc @ kt[:, :, j0:j0 + h].transpose(-1, -2)  # integer-valued, exact
+            m_t = torch.maximum(m, s.amax(-1, keepdim=True) * cc)
+            sf = s * cc
+            if masked:
+                col = torch.arange(j0, j0 + h, device=q8.device)
+                penalty = torch.where(col < kv_len, 0.0, _NEG_INF).to(torch.float32)
+                p = torch.exp2(sf - m_t + (penalty + p_shift))
+            else:
+                p = torch.exp2(sf - m_t + p_shift)
+            alpha = torch.exp2(m - m_t)
+            pq = torch.round(p) if pv8 else p.to(p_dtype).float()
+            pv = pq @ vt[:, :, j0:j0 + h]
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+            m = m_t
+        lc = l.clamp_min(1e-30)
+        outs.append((acc / lc).to(out_dtype))
+        lses.append((m / _LOG2E + torch.log(lc) - p_shift / _LOG2E)[..., 0])
+    out = torch.cat(outs, dim=2)
+    if pv8:  # out left in v8 channel units
+        out = (out.float() * vss[:, :, None, :]).to(out_dtype)
+    return out.transpose(1, 2).flatten(2), torch.cat(lses, dim=2)
+
+
+def _check_q8_inputs(q8, qs, k8, kscale, v, vss, head_dim: int) -> None:
+    """Shape and type checks shared by the kernel and the plain version."""
+    if q8.ndim != 3 or k8.ndim != 3 or v.ndim != 3 or q8.shape[-1] % head_dim:
+        raise ValueError(f"q8 {tuple(q8.shape)}, k8 {tuple(k8.shape)}, v {tuple(v.shape)} "
+                         f"must be flat (B, S, N*{head_dim})")
+    b, sq, nd = q8.shape
+    n = nd // head_dim
+    if k8.shape[0] != b or k8.shape[2] != nd or v.shape != k8.shape:
+        raise ValueError(f"shape mismatch: q8 {tuple(q8.shape)}, k8 {tuple(k8.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q8.dtype != torch.int8 or k8.dtype != torch.int8:
+        raise TypeError("q8 and k8 must be int8")
+    if qs.shape != (b, n, sq) or kscale.shape != (b, n):
+        raise ValueError(f"scales qs {tuple(qs.shape)} / kscale {tuple(kscale.shape)} must be "
+                         f"{(b, n, sq)} / {(b, n)}")
+    if (vss is None) == (v.dtype == torch.int8):
+        raise TypeError("qk8pv8 takes int8 v with vss; qk8 takes a float v without vss")
+    if vss is not None and vss.shape != (b, n, head_dim):
+        raise ValueError(f"vss {tuple(vss.shape)} must be {(b, n, head_dim)}")
+
+
+def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> torch.Tensor:
+    """Launch csrc/flash_fwd_q8.cu on the current stream; returns lse."""
+    named = dict(q8=q8, qs=qs, k8=k8, kscale=kscale, v=v, out=out)
+    if vss is not None:
+        named["vss"] = vss
+    tensors = list(named.values())
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise RuntimeError("int8 flash forward: every tensor must be on one CUDA device "
+                           f"(got {sorted({str(t.device) for t in tensors})})")
+    if head_dim not in _Q8_HEAD_DIMS:
+        raise ValueError(f"int8 flash forward kernel: head_dim {head_dim} not built "
+                         f"(built: {_Q8_HEAD_DIMS})")
+    if (vss is None and (v.dtype, out.dtype) != (torch.bfloat16, torch.bfloat16)) or \
+            out.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("int8 flash forward kernel: qk8 takes bfloat16 v and out; qk8pv8 "
+                        f"bfloat16 or float32 out (got v {v.dtype}, out {out.dtype})")
+    for name, t in dict(q8=q8, k8=k8, v=v, out=out).items():
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16 for st in t.stride()[:2]):
+            raise ValueError(f"int8 flash forward kernel: {name} must be contiguous in its "
+                             "last dim, 16-byte aligned, with 16-byte multiple row strides")
+    for name, t in dict(qs=qs, kscale=kscale, vss=vss).items():
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"int8 flash forward kernel: {name} must be contiguous float32")
+    b, sq, nd = q8.shape
+    n = nd // head_dim
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q8.device)
+    views = [t.unflatten(-1, (n, head_dim)) for t in (q8, k8, v, out)]
+    from ..kernels.build import load_flash_fwd_q8
+
+    err = load_flash_fwd_q8().svi_flash_fwd_q8(
+        int(vss is not None), int(out.dtype == torch.float32), head_dim, q8.data_ptr(), qs.data_ptr(), k8.data_ptr(),
+        kscale.data_ptr(), v.data_ptr(), vss.data_ptr() if vss is not None else None,
+        out.data_ptr(), lse.data_ptr(), b, n, sq, k8.shape[1], kv_len, float(scale),
+        _strides12(*views), torch.cuda.current_stream(q8.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 flash forward kernel launch failed: cudaError {err}")
+    return lse
+
+
+def flash_fwd_flat_q8(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor,
+                      kscale: torch.Tensor, v: torch.Tensor, vss: Optional[torch.Tensor],
+                      head_dim: int, kv_len: Optional[int] = None,
+                      scale: Optional[float] = None, out_dtype: torch.dtype = torch.bfloat16):
+    """K6's contract, on `_quant_prep`'s outputs: q8 (B, Sq, N*D) int8 with
+    qs (B, N, Sq); k8 (B, Sk, N*D) int8 with kscale (B, N); v (B, Sk, N*D)
+    float (qk8) or int8 with vss (B, N, D) (qk8pv8). Keys >= kv_len are
+    masked. Returns (out (B, Sq, N*D) in out_dtype, lse (B, N, Sq) of the
+    centred logits). The kernel takes bf16 v and out for qk8, and bf16 or
+    f32 out for qk8pv8; other types raise on the card."""
+    _check_q8_inputs(q8, qs, k8, kscale, v, vss, head_dim)
+    kv_len = k8.shape[1] if kv_len is None else min(int(kv_len), k8.shape[1])
+    if kv_len < 0:
+        raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    if _on_cpu(q8, qs, k8, kscale, v, vss):
+        return _flash_fwd_q8_reference(q8, qs, k8, kscale, v, vss, kv_len, scale, out_dtype)
+    out = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
+    lse = _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale)
+    flash_fwd_flat_q8.launches += 1
+    return out, lse
+
+
+flash_fwd_flat_q8.launches = 0
+
+
+class _QuantFlashAttention(torch.autograd.Function):
+    """The int8 forward of `_flash_core_flat_fwd(quant=...)`: `_quant_prep`,
+    then K6. Inference only: the lse it would save is that of the centred
+    logits, so a backward through it raises instead of giving wrong
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, head_dim, kv_len, scale, quant):
+        pv8 = quant == "qk8pv8"
+        q8, qs, k8, kscale, v8, vss = _quant_prep(q, k, v, cos, sin, head_dim, pv8)
+        out, _ = flash_fwd_flat_q8(q8, qs, k8, kscale, v8 if pv8 else v, vss, head_dim,
+                                   kv_len=kv_len, scale=scale, out_dtype=q.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "quantized attention (qk8 / qk8pv8) is inference-only: its lse is that of the "
+            "centred logits, so it has no backward; use quant=None to train")
+
+
+# ---------------------------------------------------------------------------
 # Differentiable public ops
 # ---------------------------------------------------------------------------
 
@@ -504,14 +729,25 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
                          scale: Optional[float] = None,
                          quant: Optional[str] = None) -> torch.Tensor:
     """Flat-layout entry: q, k, v (B, S, N*head_dim) straight from the
-    projections, optional RoPE, differentiable in q, k and v. quant ('qk8' |
-    'qk8pv8', the int8 forward of the JAX package) is not ported yet and raises."""
-    if quant is not None:
-        raise NotImplementedError(
-            f"quant={quant!r}: the int8 attention forward (K6) is not ported yet")
+    projections, optional RoPE, differentiable in q, k and v. quant: None |
+    'qk8' | 'qk8pv8' runs the int8 forward (K6), inference only: a backward
+    through it raises. The int8 forward needs the flat layout (head_dim %
+    128 == 0 or one head); elsewhere a quant request raises, where the JAX
+    package would quietly run bf16."""
+    if quant is not None and quant not in ("qk8", "qk8pv8"):
+        raise ValueError(f"quant={quant!r}: expected None, 'qk8', or 'qk8pv8'")
     if cos is not None:
         cos, sin = _rope_tables(cos, sin, q.shape[1], q.device)
-    return _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
+    if quant is None:
+        return _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
+    n = q.shape[-1] // head_dim
+    if not _flat_ok(n, head_dim):
+        raise NotImplementedError(
+            f"quant={quant!r} with {n} heads of {head_dim}: the int8 forward takes the flat "
+            "layout only (head_dim % 128 == 0 or one head)")
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    scale = head_dim ** -0.5 if scale is None else float(scale)
+    return _QuantFlashAttention.apply(q, k, v, cos, sin, head_dim, kv_len, scale, quant)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

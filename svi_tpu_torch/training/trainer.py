@@ -131,6 +131,11 @@ class ErrorRecyclingTrainer:
         if c.save_attention_activations or c.use_gradient_checkpointing_offload:
             raise NotImplementedError(
                 "save_attention and offloaded carries are not ported yet (ROADMAP)")
+        if dit.cfg.attention_quant != "none":
+            # the int8 attention forward's lse is that of the centred logits,
+            # so a flash backward through it would give wrong gradients
+            raise ValueError("attention_quant is inference-only: train with "
+                             "attention_quant='none'")
         self.dit = dit
         self.dit_cfg = dit.cfg
         self.device = torch.device(device)

@@ -1,5 +1,6 @@
-"""The CUDA flash-attention kernels (forward, and the K4 / K5a / K5b backward)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (the flash forward, the K4 / K5a / K5b backward, the K3
+int4 unpack and the K6 int8 forward) against their plain PyTorch versions, on
+the card.
 
 Marked `cuda`; every test skips where torch sees no CUDA device. Run on a
 machine with an H100 and nvcc (no JAX there, so without the JAX conftest):
@@ -207,3 +208,104 @@ def test_bwd_with_masked_keys_raises_on_cuda():
     q, k, v, out, lse, g, _, _ = _bwd_inputs(1, 64, 96, 2, 64, False, 40)
     with pytest.raises(NotImplementedError, match="kv_len"):
         tattn.flash_bwd_flat(q, k, v, out, lse, g, 64, kv_len=80)
+
+
+# ---------------------------------------------------------------------------
+# K3: int4 unpack + requantization, bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,group", [(13824, 5120, 128), (77, 256, 128), (5, 32, 16),
+                                       (3, 20, 10)])
+def test_unpack_requant_kernel_bit_exact(n, k, group):
+    """Odd N, a small K, and K/2 = 10 (not a multiple of 4: the byte-wise
+    instantiation) against the plain version on the same card tensors."""
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    packed = torch.randint(-128, 128, (n, k // 2), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+    r = torch.rand((n, k // group), generator=g, device="cuda") * (127.0 / 7.0)
+    r[:, 0] = 127.0 / 7.0  # a channel's largest group: |w4 * r| reaches 127 and clips
+    before = tqm.unpack_requant_int4.launches
+    got = tqm.unpack_requant_int4(packed, r)
+    torch.cuda.synchronize()
+    assert tqm.unpack_requant_int4.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (n, k)
+    assert torch.equal(got, tqm._unpack_requant_reference(packed, r))
+
+
+# ---------------------------------------------------------------------------
+# K6: the int8 attention forward
+# ---------------------------------------------------------------------------
+
+# The plain version at the kernel's 64-key tiles runs the same integer scores,
+# the same row max and the same f32 steps, and rounds out to bf16 the same
+# way; what remains is exp2 (a few f32 ulps) and the order of the sums, which
+# can put the two on neighbouring bf16 values (one ulp, at most 2^-7 of the
+# value), and for qk8pv8 a P that lands on the other side of a rounding
+# boundary (one level of 127 in one term, weighed by 1/l). The out bound is a
+# share of the reference's largest |out|: 2.5 to 5 bf16 ulps there.
+Q8_OUT_REL, Q8_LSE_TOL = 2e-2, 1e-3
+
+
+def _q8_out_tol(ref: torch.Tensor, rel: float = Q8_OUT_REL) -> float:
+    return rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
+@pytest.mark.parametrize("d,sq,sk,kv_len", [(128, 189, 189, None), (128, 189, 77, None),
+                                            (64, 150, 300, 211), (128, 70, 257, 0)])
+def test_q8_kernel_matches_plain(quant, d, sq, sk, kv_len):
+    """Ragged Sq and Sk against the 64-row and 64-key tiles, a masked tail,
+    and every key masked (kv_len 0: out 0, lse finite)."""
+    n, b = 3, 2
+    pv8 = quant == "qk8pv8"
+    q = _rand((b, sq, n * d), torch.bfloat16, 50)
+    k = _rand((b, sk, n * d), torch.bfloat16, 51) + 0.5
+    v = _rand((b, sk, n * d), torch.bfloat16, 52)
+    cos, sin = _tables(max(sq, sk), d)
+    q8, qs, k8, kscale, v8, vss = tattn._quant_prep(q, k, v, cos, sin, d, pv8)
+    v_in = v8 if pv8 else v
+    kv = sk if kv_len is None else kv_len
+    before = tattn.flash_fwd_flat_q8.launches
+    got = tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_flat_q8.launches == before + 1
+    want = tattn._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
+                                         torch.bfloat16, block_k=tattn.Q8_BLOCK_K)
+    _check(got, want, _q8_out_tol(want[0]), Q8_LSE_TOL)
+    if kv == 0:
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
+def test_quantized_attention_launches_the_q8_kernel(quant):
+    """flash_attention_flat(quant=...) on the card: prep, one K6 launch, and
+    the result of the CPU path within the kernel's bound."""
+    d, n = 128, 2
+    q, k, v = (_rand((1, 200, n * d), torch.bfloat16, 60 + i) for i in range(3))
+    cos, sin = _tables(200, d)
+    before = tattn.flash_fwd_flat_q8.launches
+    out = tattn.flash_attention_flat(q, k, v, d, cos=cos, sin=sin, quant=quant)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_flat_q8.launches == before + 1
+    ref = tattn.flash_attention_flat(*(t.cpu() for t in (q, k, v)), d, cos=cos.cpu(),
+                                     sin=sin.cpu(), quant=quant)
+    assert (out.float().cpu() - ref.float()).abs().max().item() <= _q8_out_tol(ref)
+
+
+def test_q8pv8_kernel_f32_out_matches_plain():
+    """qk8pv8 with an f32 output, as an f32 DiT calls it: no bf16 rounding of
+    out, so the bound (1e-2 of the largest |out|) is the f32 steps' and a P
+    that rounds the other way."""
+    d, n, b, s = 128, 2, 1, 150
+    q, k, v = (_rand((b, s, n * d), torch.float32, 70 + i) for i in range(3))
+    q8, qs, k8, kscale, v8, vss = tattn._quant_prep(q, k, v, None, None, d, True)
+    got = tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v8, vss, d, out_dtype=torch.float32)
+    want = tattn._flash_fwd_q8_reference(q8, qs, k8, kscale, v8, vss, s, d ** -0.5,
+                                         torch.float32, block_k=tattn.Q8_BLOCK_K)
+    assert got[0].dtype == torch.float32
+    _check(got, want, _q8_out_tol(want[0], 1e-2), Q8_LSE_TOL)
+    with pytest.raises(TypeError, match="qk8 takes bfloat16"):
+        tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v, None, d, out_dtype=torch.float32)

@@ -23,6 +23,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import svi_tpu_torch, svi_tpu_torch.kernels.build, svi_tpu_torch.ops.attention\n"
+        "import svi_tpu_torch.ops.quant_matmul\n"
         "import svi_tpu_torch.models.wan_dit, svi_tpu_torch.models.wan_vae\n"
         "import svi_tpu_torch.models.clip_vision, svi_tpu_torch.models.t5\n"
         "import svi_tpu_torch.pipelines.svi_video\n"
@@ -52,6 +53,10 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
     # each source under csrc/ builds into a library of its own
     assert build.library_path(build.BWD_SOURCE).name.startswith("libflash_bwd_")
     assert build.BWD_SOURCE in build.CSRC.glob("*.cu")
+    for source, stem in ((build.Q8_SOURCE, "flash_fwd_q8"), (build.UNPACK_SOURCE, "quant_unpack")):
+        assert source in build.CSRC.glob("*.cu")
+        lib = build.library_path(source)
+        assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
 
 
 @pytest.mark.parametrize("entry", ["wan_dit", "t5", "clip_vision", "wan_vae", "pipeline",
@@ -95,9 +100,35 @@ def test_unported_training_options_raise():
 
 @pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
 def test_quantized_attention_is_not_silently_bf16(quant):
-    q = torch.zeros(1, 4, 128)
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention_flat(q, q, q, 128, quant=quant)
+    """quant= runs the int8 forward's plain version on CPU tensors: it differs
+    from the unquantized result, stays within the JAX package's bounds of it
+    (tests/test_attention.py: max 0.012 for qk8, 0.03 for qk8pv8), and has no
+    backward."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 200, 2 * 128)).astype(np.float32))
+               for _ in range(3))
+    ref = tattn.flash_attention_flat(q, k, v, 128)
+    got = tattn.flash_attention_flat(q, k, v, 128, quant=quant)
+    err = (got - ref).abs().max().item()
+    assert 0 < err < (0.012 if quant == "qk8" else 0.03), err
+    leaf = q.clone().requires_grad_()
+    out = tattn.flash_attention_flat(leaf, k, v, 128, quant=quant)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        out.sum().backward()
+    with pytest.raises(NotImplementedError, match="flat layout"):  # 2 heads of 64
+        tattn.flash_attention_flat(q, k, v, 64, quant=quant)
+
+
+def test_trainer_refuses_quantized_attention():
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
+
+    cfg = wan_dit.WanDiTConfig(dim=32, in_dim=4, ffn_dim=64, out_dim=4, text_dim=8,
+                               freq_dim=16, num_heads=1, num_layers=2, dtype=torch.float32,
+                               attention_quant="qk8")
+    with pytest.raises(ValueError, match="attention_quant"):
+        ErrorRecyclingTrainer(wan_dit.init_params(cfg, device="cpu"), TrainerConfig(),
+                              device="cpu")
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -108,6 +139,24 @@ def test_non_cpu_tensor_without_kernel_raises():
         tattn.flash_fwd_flat(q, q, q, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
         tattn.flash_fwd_bnsd(*(torch.empty(1, 2, 8, 64, device="meta"),) * 3)
+
+
+def test_non_cpu_tensor_without_kernel_raises_quantized():
+    """The same for K3's and K6's entries."""
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tqm.unpack_requant_int4(torch.empty(8, 64, dtype=torch.int8, device="meta"),
+                                torch.empty(8, 1, device="meta"))
+    q8 = torch.empty(1, 8, 2 * 64, dtype=torch.int8, device="meta")
+    qs = torch.empty(1, 2, 8, device="meta")
+    kscale = torch.empty(1, 2, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tattn.flash_fwd_flat_q8(q8, qs, q8, kscale, q8, torch.empty(1, 2, 64, device="meta"), 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tattn.flash_fwd_flat_q8(q8, qs, q8, kscale,
+                                torch.empty(1, 8, 2 * 64, dtype=torch.bfloat16, device="meta"),
+                                None, 64)
 
 
 def test_mixed_devices_raise():
