@@ -15,8 +15,9 @@ non-zero exit and no result line:
   4. the SVI-Shot slice: (a) a tiny pipeline on the card against the same
      pipeline on the CPU, then (b) two clips at the full width of
      Wan2.1-I2V-14B-480P with seeded random weights: 480x832, 9 frames,
-     4 steps, CFG 5, motion-frame recycling, TeaCache on clip 2;
-     (c) a tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
+     4 steps, CFG 5, motion-frame recycling, TeaCache on clip 2; then one
+     forward of that DiT at the production token count, 480x832x81 (B2
+     S32760), timed and profiled; (c) a tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
      card against the same on the CPU; (d) quantized inference at full
      width: (b)'s DiT quantized in place to int4_w4a8, one DiT forward
      against the bf16 one (each also profiled: device time by kind of
@@ -48,8 +49,12 @@ REPO = Path(__file__).resolve().parent
 
 # Tolerances of the kernels against their plain versions, with the reason for each.
 # bf16 forward: the kernel rounds P to bf16 for P.V (the plain version keeps
-# f32) and both round out to bf16, about 2 bf16 ulps at |out| <= 1.
-BF16_OUT_BOUND = 2e-2
+# f32) and both round out to bf16, about 2 bf16 ulps at |out| <= 1. The out
+# bound is also held to a share of the plain version's largest |out| (printed
+# beside the mean |out|): at the long DiT shapes a typical |out| is ~0.01,
+# under the absolute bound, while a wrong V operand or a P.V dropped or
+# repeated for some key tiles moves out by a share of its own size.
+BF16_OUT_BOUND, BF16_OUT_REL = 2e-2, 2e-2
 # lse comes from f32 scores of the same bf16 inputs in both: order of f32 sums.
 BF16_LSE_BOUND = 1e-3
 # f32 inputs: the kernel is plain f32 FMA and the plain version runs with TF32
@@ -106,11 +111,19 @@ QUANT_FWD_REL = 0.3
 PEAK_BF16, PEAK_INT8, PEAK_F32, HBM_BYTES_PER_S = 989e12, 1979e12, 67e12, 3.35e12
 
 SLICE_H, SLICE_W, SLICE_FRAMES, SLICE_STEPS, MOTION = 480, 832, 9, 4, 1
+FORWARD_FRAMES = 81  # the reference's clip length: one forward at its token count
 # training: 21 frames -> 6 latent frames -> 6 x 30 x 52 = 9360 tokens (K4's gate)
 TRAIN_FRAMES, TRAIN_STEPS = 21, 4
 
-KERNELS = {  # entry -> (source, the TPU kernel it replaces)
-    "flash_fwd_flat": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:75"),
+# entry or "entry/route" -> (source, the TPU kernel it replaces); a forward
+# entry whose routes launch different kernels has one name per route, counted
+# from its per-route counter
+KERNELS = {
+    "flash_fwd_flat/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                            "svi_tpu/ops/attention.py:75"),
+    "flash_fwd_flat/f32": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:75"),
+    "rope_rotate_flat": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                         "svi_tpu/ops/attention.py:60"),
     "flash_fwd_bnsd": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:465"),
     "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:721"),
     "flash_bwd_dq": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:585"),
@@ -122,7 +135,9 @@ KERNELS = {  # entry -> (source, the TPU kernel it replaces)
 QUANT_KERNELS = ("unpack_requant_int4", "flash_fwd_flat_q8")
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
-TIMED_CASE = {"flash_fwd_flat": "dit_self_attn_rope", "flash_fwd_bnsd": "clip_vit_h",
+TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
+              "rope_rotate_flat": "rope_prepass",
+              "flash_fwd_bnsd": "clip_vit_h",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
               "flash_bwd_dq": "dit_text_cross_attn_bwd",
               "flash_bwd_dkv": "dit_text_cross_attn_bwd", "unpack_requant_int4": "ffn_0",
@@ -162,19 +177,44 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 
 def launch_counters():
+    """KERNELS name -> (the wrapper that counts its launches, its route or '')."""
     from svi_tpu_torch.ops import attention as A
     from svi_tpu_torch.ops import quant_matmul as Q
 
-    return {name: getattr(Q if name == "unpack_requant_int4" else A, name) for name in KERNELS}
+    out = {}
+    for name in KERNELS:
+        entry, _, route = name.partition("/")
+        out[name] = (getattr(Q if entry == "unpack_requant_int4" else A, entry), route)
+    return out
 
 
 def zero_counts() -> None:
-    for fn in launch_counters().values():
+    for fn, _ in launch_counters().values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes.clear()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: sum(n for key, n in fn.routes.items() if key[0] == route) if route
+            else fn.launches for name, (fn, route) in launch_counters().items()}
+
+
+def check_fwd_routes(path: str) -> dict:
+    """The forward launches per (route, dtype, head_dim) since the counts were
+    zeroed; fails unless every bf16 D=128 launch took the sm90 route and at
+    least one did."""
+    from svi_tpu_torch.ops import attention as A
+
+    routes = {}
+    for entry in (A.flash_fwd_flat, A.flash_fwd_bnsd):
+        for key, n in entry.routes.items():
+            routes["/".join(map(str, key))] = routes.get("/".join(map(str, key)), 0) + n
+    bf16_128 = {k: n for k, n in routes.items() if k.endswith("/bfloat16/128")}
+    if set(bf16_128) != {"sm90/bfloat16/128"} or bf16_128["sm90/bfloat16/128"] <= 0:
+        raise RuntimeError(f"{path}: a bf16 D=128 forward took a route other than sm90, or "
+                           f"none ran: {routes}")
+    return routes
 
 
 # ---------------------------------------------------------------------------
@@ -242,14 +282,23 @@ def kernel_cases():
 
         def run():
             (out, lse), (ref_out, ref_lse) = kernel(), plain()
-            return {"flash_fwd_flat": worst((err(out, ref_out), BF16_OUT_BOUND),
-                                            (err(lse, ref_lse), BF16_LSE_BOUND))}
+            size = ref_out.float().abs()
+            out_max, out_mean = size.max().item(), size.mean().item()
+            del size
+            out_err = err(out, ref_out)
+            out_bound = min(BF16_OUT_BOUND, BF16_OUT_REL * out_max)
+            log(f"[fwd] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} (the "
+                f"smaller of {BF16_OUT_BOUND} and {BF16_OUT_REL} of the largest |out| "
+                f"{out_max:.3e}; mean |out| {out_mean:.3e})")
+            return {"flash_fwd_flat/sm90": worst((out_err, out_bound),
+                                                 (err(lse, ref_lse), BF16_LSE_BOUND))}
 
         return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
-                    kernels={"flash_fwd_flat": kernel}, plain=plain,
+                    kernels={"flash_fwd_flat/sm90": kernel}, plain=plain,
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                    work={"flash_fwd_flat": (4 * b * n * sq * kv * d,
-                                             _nbytes(q, k, v, q) + 4 * b * n * sq, PEAK_BF16)})
+                    work={"flash_fwd_flat/sm90": (4 * b * n * sq * kv * d,
+                                                  _nbytes(q, k, v, q) + 4 * b * n * sq,
+                                                  PEAK_BF16)})
 
     def bwd_case(name, b, sq, sk, n, d, grid=None):
         """One backward at the route the autograd function picks for it."""
@@ -308,8 +357,37 @@ def kernel_cases():
                     kernels=kernels, plain=plain, library=library,
                     work={e: work[e] for e in kernels})
 
+    def rope_case(name, b, s, n, d, grid):
+        """The sm90 route's RoPE pre-pass on q and k, held bit for bit against
+        the plain rotation on the same card tensors."""
+        q = randn((b, s, n * d), torch.bfloat16)
+        k = randn((b, s, n * d), torch.bfloat16)
+        cos, sin = tables(grid, d)
+
+        def kernel():
+            return A.rope_rotate_flat(q, cos, sin, d), A.rope_rotate_flat(k, cos, sin, d)
+
+        def plain():
+            return tuple(A._apply_rope_reference(t.unflatten(-1, (n, d)), cos[:s],
+                                                 sin[:s]).flatten(2) for t in (q, k))
+
+        def run():
+            got, ref = kernel(), plain()
+            diff = 0.0 if all(torch.equal(a, r) for a, r in zip(got, ref)) else max(
+                2.0 ** -126, *(err(a, r) for a, r in zip(got, ref)))
+            return {"rope_rotate_flat": (diff, 0.0)}
+
+        # 6 f32 operations per pair; each of q, k read once and written once,
+        # the tables read once
+        return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
+                    kernels={"rope_rotate_flat": kernel}, plain=plain, library=None,
+                    work={"rope_rotate_flat": (2 * 3 * q.numel(),
+                                               2 * _nbytes(q, k) + _nbytes(cos[:s], sin[:s]),
+                                               PEAK_F32)})
+
     # the 14B DiT at 480x832x81: 21 x 30 x 52 = 32760 tokens, 40 heads of 128
     yield fwd_case("dit_self_attn_rope", 1, 32760, 32760, 40, 128, grid=(21, 30, 52))
+    yield rope_case("rope_prepass", 1, 32760, 40, 128, grid=(21, 30, 52))
     yield fwd_case("dit_text_cross_attn", 1, 32760, 512, 40, 128)
     yield fwd_case("dit_image_cross_attn", 1, 32760, 257, 40, 128)
     # the inference slice's own clip (3 x 30 x 52 tokens, CFG batch 2) with a masked tail
@@ -347,15 +425,16 @@ def kernel_cases():
 
     def vae_run():
         (out, lse), (ro, rl) = A.flash_fwd_flat(vq, vk, vv, 384), vae_plain()
-        return {"flash_fwd_flat": worst((err(out, ro), F32_BOUND), (err(lse, rl), F32_BOUND))}
+        return {"flash_fwd_flat/f32": worst((err(out, ro), F32_BOUND),
+                                           (err(lse, rl), F32_BOUND))}
 
     yield dict(case="vae_mid_attn", shape=[2, 6240, 6240, 1, 384], dtype="float32", run=vae_run,
-               kernels={"flash_fwd_flat": lambda: A.flash_fwd_flat(vq, vk, vv, 384)},
+               kernels={"flash_fwd_flat/f32": lambda: A.flash_fwd_flat(vq, vk, vv, 384)},
                plain=vae_plain,
                library=lambda: F.scaled_dot_product_attention(
                    *(t[:, None] for t in (vq, vk, vv))),
-               work={"flash_fwd_flat": (4 * 2 * 6240 * 6240 * 384,
-                                        _nbytes(vq, vk, vv, vq) + 4 * 2 * 6240, PEAK_F32)})
+               work={"flash_fwd_flat/f32": (4 * 2 * 6240 * 6240 * 384,
+                                            _nbytes(vq, vk, vv, vq) + 4 * 2 * 6240, PEAK_F32)})
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -714,8 +793,10 @@ def phase_slice():
                                tea_cache_clip2=True)
     run_s = time.perf_counter() - t_run
     launches = read_counts()
+    routes = check_fwd_routes("the bf16 inference path")
     std = float(video.astype(np.float32).std())
-    if min(launches["flash_fwd_flat"], launches["flash_fwd_bnsd"]) <= 0:
+    if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32", "rope_rotate_flat",
+                                 "flash_fwd_bnsd")) <= 0:
         raise RuntimeError(f"a kernel was not launched on the main path: {launches}")
     secs = timer.seconds
     per_step = secs["denoise"][0] / SLICE_STEPS
@@ -725,7 +806,8 @@ def phase_slice():
         f"vae_decode {secs['vae_decode']}")
     log(f"[slice] two clips {run_s:.2f}s, {video.shape[0]} frames, pixel std {std:.2f}, "
         f"TeaCache skipped {skipped} of {SLICE_STEPS} steps in clip 2, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, forward "
+        f"routes {routes}")
     return launches, dict(pipe=pipe, ctx_pos=ctx_pos, ctx_neg=ctx_neg, first=first,
                           anchor=anchor)
 
@@ -796,7 +878,7 @@ def device_time_breakdown(fn) -> str:
             group = "K3"
         elif "flash_fwd_q8" in name:
             group = "K6"
-        elif "flash_fwd" in name:
+        elif "flash_fwd" in name:  # flash_fwd.cu and flash_fwd_sm90.cu with its RoPE pre-pass
             group = "K1/K2"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
             group = "GEMMs"
@@ -812,6 +894,45 @@ def device_time_breakdown(fn) -> str:
     top = "; ".join(f"{name} x{n} {t:.3f}s" for t, n, name in sorted(kernels, reverse=True)[:8])
     return (f"wall {wall:.3f}s, device busy {total:.3f}s ({100 * total / wall:.1f}%): {parts}; "
             f"largest: {top}")
+
+
+def phase_forward_81f(state: dict) -> None:
+    """One 14B bf16 DiT forward at the production token count, 480x832x81
+    (21 x 60 x 104 latents, 32760 tokens, batched CFG: B=2), on phase 4b's
+    DiT with seeded inputs: its seconds and peak memory, then the same forward
+    under the profiler for the device time by kind of kernel."""
+    pipe = state["pipe"]
+    lt, lh, lw = (FORWARD_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cfg = pipe.dit.cfg
+    args = (randn(2, 16, lt, lh, lw), pipe.scheduler.timesteps[:1].cuda(),
+            torch.cat([state["ctx_pos"], state["ctx_neg"]]),
+            randn(2, 257, cfg.clip_feature_dim), randn(2, cfg.in_dim - 16, lt, lh, lw))
+    tokens = lt * lh * lw // 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = pipe.dit(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        routes = check_fwd_routes("the 81-frame forward")
+        if out.shape != args[0].shape or not torch.isfinite(out).all():
+            raise RuntimeError(f"the 81-frame forward gave {tuple(out.shape)}, or non-finite "
+                               "values")
+        del out
+        log(f"[forward-81f] 14B bf16 DiT, one forward at {SLICE_H}x{SLICE_W}x{FORWARD_FRAMES} "
+            f"(B2 S{tokens}): {seconds:.3f}s, peak memory {peak:.2f} GiB, forward routes "
+            f"{routes}")
+        log(f"[forward-81f] profile: {device_time_breakdown(lambda: pipe.dit(*args))}")
+    del args
+    torch.cuda.empty_cache()
 
 
 def phase_quantized_slice(state: dict):
@@ -954,7 +1075,7 @@ def phase_small_trainer():
     # components whose gradient is within that noise of zero
     ok = (loss_err <= 2e-2 and norm_err <= 5e-2 and min_cos >= 0.9
           and runs["cuda"][2] == runs["cpu"][2]
-          and min(counts[k] for k in ("flash_fwd_flat", "flash_bwd_onepass", "flash_bwd_dq",
+          and min(counts[k] for k in ("flash_fwd_flat/sm90", "flash_bwd_onepass", "flash_bwd_dq",
                                       "flash_bwd_dkv")) > 0)
     log(f"[train-small] card vs CPU, 3 steps: loss rel err {loss_err:.2e} (bound 2e-2), "
         f"grad_norm rel err {norm_err:.2e} (bound 5e-2), min cosine {min_cos:.5f} "
@@ -1032,11 +1153,12 @@ def phase_training():
                 (p for name, p in trainer.lora.named_parameters() if name.endswith(".b")),
                 b_start))
     launches = read_counts()
+    routes = check_fwd_routes("the training path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics)
     log(f"[train] {TRAIN_STEPS} steps: seconds per step {step_s}, steady {step_s[-1]:.3f}s, "
         f"peak memory {peak_gib:.2f} GiB, LoRA B max move after step 1 {b_moved:.3e}, "
-        f"launches {launches}")
+        f"launches {launches}, forward routes {routes}")
     if not finite:
         raise RuntimeError("a training loss or grad_norm is not finite")
     if not b_moved > 0:
@@ -1056,6 +1178,7 @@ def main() -> int:
     if not (REPO / "svi_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository "
                          "(svi_tpu_torch/ not found beside it)")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     import svi_tpu_torch
     from svi_tpu_torch.kernels import build
@@ -1080,6 +1203,7 @@ def main() -> int:
         log(f"[build] {name} -> {res.path.name} in {res.seconds:.2f}s; ptxas: "
             + " | ".join(ptxas))
     build.load_flash_fwd()
+    build.load_flash_fwd_sm90()
     build.load_flash_bwd()
     build.load_flash_fwd_q8()
     build.load_quant_unpack()
@@ -1092,6 +1216,7 @@ def main() -> int:
     # 4. the inference slice, in bf16 and quantized
     phase_small_reference()
     infer_launches, state = phase_slice()
+    phase_forward_81f(state)
     phase_small_quantized()
     quant_launches = phase_quantized_slice(state)
     del state
@@ -1110,13 +1235,15 @@ def main() -> int:
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
         launches = (quant_launches if entry in QUANT_KERNELS else infer_launches
-                    if entry.startswith("flash_fwd") else train_launches)[entry]
+                    if entry.startswith("flash_fwd") or entry == "rope_rotate_flat"
+                    else train_launches)[entry]
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches,
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
                         "library_ms": timed["library_ms"]})
+    log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,8 +18,9 @@
 // A row whose keys are all masked gets out = 0 and a finite lse (l is clamped
 // to >= 1e-30 as the TPU kernel does, and m = -inf is reported as -1e30).
 //
-// Two instantiation families:
-//   * bf16, D in {64, 128}: tensor cores through mma.sync m16n8k16 with f32
+// Two instantiation families (bf16 with D = 128, every DiT attention, runs
+// the TMA + wgmma kernel of flash_fwd_sm90.cu instead):
+//   * bf16, D = 64: tensor cores through mma.sync m16n8k16 with f32
 //     accumulation. 4 warps x 16 query rows = 64 rows per CTA, 64-key tiles.
 //     P is rounded to bf16 for the P.V product (as the TPU kernel does);
 //     out is rounded to bf16 once, from the f32 accumulator.
@@ -36,9 +37,10 @@
 // (Sk = 257) cross-attentions read q and write out once for a short key
 // sequence and are bound by bytes. This design is the simple one: fragments
 // are loaded from shared memory with plain loads, k/v tiles are not double
-// buffered, and the CTA synchronises around every tile. wgmma, TMA loads with
-// mbarriers, warp specialisation and a persistent schedule are left for later
-// work.
+// buffered, and the CTA synchronises around every tile. The redesign with
+// wgmma, TMA loads with mbarriers and warp specialisation is
+// flash_fwd_sm90.cu, which took over bf16 D = 128 (its earlier times here are
+// in PERF.md).
 
 #include "flash_common.cuh"
 
@@ -387,9 +389,9 @@ cudaError_t dispatch(int is_bf16, int head_dim, const Params& p, long long batch
   if (is_bf16) {
     const dim3 grid((unsigned)((p.sq + kBr16 - 1) / kBr16), (unsigned)p.n_heads,
                     (unsigned)batch);
+    // bf16 D = 128 is served by flash_fwd_sm90.cu
     switch (head_dim) {
       case 64: return launch_bf16<64, ROPE>(p, grid, st);
-      case 128: return launch_bf16<128, ROPE>(p, grid, st);
       default: return cudaErrorInvalidValue;
     }
   }

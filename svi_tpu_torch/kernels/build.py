@@ -23,6 +23,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
+SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
 UNPACK_SOURCE = CSRC / "quant_unpack.cu"
@@ -114,6 +115,29 @@ def load_flash_fwd() -> ctypes.CDLL:
         _ptr,  # cudaStream_t
     ]
     lib.svi_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_fwd_sm90() -> ctypes.CDLL:
+    """Build (if needed) and load the Hopper bf16 D=128 forward (TMA + wgmma)
+    and its RoPE pre-pass once per process."""
+    lib = ctypes.CDLL(str(build(SM90_SOURCE).path))
+    lib.svi_flash_fwd_sm90.argtypes = [
+        _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse
+        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
+        ctypes.c_float,  # scale
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_rope_rotate.argtypes = [
+        _ptr, _ptr, _ptr, _ptr,  # x, y, cos, sin
+        _i64, _i64, _i64, ctypes.c_int,  # batch, seq, heads, head_dim
+        _i64, _i64, _i64,  # x's (b, s, n) element strides
+        _ptr,  # cudaStream_t
+    ]
+    for fn in (lib.svi_flash_fwd_sm90, lib.svi_rope_rotate):
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -1,7 +1,7 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels and
 their plain versions.
 
-Port of svi_tpu/ops/attention.py. Five kernel entry points, each with its own
+Port of svi_tpu/ops/attention.py. Seven kernel entry points, each with its own
 launch counter (`.launches`, a plain int that counts kernel launches and
 nothing else):
 
@@ -9,6 +9,8 @@ nothing else):
     (B, S, N*D), optional fused interleaved-pair RoPE, keys >= kv_len masked;
     returns out (B, Sq, N*D) in q's dtype and base-e lse (B, N, Sq) f32;
   * `flash_fwd_bnsd` -- K2's contract (`_fwd_kernel`): the same on (B, N, S, D);
+  * `rope_rotate_flat` -- the RoPE K1 applies in its kernel (`_rope_in_kernel`),
+    as a pre-pass into a contiguous buffer;
   * `flash_bwd_onepass` -- K4's contract (`_bwd_onepass_kernel_flat`): dq, dk,
     dv in one pass over KV tiles, dq summed across them in f32;
   * `flash_bwd_dq`, `flash_bwd_dkv` -- K5a's and K5b's contracts
@@ -18,8 +20,13 @@ nothing else):
     `_quant_prep_xla`), modes qk8 (int8 Q.K^T, bf16 P.V) and qk8pv8 (int8
     P.V too).
 
-The forward entries launch csrc/flash_fwd.cu (a layout is only strides), the
-backward entries csrc/flash_bwd.cu, the int8 forward csrc/flash_fwd_q8.cu.
+The forward entries (a layout is only strides) take the route `_fwd_route`
+names for the dtype and head dim: bf16 D = 128 (every DiT attention) runs
+csrc/flash_fwd_sm90.cu (TMA + wgmma, warp-specialised), after its RoPE
+pre-pass `rope_rotate_flat` when tables are given; bf16 D = 64 and f32 run
+csrc/flash_fwd.cu. Each entry counts its launches per (route, dtype,
+head_dim) in `.routes`. The backward entries launch csrc/flash_bwd.cu, the
+int8 forward csrc/flash_fwd_q8.cu.
 Dispatch: tensors on the CPU take the plain PyTorch version
 (`_flash_fwd_reference`, `_flash_bwd_reference`, which mirror the JAX
 package's `_flash_fwd_xla` and `_flash_bwd_xla`, and
@@ -36,13 +43,20 @@ runs the int8 forward, inference only: its backward raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
 import torch
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 80, 128, 384)}
+# the forward kernel that serves each (dtype, head_dim) on the card: 'sm90'
+# is csrc/flash_fwd_sm90.cu (TMA + wgmma, every DiT attention), 'mma' and
+# 'f32' the mma.sync and FMA paths of csrc/flash_fwd.cu
+_FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
+               **{(torch.float32, d): "f32" for d in (32, 64, 80, 128, 384)}}
+_KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
+                     for dt in (torch.bfloat16, torch.float32)}
 _REFERENCE_TILE_BYTES = 1 << 30  # bound on one f32 score tile of the plain version
 
 
@@ -156,31 +170,101 @@ def _strides12(*views) -> ctypes.Array:
     return (ctypes.c_int64 * 12)(*(s for t in views for s in t.stride()[:3]))
 
 
-def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
-    out4 is a preallocated (B, Sq, N, D) view; returns lse (B, N, Sq)."""
-    _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
-                          _KERNEL_HEAD_DIMS, cos, sin)
-    b, sq, n, d = q4.shape
-    dtype = q4.dtype
-    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q4.device)
-    from ..kernels.build import load_flash_fwd
-
-    err = load_flash_fwd().svi_flash_fwd(
-        int(dtype == torch.bfloat16), d, int(cos is not None),
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
-        cos.data_ptr() if cos is not None else None,
-        sin.data_ptr() if sin is not None else None,
-        b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4),
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash forward kernel launch failed: cudaError {err}")
-    return lse
+def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel a CUDA call at (dtype, head_dim) takes: 'sm90'
+    (bf16, D = 128), 'mma' (bf16, D = 64) or 'f32' (f32, D in 32, 64, 80,
+    128, 384). Raises for any other pair: nothing falls back."""
+    if dtype not in _KERNEL_HEAD_DIMS:
+        raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
+    route = _FWD_ROUTES.get((dtype, head_dim))
+    if route is None:
+        raise ValueError(f"flash forward kernel: head_dim {head_dim} not built for {dtype} "
+                         f"(built: {_KERNEL_HEAD_DIMS[dtype]})")
+    return route
 
 
 def _on_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+def _rope_rotate4(x4: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """`rope_rotate_flat` on a (B, S, N, D) view; returns a contiguous
+    (B, S, N, D) tensor."""
+    s, d = x4.shape[1], x4.shape[3]
+    if d % 2 or cos.shape != sin.shape or cos.ndim != 2 or cos.shape[1] != d // 2 \
+            or cos.shape[0] < s:
+        raise ValueError(f"rope tables {tuple(cos.shape)} do not cover ({s}, {d // 2})")
+    if _on_cpu(x4, cos, sin):
+        return _apply_rope_reference(x4, cos[:s], sin[:s])
+    if x4.dtype != torch.bfloat16 or d % 8:
+        raise TypeError(f"the RoPE pre-pass kernel takes bfloat16 with D % 8 == 0, not "
+                        f"{x4.dtype} D={d}")
+    _check_kernel_tensors("RoPE pre-pass", dict(q=x4), {torch.bfloat16: (d,)}, cos, sin)
+    y = torch.empty(x4.shape, dtype=x4.dtype, device=x4.device)
+    from ..kernels.build import load_flash_fwd_sm90
+
+    b, _, n, _ = x4.shape
+    err = load_flash_fwd_sm90().svi_rope_rotate(
+        x4.data_ptr(), y.data_ptr(), cos.data_ptr(), sin.data_ptr(), b, s, n, d,
+        *x4.stride()[:3], torch.cuda.current_stream(x4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RoPE pre-pass kernel launch failed: cudaError {err}")
+    rope_rotate_flat.launches += 1
+    return y
+
+
+def rope_rotate_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     head_dim: int) -> torch.Tensor:
+    """Interleaved-pair RoPE of a flat (B, S, N*D) tensor (last dim
+    contiguous, rows may be strided) into a new contiguous one, in f32 with
+    one rounding to x's dtype: the values K1 rotates inside its kernel. On
+    the card csrc/flash_fwd_sm90.cu's pre-pass kernel (bf16) computes it; on
+    the CPU `_apply_rope_reference`."""
+    x4 = x.unflatten(-1, (x.shape[-1] // head_dim, head_dim))
+    return _rope_rotate4(x4, cos, sin).flatten(2)
+
+
+rope_rotate_flat.launches = 0
+
+
+def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
+    """Launch the forward kernel of the route on the current stream (no
+    synchronisation). out4 is a preallocated (B, Sq, N, D) view. The 'sm90'
+    route rotates q and k with the RoPE pre-pass first. Returns (lse
+    (B, N, Sq), the route's counter key (route, dtype, head_dim))."""
+    _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
+                          _KERNEL_HEAD_DIMS, cos, sin)
+    b, sq, n, d = q4.shape
+    dtype = q4.dtype
+    route = _fwd_route(dtype, d)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q4.device)
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    if route == "sm90":
+        from ..kernels.build import load_flash_fwd_sm90
+
+        if cos is not None:
+            q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
+        err = load_flash_fwd_sm90().svi_flash_fwd_sm90(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
+            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"flash forward (sm90) launch failed: code {err} (a cudaError; 10000: "
+                "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
+                "CUresult r)")
+    else:
+        from ..kernels.build import load_flash_fwd
+
+        err = load_flash_fwd().svi_flash_fwd(
+            int(dtype == torch.bfloat16), d, int(cos is not None),
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
+            cos.data_ptr() if cos is not None else None,
+            sin.data_ptr() if sin is not None else None,
+            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"flash forward kernel launch failed: cudaError {err}")
+    return lse, (route, str(dtype).removeprefix("torch."), d)
 
 
 def flash_fwd_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: int,
@@ -198,12 +282,15 @@ def flash_fwd_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: 
         out4, lse = _flash_fwd_reference(q4, k4, v4, cos, sin, kv_len, scale)
         return out4.flatten(2), lse
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = _launch(q4, k4, v4, out.unflatten(-1, (n, head_dim)), cos, sin, kv_len, scale)
+    lse, route = _launch(q4, k4, v4, out.unflatten(-1, (n, head_dim)), cos, sin, kv_len, scale)
     flash_fwd_flat.launches += 1
+    flash_fwd_flat.routes[route] += 1
     return out, lse
 
 
+# launches, and launches per (route, dtype, head_dim)
 flash_fwd_flat.launches = 0
+flash_fwd_flat.routes = collections.Counter()
 
 
 def flash_fwd_bnsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -219,12 +306,14 @@ def flash_fwd_bnsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out4, lse = _flash_fwd_reference(q4, k4, v4, cos, sin, kv_len, scale)
         return out4.transpose(1, 2), lse
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = _launch(q4, k4, v4, out.transpose(1, 2), cos, sin, kv_len, scale)
+    lse, route = _launch(q4, k4, v4, out.transpose(1, 2), cos, sin, kv_len, scale)
     flash_fwd_bnsd.launches += 1
+    flash_fwd_bnsd.routes[route] += 1
     return out, lse
 
 
 flash_fwd_bnsd.launches = 0
+flash_fwd_bnsd.routes = collections.Counter()
 
 
 def _flat_ok(n: int, head_dim: int) -> bool:

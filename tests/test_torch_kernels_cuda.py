@@ -1,6 +1,7 @@
-"""The CUDA kernels (the flash forward, the K4 / K5a / K5b backward, the K3
-int4 unpack and the K6 int8 forward) against their plain PyTorch versions, on
-the card.
+"""The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
+bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, f32 FMA --, the K4
+/ K5a / K5b backward, the K3 int4 unpack and the K6 int8 forward) against
+their plain PyTorch versions, on the card.
 
 Marked `cuda`; every test skips where torch sees no CUDA device. Run on a
 machine with an H100 and nvcc (no JAX there, so without the JAX conftest):
@@ -15,8 +16,10 @@ from svi_tpu_torch.ops import attention as tattn
 pytestmark = pytest.mark.cuda
 
 # bf16: P is rounded to bf16 for P.V and out once more, ~2 bf16 ulps at |out|<=1;
-# lse comes from f32 scores of bf16 inputs
-BF16_OUT_TOL, BF16_LSE_TOL = 2e-2, 1e-3
+# out is also held to a share of the plain version's largest |out|, so that a
+# wrong P.V on some key tiles fails where a typical |out| is under 2e-2; lse
+# comes from f32 scores of bf16 inputs
+BF16_OUT_TOL, BF16_OUT_REL, BF16_LSE_TOL = 2e-2, 2e-2, 1e-3
 # f32 FMA path against f32 PyTorch (no TF32): summation order only
 F32_TOL = 1e-4
 
@@ -39,10 +42,14 @@ def _tables(s, d):
     return torch.cos(ang).cuda(), torch.sin(ang).cuda()
 
 
-def _check(got, want, out_tol, lse_tol):
+def _check(got, want, out_tol, lse_tol, out_rel=None):
+    """out within out_tol (and within out_rel of the plain version's largest
+    |out| when given), lse within lse_tol."""
     (o, lse), (o_ref, lse_ref) = got, want
     assert o.dtype == o_ref.dtype and o.shape == o_ref.shape
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    if out_rel is not None:
+        out_tol = min(out_tol, out_rel * o_ref.float().abs().max().item())
     assert (o.float() - o_ref.float()).abs().max().item() <= out_tol
     assert (lse - lse_ref).abs().max().item() <= lse_tol
 
@@ -67,7 +74,95 @@ def test_bf16_flat_kernel_matches_plain(d, case):
     kv = sk if kv_len is None else kv_len
     q4, k4, v4 = (t.unflatten(-1, (n, d)) for t in (q, k, v))
     o_ref, lse_ref = tattn._flash_fwd_reference(q4, k4, v4, cos, sin, kv, d ** -0.5)
-    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+def _sm90_launches():
+    return (tattn.flash_fwd_flat.routes[("sm90", "bfloat16", 128)]
+            + tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 128)])
+
+
+@pytest.mark.parametrize("kv_len", [None, 150, 129, 0])
+@pytest.mark.parametrize("sk,rope", [(189, True), (77, False), (257, False), (512, False),
+                                     (1000, True)])
+@pytest.mark.parametrize("sq", [189, 300])
+def test_sm90_kernel_matches_plain(sq, sk, rope, kv_len):
+    """The TMA + wgmma route (bf16, D = 128): Sq ragged against the 128-row
+    tiles, Sk ragged against the 128-key tiles (257: one key in the last
+    tile; 1000: 8 key tiles, so the 3-stage K/V ring wraps twice), kv_len
+    mid-tile (150), one key past a tile (129) and 0 (every row masked: out 0,
+    finite lse)."""
+    d, n, b = 128, 3, 2
+    q = _rand((b, sq, n * d), torch.bfloat16, 0)
+    k = _rand((b, sk, n * d), torch.bfloat16, 1)
+    v = _rand((b, sk, n * d), torch.bfloat16, 2)
+    cos, sin = _tables(max(sq, sk), d) if rope else (None, None)
+    before = _sm90_launches()
+    got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _sm90_launches() == before + 1
+    kv = sk if kv_len is None else min(kv_len, sk)
+    if kv == 0:  # the plain version's -1e30 mask averages v instead
+        assert (got[0] == 0).all() and torch.isfinite(got[1]).all()
+        assert (got[1] <= -1e30).all()
+        return
+    q4, k4, v4 = (t.unflatten(-1, (n, d)) for t in (q, k, v))
+    o_ref, lse_ref = tattn._flash_fwd_reference(q4, k4, v4, cos, sin, kv, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_sm90_strided_qkv_columns(rope):
+    """q, k and v as column slices of one (B, S, 3*N*D) tensor: row stride
+    3*N*D, as a fused projection hands them over."""
+    d, n, b, s = 128, 3, 2, 300
+    qkv = _rand((b, s, 3 * n * d), torch.bfloat16, 7)
+    q, k, v = qkv[..., :n * d], qkv[..., n * d:2 * n * d], qkv[..., 2 * n * d:]
+    cos, sin = _tables(s, d) if rope else (None, None)
+    before = _sm90_launches()
+    got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin, kv_len=250)
+    torch.cuda.synchronize()
+    assert _sm90_launches() == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (n, d)) for t in (q, k, v)), cos, sin, 250, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+def test_sm90_bnsd_entry():
+    """flash_fwd_bnsd at bf16 D = 128 takes the sm90 route on (B, N, S, D)."""
+    b, n, sq, sk, d = 2, 3, 189, 257, 128
+    q, k, v = (_rand((b, n, s, d), torch.bfloat16, i) for i, s in enumerate((sq, sk, sk)))
+    before = tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 128)]
+    got = tattn.flash_fwd_bnsd(q, k, v, kv_len=200)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 128)] == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None, None, 200, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+def test_rope_prepass_bit_exact():
+    """The pre-pass kernel rounds as the plain rotation does: bit for bit."""
+    b, s, n, d = 2, 300, 3, 128
+    base = _rand((b, s, 2 * n * d), torch.bfloat16, 8)
+    x = base[..., n * d:]  # strided rows
+    cos, sin = _tables(s, d)
+    before = tattn.rope_rotate_flat.launches
+    got = tattn.rope_rotate_flat(x, cos, sin, d)
+    torch.cuda.synchronize()
+    assert tattn.rope_rotate_flat.launches == before + 1
+    assert got.is_contiguous()
+    want = tattn._apply_rope_reference(x.unflatten(-1, (n, d)), cos, sin).flatten(2)
+    assert torch.equal(got, want)
+
+
+def test_sm90_misaligned_view_raises():
+    """A view whose data_ptr is off 16-byte alignment cannot feed TMA."""
+    b, s, n, d = 1, 64, 2, 128
+    flat = _rand((b * s * n * d + 4,), torch.bfloat16, 9)
+    q = flat[4:].view(b, s, n * d)  # 8 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_fwd_flat(q, q, q, d)
 
 
 @pytest.mark.parametrize("d", [32, 64, 80, 128, 384])
