@@ -10,7 +10,8 @@ non-zero exit and no result line:
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
-     and the least time the card could take for the work); for context, the
+     the kernel call's device time without host gaps, and the least time
+     the card could take for the work); for context, the
      int8 GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
   4. the SVI-Shot slice: (a) a tiny pipeline on the card against the same
      pipeline on the CPU, then (b) two clips at the full width of
@@ -57,13 +58,14 @@ REPO = Path(__file__).resolve().parent
 BF16_OUT_BOUND, BF16_OUT_REL = 2e-2, 2e-2
 # lse comes from f32 scores of the same bf16 inputs in both: order of f32 sums.
 BF16_LSE_BOUND = 1e-3
-# f32 inputs: the kernel is plain f32 FMA and the plain version runs with TF32
-# off, so only the order of f32 sums differs.
+# f32 inputs: the kernel takes every product in 3xTF32 (about 2^-21 relative
+# per product, f32-level) and the plain version runs in f32 with TF32 off:
+# f32 rounding and the order of f32 sums differ.
 F32_BOUND = 1e-4
 # bf16 backward, as a share of the gradient's largest magnitude: the kernels
 # round P and dS to bf16 before the products that consume them and each
-# gradient once to bf16 (2^-8 relative); K4 sums dq with f32 atomics in an
-# order that changes from run to run.
+# gradient once to bf16 (2^-8 relative); K4 sums dq in f32 (TMA reduce-adds)
+# in an order that changes from run to run.
 BF16_GRAD_REL_BOUND = 2e-2
 # int4 unpack + requantization (K3) is held bit for bit (torch.equal): one f32
 # product and one round-half-to-even per weight on both sides.
@@ -102,13 +104,19 @@ SMALL_Q_SEEDS = (0, 1)
 # by its own size.
 QUANT_FWD_REL = 0.3
 
-# The card's published peaks (H100 SXM, dense): bf16 and int8 tensor cores,
-# f32 on CUDA cores, HBM bandwidth. The f32 kernel path is scalar FMA.
+# The card's published peaks (H100 SXM, dense): bf16, int8 and TF32 tensor
+# cores, f32 on CUDA cores, HBM bandwidth.
 # Bounds: K1, K2, K4, K5 and K6 are bound by tensor-core (or f32) operations
 # at the DiT shapes: K6 runs Q.K^T at the int8 rate and P.V at the bf16 rate
 # (qk8) or the int8 rate (qk8pv8). K3 is bound by bytes: it reads half a byte
-# and writes one per weight, plus the ratio table.
-PEAK_BF16, PEAK_INT8, PEAK_F32, HBM_BYTES_PER_S = 989e12, 1979e12, 67e12, 3.35e12
+# and writes one per weight, plus the ratio table. An f32 product at f32
+# accuracy can be taken on the CUDA cores (one FMA per multiply-add, 67
+# TFLOP/s) or on the tensor cores in 3xTF32 (three TF32 products per f32
+# product, 495 / 3 = 165 TFLOP/s of f32 work); the f32 rows (K1's f32 route,
+# K2) are bound by the faster of the two, and `bound_rate` names it.
+PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_TF32, HBM_BYTES_PER_S = (989e12, 1979e12, 67e12, 495e12,
+                                                              3.35e12)
+F32_ACCURATE = "f32"  # the peak of an f32 product at f32 accuracy: the better of the two above
 
 SLICE_H, SLICE_W, SLICE_FRAMES, SLICE_STEPS, MOTION = 480, 832, 9, 4, 1
 FORWARD_FRAMES = 81  # the reference's clip length: one forward at its token count
@@ -121,11 +129,13 @@ TRAIN_FRAMES, TRAIN_STEPS = 21, 4
 KERNELS = {
     "flash_fwd_flat/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                             "svi_tpu/ops/attention.py:75"),
-    "flash_fwd_flat/f32": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:75"),
+    "flash_fwd_flat/f32": ("svi_tpu_torch/csrc/flash_fwd_f32.cu",
+                           "svi_tpu/ops/attention.py:75"),
     "rope_rotate_flat": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                          "svi_tpu/ops/attention.py:60"),
-    "flash_fwd_bnsd": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:465"),
-    "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:721"),
+    "flash_fwd_bnsd": ("svi_tpu_torch/csrc/flash_fwd_f32.cu", "svi_tpu/ops/attention.py:465"),
+    "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd_sm90.cu",
+                          "svi_tpu/ops/attention.py:721"),
     "flash_bwd_dq": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:585"),
     "flash_bwd_dkv": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:646"),
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -170,10 +180,43 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    """The least time the card could take (ms), and what bounds it."""
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
+def device_ms(fn, reps: int = 5) -> float | None:
+    """Device time of one fn() call, ms: reps calls queued behind a device
+    sleep that outlasts the host's work of queueing them, between two CUDA
+    events, so that no host gap is counted (median_ms counts the host's
+    wrapper work where the device waits on it). None where torch has no
+    device sleep."""
+    if not hasattr(torch.cuda, "_sleep"):
+        return None
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0  # host and device time of one call
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (reps * per_call + 2e-3)))  # cycles at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak) -> tuple[float, str, str]:
+    """The least time the card could take (ms), what bounds it (bytes or
+    operations) and the rate of the bound. peak: FLOP/s, or F32_ACCURATE
+    for f32 products at f32 accuracy (the faster of f32 FMA and 3xTF32)."""
+    if peak == F32_ACCURATE:
+        t_ops, rate = min((flops / PEAK_F32, "f32 FMA 67 TFLOP/s"),
+                          (3 * flops / PEAK_TF32, "3xTF32 at 495 TFLOP/s"))
+    else:
+        t_ops, rate = flops / peak, f"{peak / 1e12:g} TFLOP/s"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", rate
+    return 1e3 * t_bytes, "bytes", "3.35 TB/s"
 
 
 def launch_counters():
@@ -200,10 +243,11 @@ def read_counts() -> dict:
             else fn.launches for name, (fn, route) in launch_counters().items()}
 
 
-def check_fwd_routes(path: str) -> dict:
+def check_fwd_routes(path: str, need_f32: bool = False) -> dict:
     """The forward launches per (route, dtype, head_dim) since the counts were
     zeroed; fails unless every bf16 D=128 launch took the sm90 route and at
-    least one did."""
+    least one did, and every f32 launch the 3xTF32 kernel (route f32; with
+    need_f32, at least one)."""
     from svi_tpu_torch.ops import attention as A
 
     routes = {}
@@ -214,6 +258,10 @@ def check_fwd_routes(path: str) -> dict:
     if set(bf16_128) != {"sm90/bfloat16/128"} or bf16_128["sm90/bfloat16/128"] <= 0:
         raise RuntimeError(f"{path}: a bf16 D=128 forward took a route other than sm90, or "
                            f"none ran: {routes}")
+    f32 = {k: n for k, n in routes.items() if "/float32/" in k}
+    if any(not k.startswith("f32/") for k in f32) or (need_f32 and not f32):
+        raise RuntimeError(f"{path}: an f32 forward took a route other than f32, or none ran: "
+                           f"{routes}")
     return routes
 
 
@@ -343,8 +391,13 @@ def kernel_cases():
                   heads_first(k, n, d, cos, sin).detach().requires_grad_(),
                   heads_first(v, n, d).detach().requires_grad_()]
         gh = heads_first(g, n, d)
+        o_lib = F.scaled_dot_product_attention(*leaves)  # SDPA's forward, once
 
         def library():
+            """SDPA's backward alone, on its saved forward."""
+            return torch.autograd.grad(o_lib, leaves, gh, retain_graph=True)
+
+        def library_fwd_bwd():
             o = F.scaled_dot_product_attention(*leaves)
             return torch.autograd.grad(o, leaves, gh)
 
@@ -355,7 +408,7 @@ def kernel_cases():
                 "flash_bwd_dkv": (4 * mm, io + _nbytes(k, v), PEAK_BF16)}
         return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
                     kernels=kernels, plain=plain, library=library,
-                    work={e: work[e] for e in kernels})
+                    library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels})
 
     def rope_case(name, b, s, n, d, grid):
         """The sm90 route's RoPE pre-pass on q and k, held bit for bit against
@@ -411,7 +464,7 @@ def kernel_cases():
                kernels={"flash_fwd_bnsd": lambda: A.flash_fwd_bnsd(q, k, v)}, plain=clip_plain,
                library=lambda: F.scaled_dot_product_attention(q, k, v),
                work={"flash_fwd_bnsd": (4 * 16 * 257 * 257 * 80,
-                                        _nbytes(q, k, v, q) + 4 * 16 * 257, PEAK_F32)})
+                                        _nbytes(q, k, v, q) + 4 * 16 * 257, F32_ACCURATE)})
 
     # VAE mid-block at 480x832: 60 x 104 = 6240 tokens, one head of 384, f32,
     # q/k/v as column slices of one qkv tensor as the VAE hands them over
@@ -434,7 +487,8 @@ def kernel_cases():
                library=lambda: F.scaled_dot_product_attention(
                    *(t[:, None] for t in (vq, vk, vv))),
                work={"flash_fwd_flat/f32": (4 * 2 * 6240 * 6240 * 384,
-                                            _nbytes(vq, vk, vv, vq) + 4 * 2 * 6240, PEAK_F32)})
+                                            _nbytes(vq, vk, vv, vq) + 4 * 2 * 6240,
+                                            F32_ACCURATE)})
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -537,15 +591,23 @@ def phase_kernels(card: str):
         torch.cuda.synchronize()
         plain_ms = median_ms(case["plain"], 2)
         library_ms = None if case["library"] is None else median_ms(case["library"], 5)
+        # the backward cases' library call is SDPA's backward alone; its
+        # forward + backward is printed beside it, as earlier runs timed it
+        fwd_bwd_ms = median_ms(case["library_fwd_bwd"], 5) if "library_fwd_bwd" in case \
+            else None
         for entry, kernel in case["kernels"].items():
             max_err, err_bound = results[entry]
             flops, nbytes, peak = case["work"][entry]
-            bound_ms, bound_by = bound(flops, nbytes, peak)
+            bound_ms, bound_by, bound_rate = bound(flops, nbytes, peak)
             ms = median_ms(kernel, 5)
+            dev_ms = device_ms(kernel)
             row = dict(case=case["case"], entry=entry, shape=case["shape"],
                        dtype=case["dtype"], max_abs_err=max_err, err_bound=err_bound, ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms, flops=flops, bytes=nbytes,
-                       bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+                       device_ms=dev_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_fwd_bwd_ms=fwd_bwd_ms, flops=flops, bytes=nbytes,
+                       bound_ms=bound_ms, bound_by=bound_by, bound_rate=bound_rate,
+                       tflops=flops / ms / 1e9,
                        card=card, ok=max_err <= err_bound)
             log(f"[kernel] {json.dumps(row)}")
             if not row["ok"]:
@@ -793,7 +855,7 @@ def phase_slice():
                                tea_cache_clip2=True)
     run_s = time.perf_counter() - t_run
     launches = read_counts()
-    routes = check_fwd_routes("the bf16 inference path")
+    routes = check_fwd_routes("the bf16 inference path", need_f32=True)
     std = float(video.astype(np.float32).std())
     if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32", "rope_rotate_flat",
                                  "flash_fwd_bnsd")) <= 0:
@@ -1153,7 +1215,7 @@ def phase_training():
                 (p for name, p in trainer.lora.named_parameters() if name.endswith(".b")),
                 b_start))
     launches = read_counts()
-    routes = check_fwd_routes("the training path")
+    routes = check_fwd_routes("the training path", need_f32=True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics)
     log(f"[train] {TRAIN_STEPS} steps: seconds per step {step_s}, steady {step_s[-1]:.3f}s, "
@@ -1169,6 +1231,11 @@ def phase_training():
         raise RuntimeError(f"the error buffers did not grow: {totals}")
     if min(n for k, n in launches.items() if k not in QUANT_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
+    # every block's self-attention backward in every step takes K4
+    k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
+    if launches["flash_bwd_onepass"] != k4_expected:
+        raise RuntimeError(f"{launches['flash_bwd_onepass']} one-pass backward launches on the "
+                           f"training path, expected {k4_expected}")
     del trainer, dit
     torch.cuda.empty_cache()
     return launches, step_s, peak_gib
@@ -1204,7 +1271,9 @@ def main() -> int:
             + " | ".join(ptxas))
     build.load_flash_fwd()
     build.load_flash_fwd_sm90()
+    build.load_flash_fwd_f32()
     build.load_flash_bwd()
+    build.load_flash_bwd_sm90()
     build.load_flash_fwd_q8()
     build.load_quant_unpack()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")
@@ -1242,7 +1311,7 @@ def main() -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-                        "library_ms": timed["library_ms"]})
+                        "bound_rate": timed["bound_rate"], "library_ms": timed["library_ms"]})
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

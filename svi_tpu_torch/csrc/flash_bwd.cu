@@ -1,18 +1,17 @@
 // Non-causal flash-attention backward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the three Pallas TPU backward kernels of the JAX package
-// (svi_tpu/ops/attention.py):
-//   * K4  _bwd_onepass_kernel_flat (launched by _flash_bwd_onepass_pallas_flat):
-//     one pass over KV blocks that yields dq, dk and dv; dq is an f32 buffer
-//     accumulated across KV blocks. Chosen for long self-attention (D = 128,
-//     S >= 4096, kv_len == Sk): the DiT's self-attention in training.
+// Replaces the split backward of the JAX package (svi_tpu/ops/attention.py):
 //   * K5a _bwd_dq_kernel_flat and K5b _bwd_dkv_kernel_flat (launched by
-//     _flash_bwd_pallas_flat): the split backward, dq over KV tiles and dk/dv
-//     over Q tiles, with RoPE applied in the kernel and dq/dk rotated back.
-//     Chosen for cross-attention (Sk = 512 text, 257 image tokens) and short
+//     _flash_bwd_pallas_flat): dq over KV tiles and dk/dv over Q tiles, with
+//     RoPE applied in the kernel and dq/dk rotated back. Chosen for
+//     cross-attention (Sk = 512 text, 257 image tokens) and short
 //     self-attention.
+// K4 (_bwd_onepass_kernel_flat, long self-attention) lived here as a second
+// instantiation of the dK/dV kernel that also summed dq with f32 atomics; it
+// moved to the TMA + wgmma kernel of flash_bwd_sm90.cu (its earlier times are
+// in PERF.md).
 //
-// All three recompute P = exp(S * scale - lse) from the forward's base-e lse
+// Both recompute P = exp(S * scale - lse) from the forward's base-e lse
 // (in base 2 here, log2(e) folded in) and use delta = rowsum(dO * O), which the
 // caller computes, as the TPU code does outside its kernels:
 //   dP = dO V^T, dS = P * (dP - delta), dV = P^T dO, dK = scale dS^T Q,
@@ -31,26 +30,21 @@
 // P and dS are rounded to bf16 before the products that consume them (dV, dK,
 // dQ), as the forward rounds P for P.V.
 //
-// K4 and K5b share one kernel (flash_bwd_kv_kernel): one CTA per (KV tile of
-// WARPS x 16 keys, head, batch), each warp owning 16 keys whose dK and dV stay
-// in registers while the CTA walks every 32-row Q tile. The transposed score
-// tile S^T = K Q^T comes straight out of the MMA with keys as rows, so its
-// accumulators are the A fragments of dV += P^T dO and dK += dS^T Q with no
-// shared-memory round trip. For K4 (ONEPASS) the CTA also writes dS to
-// shared memory and computes its share of dQ = dS K for the Q tile, added to
-// the f32 (B, Sq, N, D) buffer with atomicAdd; the order of those f32 sums
-// changes from run to run. A small kernel then scales dq, rotates it back and
-// rounds it to bf16. K5a (flash_bwd_dq_kernel) is one CTA per (64 query rows,
-// head, batch) looping over 32-key tiles, with dQ in registers.
+// K5b (flash_bwd_kv_kernel): one CTA per (KV tile of WARPS x 16 keys, head,
+// batch), each warp owning 16 keys whose dK and dV stay in registers while the
+// CTA walks every 32-row Q tile. The transposed score tile S^T = K Q^T comes
+// straight out of the MMA with keys as rows, so its accumulators are the A
+// fragments of dV += P^T dO and dK += dS^T Q with no shared-memory round
+// trip. K5a (flash_bwd_dq_kernel) is one CTA per (64 query rows, head, batch)
+// looping over 32-key tiles, with dQ in registers.
 //
-// What bounds it on this card: 5 matrix products of Sq x Sk x D per head
-// (7 for the split pair, which computes S and dP twice) against 989 TFLOP/s
-// bf16; the bytes (q, k, v, dO, O once, three gradients) are far below the
-// line at S = 9360. This design is the simple one: fragments come from shared
-// memory with plain loads, tiles are not double-buffered, and the CTA
-// synchronises around every tile; K4's dq atomics cost Sq x N x D adds per
-// 128-key tile. wgmma, TMA loads, warp specialisation and a dq reduction
-// without atomics are left for later work.
+// What bounds it on this card: 7 matrix products of Sq x Sk x D per head for
+// the pair (S and dP are computed by both) against 989 TFLOP/s bf16, and at
+// the cross-attention shapes (Sk = 512 / 257) the bytes of q, dO and dq. This
+// design is the simple one: fragments come from shared memory with plain
+// loads, tiles are not double-buffered, and the CTA synchronises around every
+// tile. wgmma, TMA loads and warp specialisation (as in flash_bwd_sm90.cu)
+// are left for later work.
 
 #include "flash_common.cuh"
 
@@ -68,7 +62,6 @@ struct BwdParams {
   const float* delta;   // (B, N, Sq) rowsum(dO * O)
   const float* cos;     // (>= max(Sq, Sk), D/2) contiguous, or null
   const float* sin;
-  float* dq32;          // K4: (B, Sq, N, D) f32, zeroed by the caller
   void* dq;             // (B, Sq, N*D) contiguous
   void* dk;             // (B, Sk, N*D) contiguous
   void* dv;
@@ -98,30 +91,27 @@ __device__ __forceinline__ void store_pair(bf16* base, long long row, long long 
 }
 
 // ---------------------------------------------------------------------------
-// K4 (ONEPASS) and K5b: dK, dV per KV tile; K4 adds dQ with atomics
+// K5b: dK, dV per KV tile
 // ---------------------------------------------------------------------------
 
-template <int D, int WARPS, bool ONEPASS>
+template <int D, int WARPS>
 constexpr size_t kv_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * WARPS * 16 * (D + 8) + 2 * kBq * (D + 8) +
-                                 (ONEPASS ? kBq * (WARPS * 16 + 8) : 0)) +
+  return sizeof(bf16) * (size_t)(2 * WARPS * 16 * (D + 8) + 2 * kBq * (D + 8)) +
          sizeof(float) * 2 * kBq;
 }
 
-template <int D, int WARPS, bool ROPE, bool ONEPASS>
+template <int D, int WARPS, bool ROPE>
 __global__ void __launch_bounds__(WARPS * 32) flash_bwd_kv_kernel(BwdParams p) {
   constexpr int THREADS = WARPS * 32;
   constexpr int BK = WARPS * 16;  // keys per CTA
   constexpr int LD = D + 8;       // padded rows: conflict-free fragment loads
-  constexpr int LDS = BK + 8;     // dS tile row stride (ONEPASS)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + BK * LD;
   bf16* sQ = sV + BK * LD;
   bf16* sG = sQ + kBq * LD;
-  bf16* sDS = sG + kBq * LD;
-  float* sL = reinterpret_cast<float*>(sDS + (ONEPASS ? kBq * LDS : 0));  // lse * log2(e)
-  float* sDl = sL + kBq;                                                  // delta
+  float* sL = reinterpret_cast<float*>(sG + kBq * LD);  // lse * log2(e)
+  float* sDl = sL + kBq;                                // delta
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -217,51 +207,6 @@ __global__ void __launch_bounds__(WARPS * 32) flash_bwd_kv_kernel(BwdParams p) {
         mma_bf16(dk[dt], da, pack_bf16_raw(qp[0], qp[LD]), pack_bf16_raw(qp[8 * LD], qp[9 * LD]));
       }
     }
-
-    if (ONEPASS) {
-      // dS (queries x keys) through shared memory, then this CTA's share of
-      // dQ = dS K for the Q tile: warp w takes query rows (w % 2) * 16 and a
-      // D / (WARPS / 2) wide slice of the head dim
-#pragma unroll
-      for (int nt = 0; nt < kBq / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sDS[(nt * 8 + 2 * t4 + (i & 1)) * LDS + kr + g + 8 * (i >> 1)] =
-              __float2bfloat16_rn(dp[nt][i]);
-      __syncthreads();
-      constexpr int NCOL = D / (WARPS / 2);
-      constexpr int NT = NCOL / 8;
-      const int mt = warp % 2;
-      const int c0 = (warp / 2) * NCOL;
-      float acc[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        load_a_frag(a, sDS, LDS, mt * 16, kk * 16);
-        const bf16* krow = sK + (kk * 16 + 2 * t4) * LD + c0 + g;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const bf16* kp = krow + j * 8;
-          mma_bf16(acc[j], a, pack_bf16_raw(kp[0], kp[LD]), pack_bf16_raw(kp[8 * LD], kp[9 * LD]));
-        }
-      }
-      const long long r0 = q0 + mt * 16 + g;
-      float* dqb = p.dq32 + b * p.sq * nd + (long long)h * D;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int d = c0 + j * 8 + 2 * t4;
-        if (r0 < p.sq) {
-          atomicAdd(dqb + r0 * nd + d, acc[j][0]);
-          atomicAdd(dqb + r0 * nd + d + 1, acc[j][1]);
-        }
-        if (r0 + 8 < p.sq) {
-          atomicAdd(dqb + (r0 + 8) * nd + d, acc[j][2]);
-          atomicAdd(dqb + (r0 + 8) * nd + d + 1, acc[j][3]);
-        }
-      }
-    }
   }
 
   // dK (scaled, rotated back) and dV, rounded once to bf16
@@ -278,28 +223,6 @@ __global__ void __launch_bounds__(WARPS * 32) flash_bwd_kv_kernel(BwdParams p) {
                     p.cos, p.sin, ROPE);
       store_pair<D>(dvb, row, nd, d, dv[dt][2 * r], dv[dt][2 * r + 1], nullptr, nullptr, false);
     }
-  }
-}
-
-// K4's epilogue: dq = bf16(rotate_back(scale * dq32)), elementwise over pairs
-template <int D, bool ROPE>
-__global__ void dq_finalize_kernel(const float* dq32, bf16* dq, const float* cos,
-                                   const float* sin, long long n_pairs, long long sq,
-                                   int n_heads, float scale) {
-  const long long pairs_per_row = (long long)n_heads * (D / 2);
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < n_pairs;
-       idx += (long long)gridDim.x * blockDim.x) {
-    float x0 = dq32[2 * idx] * scale, x1 = dq32[2 * idx + 1] * scale;
-    if (ROPE) {
-      const long long pos = (idx / pairs_per_row) % sq;
-      const long long i = pos * (D / 2) + (idx % (D / 2));
-      const float c = cos[i], s = sin[i];
-      const float y0 = x0 * c + x1 * s;
-      const float y1 = x1 * c - x0 * s;
-      x0 = y0;
-      x1 = y1;
-    }
-    reinterpret_cast<uint32_t*>(dq)[idx] = pack_bf16(x0, x1);
   }
 }
 
@@ -440,12 +363,12 @@ cudaError_t launch(Kernel kern, dim3 grid, int threads, size_t smem, cudaStream_
   return cudaGetLastError();
 }
 
-template <int D, int WARPS, bool ROPE, bool ONEPASS>
+template <int D, int WARPS, bool ROPE>
 cudaError_t launch_kv(const BwdParams& p, long long batch, cudaStream_t st) {
   const dim3 grid((unsigned)((p.sk + WARPS * 16 - 1) / (WARPS * 16)), (unsigned)p.n_heads,
                   (unsigned)batch);
-  return launch(flash_bwd_kv_kernel<D, WARPS, ROPE, ONEPASS>, grid, WARPS * 32,
-                kv_smem_bytes<D, WARPS, ONEPASS>(), st, p);
+  return launch(flash_bwd_kv_kernel<D, WARPS, ROPE>, grid, WARPS * 32, kv_smem_bytes<D, WARPS>(),
+                st, p);
 }
 
 template <int D, bool ROPE>
@@ -453,17 +376,6 @@ cudaError_t launch_dq(const BwdParams& p, long long batch, cudaStream_t st) {
   const dim3 grid((unsigned)((p.sq + kDqWarps * 16 - 1) / (kDqWarps * 16)),
                   (unsigned)p.n_heads, (unsigned)batch);
   return launch(flash_bwd_dq_kernel<D, ROPE>, grid, kDqWarps * 32, dq_smem_bytes<D>(), st, p);
-}
-
-template <bool ROPE>
-cudaError_t launch_onepass(const BwdParams& p, long long batch, cudaStream_t st) {
-  cudaError_t err = launch_kv<128, 8, ROPE, true>(p, batch, st);
-  if (err != cudaSuccess) return err;
-  const long long n_pairs = batch * p.sq * p.n_heads * 64;
-  const long long blocks = (n_pairs + 255) / 256;
-  dq_finalize_kernel<128, ROPE><<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0, st>>>(
-      p.dq32, reinterpret_cast<bf16*>(p.dq), p.cos, p.sin, n_pairs, p.sq, p.n_heads, p.scale);
-  return cudaGetLastError();
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v, const void* g,
@@ -498,23 +410,6 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* g
 // (>= max(Sq, Sk), D/2) f32 or null for no RoPE. Outputs are contiguous
 // (B, S, N*D) bf16. Each returns a cudaError_t value; 0 means launched.
 
-// K4. dq32: (B, Sq, N*D) f32 zeros, scratch for the cross-tile dq sum.
-extern "C" int svi_flash_bwd_onepass(int head_dim, const void* q, const void* k, const void* v,
-                                     const void* g, const float* lse, const float* delta,
-                                     const float* cos, const float* sin, float* dq32, void* dq,
-                                     void* dk, void* dv, long long batch, long long n_heads,
-                                     long long sq, long long sk, float scale,
-                                     const long long* strides, void* stream) {
-  if (head_dim != 128) return (int)cudaErrorInvalidValue;
-  BwdParams p = make_params(q, k, v, g, lse, delta, cos, sin, n_heads, sq, sk, scale, strides);
-  p.dq32 = dq32;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(cos ? launch_onepass<true>(p, batch, st) : launch_onepass<false>(p, batch, st));
-}
-
 // K5a.
 extern "C" int svi_flash_bwd_dq(int head_dim, const void* q, const void* k, const void* v,
                                 const void* g, const float* lse, const float* delta,
@@ -543,11 +438,11 @@ extern "C" int svi_flash_bwd_dkv(int head_dim, const void* q, const void* k, con
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return (int)(cos ? launch_kv<64, 4, true, false>(p, batch, st)
-                       : launch_kv<64, 4, false, false>(p, batch, st));
+      return (int)(cos ? launch_kv<64, 4, true>(p, batch, st)
+                       : launch_kv<64, 4, false>(p, batch, st));
     case 128:
-      return (int)(cos ? launch_kv<128, 4, true, false>(p, batch, st)
-                       : launch_kv<128, 4, false, false>(p, batch, st));
+      return (int)(cos ? launch_kv<128, 4, true>(p, batch, st)
+                       : launch_kv<128, 4, false>(p, batch, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

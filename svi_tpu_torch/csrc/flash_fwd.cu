@@ -18,15 +18,14 @@
 // A row whose keys are all masked gets out = 0 and a finite lse (l is clamped
 // to >= 1e-30 as the TPU kernel does, and m = -inf is reported as -1e30).
 //
-// Two instantiation families (bf16 with D = 128, every DiT attention, runs
-// the TMA + wgmma kernel of flash_fwd_sm90.cu instead):
-//   * bf16, D = 64: tensor cores through mma.sync m16n8k16 with f32
-//     accumulation. 4 warps x 16 query rows = 64 rows per CTA, 64-key tiles.
-//     P is rounded to bf16 for the P.V product (as the TPU kernel does);
-//     out is rounded to bf16 once, from the f32 accumulator.
-//   * f32, D in {32, 64, 80, 128, 384}: plain f32 FMA, no TF32. 8 threads per
-//     query row, 32 rows and 32-key tiles per CTA, all in dynamic shared memory
-//     (D = 384 needs ~150 KB, above the 48 KB static limit).
+// This file keeps bf16 with D = 64 (route "mma"): tensor cores through
+// mma.sync m16n8k16 with f32 accumulation, 4 warps x 16 query rows = 64 rows
+// per CTA, 64-key tiles. P is rounded to bf16 for the P.V product (as the TPU
+// kernel does); out is rounded to bf16 once, from the f32 accumulator. The
+// other routes moved out: bf16 with D = 128 (every DiT attention) to the TMA +
+// wgmma kernel of flash_fwd_sm90.cu, f32 (the VAE and CLIP) to the 3xTF32
+// tensor-core kernel of flash_fwd_f32.cu, which replaced the scalar f32 FMA
+// kernel of this file (its times are in PERF.md).
 // RoPE is applied to q and k tiles on load, from (S, D/2) f32 cos/sin tables:
 // pairs (2i, 2i+1) are adjacent, so the TPU's pair-expanded sign-baked tables
 // are not needed. The rotation is computed in f32 and rounded back to the
@@ -230,134 +229,6 @@ __global__ void __launch_bounds__(kThreads16) flash_fwd_bf16_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA path
-// ---------------------------------------------------------------------------
-
-constexpr int kBr32 = 32;   // query rows per CTA
-constexpr int kBc32 = 32;   // keys per tile
-constexpr int kThreads32 = 256;  // 8 threads per query row
-
-template <int D, int ROWS, bool ROPE>
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src,
-                                              long long row_stride, long long row0,
-                                              long long nrows, const float* cos,
-                                              const float* sin) {
-  constexpr int kPairs = D / 2;
-  for (int idx = threadIdx.x; idx < ROWS * kPairs; idx += kThreads32) {
-    const int r = idx / kPairs;
-    const int i = idx % kPairs;
-    const long long gr = row0 + r;
-    float x0 = 0.f, x1 = 0.f;
-    if (gr < nrows) {
-      x0 = src[gr * row_stride + 2 * i];
-      x1 = src[gr * row_stride + 2 * i + 1];
-      if (ROPE) {
-        const float c = cos[gr * kPairs + i], s = sin[gr * kPairs + i];
-        const float y0 = __fsub_rn(__fmul_rn(x0, c), __fmul_rn(x1, s));
-        const float y1 = __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
-        x0 = y0;
-        x1 = y1;
-      }
-    }
-    dst[r * ld + 2 * i] = x0;
-    dst[r * ld + 2 * i + 1] = x1;
-  }
-}
-
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(kBr32 * (D + 1) + kBc32 * (D + 1) + kBc32 * D + kBr32 * (kBc32 + 1));
-}
-
-template <int D, bool ROPE>
-__global__ void __launch_bounds__(kThreads32) flash_fwd_f32_kernel(Params p) {
-  constexpr int LDQ = D + 1;  // odd stride: rows of q/k land on distinct banks
-  constexpr int LDV = D;
-  constexpr int LDP = kBc32 + 1;
-  constexpr int DV = D / 8;   // output columns per thread
-  extern __shared__ float smf[];
-  float* sQ = smf;
-  float* sK = sQ + kBr32 * LDQ;
-  float* sV = sK + kBc32 * LDQ;
-  float* sP = sV + kBc32 * LDV;
-
-  const int r = threadIdx.x / 8;   // query row in the tile
-  const int c8 = threadIdx.x % 8;  // lane within the row's 8 threads
-  const long long q0 = (long long)blockIdx.x * kBr32;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-
-  const float* qb = reinterpret_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.n;
-  const float* kb = reinterpret_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.n;
-  const float* vb = reinterpret_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.n;
-  float* ob = reinterpret_cast<float*>(p.out) + b * p.os.b + h * p.os.n;
-
-  load_tile_f32<D, kBr32, ROPE>(sQ, LDQ, qb, p.qs.s, q0, p.sq, p.cos, p.sin);
-
-  float o[DV];
-#pragma unroll
-  for (int i = 0; i < DV; ++i) o[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  const long long n_tiles = (p.kv_end + kBc32 - 1) / kBc32;
-  for (long long j = 0; j < n_tiles; ++j) {
-    const long long k0 = j * kBc32;
-    __syncthreads();
-    load_tile_f32<D, kBc32, ROPE>(sK, LDQ, kb, p.ks.s, k0, p.sk, p.cos, p.sin);
-    load_tile_f32<D, kBc32, false>(sV, LDV, vb, p.vs.s, k0, p.sk, nullptr, nullptr);
-    __syncthreads();
-
-    float s[kBc32 / 8];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < kBc32 / 8; ++jj) {
-      const int c = c8 + 8 * jj;
-      const float* qr = sQ + r * LDQ;
-      const float* kr = sK + c * LDQ;
-      float a = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
-      float x = a * p.scale_log2;
-      if (k0 + c >= p.kv_end) x = -INFINITY;
-      s[jj] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float mn = fmaxf(m, warp_max_xor(mx, 8));
-    const float mu = (mn == -INFINITY) ? 0.f : mn;
-    const float alpha = exp2f(m - mu);
-    m = mn;
-    float rs = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kBc32 / 8; ++jj) {
-      const float e = exp2f(s[jj] - mu);
-      rs += e;
-      sP[r * LDP + c8 + 8 * jj] = e;
-    }
-    l = l * alpha + rs;
-    __syncwarp();  // a row's 8 threads share one warp
-#pragma unroll
-    for (int i = 0; i < DV; ++i) o[i] *= alpha;
-    for (int c = 0; c < kBc32; ++c) {
-      const float pc = sP[r * LDP + c];
-      const float* vr = sV + c * LDV + c8;
-#pragma unroll
-      for (int i = 0; i < DV; ++i) o[i] = fmaf(pc, vr[8 * i], o[i]);
-    }
-  }
-
-  l = warp_sum_xor(l, 8);
-  const long long row = q0 + r;
-  if (row < p.sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = ob + row * p.os.s + c8;
-#pragma unroll
-    for (int i = 0; i < DV; ++i) orow[8 * i] = o[i] * inv;
-    if (c8 == 0) p.lse[(b * p.n_heads + h) * p.sq + row] = lse_of(m, l);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------
 
@@ -372,37 +243,12 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D, bool ROPE>
-cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t st) {
-  const size_t smem = f32_smem_bytes<D>();
-  auto kern = flash_fwd_f32_kernel<D, ROPE>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads32, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
 template <bool ROPE>
-cudaError_t dispatch(int is_bf16, int head_dim, const Params& p, long long batch,
-                     cudaStream_t st) {
-  if (is_bf16) {
-    const dim3 grid((unsigned)((p.sq + kBr16 - 1) / kBr16), (unsigned)p.n_heads,
-                    (unsigned)batch);
-    // bf16 D = 128 is served by flash_fwd_sm90.cu
-    switch (head_dim) {
-      case 64: return launch_bf16<64, ROPE>(p, grid, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  const dim3 grid((unsigned)((p.sq + kBr32 - 1) / kBr32), (unsigned)p.n_heads,
-                  (unsigned)batch);
+cudaError_t dispatch(int head_dim, const Params& p, long long batch, cudaStream_t st) {
+  const dim3 grid((unsigned)((p.sq + kBr16 - 1) / kBr16), (unsigned)p.n_heads, (unsigned)batch);
+  // bf16 D = 128 is served by flash_fwd_sm90.cu, f32 by flash_fwd_f32.cu
   switch (head_dim) {
-    case 32: return launch_f32<32, ROPE>(p, grid, st);
-    case 64: return launch_f32<64, ROPE>(p, grid, st);
-    case 80: return launch_f32<80, ROPE>(p, grid, st);
-    case 128: return launch_f32<128, ROPE>(p, grid, st);
-    case 384: return launch_f32<384, ROPE>(p, grid, st);
+    case 64: return launch_bf16<64, ROPE>(p, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -411,7 +257,7 @@ cudaError_t dispatch(int is_bf16, int head_dim, const Params& p, long long batch
 
 // strides: 12 element strides, (b, s, n) for q, k, v, out in that order.
 // Returns a cudaError_t value; 0 means the kernel was launched.
-extern "C" int svi_flash_fwd(int is_bf16, int head_dim, int rope, const void* q,
+extern "C" int svi_flash_fwd(int head_dim, int rope, const void* q,
                              const void* k, const void* v, void* out, float* lse,
                              const float* cos, const float* sin, long long batch,
                              long long n_heads, long long sq, long long sk,
@@ -437,7 +283,7 @@ extern "C" int svi_flash_fwd(int is_bf16, int head_dim, int rope, const void* q,
   p.os = Strides{strides[9], strides[10], strides[11]};
   if (batch == 0 || n_heads == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t err = rope ? dispatch<true>(is_bf16, head_dim, p, batch, st)
-                               : dispatch<false>(is_bf16, head_dim, p, batch, st);
+  const cudaError_t err = rope ? dispatch<true>(head_dim, p, batch, st)
+                               : dispatch<false>(head_dim, p, batch, st);
   return (int)err;
 }

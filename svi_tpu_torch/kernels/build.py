@@ -24,7 +24,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
+F32_SOURCE = CSRC / "flash_fwd_f32.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
+BWD_SM90_SOURCE = CSRC / "flash_bwd_sm90.cu"
 Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
 UNPACK_SOURCE = CSRC / "quant_unpack.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
@@ -104,10 +106,11 @@ _STRIDES = ctypes.POINTER(_i64)
 
 @functools.lru_cache(maxsize=None)
 def load_flash_fwd() -> ctypes.CDLL:
-    """Build (if needed) and load the flash-forward library once per process."""
+    """Build (if needed) and load the bf16 D=64 forward (route "mma") once per
+    process."""
     lib = ctypes.CDLL(str(build(SOURCE).path))
     lib.svi_flash_fwd.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # is_bf16, head_dim, rope
+        ctypes.c_int, ctypes.c_int,  # head_dim, rope
         _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse, cos, sin
         _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
         ctypes.c_float,  # scale
@@ -115,6 +118,23 @@ def load_flash_fwd() -> ctypes.CDLL:
         _ptr,  # cudaStream_t
     ]
     lib.svi_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_fwd_f32() -> ctypes.CDLL:
+    """Build (if needed) and load the f32 forward (3xTF32 tensor cores) once
+    per process."""
+    lib = ctypes.CDLL(str(build(F32_SOURCE).path))
+    lib.svi_flash_fwd_f32.argtypes = [
+        ctypes.c_int,  # head_dim
+        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse, cos, sin
+        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
+        ctypes.c_float,  # scale
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_flash_fwd_f32.restype = ctypes.c_int
     return lib
 
 
@@ -143,16 +163,33 @@ def load_flash_fwd_sm90() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_flash_bwd() -> ctypes.CDLL:
-    """Build (if needed) and load the flash-backward library once per process."""
+    """Build (if needed) and load the split backward (K5a, K5b) once per process."""
     lib = ctypes.CDLL(str(build(BWD_SOURCE).path))
     head = [ctypes.c_int, _ptr, _ptr, _ptr, _ptr,  # head_dim, q, k, v, dO
             _ptr, _ptr, _ptr, _ptr]  # lse, delta, cos, sin
     tail = [_i64, _i64, _i64, _i64, ctypes.c_float, _STRIDES, _ptr]  # b, n, sq, sk, scale, ., stream
-    lib.svi_flash_bwd_onepass.argtypes = head + [_ptr, _ptr, _ptr, _ptr] + tail  # dq32, dq, dk, dv
     lib.svi_flash_bwd_dq.argtypes = head + [_ptr] + tail  # dq
     lib.svi_flash_bwd_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
-    for fn in (lib.svi_flash_bwd_onepass, lib.svi_flash_bwd_dq, lib.svi_flash_bwd_dkv):
+    for fn in (lib.svi_flash_bwd_dq, lib.svi_flash_bwd_dkv):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_bwd_sm90() -> ctypes.CDLL:
+    """Build (if needed) and load the one-pass backward (K4: TMA + wgmma) once
+    per process."""
+    lib = ctypes.CDLL(str(build(BWD_SM90_SOURCE).path))
+    lib.svi_flash_bwd_sm90.argtypes = [
+        _ptr, _ptr, _ptr, _ptr,  # q, k (rotated), v, dO
+        _ptr, _ptr, _ptr, _ptr,  # lse * log2(e), delta (padded), cos, sin
+        _ptr, _ptr, _ptr, _ptr,  # dq32, dq, dk, dv
+        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, sq_pad
+        ctypes.c_float,  # scale
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_flash_bwd_sm90.restype = ctypes.c_int
     return lib
 
 

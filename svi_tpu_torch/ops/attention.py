@@ -23,10 +23,13 @@ nothing else):
 The forward entries (a layout is only strides) take the route `_fwd_route`
 names for the dtype and head dim: bf16 D = 128 (every DiT attention) runs
 csrc/flash_fwd_sm90.cu (TMA + wgmma, warp-specialised), after its RoPE
-pre-pass `rope_rotate_flat` when tables are given; bf16 D = 64 and f32 run
+pre-pass `rope_rotate_flat` when tables are given; f32 (the VAE, CLIP)
+runs csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores); bf16 D = 64 runs
 csrc/flash_fwd.cu. Each entry counts its launches per (route, dtype,
-head_dim) in `.routes`. The backward entries launch csrc/flash_bwd.cu, the
-int8 forward csrc/flash_fwd_q8.cu.
+head_dim) in `.routes`. The one-pass backward (K4) launches
+csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass,
+the split backward (K5a, K5b) csrc/flash_bwd.cu, the int8 forward
+csrc/flash_fwd_q8.cu.
 Dispatch: tensors on the CPU take the plain PyTorch version
 (`_flash_fwd_reference`, `_flash_bwd_reference`, which mirror the JAX
 package's `_flash_fwd_xla` and `_flash_bwd_xla`, and
@@ -50,9 +53,10 @@ from typing import Optional
 import torch
 
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 # the forward kernel that serves each (dtype, head_dim) on the card: 'sm90'
-# is csrc/flash_fwd_sm90.cu (TMA + wgmma, every DiT attention), 'mma' and
-# 'f32' the mma.sync and FMA paths of csrc/flash_fwd.cu
+# is csrc/flash_fwd_sm90.cu (TMA + wgmma, every DiT attention), 'f32'
+# csrc/flash_fwd_f32.cu (3xTF32 mma.sync), 'mma' csrc/flash_fwd.cu (mma.sync)
 _FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
                **{(torch.float32, d): "f32" for d in (32, 64, 80, 128, 384)}}
 _KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
@@ -156,9 +160,9 @@ def _check_kernel_tensors(what: str, named: dict, head_dims: dict, cos, sin) -> 
     for name, t in named.items():
         if t.stride(-1) != 1:
             raise ValueError(f"{what} kernel: {name} must be contiguous in its last dim")
-        if dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"{what} kernel: bf16 {name} must be 16-byte aligned "
-                             "with strides that are multiples of 8")
+        if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{what} kernel: {name} must be 16-byte aligned with strides "
+                             "that are multiples of 16 bytes")
     if cos is not None:
         if cos.dtype != torch.float32 or sin.dtype != torch.float32 \
                 or not cos.is_contiguous() or not sin.is_contiguous():
@@ -173,7 +177,7 @@ def _strides12(*views) -> ctypes.Array:
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel a CUDA call at (dtype, head_dim) takes: 'sm90'
     (bf16, D = 128), 'mma' (bf16, D = 64) or 'f32' (f32, D in 32, 64, 80,
-    128, 384). Raises for any other pair: nothing falls back."""
+    128, 384; 3xTF32). Raises for any other pair: nothing falls back."""
     if dtype not in _KERNEL_HEAD_DIMS:
         raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
     route = _FWD_ROUTES.get((dtype, head_dim))
@@ -253,17 +257,19 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
                 "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
                 "CUresult r)")
     else:
-        from ..kernels.build import load_flash_fwd
+        from ..kernels.build import load_flash_fwd, load_flash_fwd_f32
 
-        err = load_flash_fwd().svi_flash_fwd(
-            int(dtype == torch.bfloat16), d, int(cos is not None),
-            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
-            cos.data_ptr() if cos is not None else None,
-            sin.data_ptr() if sin is not None else None,
-            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream,
-        )
+        tables = (cos.data_ptr() if cos is not None else None,
+                  sin.data_ptr() if sin is not None else None)
+        tail = (b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4),
+                stream)
+        ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr())
+        if route == "f32":
+            err = load_flash_fwd_f32().svi_flash_fwd_f32(d, *ptrs, *tables, *tail)
+        else:
+            err = load_flash_fwd().svi_flash_fwd(d, int(cos is not None), *ptrs, *tables, *tail)
         if err != 0:
-            raise RuntimeError(f"flash forward kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"flash forward ({route}) launch failed: cudaError {err}")
     return lse, (route, str(dtype).removeprefix("torch."), d)
 
 
@@ -407,7 +413,7 @@ def _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin):
 
 
 def _launch_bwd(entry: str, q4, k4, v4, o4, lse, g4, cos, sin, scale: float, outs) -> None:
-    """Launch one backward entry of csrc/flash_bwd.cu on the current stream.
+    """Launch one split-backward entry of csrc/flash_bwd.cu on the current stream.
     delta = rowsum(dO * O) in f32 is computed here, outside the kernel, as the
     JAX package computes it outside its kernels."""
     _check_kernel_tensors("flash backward", dict(q=q4, k=k4, v=v4, dO=g4), _BWD_HEAD_DIMS,
@@ -435,26 +441,66 @@ def _plain_bwd_flat(views, lse, cos, sin, kv_len, scale):
                                                            kv_len, scale))
 
 
+_ONEPASS_ROWS = 64  # query rows per step of csrc/flash_bwd_sm90.cu
+
+
+def _launch_bwd_sm90(q4, k4, v4, o4, lse, g4, cos, sin, scale: float):
+    """Launch csrc/flash_bwd_sm90.cu (K4) and its dq finalize on the current
+    stream. With RoPE, q and k are first rotated by the forward's pre-pass
+    (`_rope_rotate4`, bit-identical to the rotation the forward applied), as
+    the JAX package rotates them outside its one-pass kernel; the kernel
+    rotates dk back and the finalize dq. lse * log2(e) and delta =
+    rowsum(dO * O) are padded to a multiple of the kernel's 64-row step with
+    +inf and 0, so that queries past Sq get P = 0. Returns (dq, dk, dv) flat."""
+    _check_kernel_tensors("one-pass flash backward", dict(q=q4, k=k4, v=v4, dO=g4),
+                          {torch.bfloat16: (128,)}, cos, sin)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous float32 (B, N, Sq)")
+    b, sq, n, d = q4.shape
+    sk = k4.shape[1]
+    if cos is not None:
+        q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
+    pad = _ceil_to(sq, _ONEPASS_ROWS) - sq
+    lse2 = torch.nn.functional.pad(lse * _LOG2E, (0, pad), value=float("inf"))
+    # one f32 copy of dO, multiplied in place by O (promoted as it is read)
+    delta = torch.nn.functional.pad(g4.float().mul_(o4).sum(-1).transpose(1, 2),
+                                    (0, pad)).contiguous()
+    dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device)
+    dq = torch.empty((b, sq, n * d), dtype=q4.dtype, device=q4.device)
+    dk = torch.empty((b, sk, n * d), dtype=k4.dtype, device=k4.device)
+    dv = torch.empty((b, sk, n * d), dtype=v4.dtype, device=v4.device)
+    from ..kernels.build import load_flash_bwd_sm90
+
+    err = load_flash_bwd_sm90().svi_flash_bwd_sm90(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None, dq32.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, n, sq, sk, sq + pad, float(scale),
+        _strides12(q4, k4, v4, g4), torch.cuda.current_stream(q4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"one-pass flash backward (sm90) launch failed: code {err} (a cudaError; 10000: "
+            "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
+            "CUresult r)")
+    return dq, dk, dv
+
+
 def flash_bwd_onepass(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                       scale: Optional[float] = None):
     """K4's contract (`_bwd_onepass_kernel_flat`): q, k, v, out, dO flat
     (B, S, N*D), lse (B, N, Sq) from the forward, cos/sin (>= S, D/2) RoPE
     tables of the forward. Returns (dq, dk, dv), flat, contiguous, in q's
-    dtype; dq is summed across KV tiles in f32 before it is rounded."""
+    dtype; dq is summed across KV tiles in f32 before it is rounded. The
+    kernel (csrc/flash_bwd_sm90.cu) takes bf16 with head_dim 128."""
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
         return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)
     if head_dim != 128:
         raise ValueError(f"flash_bwd_onepass: head_dim {head_dim}; the kernel is built for 128")
-    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("svi_flash_bwd_onepass", *views[:4], lse, views[4], cos, sin, scale,
-                (dq32, dq, dk, dv))
+    grads = _launch_bwd_sm90(*views[:4], lse, views[4], cos, sin, scale)
     flash_bwd_onepass.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_bwd_onepass.launches = 0
@@ -528,7 +574,6 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
 # Int8 forward (K6): the operand prep, the plain version, the kernel entry
 # ---------------------------------------------------------------------------
 
-_LOG2E = 1.4426950408889634
 _LOG2_127 = 6.9886846867721655  # log2(127): the qk8pv8 shift that puts P in [0, 127]
 Q8_BLOCK_K = 64  # keys per tile of csrc/flash_fwd_q8.cu: its row max runs per tile
 _Q8_HEAD_DIMS = (64, 128)

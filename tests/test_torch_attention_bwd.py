@@ -180,3 +180,31 @@ def test_backward_input_checks():
         tattn.flash_bwd_dq(q, q, q, out, lse[:, :1], q, 64)
     with pytest.raises(ValueError, match="dO"):
         tattn.flash_bwd_dkv(q, q, q, out, lse, q[:, :4], 64)
+
+
+def test_onepass_with_rope_equals_the_backward_on_prerotated_inputs():
+    """The card's K4 is given q and k rotated by `rope_rotate_flat` (as the
+    JAX package rotates them outside its one-pass kernel) and rotates dq and
+    dk back. On the CPU, flash_bwd_onepass with RoPE tables equals that
+    route: the backward on the pre-rotated q and k, with dq and dk rotated
+    by the inverse rotation; both match jax.grad of the JAX package's XLA
+    path at the one-pass route."""
+    b, s, n, d = 1, 4096, 1, 128
+    assert tattn._bwd_route(n, d, s, s, s) == _jax_route(n, d, s, s, s) == "onepass"
+    rng = np.random.default_rng(17)
+    q, k, v, g = (_rand(rng, (b, s, n * d)) for _ in range(4))
+    cos, sin = jrope.rope_angles_for_grid((4, 32, 32), d)
+    qt, kt, vt, gt, ct, st = (torch.from_numpy(x) for x in (q, k, v, g, cos, sin))
+    out, lse = tattn.flash_fwd_flat(qt, kt, vt, d, cos=ct, sin=st)
+    fused = tattn.flash_bwd_onepass(qt, kt, vt, out, lse, gt, d, cos=ct, sin=st)
+    qr, kr = tattn.rope_rotate_flat(qt, ct, st, d), tattn.rope_rotate_flat(kt, ct, st, d)
+    dqr, dkr, dv = tattn.flash_bwd_onepass(qr, kr, vt, out, lse, gt, d)
+
+    def back(x):
+        return tattn._apply_rope_reference(x.unflatten(-1, (n, d)), ct, -st).flatten(2)
+
+    want = _jax_grads(q, k, v, g, d, cos, sin, None)
+    for name, x, y, ref in zip(("dq", "dk", "dv"), fused, (back(dqr), back(dkr), dv), want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-6, rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)

@@ -1,7 +1,7 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
-bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, f32 FMA --, the K4
-/ K5a / K5b backward, the K3 int4 unpack and the K6 int8 forward) against
-their plain PyTorch versions, on the card.
+bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, 3xTF32 for f32 --,
+the K4 backward (TMA + wgmma), the K5a / K5b backward, the K3 int4 unpack and
+the K6 int8 forward) against their plain PyTorch versions, on the card.
 
 Marked `cuda`; every test skips where torch sees no CUDA device. Run on a
 machine with an H100 and nvcc (no JAX there, so without the JAX conftest):
@@ -20,7 +20,8 @@ pytestmark = pytest.mark.cuda
 # wrong P.V on some key tiles fails where a typical |out| is under 2e-2; lse
 # comes from f32 scores of bf16 inputs
 BF16_OUT_TOL, BF16_OUT_REL, BF16_LSE_TOL = 2e-2, 2e-2, 1e-3
-# f32 FMA path against f32 PyTorch (no TF32): summation order only
+# f32 path (3xTF32: about 2^-21 relative per product) against f32 PyTorch
+# (no TF32): f32-level rounding and the order of sums
 F32_TOL = 1e-4
 
 
@@ -178,6 +179,38 @@ def test_f32_bnsd_kernel_matches_plain(d):
     _check(got, (o_ref.transpose(1, 2), lse_ref), F32_TOL, F32_TOL)
 
 
+def _f32_launches():
+    return sum(n for entry in (tattn.flash_fwd_flat, tattn.flash_fwd_bnsd)
+               for key, n in entry.routes.items() if key[0] == "f32")
+
+
+@pytest.mark.parametrize("kv_len", [None, 211, 0])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 384])
+def test_f32_tc_kernel_matches_plain(d, rope, kv_len):
+    """The 3xTF32 route at every head dim: Sq = 70 ragged against the 32- and
+    64-row tiles, Sk = 300 (5 key tiles of 64, 10 of 32: the 2-stage K/V ring
+    wraps at least twice), kv_len mid-tile (211) and 0 (every row masked: out
+    0, finite lse)."""
+    b, n, sq, sk = 2, 2, 70, 300
+    q = _rand((b, sq, n * d), torch.float32, 80)
+    k = _rand((b, sk, n * d), torch.float32, 81)
+    v = _rand((b, sk, n * d), torch.float32, 82)
+    cos, sin = _tables(sk, d) if rope else (None, None)
+    before = _f32_launches()
+    got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _f32_launches() == before + 1
+    kv = sk if kv_len is None else kv_len
+    if kv == 0:
+        assert (got[0] == 0).all() and torch.isfinite(got[1]).all()
+        assert (got[1] <= -1e30).all()
+        return
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (n, d)) for t in (q, k, v)), cos, sin, kv, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), F32_TOL, F32_TOL)
+
+
 def test_f32_strided_single_head_like_the_vae():
     """q, k, v as column slices of one qkv tensor (row stride 3c), as the VAE
     mid-block attention hands them over."""
@@ -220,8 +253,8 @@ def test_unsupported_head_dim_raises():
 
 # bf16 gradients against the plain f32 backward of the same bf16 inputs: the
 # kernels round P and dS to bf16 before the products that consume them and
-# round each gradient once to bf16 (2^-8 relative); K4 also sums dq with f32
-# atomics in an order that changes from run to run. 2% of the gradient's
+# round each gradient once to bf16 (2^-8 relative); K4 also sums dq in f32
+# (TMA reduce-adds) in an order that changes from run to run. 2% of the gradient's
 # largest magnitude covers both with room, and is far below what a wrong
 # tile, mask or rotation gives (errors of the gradient's own size).
 BWD_REL_TOL = 2e-2
@@ -254,8 +287,11 @@ def _check_grads(got, want):
 
 
 @pytest.mark.parametrize("rope", [True, False])
-@pytest.mark.parametrize("sq,sk", [(300, 300), (77, 189)])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (77, 189), (700, 600)])
 def test_onepass_bwd_kernel_matches_plain(rope, sq, sk):
+    """K4 (TMA + wgmma): ragged Sq and Sk against the 64-row and 128-key
+    tiles; (700, 600) has 5 key tiles (CTAs) and 11 query steps, so the
+    2-stage Q / dO ring and the double-buffered dS wrap several times."""
     d, n, b = 128, 3, 2
     args = _bwd_inputs(b, sq, sk, n, d, rope, 10)
     before = tattn.flash_bwd_onepass.launches
@@ -293,6 +329,22 @@ def test_autograd_routes_to_the_kernels(sk, route):
     torch.cuda.synchronize()
     used = [c.launches - b for c, b in zip(counters, before)]
     assert used == ([1, 0, 0] if route == "onepass" else [0, 1, 1])
+    out_ref, lse = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
+    _check_grads([t.grad for t in leaves], _plain_bwd(q, k, v, out_ref, lse, g, d, cos, sin))
+
+
+def test_onepass_autograd_at_the_gate_with_a_ragged_edge():
+    """S = 4100 (past the gate, not a multiple of 64 or 128) through the
+    autograd op with RoPE: the backward takes K4 and matches the plain
+    version."""
+    d, s = 128, 4100
+    q, k, v, _, _, g, cos, sin = _bwd_inputs(1, s, s, 2, d, True, 35)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tattn.flash_bwd_onepass.launches
+    out = tattn.flash_attention_flat(*leaves, d, cos=cos, sin=sin)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert tattn.flash_bwd_onepass.launches == before + 1
     out_ref, lse = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
     _check_grads([t.grad for t in leaves], _plain_bwd(q, k, v, out_ref, lse, g, d, cos, sin))
 

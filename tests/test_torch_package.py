@@ -53,7 +53,9 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
     # each source under csrc/ builds into a library of its own
     assert build.library_path(build.BWD_SOURCE).name.startswith("libflash_bwd_")
     assert build.BWD_SOURCE in build.CSRC.glob("*.cu")
-    for source, stem in ((build.Q8_SOURCE, "flash_fwd_q8"), (build.UNPACK_SOURCE, "quant_unpack")):
+    for source, stem in ((build.Q8_SOURCE, "flash_fwd_q8"), (build.UNPACK_SOURCE, "quant_unpack"),
+                         (build.F32_SOURCE, "flash_fwd_f32"),
+                         (build.BWD_SM90_SOURCE, "flash_bwd_sm90")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
         assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
