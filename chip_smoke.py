@@ -26,7 +26,8 @@ non-zero exit and no result line:
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
      card against the same trainer on the CPU, then (b) 4 training steps of
      rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
-     on a batch made by the port's own frozen encoders;
+     on a batch made by the port's own frozen encoders; both fail unless
+     every bf16 D=128 split backward (K5a, K5b) took the sm90 kernels;
   6. a JSON line of the kernels, the nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -123,9 +124,9 @@ FORWARD_FRAMES = 81  # the reference's clip length: one forward at its token cou
 # training: 21 frames -> 6 latent frames -> 6 x 30 x 52 = 9360 tokens (K4's gate)
 TRAIN_FRAMES, TRAIN_STEPS = 21, 4
 
-# entry or "entry/route" -> (source, the TPU kernel it replaces); a forward
-# entry whose routes launch different kernels has one name per route, counted
-# from its per-route counter
+# entry or "entry/route" -> (source, the TPU kernel it replaces); an entry
+# whose routes launch different kernels has one name per route, counted from
+# its per-route counter
 KERNELS = {
     "flash_fwd_flat/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                             "svi_tpu/ops/attention.py:75"),
@@ -136,8 +137,10 @@ KERNELS = {
     "flash_fwd_bnsd": ("svi_tpu_torch/csrc/flash_fwd_f32.cu", "svi_tpu/ops/attention.py:465"),
     "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd_sm90.cu",
                           "svi_tpu/ops/attention.py:721"),
-    "flash_bwd_dq": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:585"),
-    "flash_bwd_dkv": ("svi_tpu_torch/csrc/flash_bwd.cu", "svi_tpu/ops/attention.py:646"),
+    "flash_bwd_dq/sm90": ("svi_tpu_torch/csrc/flash_bwd_split_sm90.cu",
+                          "svi_tpu/ops/attention.py:585"),
+    "flash_bwd_dkv/sm90": ("svi_tpu_torch/csrc/flash_bwd_split_sm90.cu",
+                           "svi_tpu/ops/attention.py:646"),
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
                             "svi_tpu/ops/quant_matmul.py:33"),
     "flash_fwd_flat_q8": ("svi_tpu_torch/csrc/flash_fwd_q8.cu", "svi_tpu/ops/attention.py:289"),
@@ -149,8 +152,8 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "rope_rotate_flat": "rope_prepass",
               "flash_fwd_bnsd": "clip_vit_h",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
-              "flash_bwd_dq": "dit_text_cross_attn_bwd",
-              "flash_bwd_dkv": "dit_text_cross_attn_bwd", "unpack_requant_int4": "ffn_0",
+              "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
+              "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd", "unpack_requant_int4": "ffn_0",
               "flash_fwd_flat_q8": "dit_self_attn_q8_qk8"}
 
 
@@ -233,7 +236,8 @@ def launch_counters():
 
 def zero_counts() -> None:
     for fn, _ in launch_counters().values():
-        fn.launches = 0
+        if hasattr(fn, "launches"):
+            fn.launches = 0
         if hasattr(fn, "routes"):
             fn.routes.clear()
 
@@ -262,6 +266,24 @@ def check_fwd_routes(path: str, need_f32: bool = False) -> dict:
     if any(not k.startswith("f32/") for k in f32) or (need_f32 and not f32):
         raise RuntimeError(f"{path}: an f32 forward took a route other than f32, or none ran: "
                            f"{routes}")
+    return routes
+
+
+def check_split_routes(path: str) -> dict:
+    """The split backward's launches per (route, dtype, head_dim) since the
+    counts were zeroed; fails unless every bf16 D=128 launch of K5a and K5b
+    took the sm90 kernels and at least one of each did."""
+    from svi_tpu_torch.ops import attention as A
+
+    routes = {}
+    for entry in (A.flash_bwd_dq, A.flash_bwd_dkv):
+        name = entry.__name__
+        for key, n in entry.routes.items():
+            routes[f"{name}/" + "/".join(map(str, key))] = n
+        d128 = {k[0] for k in entry.routes if k[1:] == ("bfloat16", 128)}
+        if d128 != {"sm90"}:
+            raise RuntimeError(f"{path}: a bf16 D=128 {name} launch took a route other than "
+                               f"sm90, or none ran: {routes}")
     return routes
 
 
@@ -362,8 +384,8 @@ def kernel_cases():
         if route == "onepass":
             kernels = {"flash_bwd_onepass": lambda: A.flash_bwd_onepass(*args, **rope)}
         else:
-            kernels = {"flash_bwd_dq": lambda: A.flash_bwd_dq(*args, **rope),
-                       "flash_bwd_dkv": lambda: A.flash_bwd_dkv(*args, **rope)}
+            kernels = {"flash_bwd_dq/sm90": lambda: A.flash_bwd_dq(*args, **rope),
+                       "flash_bwd_dkv/sm90": lambda: A.flash_bwd_dkv(*args, **rope)}
 
         def plain():
             views = [t.unflatten(-1, (n, d)) for t in (q, k, v, out)]
@@ -377,14 +399,25 @@ def kernel_cases():
                 got["flash_bwd_onepass"] = kernels["flash_bwd_onepass"]()
                 pairs = {"flash_bwd_onepass": (0, 1, 2)}
             else:
-                got["flash_bwd_dq"] = (kernels["flash_bwd_dq"](),)
-                got["flash_bwd_dkv"] = kernels["flash_bwd_dkv"]()
-                pairs = {"flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
+                got["flash_bwd_dq/sm90"] = (kernels["flash_bwd_dq/sm90"](),)
+                got["flash_bwd_dkv/sm90"] = kernels["flash_bwd_dkv/sm90"]()
+                pairs = {"flash_bwd_dq/sm90": (0,), "flash_bwd_dkv/sm90": (1, 2)}
             res = {}
             for entry, idx in pairs.items():
                 res[entry] = worst(*((err(x, ref[i]),
                                       BF16_GRAD_REL_BOUND * ref[i].float().abs().max().item())
                                      for x, i in zip(got[entry], idx)))
+            if route == "split":
+                # the prep both kernels read: lse * log2(e) bit for bit, delta
+                # an f32 sum of 128 products in another order
+                o4, g4 = out.unflatten(-1, (n, d)), g.unflatten(-1, (n, d))
+                lse2, delta = A._bwd_prep(o4, g4, lse, A._SPLIT_ROWS)
+                want = A._bwd_prep_reference(o4, g4, lse, lse2.shape[-1])
+                prep_err = max(0.0 if torch.equal(lse2, want[0]) else float("inf"),
+                               err(delta, want[1]) / want[1].abs().max().item())
+                log(f"[bwd-prep] {name}: lse2 {'bit-exact' if prep_err < float('inf') else 'DIFFERS'}, "
+                    f"delta max err {prep_err:.3e} of the largest |delta| (bound 1e-5)")
+                res["flash_bwd_dq/sm90"] = worst(res["flash_bwd_dq/sm90"], (prep_err, 1e-5))
             return res
 
         leaves = [heads_first(q, n, d, cos, sin).detach().requires_grad_(),
@@ -404,11 +437,14 @@ def kernel_cases():
         mm = 2 * b * n * sq * sk * d  # one matrix product of the backward
         io = _nbytes(q, k, v, out, g) + 4 * b * n * sq  # inputs (lse f32)
         work = {"flash_bwd_onepass": (5 * mm, io + _nbytes(q, k, v), PEAK_BF16),
-                "flash_bwd_dq": (3 * mm, io + _nbytes(q), PEAK_BF16),
-                "flash_bwd_dkv": (4 * mm, io + _nbytes(k, v), PEAK_BF16)}
+                "flash_bwd_dq/sm90": (3 * mm, io + _nbytes(q), PEAK_BF16),
+                "flash_bwd_dkv/sm90": (4 * mm, io + _nbytes(k, v), PEAK_BF16)}
+        extra = {} if route == "onepass" else dict(
+            split=lambda: A.flash_bwd_flat(q, k, v, out, lse, g, d, **rope))
         return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
                     kernels=kernels, plain=plain, library=library,
-                    library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels})
+                    library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels},
+                    **extra)
 
     def rope_case(name, b, s, n, d, grid):
         """The sm90 route's RoPE pre-pass on q and k, held bit for bit against
@@ -613,9 +649,29 @@ def phase_kernels(card: str):
             if not row["ok"]:
                 raise RuntimeError(f"{case['case']}: {entry} disagrees with the plain version")
             rows.append(row)
+        if "split" in case:
+            split_summary(case, rows[-2:], card)
         del case
         torch.cuda.empty_cache()
     return rows
+
+
+def split_summary(case: dict, pair: list, card: str) -> None:
+    """K5a and K5b of one split-backward case side by side: each call's
+    CUDA-event and device time (each computes its own delta), their sum, the
+    whole backward as flash_bwd_flat runs it (one prep for both), SDPA's
+    backward alone and the bounds."""
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    dq, dkv = pair
+    flat_ms, flat_dev = median_ms(case["split"], 5), device_ms(case["split"])
+    both = None if dq["device_ms"] is None else dq["device_ms"] + dkv["device_ms"]
+    log(f"[bwd-split] {case['case']} {case['shape']}: K5a {dq['ms']:.4f} ms (device "
+        f"{fmt(dq['device_ms'])}), K5b {dkv['ms']:.4f} ms (device {fmt(dkv['device_ms'])}); "
+        f"the two calls' device time {fmt(both)} ms; flash_bwd_flat (one prep) {flat_ms:.4f} "
+        f"ms (device {fmt(flat_dev)}); SDPA bwd {dq['library_ms']:.4f} ms; bounds "
+        f"{dq['bound_ms']:.4f} / {dkv['bound_ms']:.4f} ms; {card}")
 
 
 def int8_gemm_context(card: str) -> None:
@@ -942,6 +998,8 @@ def device_time_breakdown(fn) -> str:
             group = "K6"
         elif "flash_fwd" in name:  # flash_fwd.cu and flash_fwd_sm90.cu with its RoPE pre-pass
             group = "K1/K2"
+        elif "flash_bwd" in name or "finalize_grad" in name:
+            group = "K4/K5"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
             group = "GEMMs"
         else:
@@ -1083,8 +1141,8 @@ def phase_small_trainer():
     """A tiny bf16 trainer on the card against the same trainer on the CPU,
     3 steps on one batch. One head of 128 and 4 x 32 x 32 = 4096 tokens, so
     the card's self-attention backward takes K4 and its cross-attention
-    (257 image and 512 text tokens) K5a + K5b; the CPU takes the plain
-    backward."""
+    (257 image and 512 text tokens) K5a + K5b on their sm90 route (the run
+    fails otherwise); the CPU takes the plain backward."""
     from svi_tpu_torch.models import wan_dit
     from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
     from svi_tpu_torch.training import lora as lora_mod
@@ -1119,6 +1177,8 @@ def phase_small_trainer():
             m = trainer.training_step(lat, ctx, y=y, clip_feature=clip)
             steps.append((m["loss"], m["grad_norm"], _lora_deltas(trainer.lora, start)))
         runs[device] = (steps, read_counts(), trainer.buffers.stats())
+        if device == "cuda":
+            check_split_routes("the tiny trainer")
     loss_err = norm_err = 0.0
     min_cos = 1.0
     for i, ((lg, ng, dg), (lc, nc, dc)) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
@@ -1137,8 +1197,8 @@ def phase_small_trainer():
     # components whose gradient is within that noise of zero
     ok = (loss_err <= 2e-2 and norm_err <= 5e-2 and min_cos >= 0.9
           and runs["cuda"][2] == runs["cpu"][2]
-          and min(counts[k] for k in ("flash_fwd_flat/sm90", "flash_bwd_onepass", "flash_bwd_dq",
-                                      "flash_bwd_dkv")) > 0)
+          and min(counts[k] for k in ("flash_fwd_flat/sm90", "flash_bwd_onepass",
+                                      "flash_bwd_dq/sm90", "flash_bwd_dkv/sm90")) > 0)
     log(f"[train-small] card vs CPU, 3 steps: loss rel err {loss_err:.2e} (bound 2e-2), "
         f"grad_norm rel err {norm_err:.2e} (bound 5e-2), min cosine {min_cos:.5f} "
         f"(bound 0.9), buffers {runs['cuda'][2]} vs {runs['cpu'][2]}, card launches {counts}")
@@ -1216,11 +1276,12 @@ def phase_training():
                 b_start))
     launches = read_counts()
     routes = check_fwd_routes("the training path", need_f32=True)
+    split_routes = check_split_routes("the training path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics)
     log(f"[train] {TRAIN_STEPS} steps: seconds per step {step_s}, steady {step_s[-1]:.3f}s, "
         f"peak memory {peak_gib:.2f} GiB, LoRA B max move after step 1 {b_moved:.3e}, "
-        f"launches {launches}, forward routes {routes}")
+        f"launches {launches}, forward routes {routes}, split backward routes {split_routes}")
     if not finite:
         raise RuntimeError("a training loss or grad_norm is not finite")
     if not b_moved > 0:
@@ -1236,6 +1297,11 @@ def phase_training():
     if launches["flash_bwd_onepass"] != k4_expected:
         raise RuntimeError(f"{launches['flash_bwd_onepass']} one-pass backward launches on the "
                            f"training path, expected {k4_expected}")
+    # and its text and image cross-attention backward K5a + K5b on the sm90 route
+    for entry in ("flash_bwd_dq/sm90", "flash_bwd_dkv/sm90"):
+        if launches[entry] != 2 * k4_expected:
+            raise RuntimeError(f"{launches[entry]} {entry} launches on the training path, "
+                               f"expected {2 * k4_expected}")
     del trainer, dit
     torch.cuda.empty_cache()
     return launches, step_s, peak_gib
@@ -1274,6 +1340,7 @@ def main() -> int:
     build.load_flash_fwd_f32()
     build.load_flash_bwd()
     build.load_flash_bwd_sm90()
+    build.load_flash_bwd_split_sm90()
     build.load_flash_fwd_q8()
     build.load_quant_unpack()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")

@@ -1,15 +1,15 @@
-// Non-causal flash-attention backward for Hopper (sm_90a), plain C interface.
+// Non-causal flash-attention backward for Hopper (sm_90a) on mma.sync, bf16
+// head dim 64. Plain C interface.
 //
-// Replaces the split backward of the JAX package (svi_tpu/ops/attention.py):
-//   * K5a _bwd_dq_kernel_flat and K5b _bwd_dkv_kernel_flat (launched by
-//     _flash_bwd_pallas_flat): dq over KV tiles and dk/dv over Q tiles, with
-//     RoPE applied in the kernel and dq/dk rotated back. Chosen for
-//     cross-attention (Sk = 512 text, 257 image tokens) and short
-//     self-attention.
-// K4 (_bwd_onepass_kernel_flat, long self-attention) lived here as a second
-// instantiation of the dK/dV kernel that also summed dq with f32 atomics; it
-// moved to the TMA + wgmma kernel of flash_bwd_sm90.cu (its earlier times are
-// in PERF.md).
+// Replaces, for bf16 and D = 64, the split backward of the JAX package
+// (svi_tpu/ops/attention.py): K5a _bwd_dq_kernel_flat and K5b
+// _bwd_dkv_kernel_flat (launched by _flash_bwd_pallas_flat), dq over KV tiles
+// and dk/dv over Q tiles, with RoPE applied in the kernel and dq/dk rotated
+// back (route "mma" of ops.attention._split_bwd_route; no main path calls it).
+// bf16 D = 128 -- the DiT's cross-attention and short self-attention in
+// training -- moved to the TMA + wgmma kernels of flash_bwd_split_sm90.cu, and
+// K4 (long self-attention) to flash_bwd_sm90.cu; their earlier mma.sync
+// instantiations here were removed (their times are in PERF.md).
 //
 // Both recompute P = exp(S * scale - lse) from the forward's base-e lse
 // (in base 2 here, log2(e) folded in) and use delta = rowsum(dO * O), which the
@@ -38,13 +38,10 @@
 // trip. K5a (flash_bwd_dq_kernel) is one CTA per (64 query rows, head, batch)
 // looping over 32-key tiles, with dQ in registers.
 //
-// What bounds it on this card: 7 matrix products of Sq x Sk x D per head for
-// the pair (S and dP are computed by both) against 989 TFLOP/s bf16, and at
-// the cross-attention shapes (Sk = 512 / 257) the bytes of q, dO and dq. This
-// design is the simple one: fragments come from shared memory with plain
+// This design is the simple one: fragments come from shared memory with plain
 // loads, tiles are not double-buffered, and the CTA synchronises around every
-// tile. wgmma, TMA loads and warp specialisation (as in flash_bwd_sm90.cu)
-// are left for later work.
+// tile (at D = 128 it ran 14x and 22x above its bounds; flash_bwd_split_sm90.cu
+// says what its design does about each of these).
 
 #include "flash_common.cuh"
 
@@ -408,7 +405,8 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* g
 // Common arguments: bf16 q, k, v, dO read through 12 element strides ((b, s, n)
 // for q, k, v, dO in that order); lse and delta (B, N, Sq) f32; cos/sin
 // (>= max(Sq, Sk), D/2) f32 or null for no RoPE. Outputs are contiguous
-// (B, S, N*D) bf16. Each returns a cudaError_t value; 0 means launched.
+// (B, S, N*D) bf16. head_dim must be 64. Each returns a cudaError_t value; 0
+// means launched.
 
 // K5a.
 extern "C" int svi_flash_bwd_dq(int head_dim, const void* q, const void* k, const void* v,
@@ -419,11 +417,8 @@ extern "C" int svi_flash_bwd_dq(int head_dim, const void* q, const void* k, cons
   BwdParams p = make_params(q, k, v, g, lse, delta, cos, sin, n_heads, sq, sk, scale, strides);
   p.dq = dq;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return (int)(cos ? launch_dq<64, true>(p, batch, st) : launch_dq<64, false>(p, batch, st));
-    case 128: return (int)(cos ? launch_dq<128, true>(p, batch, st) : launch_dq<128, false>(p, batch, st));
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  return (int)(cos ? launch_dq<64, true>(p, batch, st) : launch_dq<64, false>(p, batch, st));
 }
 
 // K5b.
@@ -436,13 +431,6 @@ extern "C" int svi_flash_bwd_dkv(int head_dim, const void* q, const void* k, con
   p.dk = dk;
   p.dv = dv;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return (int)(cos ? launch_kv<64, 4, true>(p, batch, st)
-                       : launch_kv<64, 4, false>(p, batch, st));
-    case 128:
-      return (int)(cos ? launch_kv<128, 4, true>(p, batch, st)
-                       : launch_kv<128, 4, false>(p, batch, st));
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  return (int)(cos ? launch_kv<64, 4, true>(p, batch, st) : launch_kv<64, 4, false>(p, batch, st));
 }

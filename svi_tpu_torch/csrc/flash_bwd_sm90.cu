@@ -14,8 +14,8 @@
 // D) element strides; dk and dv are written contiguous (B, Sk, N*D) bf16, dk
 // rotated back by -theta when tables are given; dq is summed across key tiles
 // in an f32 (B, Sq, N, D) buffer, then scaled, rotated back and rounded by
-// dq_finalize_kernel. P and dS are rounded to bf16 before the products that
-// consume them, as the forward rounds P.
+// finalize_grad_kernel (sm90_common.cuh). P and dS are rounded to bf16 before
+// the products that consume them, as the forward rounds P.
 //
 // What bounds it on this card: 5 products of Sq x Sk x 128 per head at the
 // bf16 tensor-core rate (4.54 ms at S = 9360, 40 heads). The mma.sync kernel
@@ -104,52 +104,6 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t base, int st) {
 }
 __device__ __forceinline__ uint32_t bar_kv(uint32_t base) { return bar_full(base, 2 * kStages); }
 
-// d (64 x 64 f32) (+)= A (64 x 16, smem) * B (16 x 64, smem); TA / TB set the
-// transpose bit of an MN-major A / B
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// 64 x 64 scores of 64 keys (rows of a K-major tile at a_rows) against the 64
-// query rows of a K-major tile at b_rows, over D = 128
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a_rows, uint32_t b_rows) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss64<0, 0>(s, gmma_desc(a_rows + (kk / 4) * kKBox + (kk % 4) * 32, 16, 1024),
-                     gmma_desc(b_rows + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024), kk > 0);
-}
-
-// acc (64 keys x 128) += A (64 keys x 64 queries, registers, 16-query slice kk
-// in a[4kk .. 4kk + 3]) * B (64 queries x 128, an MN-major Q or dO tile)
-__device__ __forceinline__ void issue_kv_grad(float (&acc)[64], const uint32_t (&a)[16],
-                                              uint32_t b_tile) {
-#pragma unroll
-  for (int kk = 0; kk < kBM / 16; ++kk) {
-    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    wgmma_rs(acc, ak, gmma_desc(b_tile + kk * 16 * 128, kQBox, 1024));
-  }
-}
-
-// the accumulators of query groups 2kk and 2kk + 1, rounded to bf16, are the
-// A fragment of the kk-th 16-query step
-__device__ __forceinline__ void pack_a(uint32_t (&a)[16], const float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -232,9 +186,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     wgmma_fence();
-    issue_scores(s, k_rows, qt);
+    issue_scores(s, k_rows, kKBox, qt, kQBox);
     wgmma_commit();
-    issue_scores(dp, v_rows, gt);
+    issue_scores(dp, v_rows, kKBox, gt, kQBox);
     wgmma_commit();
 
     // P^T = exp2(S^T scale log2(e) - lse log2(e)); column (query) 8j + 2t4 + (i & 1)
@@ -281,8 +235,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // dV += P^T dO, dK += dS^T Q
     wgmma_fence();
-    issue_kv_grad(dv, pf, gt);
-    issue_kv_grad(dk, df, qt);
+    issue_rs(dv, pf, gt, kQBox);
+    issue_rs(dk, df, qt, kQBox);
     wgmma_commit();
 
     // both warpgroups' dS^T are written (and this warpgroup's previous dQ
@@ -344,41 +298,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < 16; ++j) {
       const int d = 8 * j + 2 * t4;
       float x0 = dk[4 * j + 2 * half] * p.scale, x1 = dk[4 * j + 2 * half + 1] * p.scale;
-      if (p.cos != nullptr) {  // rotate back by -theta: (x0 c + x1 s, x1 c - x0 s)
-        const float c = p.cos[key * (kD / 2) + d / 2], sn = p.sin[key * (kD / 2) + d / 2];
-        const float y0 = x0 * c + x1 * sn;
-        const float y1 = x1 * c - x0 * sn;
-        x0 = y0;
-        x1 = y1;
-      }
+      if (p.cos != nullptr)
+        rotate_back(x0, x1, p.cos[key * (kD / 2) + d / 2], p.sin[key * (kD / 2) + d / 2]);
       *reinterpret_cast<uint32_t*>(dkr + d) = pack_bf16(x0, x1);
       *reinterpret_cast<uint32_t*>(dvr + d) =
           pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
     }
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// dq = bf16(rotate_back(scale * dq32)), elementwise over pairs of (B, Sq, N, D)
-__global__ void dq_finalize_kernel(const float* dq32, __nv_bfloat16* dq, const float* cos,
-                                   const float* sin, long long n_pairs, long long sq,
-                                   int n_heads, float scale) {
-  const long long pairs_per_row = (long long)n_heads * (kD / 2);
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < n_pairs;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const float2 x = reinterpret_cast<const float2*>(dq32)[idx];
-    float x0 = x.x * scale, x1 = x.y * scale;
-    if (cos != nullptr) {
-      const long long pos = (idx / pairs_per_row) % sq;
-      const long long i = pos * (kD / 2) + (idx % (kD / 2));
-      const float c = cos[i], s = sin[i];
-      const float y0 = x0 * c + x1 * s;
-      const float y1 = x1 * c - x0 * s;
-      x0 = y0;
-      x1 = y1;
-    }
-    reinterpret_cast<uint32_t*>(dq)[idx] = pack_bf16(x0, x1);
-  }
 }
 
 }  // namespace
@@ -435,9 +362,5 @@ extern "C" int svi_flash_bwd_sm90(const void* q, const void* k, const void* v, c
   const dim3 grid((unsigned)((sk + kBN - 1) / kBN), (unsigned)n_heads, (unsigned)batch);
   flash_bwd_sm90_kernel<<<grid, kThreads, kSmemBytes, st>>>(tq, tk, tv, tg, tdq, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long n_pairs = batch * sq * n_heads * (kD / 2);
-  const long long blocks = (n_pairs + 255) / 256;
-  dq_finalize_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0, st>>>(
-      dq32, reinterpret_cast<__nv_bfloat16*>(dq), cos, sin, n_pairs, sq, (int)n_heads, scale);
-  return (int)cudaGetLastError();
+  return (int)finalize_grad<kD>(dq32, dq, cos, sin, batch, sq, n_heads, scale, st);
 }

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the TMA + wgmma kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), in inline PTX: mbarriers, 4-D TMA
-// loads, stores and reduce-adds, wgmma shared-memory descriptors of
-// 128-byte-swizzled tiles, wgmma fences, and the host-side tensor-map encode
-// found at run time through cudaGetDriverEntryPoint (no -lcuda).
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_split_sm90.cu), in inline
+// PTX: mbarriers, 4-D TMA loads, stores and reduce-adds, wgmma shared-memory
+// descriptors of 128-byte-swizzled tiles, wgmma fences and products, the
+// backward's gradient finalize, and the host-side tensor-map encode found at
+// run time through cudaGetDriverEntryPoint (no -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -125,6 +126,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64 f32) (+)= A (64 x 16, smem) * B (16 x 64, smem); TA / TB set the
+// transpose bit of an MN-major A / B
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// s (64 x 64) = A B^T over a depth of 128: A and B are 64-row K-major tiles
+// of 128 columns, each two 64-column boxes apart by a_box / b_box bytes
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a_rows, uint32_t a_box,
+                                             uint32_t b_rows, uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss64<0, 0>(s, gmma_desc(a_rows + (kk / 4) * a_box + (kk % 4) * 32, 16, 1024),
+                     gmma_desc(b_rows + (kk / 4) * b_box + (kk % 4) * 32, 16, 1024), kk > 0);
+}
+
+// acc (64 x 128) += A (64 x 64, registers, 16-deep slice kk in a[4kk .. 4kk +
+// 3]) * B (64 x 128, an MN-major tile whose two 64-column boxes are b_box
+// bytes apart)
+__device__ __forceinline__ void issue_rs(float (&acc)[64], const uint32_t (&a)[16],
+                                         uint32_t b_tile, uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_rs(acc, ak, gmma_desc(b_tile + kk * 16 * 128, b_box, 1024));
+  }
+}
+
 // pins accumulator registers: nothing that reads them moves above this point
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -143,10 +185,55 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// m64n64 accumulators rounded to bf16: those of column groups 2kk and 2kk + 1
+// are the A fragment of the kk-th 16-deep step of a product that reduces
+// over those 64 columns
+__device__ __forceinline__ void pack_a(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// the pair (x0, x1) of an interleaved-pair RoPE rotated back by -theta
+__device__ __forceinline__ void rotate_back(float& x0, float& x1, float c, float s) {
+  const float y0 = x0 * c + x1 * s;
+  x1 = x1 * c - x0 * s;
+  x0 = y0;
+}
+
 // byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled
 // box (128-byte rows, 1024-byte aligned)
 __device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
   return row * 128u + (((chunk ^ row) & 7) << 4);
+}
+
+// out = bf16(rotate_back(scale * x32)), elementwise over the pairs of an f32
+// (B, S, N, D) buffer; cos / sin: (>= S, D/2) f32, or null for no rotation
+template <int D>
+__global__ void finalize_grad_kernel(const float* x32, __nv_bfloat16* out, const float* cos,
+                                     const float* sin, long long n_pairs, long long seq,
+                                     int n_heads, float scale) {
+  const long long pairs_per_row = (long long)n_heads * (D / 2);
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < n_pairs;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const float2 x = reinterpret_cast<const float2*>(x32)[idx];
+    float x0 = x.x * scale, x1 = x.y * scale;
+    if (cos != nullptr) {
+      const long long i = ((idx / pairs_per_row) % seq) * (D / 2) + (idx % (D / 2));
+      rotate_back(x0, x1, cos[i], sin[i]);
+    }
+    reinterpret_cast<uint32_t*>(out)[idx] = pack_bf16(x0, x1);
+  }
+}
+
+template <int D>
+inline cudaError_t finalize_grad(const float* x32, void* out, const float* cos, const float* sin,
+                                 long long batch, long long seq, long long n_heads, float scale,
+                                 cudaStream_t stream) {
+  const long long n_pairs = batch * seq * n_heads * (D / 2);
+  const long long blocks = (n_pairs + 255) / 256;
+  finalize_grad_kernel<D><<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(
+      x32, reinterpret_cast<__nv_bfloat16*>(out), cos, sin, n_pairs, seq, (int)n_heads, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

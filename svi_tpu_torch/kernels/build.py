@@ -27,6 +27,7 @@ SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
 F32_SOURCE = CSRC / "flash_fwd_f32.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 BWD_SM90_SOURCE = CSRC / "flash_bwd_sm90.cu"
+BWD_SPLIT_SM90_SOURCE = CSRC / "flash_bwd_split_sm90.cu"
 Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
 UNPACK_SOURCE = CSRC / "quant_unpack.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
@@ -163,7 +164,8 @@ def load_flash_fwd_sm90() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_flash_bwd() -> ctypes.CDLL:
-    """Build (if needed) and load the split backward (K5a, K5b) once per process."""
+    """Build (if needed) and load the bf16 D=64 split backward (K5a, K5b on
+    mma.sync, route "mma") once per process."""
     lib = ctypes.CDLL(str(build(BWD_SOURCE).path))
     head = [ctypes.c_int, _ptr, _ptr, _ptr, _ptr,  # head_dim, q, k, v, dO
             _ptr, _ptr, _ptr, _ptr]  # lse, delta, cos, sin
@@ -190,6 +192,28 @@ def load_flash_bwd_sm90() -> ctypes.CDLL:
         _ptr,  # cudaStream_t
     ]
     lib.svi_flash_bwd_sm90.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_bwd_split_sm90() -> ctypes.CDLL:
+    """Build (if needed) and load the Hopper bf16 D=128 split backward (K5a,
+    K5b: TMA + wgmma) and its lse / delta prep once per process."""
+    lib = ctypes.CDLL(str(build(BWD_SPLIT_SM90_SOURCE).path))
+    head = [_ptr, _ptr, _ptr, _ptr,  # q, k (rotated), v, dO
+            _ptr, _ptr, _ptr, _ptr]  # lse * log2(e), delta (padded), cos, sin
+    tail = [_i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, sq_pad
+            ctypes.c_float, _STRIDES, _ptr]  # scale, 12 strides, cudaStream_t
+    lib.svi_flash_bwd_split_dq.argtypes = head + [_ptr] + tail  # dq
+    lib.svi_flash_bwd_split_dkv.argtypes = head + [_ptr, _ptr, _ptr, _ptr] + tail  # dk32, dv32, dk, dv
+    lib.svi_flash_bwd_prep.argtypes = [
+        _ptr, _ptr, _ptr, _ptr, _ptr,  # out, dO, lse, lse2, delta
+        _i64, _i64, _i64, _i64,  # batch, heads, sq, sq_pad
+        _STRIDES,  # (b, s, n) element strides of out, then of dO
+        _ptr,  # cudaStream_t
+    ]
+    for fn in (lib.svi_flash_bwd_split_dq, lib.svi_flash_bwd_split_dkv, lib.svi_flash_bwd_prep):
+        fn.restype = ctypes.c_int
     return lib
 
 

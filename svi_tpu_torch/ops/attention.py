@@ -3,7 +3,8 @@ their plain versions.
 
 Port of svi_tpu/ops/attention.py. Seven kernel entry points, each with its own
 launch counter (`.launches`, a plain int that counts kernel launches and
-nothing else):
+nothing else; the split backward's entries count per route in `.routes`
+instead):
 
   * `flash_fwd_flat`  -- K1's contract (`_fwd_kernel_flat`): q, k, v flat
     (B, S, N*D), optional fused interleaved-pair RoPE, keys >= kv_len masked;
@@ -27,9 +28,12 @@ pre-pass `rope_rotate_flat` when tables are given; f32 (the VAE, CLIP)
 runs csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores); bf16 D = 64 runs
 csrc/flash_fwd.cu. Each entry counts its launches per (route, dtype,
 head_dim) in `.routes`. The one-pass backward (K4) launches
-csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass,
-the split backward (K5a, K5b) csrc/flash_bwd.cu, the int8 forward
-csrc/flash_fwd_q8.cu.
+csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass;
+the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
+bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
+rotated by the pre-pass), bf16 D = 64 csrc/flash_bwd.cu, each entry
+counting its launches per (route, dtype, head_dim) in `.routes`. The int8
+forward runs csrc/flash_fwd_q8.cu.
 Dispatch: tensors on the CPU take the plain PyTorch version
 (`_flash_fwd_reference`, `_flash_bwd_reference`, which mirror the JAX
 package's `_flash_fwd_xla` and `_flash_bwd_xla`, and
@@ -150,7 +154,8 @@ def _check_kernel_tensors(what: str, named: dict, head_dims: dict, cos, sin) -> 
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise RuntimeError(f"{what}: every tensor must be on one CUDA device "
                            f"(got {sorted({str(t.device) for t in tensors})})")
-    dtype, d = named["q"].dtype, named["q"].shape[-1]
+    first = next(iter(named.values()))
+    dtype, d = first.dtype, first.shape[-1]
     if dtype not in head_dims or any(t.dtype != dtype for t in named.values()):
         raise TypeError(f"{what} kernel takes {sorted(map(str, head_dims))} inputs of one "
                         f"dtype, not {sorted({str(t.dtype) for t in named.values()})}")
@@ -332,7 +337,11 @@ def _flat_ok(n: int, head_dim: int) -> bool:
 # Backward: the plain version, three kernel entry points, and the router
 # ---------------------------------------------------------------------------
 
-_BWD_HEAD_DIMS = {torch.bfloat16: (64, 128)}
+# the split backward's kernels (K5a, K5b) per (dtype, head_dim): 'sm90' is
+# csrc/flash_bwd_split_sm90.cu (TMA + wgmma: the DiT's cross-attention and
+# short self-attention in training), 'mma' csrc/flash_bwd.cu (mma.sync)
+_SPLIT_BWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma"}
+_BWD_HEAD_DIMS = {torch.bfloat16: tuple(d for (_, d) in _SPLIT_BWD_ROUTES)}
 
 
 def _flash_bwd_reference(q4, k4, v4, out4, lse, g4, cos, sin, kv_len: int, scale: float):
@@ -412,33 +421,50 @@ def _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin):
     return q4, k4, v4, o4, g4
 
 
-def _launch_bwd(entry: str, q4, k4, v4, o4, lse, g4, cos, sin, scale: float, outs) -> None:
-    """Launch one split-backward entry of csrc/flash_bwd.cu on the current stream.
-    delta = rowsum(dO * O) in f32 is computed here, outside the kernel, as the
-    JAX package computes it outside its kernels."""
-    _check_kernel_tensors("flash backward", dict(q=q4, k=k4, v=v4, dO=g4), _BWD_HEAD_DIMS,
-                          cos, sin)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("lse must be contiguous float32 (B, N, Sq)")
-    delta = torch.einsum("bsnd,bsnd->bns", g4.float(), o4.float()).contiguous()
-    b, sq, n, d = q4.shape
-    from ..kernels.build import load_flash_bwd
-
-    err = getattr(load_flash_bwd(), entry)(
-        d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), cos.data_ptr() if cos is not None else None,
-        sin.data_ptr() if sin is not None else None, *(t.data_ptr() for t in outs),
-        b, n, sq, k4.shape[1], float(scale), _strides12(q4, k4, v4, g4),
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash backward kernel {entry} launch failed: cudaError {err}")
-
-
 def _plain_bwd_flat(views, lse, cos, sin, kv_len, scale):
     q4, k4, v4, o4, g4 = views
     return tuple(t.flatten(2) for t in _flash_bwd_reference(q4, k4, v4, o4, lse, g4, cos, sin,
                                                            kv_len, scale))
+
+
+_LAUNCH_FAILED = ("(a cudaError; 10000: cuTensorMapEncodeTiled not found; 20000 + r: the "
+                  "tensor-map encode returned CUresult r)")
+
+
+def _bwd_prep_reference(o4, g4, lse, sq_pad: int):
+    """Plain version of the prep kernel: lse * log2(e) and delta =
+    rowsum(dO * O) in f32, (B, N, sq_pad), padded with +inf and 0 so that
+    queries past Sq get P = 0."""
+    pad = sq_pad - lse.shape[-1]
+    lse2 = torch.nn.functional.pad(lse * _LOG2E, (0, pad), value=float("inf"))
+    delta = (g4.float() * o4.float()).sum(-1).transpose(1, 2)
+    return lse2, torch.nn.functional.pad(delta, (0, pad)).contiguous()
+
+
+def _bwd_prep(o4, g4, lse, rows: int):
+    """(lse * log2(e), delta) as the sm90 backward kernels read them, padded
+    to a multiple of `rows`: on the card by csrc/flash_bwd_split_sm90.cu's
+    prep kernel, in one pass over dO and O with no f32 copy of either; on the
+    CPU by `_bwd_prep_reference`."""
+    sq_pad = _ceil_to(lse.shape[-1], rows)
+    if _on_cpu(o4, g4, lse):
+        return _bwd_prep_reference(o4, g4, lse, sq_pad)
+    _check_kernel_tensors("backward prep", dict(out=o4, dO=g4), {torch.bfloat16: (128,)},
+                          None, None)
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != o4.device:
+        raise ValueError("lse must be contiguous float32 (B, N, Sq) on out's device")
+    b, sq, n, _ = o4.shape
+    lse2 = torch.empty((b, n, sq_pad), dtype=torch.float32, device=lse.device)
+    delta = torch.empty_like(lse2)
+    from ..kernels.build import load_flash_bwd_split_sm90
+
+    err = load_flash_bwd_split_sm90().svi_flash_bwd_prep(
+        o4.data_ptr(), g4.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(), b, n,
+        sq, sq_pad, (ctypes.c_int64 * 6)(*o4.stride()[:3], *g4.stride()[:3]),
+        torch.cuda.current_stream(o4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"backward prep kernel launch failed: cudaError {err}")
+    return lse2, delta
 
 
 _ONEPASS_ROWS = 64  # query rows per step of csrc/flash_bwd_sm90.cu
@@ -450,21 +476,15 @@ def _launch_bwd_sm90(q4, k4, v4, o4, lse, g4, cos, sin, scale: float):
     (`_rope_rotate4`, bit-identical to the rotation the forward applied), as
     the JAX package rotates them outside its one-pass kernel; the kernel
     rotates dk back and the finalize dq. lse * log2(e) and delta =
-    rowsum(dO * O) are padded to a multiple of the kernel's 64-row step with
-    +inf and 0, so that queries past Sq get P = 0. Returns (dq, dk, dv) flat."""
+    rowsum(dO * O) come from `_bwd_prep`, padded to a multiple of the
+    kernel's 64-row step. Returns (dq, dk, dv) flat."""
     _check_kernel_tensors("one-pass flash backward", dict(q=q4, k=k4, v=v4, dO=g4),
                           {torch.bfloat16: (128,)}, cos, sin)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("lse must be contiguous float32 (B, N, Sq)")
     b, sq, n, d = q4.shape
     sk = k4.shape[1]
+    lse2, delta = _bwd_prep(o4, g4, lse, _ONEPASS_ROWS)
     if cos is not None:
         q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
-    pad = _ceil_to(sq, _ONEPASS_ROWS) - sq
-    lse2 = torch.nn.functional.pad(lse * _LOG2E, (0, pad), value=float("inf"))
-    # one f32 copy of dO, multiplied in place by O (promoted as it is read)
-    delta = torch.nn.functional.pad(g4.float().mul_(o4).sum(-1).transpose(1, 2),
-                                    (0, pad)).contiguous()
     dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device)
     dq = torch.empty((b, sq, n * d), dtype=q4.dtype, device=q4.device)
     dk = torch.empty((b, sk, n * d), dtype=k4.dtype, device=k4.device)
@@ -475,13 +495,11 @@ def _launch_bwd_sm90(q4, k4, v4, o4, lse, g4, cos, sin, scale: float):
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), lse2.data_ptr(),
         delta.data_ptr(), cos.data_ptr() if cos is not None else None,
         sin.data_ptr() if sin is not None else None, dq32.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, n, sq, sk, sq + pad, float(scale),
+        dk.data_ptr(), dv.data_ptr(), b, n, sq, sk, lse2.shape[-1], float(scale),
         _strides12(q4, k4, v4, g4), torch.cuda.current_stream(q4.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"one-pass flash backward (sm90) launch failed: code {err} (a cudaError; 10000: "
-            "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
-            "CUresult r)")
+        raise RuntimeError(f"one-pass flash backward (sm90) launch failed: code {err} "
+                           + _LAUNCH_FAILED)
     return dq, dk, dv
 
 
@@ -506,48 +524,124 @@ def flash_bwd_onepass(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
 flash_bwd_onepass.launches = 0
 
 
+def _split_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The split-backward kernels a CUDA call at (dtype, head_dim) takes:
+    'sm90' (bf16, D = 128) or 'mma' (bf16, D = 64). Raises for any other
+    pair: nothing falls back."""
+    if dtype not in _BWD_HEAD_DIMS:
+        raise TypeError(f"split flash backward kernels take bfloat16, not {dtype}")
+    route = _SPLIT_BWD_ROUTES.get((dtype, head_dim))
+    if route is None:
+        raise ValueError(f"split flash backward kernels: head_dim {head_dim} not built for "
+                         f"{dtype} (built: {_BWD_HEAD_DIMS[dtype]})")
+    return route
+
+
+_SPLIT_ROWS = 128  # query rows per CTA of the sm90 dq kernel: lse2 and delta are padded to it
+
+
+def _split_prep(views, lse, cos, sin):
+    """What K5a and K5b both read, checked and computed once per backward:
+    (route, q4, k4, the route's lse, delta). 'sm90': q and k rotated by the
+    forward's RoPE pre-pass (the kernels rotate dq and dk back), lse * log2(e)
+    and delta from `_bwd_prep`, padded to 128 rows; 'mma': q and k as given
+    (those kernels rotate them), the base-e lse, and delta in f32 (B, N, Sq)."""
+    q4, k4, v4, o4, g4 = views
+    _check_kernel_tensors("split flash backward", dict(q=q4, k=k4, v=v4, out=o4, dO=g4),
+                          _BWD_HEAD_DIMS, cos, sin)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous float32 (B, N, Sq)")
+    route = _split_bwd_route(q4.dtype, q4.shape[-1])
+    if route == "sm90":
+        lse2, delta = _bwd_prep(o4, g4, lse, _SPLIT_ROWS)
+        if cos is not None:
+            q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
+        return route, q4, k4, lse2, delta
+    return route, q4, k4, lse, torch.einsum("bsnd,bsnd->bns", g4.float(), o4.float()).contiguous()
+
+
+def _launch_split(entry: str, prep, v4, g4, cos, sin, scale: float):
+    """Launch K5a (entry 'dq'; returns dq) or K5b (entry 'dkv'; returns (dk,
+    dv)) on the current stream, on `_split_prep`'s result, and count it in
+    the entry's `.routes`."""
+    route, q4, k4, lse_k, delta = prep
+    b, sq, n, d = q4.shape
+    sk = k4.shape[1]
+    dev = q4.device
+    tables = (cos.data_ptr() if cos is not None else None,
+              sin.data_ptr() if sin is not None else None)
+    head = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(), lse_k.data_ptr(),
+            delta.data_ptr(), *tables)
+    strides, stream = _strides12(q4, k4, v4, g4), torch.cuda.current_stream(dev).cuda_stream
+    rows = sq if entry == "dq" else sk
+    grads = tuple(torch.empty((b, rows, n * d), dtype=q4.dtype, device=dev)
+                  for _ in range(1 if entry == "dq" else 2))
+    outs = grads
+    if route == "sm90":
+        from ..kernels.build import load_flash_bwd_split_sm90
+
+        if entry == "dkv":  # dk, dv summed across query chunks in f32, freed on return
+            outs = tuple(torch.zeros((b, sk, n, d), dtype=torch.float32, device=dev)
+                         for _ in range(2)) + grads
+        err = getattr(load_flash_bwd_split_sm90(), f"svi_flash_bwd_split_{entry}")(
+            *head, *(t.data_ptr() for t in outs), b, n, sq, sk, lse_k.shape[-1], float(scale),
+            strides, stream)
+        if err != 0:
+            raise RuntimeError(f"split flash backward ({entry}, sm90) launch failed: code {err} "
+                               + _LAUNCH_FAILED)
+    else:
+        from ..kernels.build import load_flash_bwd
+
+        err = getattr(load_flash_bwd(), f"svi_flash_bwd_{entry}")(
+            d, *head, *(t.data_ptr() for t in outs), b, n, sq, sk, float(scale), strides, stream)
+        if err != 0:
+            raise RuntimeError(f"split flash backward ({entry}, mma) launch failed: cudaError "
+                               f"{err}")
+    counter = flash_bwd_dq if entry == "dq" else flash_bwd_dkv
+    counter.routes[(route, str(q4.dtype).removeprefix("torch."), d)] += 1
+    return grads[0] if entry == "dq" else grads
+
+
 def flash_bwd_dq(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """K5a's contract (`_bwd_dq_kernel_flat`): arguments as `flash_bwd_onepass`;
-    returns dq (B, Sq, N*D), rotated back when RoPE is given."""
+    returns dq (B, Sq, N*D), rotated back when RoPE is given. Counts its
+    launches per (route, dtype, head_dim) in `.routes`."""
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
         return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)[0]
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("svi_flash_bwd_dq", *views[:4], lse, views[4], cos, sin, scale, (dq,))
-    flash_bwd_dq.launches += 1
-    return dq
+    return _launch_split("dq", _split_prep(views, lse, cos, sin), views[2], views[4], cos, sin,
+                         scale)
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.routes = collections.Counter()
 
 
 def flash_bwd_dkv(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                   scale: Optional[float] = None):
     """K5b's contract (`_bwd_dkv_kernel_flat`): arguments as `flash_bwd_onepass`;
-    returns (dk, dv) (B, Sk, N*D), dk rotated back when RoPE is given."""
+    returns (dk, dv) (B, Sk, N*D), dk rotated back when RoPE is given. Counts
+    its launches per (route, dtype, head_dim) in `.routes`."""
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
         return _plain_bwd_flat(views, lse, cos, sin, k.shape[1], scale)[1:]
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("svi_flash_bwd_dkv", *views[:4], lse, views[4], cos, sin, scale, (dk, dv))
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _launch_split("dkv", _split_prep(views, lse, cos, sin), views[2], views[4], cos, sin,
+                         scale)
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.routes = collections.Counter()
 
 
 def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                    kv_len: Optional[int] = None, scale: Optional[float] = None):
     """The attention backward on flat (B, S, N*D) tensors, routed as the JAX
     package routes it (`_flash_core_flat_bwd`): K4 for long self-attention,
-    K5a + K5b otherwise. CPU tensors take the plain version, including for
-    kv_len < Sk; on CUDA tensors kv_len < Sk and the (B, N, S, D) head dims
-    have no kernel and raise."""
+    K5a + K5b otherwise, with delta (and, on the sm90 route, the rotated q
+    and k) computed once for both. CPU tensors take the plain version,
+    including for kv_len < Sk; on CUDA tensors kv_len < Sk and the
+    (B, N, S, D) head dims have no kernel and raise."""
     sk = k.shape[1]
     kv_len = sk if kv_len is None else min(int(kv_len), sk)
     scale = head_dim ** -0.5 if scale is None else float(scale)
@@ -564,10 +658,12 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
         raise NotImplementedError(
             f"attention backward for {n} heads of {head_dim}: the (B, N, S, D) route has "
             "no backward kernel")
-    args = (q, k, v, out, lse, g, head_dim, cos, sin, scale)
     if route == "onepass":
-        return flash_bwd_onepass(*args)
-    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+        return flash_bwd_onepass(q, k, v, out, lse, g, head_dim, cos, sin, scale)
+    views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
+    prep = _split_prep(views, lse, cos, sin)
+    dq = _launch_split("dq", prep, views[2], views[4], cos, sin, scale)
+    return (dq, *_launch_split("dkv", prep, views[2], views[4], cos, sin, scale))
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,12 @@ def _jax_route(n, d, sq, sk, kv_len):
     return "split" if flat_ok and kv_len == sk else "xla"
 
 
+def _kernel_launches():
+    """Launches of K4, K5a and K5b (the split entries count per route)."""
+    return (tattn.flash_bwd_onepass.launches, dict(tattn.flash_bwd_dq.routes),
+            dict(tattn.flash_bwd_dkv.routes))
+
+
 def _port_grads(q, k, v, g, d, cos, sin, kv_len):
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     out = tattn.flash_attention_flat(*leaves, d, cos=cos, sin=sin, kv_len=kv_len)
@@ -73,15 +79,14 @@ def test_plain_backward_matches_jax_grad_of_xla_path(case, b, sq, sk, n, grid, k
         cos, sin = jrope.rope_angles_for_grid(grid, d)
     kv = sk if kv_len is None else kv_len
     assert tattn._bwd_route(n, d, sq, sk, kv) == _jax_route(n, d, sq, sk, kv) == route
-    counters = (tattn.flash_bwd_onepass, tattn.flash_bwd_dq, tattn.flash_bwd_dkv)
-    before = [c.launches for c in counters]
+    before = _kernel_launches()
     got = _port_grads(q, k, v, g, d, cos, sin, kv_len)
     want = _jax_grads(q, k, v, g, d, cos, sin, kv_len)
     for name, x, ref in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(x, np.asarray(ref), atol=GRAD_TOL, rtol=GRAD_TOL,
                                    err_msg=name)
     # the plain version on the CPU never counts as a kernel launch
-    assert [c.launches for c in counters] == before
+    assert _kernel_launches() == before
 
 
 def test_differentiable_public_ops_match_jax():

@@ -1,7 +1,9 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
 bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, 3xTF32 for f32 --,
-the K4 backward (TMA + wgmma), the K5a / K5b backward, the K3 int4 unpack and
-the K6 int8 forward) against their plain PyTorch versions, on the card.
+the K4 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
+TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
+D=64 --, the K3 int4 unpack and the K6 int8 forward) against their plain
+PyTorch versions, on the card.
 
 Marked `cuda`; every test skips where torch sees no CUDA device. Run on a
 machine with an H100 and nvcc (no JAX there, so without the JAX conftest):
@@ -253,11 +255,18 @@ def test_unsupported_head_dim_raises():
 
 # bf16 gradients against the plain f32 backward of the same bf16 inputs: the
 # kernels round P and dS to bf16 before the products that consume them and
-# round each gradient once to bf16 (2^-8 relative); K4 also sums dq in f32
-# (TMA reduce-adds) in an order that changes from run to run. 2% of the gradient's
-# largest magnitude covers both with room, and is far below what a wrong
-# tile, mask or rotation gives (errors of the gradient's own size).
+# round each gradient once to bf16 (2^-8 relative); K4 also sums dq, and the
+# sm90 K5b dk and dv, in f32 (TMA reduce-adds) in an order that changes from
+# run to run. 2% of the gradient's largest magnitude covers both with room,
+# and is far below what a wrong tile, mask or rotation gives (errors of the
+# gradient's own size).
 BWD_REL_TOL = 2e-2
+
+
+def _split_launches(route):
+    """Launches of K5a and K5b on a route (any dtype and head dim)."""
+    return tuple(sum(n for key, n in entry.routes.items() if key[0] == route)
+                 for entry in (tattn.flash_bwd_dq, tattn.flash_bwd_dkv))
 
 
 def _bwd_inputs(b, sq, sk, n, d, rope, seed):
@@ -302,17 +311,75 @@ def test_onepass_bwd_kernel_matches_plain(rope, sq, sk):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("sq,sk,rope", [(189, 189, True), (189, 77, False), (70, 257, True)])
+@pytest.mark.parametrize("sq,sk,rope", [(189, 189, True), (189, 77, False), (70, 257, True),
+                                        (1000, 512, False), (2100, 257, True)])
 def test_split_bwd_kernels_match_plain(d, sq, sk, rope):
+    """Each entry alone, on the route of its head dim (D = 128: sm90, D = 64:
+    mma). Ragged Sq and Sk against the 128-row and 64-key tiles of dq and the
+    128-key tiles and 64-row steps of dk / dv; at (1000, 512) dq's 4-stage
+    K / V ring wraps (8 key tiles) and dk / dv runs 2 query chunks of 8
+    steps, at (2100, 257) 4 chunks of 8-9 steps (the ring wraps twice) and a
+    last key tile with one live key (a warpgroup with none)."""
     n, b = 3, 2
+    route = "sm90" if d == 128 else "mma"
     args = _bwd_inputs(b, sq, sk, n, d, rope, 20)
-    before = (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches)
+    before = _split_launches(route)
     dq = tattn.flash_bwd_dq(*args[:6], d, cos=args[6], sin=args[7])
     dk, dv = tattn.flash_bwd_dkv(*args[:6], d, cos=args[6], sin=args[7])
     torch.cuda.synchronize()
-    assert (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches) == (before[0] + 1,
-                                                                           before[1] + 1)
+    assert _split_launches(route) == (before[0] + 1, before[1] + 1)
     _check_grads((dq, dk, dv), _plain_bwd(*args[:6], d, *args[6:]))
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_split_bwd_strided_qkv_columns(rope):
+    """The sm90 split backward through flash_bwd_flat (one prep for both
+    kernels) on q, k, v as column slices of one (B, S, 3*N*D) tensor and dO
+    as a column slice too: row strides of 3*N*D."""
+    d, n, b, sq = 128, 3, 2, 700
+    qkv = _rand((b, sq, 3 * n * d), torch.bfloat16, 21)
+    q, k, v = qkv[..., :n * d], qkv[..., n * d:2 * n * d], qkv[..., 2 * n * d:]
+    g = _rand((b, sq, 2 * n * d), torch.bfloat16, 22)[..., n * d:]
+    cos, sin = _tables(sq, d) if rope else (None, None)
+    out, lse = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
+    assert tattn._bwd_route(n, d, sq, sq, sq) == "split"
+    before = _split_launches("sm90")
+    got = tattn.flash_bwd_flat(q, k, v, out, lse, g, d, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    assert _split_launches("sm90") == (before[0] + 1, before[1] + 1)
+    _check_grads(got, _plain_bwd(q, k, v, out, lse, g, d, cos, sin))
+
+
+def test_split_bwd_misaligned_view_raises():
+    """A view whose data_ptr is off 16-byte alignment cannot feed TMA: the
+    split backward raises instead of launching."""
+    b, s, n, d = 1, 64, 2, 128
+    flat = _rand((b * s * n * d + 4,), torch.bfloat16, 23)
+    q = flat[4:].view(b, s, n * d)  # 8 bytes past an aligned start
+    aligned = q.clone()
+    out, lse = tattn.flash_fwd_flat(aligned, aligned, aligned, d)
+    for entry in (tattn.flash_bwd_dq, tattn.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            entry(q, q, q, out, lse, out, d)
+
+
+@pytest.mark.parametrize("sq,rows", [(9, 128), (300, 128), (300, 64)])
+def test_bwd_prep_kernel_matches_plain(sq, rows):
+    """The prep kernel's lse * log2(e) is the plain version's bit for bit
+    (one f32 product each); delta = rowsum(dO * O) is an f32 sum of 128
+    products in another order (bound 1e-5 of the largest |delta|); the
+    padding is +inf and 0."""
+    b, n, d = 2, 3, 128
+    o = _rand((b, sq, 2 * n * d), torch.bfloat16, 24)[..., :n * d].unflatten(-1, (n, d))
+    g = _rand((b, sq, n * d), torch.bfloat16, 25).unflatten(-1, (n, d))
+    lse = _rand((b, n, sq), torch.float32, 26)
+    lse2, delta = tattn._bwd_prep(o, g, lse, rows)
+    torch.cuda.synchronize()
+    want_lse2, want_delta = tattn._bwd_prep_reference(o, g, lse, lse2.shape[-1])
+    assert lse2.shape == want_lse2.shape == (b, n, -(-sq // rows) * rows)
+    assert torch.equal(lse2, want_lse2)
+    assert (delta - want_delta).abs().max().item() <= 1e-5 * want_delta.abs().max().item()
+    assert (delta[..., sq:] == 0).all()
 
 
 @pytest.mark.parametrize("sk,route", [(4096, "onepass"), (512, "split")])
@@ -322,12 +389,14 @@ def test_autograd_routes_to_the_kernels(sk, route):
     d, sq = 128, 4096
     q, k, v, _, _, g, cos, sin = _bwd_inputs(1, sq, sk, 1, d, sk == sq, 30)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    counters = (tattn.flash_bwd_onepass, tattn.flash_bwd_dq, tattn.flash_bwd_dkv)
-    before = [c.launches for c in counters]
+    def counts():
+        return [tattn.flash_bwd_onepass.launches, *_split_launches("sm90")]
+
+    before = counts()
     out = tattn.flash_attention_flat(*leaves, d, cos=cos, sin=sin)
     out.backward(g)
     torch.cuda.synchronize()
-    used = [c.launches - b for c, b in zip(counters, before)]
+    used = [c - b for c, b in zip(counts(), before)]
     assert used == ([1, 0, 0] if route == "onepass" else [0, 1, 1])
     out_ref, lse = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
     _check_grads([t.grad for t in leaves], _plain_bwd(q, k, v, out_ref, lse, g, d, cos, sin))

@@ -55,7 +55,8 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
     assert build.BWD_SOURCE in build.CSRC.glob("*.cu")
     for source, stem in ((build.Q8_SOURCE, "flash_fwd_q8"), (build.UNPACK_SOURCE, "quant_unpack"),
                          (build.F32_SOURCE, "flash_fwd_f32"),
-                         (build.BWD_SM90_SOURCE, "flash_bwd_sm90")):
+                         (build.BWD_SM90_SOURCE, "flash_bwd_sm90"),
+                         (build.BWD_SPLIT_SM90_SOURCE, "flash_bwd_split_sm90")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
         assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
@@ -159,6 +160,21 @@ def test_non_cpu_tensor_without_kernel_raises_quantized():
         tattn.flash_fwd_flat_q8(q8, qs, q8, kscale,
                                 torch.empty(1, 8, 2 * 64, dtype=torch.bfloat16, device="meta"),
                                 None, 64)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_non_cpu_tensor_without_kernel_raises_backward(d):
+    """The same for the split backward's entries on both routes, the whole
+    split backward and its lse / delta prep: no plain fallback."""
+    n = 2 if d == 128 else 1  # the flat layout (split route) at both head dims
+    q = torch.empty(1, 8, n * d, dtype=torch.bfloat16, device="meta")
+    lse = torch.empty(1, n, 8, device="meta")
+    for call in (lambda: tattn.flash_bwd_dq(q, q, q, q, lse, q, d),
+                 lambda: tattn.flash_bwd_dkv(q, q, q, q, lse, q, d),
+                 lambda: tattn.flash_bwd_flat(q, q, q, q, lse, q, d),
+                 lambda: tattn._bwd_prep(*(q.unflatten(-1, (n, d)),) * 2, lse, 128)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_mixed_devices_raise():
