@@ -11,8 +11,11 @@ non-zero exit and no result line:
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
      the kernel call's device time without host gaps, and the least time
-     the card could take for the work); for context, the
-     int8 GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
+     the card could take for the work); the W4A8 linear at the 14B's
+     shapes bit for bit, beside torch._int_mm alone and the chain it
+     replaced (K3, `_int8_exec`, the bias); K6 beside K1 at the same shape
+     and the exp2 floor; for context, the int8 GEMM of a W4A8 linear
+     (torch._int_mm) against the bf16 one;
   4. the SVI-Shot slice: (a) a tiny pipeline on the card against the same
      pipeline on the CPU, then (b) two clips at the full width of
      Wan2.1-I2V-14B-480P with seeded random weights: 480x832, 9 frames,
@@ -22,7 +25,10 @@ non-zero exit and no result line:
      card against the same on the CPU; (d) quantized inference at full
      width: (b)'s DiT quantized in place to int4_w4a8, one DiT forward
      against the bf16 one (each also profiled: device time by kind of
-     kernel), then two clips with qk8 and qk8pv8 attention;
+     kernel), then two clips with qk8 and qk8pv8 attention, then one
+     W4A8 + qk8 forward at 480x832x81; each fails unless every quantized
+     linear went through w4a8_linear (no K3, no torch._int_mm) and every
+     int8 attention through the sm90 kernel;
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
      card against the same trainer on the CPU, then (b) 4 training steps of
      rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
@@ -69,9 +75,12 @@ F32_BOUND = 1e-4
 # in an order that changes from run to run.
 BF16_GRAD_REL_BOUND = 2e-2
 # int4 unpack + requantization (K3) is held bit for bit (torch.equal): one f32
-# product and one round-half-to-even per weight on both sides.
+# product and one round-half-to-even per weight on both sides. So are the
+# W4A8 linear (its activation pre-pass: the same IEEE divisions and
+# roundings; the GEMM: K3's arithmetic in shared memory, an exact int32
+# product, the same f32 epilogue in the same order) and its pre-pass.
 # int8 attention forward (K6) against its plain version at the kernel's
-# 64-key tiles: the same integer scores, row max and f32 steps, and both
+# 128-key tiles: the same integer scores, row max and f32 steps, and both
 # round out to bf16 the same way (qk8pv8: in v8 units, then again after the
 # vss product). What remains is exp2 (a few f32 ulps) and the order of sums,
 # which can put the two on neighbouring bf16 values (one ulp, at most 2^-7
@@ -83,8 +92,9 @@ BF16_GRAD_REL_BOUND = 2e-2
 Q8_OUT_REL, Q8_LSE_BOUND = 2e-2, 1e-3
 # The tiny W4A8 + qk8pv8 DiT (f32, TF32 off), card against CPU. The
 # correctness gate is one forward on the same inputs: it agrees to f32 sums
-# in another order (the W4A8 linears are bit-equal: K3 is bit-exact and the
-# int32 products exact; measured 1.7e-7 of the output's scale): bound 1e-3,
+# in another order (the W4A8 linears are bit-equal: w4a8_linear is bit-exact
+# against its plain version; 1.7e-7 of the output's scale was measured with
+# the K3 chain it replaced): bound 1e-3,
 # ten times below the jump of one int8 level (~1% of a row's largest
 # value). The pipeline after it is a smoke check: the DiT's inputs come from
 # the VAE and CLIP, which differ by ~1e-6 between card and CPU; that moves
@@ -117,6 +127,10 @@ QUANT_FWD_REL = 0.3
 # K2) are bound by the faster of the two, and `bound_rate` names it.
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_TF32, HBM_BYTES_PER_S = (989e12, 1979e12, 67e12, 495e12,
                                                               3.35e12)
+# K6's exp2 floor, which the tensor-core bound does not show: one exp2 per
+# score on the special-function units, 16 a clock on each of the 132 SMs at
+# the 1.98 GHz boost clock (printed beside the bound, not part of it)
+EXP2_PER_S = 16 * 132 * 1.98e9
 F32_ACCURATE = "f32"  # the peak of an f32 product at f32 accuracy: the better of the two above
 
 SLICE_H, SLICE_W, SLICE_FRAMES, SLICE_STEPS, MOTION = 480, 832, 9, 4, 1
@@ -141,11 +155,17 @@ KERNELS = {
                           "svi_tpu/ops/attention.py:585"),
     "flash_bwd_dkv/sm90": ("svi_tpu_torch/csrc/flash_bwd_split_sm90.cu",
                            "svi_tpu/ops/attention.py:646"),
-    "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
-                            "svi_tpu/ops/quant_matmul.py:33"),
-    "flash_fwd_flat_q8": ("svi_tpu_torch/csrc/flash_fwd_q8.cu", "svi_tpu/ops/attention.py:289"),
+    # the W4A8 linear replaces K3 on the inference path (K3 itself runs only
+    # in the straight-through backward, off the main paths; phase 3 still
+    # holds it bit for bit)
+    "quantize_rows_int8": ("svi_tpu_torch/csrc/w4a8_gemm_sm90.cu",
+                           "svi_tpu/ops/quant_matmul.py:33"),
+    "w4a8_linear": ("svi_tpu_torch/csrc/w4a8_gemm_sm90.cu", "svi_tpu/ops/quant_matmul.py:33"),
+    "flash_fwd_flat_q8/sm90": ("svi_tpu_torch/csrc/flash_fwd_q8_sm90.cu",
+                               "svi_tpu/ops/attention.py:289"),
 }
-QUANT_KERNELS = ("unpack_requant_int4", "flash_fwd_flat_q8")
+QUANT_KERNELS = ("quantize_rows_int8", "w4a8_linear", "flash_fwd_flat_q8/sm90")
+QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
@@ -153,8 +173,9 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "flash_fwd_bnsd": "clip_vit_h",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
               "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
-              "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd", "unpack_requant_int4": "ffn_0",
-              "flash_fwd_flat_q8": "dit_self_attn_q8_qk8"}
+              "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd",
+              "quantize_rows_int8": "w4a8_prepass_ffn_0", "w4a8_linear": "w4a8_ffn_0",
+              "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8"}
 
 
 def log(msg: str) -> None:
@@ -230,11 +251,16 @@ def launch_counters():
     out = {}
     for name in KERNELS:
         entry, _, route = name.partition("/")
-        out[name] = (getattr(Q if entry == "unpack_requant_int4" else A, entry), route)
+        out[name] = (getattr(Q if entry in QUANT_MODULE_ENTRIES else A, entry), route)
     return out
 
 
 def zero_counts() -> None:
+    """Every KERNELS counter to 0, and K3's (no longer on a main path, but
+    the quantized paths check that it stays at 0)."""
+    from svi_tpu_torch.ops import quant_matmul as Q
+
+    Q.unpack_requant_int4.launches = 0
     for fn, _ in launch_counters().values():
         if hasattr(fn, "launches"):
             fn.launches = 0
@@ -559,11 +585,88 @@ def kernel_cases():
                     work={"unpack_requant_int4": (n * k, _nbytes(packed, r) + n * k, PEAK_F32)})
 
     # W4A8 linears of the 14B DiT: ffn.0, ffn.2, a 5120 x 5120 projection and
-    # the time embedding's first linear (K = 256)
+    # the time embedding's first linear (K = 256). K3 runs in the
+    # straight-through backward now; the inference path fuses it below.
     yield unpack_case("ffn_0", 13824, 5120)
     yield unpack_case("ffn_2", 5120, 13824)
     yield unpack_case("self_attn_q", 5120, 5120)
     yield unpack_case("time_embedding_0", 5120, 256)
+
+    def ms_pair(fn):
+        return median_ms(fn, 5), device_ms(fn)
+
+    def w4a8_case(name, m, n, k):
+        """The W4A8 linear (pre-pass + GEMM) on a weight of the 14B DiT's shape
+        (out n, in k) quantized by the port's own quantizer, with a bias, at m
+        tokens; bit for bit against the plain version. Beside it: torch._int_mm
+        alone on int8 operands made beforehand (`_int8_matmul`, which pads M
+        <= 16 to 17 rows) and the chain it replaced, K3 + `_int8_exec` + the
+        bias, both timed in this run."""
+        packed, scale = wan_dit._quantize_leaf_int4(randn((n, k), torch.bfloat16) * 0.02)
+        r, s8 = wan_dit._w4a8_leaves(scale)
+        del scale
+        x = randn((m, k), torch.bfloat16)
+        b = randn((n,), torch.bfloat16) * 0.1
+        x8, _ = Q.quantize_rows_int8(x)
+        w8 = Q.unpack_requant_int4(packed, r)
+
+        def kernel():
+            return Q.w4a8_linear(x, packed, r, s8, b)
+
+        def plain():
+            return Q._w4a8_linear_reference(x, packed, r, s8, b)
+
+        def old_chain():
+            return wan_dit._plus_bias({"b": b}, wan_dit._int8_exec(
+                x, Q.unpack_requant_int4(packed, r), s8))
+
+        def run():
+            got, ref = kernel(), plain()
+            diff = 0.0 if torch.equal(got, ref) else max(
+                1.0, (got.float() - ref.float()).abs().max().item())
+            old_ms, old_dev = ms_pair(old_chain)
+            new_ms, new_dev = ms_pair(kernel)
+            log(f"[w4a8] {name} M{m} N{n} K{k}: torch.equal {diff == 0.0}; w4a8_linear "
+                f"{new_ms:.4f} ms (device {new_dev}); the chain it replaced (K3, _int8_exec, "
+                f"bias) {old_ms:.4f} ms (device {old_dev}); faster than that chain: "
+                f"{new_ms < old_ms}")
+            return {"w4a8_linear": (diff, 0.0)}
+
+        io = _nbytes(x, packed, r, s8, b) + 2 * m * n
+        return dict(case=name, shape=[m, n, k], dtype="bf16 x int4 (W4A8)", run=run,
+                    kernels={"w4a8_linear": kernel}, plain=plain,
+                    library=lambda: wan_dit._int8_matmul(x8, w8),
+                    work={"w4a8_linear": (2 * m * n * k, io, PEAK_INT8)})
+
+    def prepass_case(name, m, k):
+        """The W4A8 activation pre-pass alone, bit for bit (x8 and xs)."""
+        x = randn((m, k), torch.bfloat16)
+
+        def kernel():
+            return Q.quantize_rows_int8(x)
+
+        def plain():
+            return Q._quantize_rows_reference(x)
+
+        def run():
+            (x8, xs), (rx8, rxs) = kernel(), plain()
+            same = torch.equal(x8, rx8) and torch.equal(xs, rxs)
+            return {"quantize_rows_int8": (0.0 if same else 1.0, 0.0)}
+
+        return dict(case=name, shape=[m, k], dtype="bf16->int8", run=run,
+                    kernels={"quantize_rows_int8": kernel}, plain=plain, library=None,
+                    work={"quantize_rows_int8": (3 * m * k, 3 * m * k + 4 * m, PEAK_F32)})
+
+    # the W4A8 linears at the slice's 9360 tokens (B2 S4680): ffn.0, ffn.2,
+    # self_attn.q; the cross-attention's k on the text (B2 x 512 tokens); the
+    # time embedding's first linear at M = batch
+    yield prepass_case("w4a8_prepass_ffn_0", 9360, 5120)
+    yield prepass_case("w4a8_prepass_ffn_2", 9360, 13824)
+    yield w4a8_case("w4a8_ffn_0", 9360, 13824, 5120)
+    yield w4a8_case("w4a8_ffn_2", 9360, 5120, 13824)
+    yield w4a8_case("w4a8_self_attn_q", 9360, 5120, 5120)
+    yield w4a8_case("w4a8_cross_attn_k_text", 1024, 5120, 5120)
+    yield w4a8_case("w4a8_time_embedding_0", 2, 5120, 256)
 
     def q8_case(name, quant, b, sq, sk, n, d, grid=None, kv_len=None):
         """K6 on `_quant_prep`'s operands (the prep is torch code, outside the
@@ -578,7 +681,6 @@ def kernel_cases():
         v_in = v8 if pv8 else v
         qh, kh = (heads_first(t, n, d, cos, sin) for t in (q, k))
         vh = heads_first(v, n, d)
-        del q, k
         mask = None if kv == sk else (torch.arange(sk, device="cuda") < kv)[None, None, None]
 
         def kernel():
@@ -586,7 +688,7 @@ def kernel_cases():
 
         def plain():
             return A._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
-                                             torch.bfloat16, block_k=A.Q8_BLOCK_K)
+                                             torch.bfloat16, block_k=A.Q8_BLOCK_K[d])
 
         def run():
             (out, lse), (ref_out, ref_lse) = kernel(), plain()
@@ -596,17 +698,30 @@ def kernel_cases():
             out_err, out_bound = err(out, ref_out), Q8_OUT_REL * out_max
             log(f"[q8] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} "
                 f"({Q8_OUT_REL} of the largest |out| {out_max:.3e}; mean |out| {out_mean:.3e})")
-            return {"flash_fwd_flat_q8": worst((out_err, out_bound),
-                                               (err(lse, ref_lse), Q8_LSE_BOUND))}
+            if b * sq * sk >= 32760 * 32760:
+                # K1 on the same bf16 q, k, v (no RoPE: K6's operands come rotated),
+                # in turns with K6, and the exp2 floor
+                k1_dev, k6_dev = device_ms(k1), device_ms(kernel)
+                k1_dev2, k6_dev2 = device_ms(k1), device_ms(kernel)
+                floor_ms = 1e3 * b * n * sq * sk / EXP2_PER_S
+                log(f"[q8-vs-k1] {name}: device ms K6 {k6_dev:.3f} / {k6_dev2:.3f}, K1 sm90 "
+                    f"{k1_dev:.3f} / {k1_dev2:.3f}; K6 <= K1: "
+                    f"{max(k6_dev, k6_dev2) <= min(k1_dev, k1_dev2)}; exp2 floor "
+                    f"{floor_ms:.2f} ms")
+            return {"flash_fwd_flat_q8/sm90": worst((out_err, out_bound),
+                                                    (err(lse, ref_lse), Q8_LSE_BOUND))}
+
+        def k1():
+            return A.flash_fwd_flat(q, k, v, d)
 
         io = _nbytes(q8, qs, k8, kscale, v_in, *([vss] if pv8 else [])) + 2 * q8.numel() \
             + 4 * b * n * sq  # out bf16, lse f32
         # Q.K^T at the int8 rate, P.V at the int8 (qk8pv8) or bf16 (qk8) rate
         peak = PEAK_INT8 if pv8 else 2 / (1 / PEAK_INT8 + 1 / PEAK_BF16)
         return dict(case=name, shape=[b, sq, sk, n, d], dtype=f"int8 {quant}", run=run,
-                    kernels={"flash_fwd_flat_q8": kernel}, plain=plain,
+                    kernels={"flash_fwd_flat_q8/sm90": kernel}, plain=plain,
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                    work={"flash_fwd_flat_q8": (4 * b * n * sq * kv * d, io, peak)})
+                    work={"flash_fwd_flat_q8/sm90": (4 * b * n * sq * kv * d, io, peak)})
 
     for quant in ("qk8", "qk8pv8"):
         # the 14B self-attention at 81 frames (production), at the slice's 9
@@ -774,8 +889,8 @@ def phase_small_reference():
 
 def phase_small_quantized():
     """The tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
-    card (K3, K6, torch._int_mm) against the same on the CPU (the plain
-    versions and an int32 matmul); the quantizers are bit-exact on both, so
+    card (the W4A8 linear, K6) against the same on the CPU (the plain
+    versions); the quantizers are bit-exact on both, so
     both start from the same int4 weights. First one DiT forward on the same
     inputs, then the pipeline."""
     pipes = {dev: tiny_pipeline(dev, quantized=True) for dev in ("cuda", "cpu")}
@@ -994,6 +1109,10 @@ def device_time_breakdown(fn) -> str:
         low = name.lower()
         if "unpack_requant" in name:
             group = "K3"
+        elif "w4a8_gemm" in name:
+            group = "W4A8 GEMM"
+        elif "w4a8_quantize_rows" in name:
+            group = "W4A8 pre-pass"
         elif "flash_fwd_q8" in name:
             group = "K6"
         elif "flash_fwd" in name:  # flash_fwd.cu and flash_fwd_sm90.cu with its RoPE pre-pass
@@ -1060,8 +1179,11 @@ def phase_quantized_slice(state: dict):
     forward (480x832x9, batched CFG) in bf16, then the DiT quantized in place
     to int4_w4a8 (consume=True frees each bf16 weight as its int4 leaves are
     made) and the same forward with qk8 attention; then two clips, clip 1
-    with qk8 and clip 2 with qk8pv8 attention, no TeaCache."""
+    with qk8 and clip 2 with qk8pv8 attention, no TeaCache. The forward and
+    the clips fail unless every quantized linear took w4a8_linear and every
+    int8 attention the sm90 kernel (`check_quant_path`)."""
     from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.ops import attention as A
 
     pipe, ctx_pos, ctx_neg = state["pipe"], state["ctx_pos"], state["ctx_neg"]
     timer = PhaseTimer()
@@ -1088,8 +1210,10 @@ def phase_quantized_slice(state: dict):
     dit_bytes = sum(p.numel() * p.element_size() for p in pipe.dit.parameters())
     n_q4 = sum(1 for name, _ in pipe.dit.named_parameters() if name.endswith("w_q4"))
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
+    with torch.inference_mode(), count_int_mm() as int_mm:
+        zero_counts()
         out_q = timer.wrap("forward_w4a8_qk8", pipe.dit)(*args)
+        check_quant_path("the W4A8 + qk8 forward", read_counts(), int_mm, n_q4, forwards=1)
         log("[quant] profile of the W4A8 + qk8 forward: "
             f"{device_time_breakdown(lambda: pipe.dit(*args))}")
     if not torch.isfinite(out_q).all():
@@ -1109,23 +1233,107 @@ def phase_quantized_slice(state: dict):
     pipe.vae.decode = timer.wrap("vae_decode", pipe.vae.decode)
     pipe._sample = timer.wrap("denoise", pipe._sample)
     # the quantized path's run: counters from zero, read right after
-    zero_counts()
-    t_run = time.perf_counter()
-    video, _ = two_clips(pipe, state["first"], state["anchor"], ctx_pos, ctx_neg, "quant",
-                         attention=("qk8", "qk8pv8"))
-    run_s = time.perf_counter() - t_run
-    launches = read_counts()
+    with count_int_mm() as int_mm:
+        zero_counts()
+        t_run = time.perf_counter()
+        video, _ = two_clips(pipe, state["first"], state["anchor"], ctx_pos, ctx_neg, "quant",
+                             attention=("qk8", "qk8pv8"))
+        run_s = time.perf_counter() - t_run
+        launches = read_counts()
     std = float(video.astype(np.float32).std())
-    if min(launches[k] for k in QUANT_KERNELS) <= 0:
-        raise RuntimeError(f"a kernel was not launched on the quantized path: {launches}")
+    check_quant_path("the quantized clips", launches, int_mm, n_q4)
     secs = timer.seconds
     per_step = [s / SLICE_STEPS for s in secs["denoise"]]
     log(f"[quant] seconds: clip {secs['clip']}, vae_encode {secs['vae_encode']}, denoise step "
         f"qk8 {per_step[0]:.3f}, qk8pv8 {per_step[1]:.3f}, vae_decode {secs['vae_decode']}")
     log(f"[quant] two clips {run_s:.2f}s, {video.shape[0]} frames, pixel std {std:.2f}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, DiT "
-        f"{dit_bytes / 2**30:.2f} GiB, launches {launches}")
+        f"{dit_bytes / 2**30:.2f} GiB, launches {launches}, int8 attention routes "
+        f"{dict(A.flash_fwd_flat_q8.routes)}")
+    state["n_q4"] = n_q4
     return launches
+
+
+class count_int_mm:
+    """Counts torch._int_mm calls inside the block (the int8 GEMM the W4A8
+    path used before w4a8_linear; W8A8 still calls it)."""
+
+    def __enter__(self):
+        self.calls, self._orig = 0, torch._int_mm
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._orig(*args, **kwargs)
+
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self._orig
+
+
+def check_quant_path(path: str, launches: dict, int_mm: count_int_mm, n_q4: int,
+                     forwards: int | None = None) -> None:
+    """Fails unless every quantized linear of the path went through
+    w4a8_linear (n_q4 launches a forward, as many of its pre-pass; `forwards`
+    forwards when given), with no K3 and no torch._int_mm launch, and every
+    int8 attention launch took the sm90 kernel."""
+    from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.ops import quant_matmul as Q
+
+    n = launches["w4a8_linear"]
+    per_forward = n == launches["quantize_rows_int8"] and n > 0 and n % n_q4 == 0 and (
+        forwards is None or n == forwards * n_q4)
+    routes = dict(A.flash_fwd_flat_q8.routes)
+    if not per_forward or Q.unpack_requant_int4.launches or int_mm.calls:
+        raise RuntimeError(f"{path}: {n} w4a8_linear launches for {n_q4} quantized linears a "
+                           f"forward, {Q.unpack_requant_int4.launches} K3 launches, "
+                           f"{int_mm.calls} torch._int_mm calls: {launches}")
+    if not routes or any(key[0] != "sm90" for key in routes):
+        raise RuntimeError(f"{path}: an int8 attention launch took a route other than sm90, "
+                           f"or none ran: {routes}")
+    log(f"[quant] {path}: {n} w4a8_linear launches ({n // n_q4} forwards x {n_q4} linears), "
+        f"0 K3, 0 torch._int_mm; int8 attention routes {routes}")
+
+
+def phase_quantized_81f(state: dict) -> None:
+    """One W4A8 + qk8 forward of the quantized 14B DiT at 480x832x81 (B2
+    S32760, seeded inputs as in the bf16 81-frame forward): its seconds and
+    peak memory, then the same forward under the profiler."""
+    pipe = state["pipe"]
+    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant="qk8")
+    lt, lh, lw = (FORWARD_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cfg = pipe.dit.cfg
+    args = (randn(2, 16, lt, lh, lw), pipe.scheduler.timesteps[:1].cuda(),
+            torch.cat([state["ctx_pos"], state["ctx_neg"]]),
+            randn(2, 257, cfg.clip_feature_dim), randn(2, cfg.in_dim - 16, lt, lh, lw))
+    tokens = lt * lh * lw // 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), count_int_mm() as int_mm:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = pipe.dit(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_quant_path("the 81-frame W4A8 + qk8 forward", read_counts(), int_mm,
+                         state["n_q4"], forwards=1)
+        if out.shape != args[0].shape or not torch.isfinite(out).all():
+            raise RuntimeError(f"the 81-frame quantized forward gave {tuple(out.shape)}, or "
+                               "non-finite values")
+        del out
+        log(f"[forward-81f-quant] 14B W4A8 + qk8 DiT, one forward at {SLICE_H}x{SLICE_W}x"
+            f"{FORWARD_FRAMES} (B2 S{tokens}): {seconds:.3f}s, peak memory {peak:.2f} GiB")
+        log(f"[forward-81f-quant] profile: {device_time_breakdown(lambda: pipe.dit(*args))}")
+    del args
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1342,7 +1550,9 @@ def main() -> int:
     build.load_flash_bwd_sm90()
     build.load_flash_bwd_split_sm90()
     build.load_flash_fwd_q8()
+    build.load_flash_fwd_q8_sm90()
     build.load_quant_unpack()
+    build.load_w4a8_gemm()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")
 
     # 3. kernels against plain
@@ -1355,6 +1565,7 @@ def main() -> int:
     phase_forward_81f(state)
     phase_small_quantized()
     quant_launches = phase_quantized_slice(state)
+    phase_quantized_81f(state)
     del state
     gc.collect()  # the pipeline's timer wrappers refer back to it
     torch.cuda.empty_cache()

@@ -1,4 +1,5 @@
-// Int8 (SageAttention-class) flash-attention forward for Hopper (sm_90a),
+// Int8 (SageAttention-class) flash-attention forward for Hopper (sm_90a) at
+// head dim 64 (route "mma"; D = 128, the DiT's, is flash_fwd_q8_sm90.cu),
 // plain C interface.
 //
 // Replaces the Pallas TPU kernel svi_tpu/ops/attention.py::_fwd_kernel_flat_q8
@@ -44,12 +45,12 @@
 //   * the s8 B operand needs keys contiguous per channel, so V is transposed
 //     into shared memory (sVt[channel][slot]) by 4x4 byte blocks.
 //
-// What bounds it on this card: at the DiT self-attention shape (S = 32760,
-// D = 128, 40 heads) tensor-core operations: Q.K^T on the int8 rate
-// (1979 TOPS dense), P.V on the bf16 rate (989 TFLOP/s, qk8) or the int8 rate
-// (qk8pv8). This design is the simple one: mma.sync fragments read from
-// shared memory with plain loads, no double buffering, a CTA-wide barrier
-// around every tile. wgmma, TMA and warp specialisation are left for later.
+// What bounds it on this card: at long sequences tensor-core operations:
+// Q.K^T on the int8 rate (1979 TOPS dense), P.V on the bf16 rate (989
+// TFLOP/s, qk8) or the int8 rate (qk8pv8). This design is the simple one:
+// mma.sync fragments read from shared memory with plain loads, no double
+// buffering, a CTA-wide barrier around every tile. No main path runs D = 64;
+// the D = 128 kernel has the TMA + wgmma design.
 
 #include "flash_common.cuh"
 
@@ -380,7 +381,6 @@ template <bool PV8, typename OutT>
 cudaError_t dispatch(int head_dim, const Params& p, dim3 grid, cudaStream_t st) {
   switch (head_dim) {
     case 64: return launch<64, PV8, OutT>(p, grid, st);
-    case 128: return launch<128, PV8, OutT>(p, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }

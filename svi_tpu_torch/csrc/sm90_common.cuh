@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA + wgmma kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_split_sm90.cu), in inline
-// PTX: mbarriers, 4-D TMA loads, stores and reduce-adds, wgmma shared-memory
-// descriptors of 128-byte-swizzled tiles, wgmma fences and products, the
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_split_sm90.cu,
+// flash_fwd_q8_sm90.cu, w4a8_gemm_sm90.cu), in inline PTX: mbarriers, 4-D TMA
+// loads, stores and reduce-adds, wgmma shared-memory descriptors of
+// 128-byte-swizzled tiles, wgmma fences and bf16 / s8 products, the
 // backward's gradient finalize, and the host-side tensor-map encode found at
 // run time through cudaGetDriverEntryPoint (no -lcuda).
 #pragma once
@@ -51,6 +52,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 2-D map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // one box from shared memory into a 4-D map (rows out of bounds are skipped)
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                           int c2, int c3) {
@@ -89,6 +100,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// the same for a K-major tile of 64-byte rows, 64-byte swizzle: sbo = 512
+// between 8-row groups (lbo unused, given as 16 bytes as above)
+__device__ __forceinline__ uint64_t gmma_desc_sw64(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -165,6 +183,82 @@ __device__ __forceinline__ void issue_rs(float (&acc)[64], const uint32_t (&a)[1
     const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
     wgmma_rs(acc, ak, gmma_desc(b_tile + kk * 16 * 128, b_box, 1024));
   }
+}
+
+// d (64 x 128 s32) (+)= A (64 x 32 s8, smem) * B (32 x 128 s8, smem), both
+// K-major (integer wgmma takes no other majorness). A k32 step is 32 bytes,
+// so inside a 128-byte swizzled row the descriptors advance by 32 bytes.
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 s32) (+)= A (64 x 32 s8, registers) * B (32 x 128 s8, smem,
+// K-major). A's fragment (lane 4g + t of warp w, rows 16w + ...): a[0] row
+// g, k 4t .. 4t + 3; a[1] row g + 8, the same k; a[2] / a[3] the same rows
+// at k 16 + 4t .. 16 + 4t + 3: the layout of mma.sync m16n8k32's s8 A.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// int32 s with |s| < 2^22 to f32, exactly, in two full-rate instructions
+// (cvt.rn.f32.s32 runs at a fraction of the FMA rate): the bits of
+// 1.5 * 2^23 + s, less 1.5 * 2^23
+__device__ __forceinline__ float small_int_to_float(int s) {
+  return __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.f);
+}
+
+// the bits of x + 1.5 * 2^23 for x in [-2^22, 2^22): its low byte is the
+// two's complement of rint(x) (round half to even), in one FADD (never
+// contracted with the product that made x)
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return (uint32_t)__float_as_int(__fadd_rn(x, 12582912.f));
+}
+
+// the low bytes of four rint_bits values, b0 lowest
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t b0, uint32_t b1, uint32_t b2,
+                                                   uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
 }
 
 // pins accumulator registers: nothing that reads them moves above this point

@@ -29,7 +29,9 @@ BWD_SOURCE = CSRC / "flash_bwd.cu"
 BWD_SM90_SOURCE = CSRC / "flash_bwd_sm90.cu"
 BWD_SPLIT_SM90_SOURCE = CSRC / "flash_bwd_split_sm90.cu"
 Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
+Q8_SM90_SOURCE = CSRC / "flash_fwd_q8_sm90.cu"
 UNPACK_SOURCE = CSRC / "quant_unpack.cu"
+W4A8_SOURCE = CSRC / "w4a8_gemm_sm90.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -218,8 +220,57 @@ def load_flash_bwd_split_sm90() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def load_flash_fwd_q8_sm90() -> ctypes.CDLL:
+    """Build (if needed) and load the Hopper int8 forward at D=128 (K6, route
+    "sm90": TMA + integer wgmma) and its qk8pv8 V8 pre-pass once per
+    process."""
+    lib = ctypes.CDLL(str(build(Q8_SM90_SOURCE).path))
+    lib.svi_flash_fwd_q8_sm90.argtypes = [
+        ctypes.c_int, ctypes.c_int,  # pv8, out_f32
+        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q8, qs, k8, kscale, v (bf16 or v8^T), vss
+        _ptr, _ptr,  # out, lse
+        _i64, _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, sk_pad, kv_len
+        ctypes.c_float,  # scale
+        _STRIDES,  # 12 strides
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_v8_keys_major.argtypes = [
+        _ptr, _ptr,  # v8, v8^T
+        _i64, _i64, _i64, _i64,  # batch, heads, sk, sk_pad
+        _i64, _i64,  # v8's batch and key element strides
+        _ptr,  # cudaStream_t
+    ]
+    for fn in (lib.svi_flash_fwd_q8_sm90, lib.svi_v8_keys_major):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_w4a8_gemm() -> ctypes.CDLL:
+    """Build (if needed) and load the W4A8 linear (the activation pre-pass and
+    the int4-unpacking int8 GEMM with its epilogue) once per process."""
+    lib = ctypes.CDLL(str(build(W4A8_SOURCE).path))
+    lib.svi_w4a8_quantize_rows.argtypes = [
+        ctypes.c_int, _ptr, _ptr, _ptr,  # in_f32, x, x8, xs
+        _i64, _i64,  # m, k
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_w4a8_gemm.argtypes = [
+        ctypes.c_int, _ptr, _i64, _i64,  # out_f32, x8, its columns, its high half's column
+        _ptr, _ptr, _i64,  # xs, packed weight, its row bytes
+        _ptr, _ptr, _ptr, _ptr,  # r, s8, bias (or null), y
+        _i64, _i64, _i64, ctypes.c_int,  # m, n, k, group
+        _ptr,  # cudaStream_t
+    ]
+    for fn in (lib.svi_w4a8_quantize_rows, lib.svi_w4a8_gemm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def load_flash_fwd_q8() -> ctypes.CDLL:
-    """Build (if needed) and load the int8 flash-forward library (K6) once."""
+    """Build (if needed) and load the int8 flash-forward library (K6 at D=64,
+    route "mma") once."""
     lib = ctypes.CDLL(str(build(Q8_SOURCE).path))
     lib.svi_flash_fwd_q8.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pv8, out_f32, head_dim

@@ -7,10 +7,11 @@ MLP, the head, the split prelude / blocks / head forward that TeaCache
 needs, the unfused LoRA side path of training, rematerialisation of the
 block stack (per block, or in square-root groups), and quantized inference:
 the weight quantizers (`quantize_params_for_inference`, modes
-`QUANTIZE_MODES`), the dense's quantized branches with the W4A8 / W8A8 int8
-execution (`_int8_exec`), and the int8 self-attention forward
-(`WanDiTConfig.attention_quant`). Multitalk/customtalk, the save-attention
-remat policy and host-offloaded carries are not part of this port.
+`QUANTIZE_MODES`), the dense's quantized branches with the int8 execution
+(W4A8 through `ops.quant_matmul.w4a8_linear`, W8A8 through `_int8_exec`),
+and the int8 self-attention forward (`WanDiTConfig.attention_quant`).
+Multitalk/customtalk, the save-attention remat policy and host-offloaded
+carries are not part of this port.
 Activations are in cfg.dtype; norm and softmax statistics f32; base weights
 are frozen.
 """
@@ -26,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import div_exact, flash_attention, flash_attention_flat
 from ..ops.norms import gelu_tanh, layer_norm, modulate, rms_norm
-from ..ops.quant_matmul import unpack_int4, unpack_requant_int4
+from ..ops.quant_matmul import unpack_int4, unpack_requant_int4, w4a8_linear
 from ..ops.rope import rope_angles_for_grid, sinusoidal_embedding_1d
 from .params import Init, ParamTree, convert_tree, unstack
 
@@ -69,7 +70,8 @@ WAN_14B_I2V = WanDiTConfig(
 
 
 def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (N, K) int8 -> (M, N) int32, exact. The JAX package
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32, exact, for W8A8's
+    `_int8_exec` (W4A8 runs its own GEMM, `w4a8_linear`). The JAX package
     leaves this product to XLA; here it is torch._int_mm (cuBLASLt on the
     card), with w.t() as the column-major operand, so no copy of w is made.
     cuBLASLt needs M > 16: the time-embedding linears run at M = batch, so
@@ -100,12 +102,39 @@ class _Int8Exec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w8i, col_scale = ctx.saved_tensors
-        gs = g * col_scale.reshape(-1).to(g.dtype)
-        return gs @ w8i.to(g.dtype), None, None
+        return _straight_through_dx(g, w8i, col_scale), None, None
+
+
+def _straight_through_dx(g: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor):
+    """`_int8_exec_bwd`: dx = (g · col_scale) @ w8i in g's dtype."""
+    return (g * col_scale.reshape(-1).to(g.dtype)) @ w8i.to(g.dtype)
 
 
 def _int8_exec(x: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor) -> torch.Tensor:
     return _Int8Exec.apply(x, w8i, col_scale)
+
+
+class _W4A8Exec(torch.autograd.Function):
+    """The W4A8 branch of `_dense`: K3's unpack, `_int8_exec` and the bias in
+    one forward, `ops.quant_matmul.w4a8_linear` (its GEMM unpacks the int4
+    weight in shared memory). It saves the packed weight and its ratios; the
+    backward is `_int8_exec`'s straight-through dx = (g · s8) @ w8i, with w8i
+    unpacked by the standalone K3, and the bias's gradient the sum of g."""
+
+    @staticmethod
+    def forward(ctx, x, w_q4, r_q4, s8_q4, b):
+        ctx.save_for_backward(w_q4, r_q4, s8_q4)
+        ctx.bias_dtype = None if b is None else b.dtype
+        return w4a8_linear(x, w_q4, r_q4, s8_q4, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q4, r_q4, s8_q4 = ctx.saved_tensors
+        dx = _straight_through_dx(g, unpack_requant_int4(w_q4, r_q4), s8_q4)
+        db = None
+        if ctx.needs_input_grad[4]:
+            db = g.reshape(-1, g.shape[-1]).float().sum(0).to(ctx.bias_dtype)
+        return dx, None, None, None, db
 
 
 def _plus_bias(p: ParamTree, y: torch.Tensor) -> torch.Tensor:
@@ -116,8 +145,9 @@ def _plus_bias(p: ParamTree, y: torch.Tensor) -> torch.Tensor:
 def dense(p: ParamTree, x: torch.Tensor) -> torch.Tensor:
     """The DiT's linear layer (`_dense`) over whichever weight the leaf holds,
     all (out, in):
-      * w_q4 + r_q4 (W4A8): K3 unpacks and requantizes the int4 weight to
-        per-channel int8, then `_int8_exec` with s8_q4;
+      * w_q4 + r_q4 (W4A8): `w4a8_linear` (the int4 weight unpacked and
+        requantized to per-channel int8 inside the int8 GEMM, whose epilogue
+        applies `_int8_exec`'s scales with s8_q4 and the bias);
       * w_q4 alone (int4 storage): dequantized in x's dtype (the product is
         rounded to x's dtype, as the JAX package does) for a plain matmul;
       * w_q8 (W8A8): `_int8_exec` with scale8;
@@ -125,8 +155,7 @@ def dense(p: ParamTree, x: torch.Tensor) -> torch.Tensor:
       * w: x @ wᵀ + b."""
     if "w_q4" in p:
         if "r_q4" in p:
-            return _plus_bias(p, _int8_exec(x, unpack_requant_int4(p["w_q4"], p["r_q4"]),
-                                            p["s8_q4"]))
+            return _W4A8Exec.apply(x, p["w_q4"], p["r_q4"], p["s8_q4"], p.get("b"))
         scale = p["scale_q4"]  # (out, in // G)
         w8 = unpack_int4(p["w_q4"])
         n, k = w8.shape

@@ -33,7 +33,10 @@ the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
 bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
 rotated by the pre-pass), bf16 D = 64 csrc/flash_bwd.cu, each entry
 counting its launches per (route, dtype, head_dim) in `.routes`. The int8
-forward runs csrc/flash_fwd_q8.cu.
+forward takes the route `_q8_route` names for the head dim: D = 128 runs
+csrc/flash_fwd_q8_sm90.cu (TMA + integer wgmma, 128-key tiles), D = 64
+csrc/flash_fwd_q8.cu (mma.sync, 64-key tiles); it counts its launches in
+`.launches` and per (route, mode, head_dim) in `.routes`.
 Dispatch: tensors on the CPU take the plain PyTorch version
 (`_flash_fwd_reference`, `_flash_bwd_reference`, which mirror the JAX
 package's `_flash_fwd_xla` and `_flash_bwd_xla`, and
@@ -671,8 +674,13 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
 # ---------------------------------------------------------------------------
 
 _LOG2_127 = 6.9886846867721655  # log2(127): the qk8pv8 shift that puts P in [0, 127]
-Q8_BLOCK_K = 64  # keys per tile of csrc/flash_fwd_q8.cu: its row max runs per tile
-_Q8_HEAD_DIMS = (64, 128)
+# head dim -> the int8 forward's route, and the keys per tile of that route's
+# kernel: its row max runs per tile, so the plain version walks the same
+# tiles. D = 128 (the DiT) takes the Hopper kernel, whose 128-key tiles
+# match its m64n128 products; D = 64 the mma.sync kernel's 64-key tiles.
+_Q8_ROUTES = {128: "sm90", 64: "mma"}
+Q8_BLOCK_K = {128: 128, 64: 64}
+_Q8_PV8_MAX_SK = 131072  # the sm90 qk8pv8 kernel's int32 P.V8 sums: 127 * 127 * Sk < 2^31
 
 
 def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -716,22 +724,26 @@ def _quant_prep(q, k, v, cos, sin, head_dim: int, pv8: bool):
 
 
 def _flash_fwd_q8_reference(q8, qs, k8, kscale, v, vss, kv_len: int, scale: float,
-                            out_dtype: torch.dtype, block_k: int = Q8_BLOCK_K, nsub: int = 1):
+                            out_dtype: torch.dtype, block_k: Optional[int] = None,
+                            nsub: int = 1):
     """Plain PyTorch version of K6 (mirrors `_fwd_kernel_flat_q8` step by
     step). The keys are zero-padded to a multiple of block_k and walked in
     sub-blocks of block_k // nsub; each sub-block's row max is taken on the
     integer scores of all its keys, the masked and the padded ones too, as
     the TPU kernel does. P's rounding depends on that running max, so the
     sub-block width is an argument: the JAX package's `block_k // nsub`
-    (`_choose_blocks_flat`) to match it, the kernel's Q8_BLOCK_K to match
-    the card. Integer products are computed in f32, exactly (each sum stays
-    below 2^24). v is v's float (qk8) or v8 (qk8pv8, with vss). Returns out
-    (B, Sq, N*D) in out_dtype and lse (B, N, Sq) of the centred logits."""
+    (`_choose_blocks_flat`) to match it, the kernel's tile
+    (Q8_BLOCK_K[head dim], the default) to match the card. Integer products
+    are computed in f32, exactly (each sum stays below 2^24). v is v's float
+    (qk8) or v8 (qk8pv8, with vss). Returns out (B, Sq, N*D) in out_dtype
+    and lse (B, N, Sq) of the centred logits."""
     b, sq, nd = q8.shape
     sk = k8.shape[1]
     n = qs.shape[1]
     d = nd // n
     pv8 = vss is not None
+    if block_k is None:
+        block_k = Q8_BLOCK_K.get(d, 64)
     sk_p = _ceil_to(max(sk, 1), block_k)
     h = block_k // nsub
     masked = kv_len < sk_p
@@ -796,8 +808,73 @@ def _check_q8_inputs(q8, qs, k8, kscale, v, vss, head_dim: int) -> None:
         raise ValueError(f"vss {tuple(vss.shape)} must be {(b, n, head_dim)}")
 
 
-def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> torch.Tensor:
-    """Launch csrc/flash_fwd_q8.cu on the current stream; returns lse."""
+def _q8_route(head_dim: int) -> str:
+    """The int8 forward's kernel for a head dim: "sm90" (D = 128) or "mma"
+    (D = 64); anything else raises (no fallback)."""
+    route = _Q8_ROUTES.get(head_dim)
+    if route is None:
+        raise ValueError(f"int8 flash forward kernel: head_dim {head_dim} not built "
+                         f"(built: {tuple(_Q8_ROUTES)})")
+    return route
+
+
+# v8^T's key order inside each 32-key chunk: slot 16h + 4t + i holds key
+# 16h + (2t, 2t+1, 8+2t, 9+2t)[i], so that the int8 accumulator values of P a
+# thread holds after Q.K^T are, in this order, its A fragment of P.V8
+_V8_SLOT_KEYS = tuple(16 * h + (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)[i]
+                      for h in range(2) for t in range(4) for i in range(4))
+_V8_KEY_SLOTS = tuple(sorted(range(32), key=_V8_SLOT_KEYS.__getitem__))
+
+
+def _v8_keys_major_reference(v8: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Plain version of `v8_keys_major`: one gather and transposition."""
+    b, sk, nd = v8.shape
+    n = nd // head_dim
+    sk_pad = _ceil_to(max(sk, 1), Q8_BLOCK_K[128])
+    x = torch.nn.functional.pad(v8.unflatten(-1, (n, head_dim)), (0, 0, 0, 0, 0, sk_pad - sk))
+    perm = torch.tensor(_V8_SLOT_KEYS, device=v8.device)
+    x = x.unflatten(1, (sk_pad // 32, 32)).index_select(2, perm)  # (b, chunks, slot, n, d)
+    return x.permute(0, 3, 4, 1, 2).reshape(b, n, head_dim, sk_pad).contiguous()
+
+
+def v8_keys_major(v8: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """qk8pv8's v8 (B, Sk, N*D) int8 -> (B, N, D, Sk_pad) contiguous: keys
+    contiguous per channel (the integer wgmma takes K-major operands only),
+    zero-padded to a multiple of the sm90 kernel's key tile, and permuted
+    inside each 32-key chunk by `_V8_SLOT_KEYS`. On the card a pre-pass
+    kernel of csrc/flash_fwd_q8_sm90.cu (part of K6: it counts no launch of
+    its own); on the CPU the plain version."""
+    if _on_cpu(v8):
+        return _v8_keys_major_reference(v8, head_dim)
+    b, sk, nd = v8.shape
+    if head_dim != 128 or v8.dtype != torch.int8 or v8.stride(-1) != 1 or v8.data_ptr() % 16 \
+            or any(st % 16 for st in v8.stride()[:2]):
+        raise ValueError("v8_keys_major kernel: int8 v8 with head_dim 128, contiguous in its "
+                         "last dim, 16-byte aligned, with 16-byte multiple row strides")
+    n = nd // head_dim
+    sk_pad = _ceil_to(max(sk, 1), Q8_BLOCK_K[128])
+    vt = torch.empty((b, n, head_dim, sk_pad), dtype=torch.int8, device=v8.device)
+    from ..kernels.build import load_flash_fwd_q8_sm90
+
+    err = load_flash_fwd_q8_sm90().svi_v8_keys_major(
+        v8.data_ptr(), vt.data_ptr(), b, n, sk, sk_pad, v8.stride(0), v8.stride(1),
+        torch.cuda.current_stream(v8.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"v8_keys_major kernel launch failed: cudaError {err}")
+    return vt
+
+
+def v8_from_keys_major(v8t: torch.Tensor, sk: int) -> torch.Tensor:
+    """The inverse of `v8_keys_major`: (B, N, D, Sk_pad) -> (B, Sk, N*D)."""
+    b, n, d, sk_pad = v8t.shape
+    perm = torch.tensor(_V8_KEY_SLOTS, device=v8t.device)
+    x = v8t.unflatten(-1, (sk_pad // 32, 32)).index_select(-1, perm)  # slots back to keys
+    return x.flatten(-2)[..., :sk].permute(0, 3, 1, 2).reshape(b, sk, n * d)
+
+
+def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> tuple:
+    """Launch the int8 forward of `_q8_route(head_dim)` on the current
+    stream; returns (lse, route)."""
     named = dict(q8=q8, qs=qs, k8=k8, kscale=kscale, v=v, out=out)
     if vss is not None:
         named["vss"] = vss
@@ -805,9 +882,7 @@ def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> torc
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise RuntimeError("int8 flash forward: every tensor must be on one CUDA device "
                            f"(got {sorted({str(t.device) for t in tensors})})")
-    if head_dim not in _Q8_HEAD_DIMS:
-        raise ValueError(f"int8 flash forward kernel: head_dim {head_dim} not built "
-                         f"(built: {_Q8_HEAD_DIMS})")
+    route = _q8_route(head_dim)
     if (vss is None and (v.dtype, out.dtype) != (torch.bfloat16, torch.bfloat16)) or \
             out.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError("int8 flash forward kernel: qk8 takes bfloat16 v and out; qk8pv8 "
@@ -821,19 +896,34 @@ def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> torc
         if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(f"int8 flash forward kernel: {name} must be contiguous float32")
     b, sq, nd = q8.shape
-    n = nd // head_dim
+    n, sk = nd // head_dim, k8.shape[1]
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q8.device)
     views = [t.unflatten(-1, (n, head_dim)) for t in (q8, k8, v, out)]
-    from ..kernels.build import load_flash_fwd_q8
+    pv8, out_f32 = int(vss is not None), int(out.dtype == torch.float32)
+    vss_ptr = vss.data_ptr() if vss is not None else None
+    stream = torch.cuda.current_stream(q8.device).cuda_stream
+    if route == "sm90":
+        from ..kernels.build import load_flash_fwd_q8_sm90
 
-    err = load_flash_fwd_q8().svi_flash_fwd_q8(
-        int(vss is not None), int(out.dtype == torch.float32), head_dim, q8.data_ptr(), qs.data_ptr(), k8.data_ptr(),
-        kscale.data_ptr(), v.data_ptr(), vss.data_ptr() if vss is not None else None,
-        out.data_ptr(), lse.data_ptr(), b, n, sq, k8.shape[1], kv_len, float(scale),
-        _strides12(*views), torch.cuda.current_stream(q8.device).cuda_stream)
+        if sk == 0 or (pv8 and sk > _Q8_PV8_MAX_SK):
+            raise ValueError(f"int8 flash forward kernel (sm90): Sk = {sk} must be at least 1 "
+                             f"(and at most {_Q8_PV8_MAX_SK} for qk8pv8: its int32 sums)")
+        vt = v8_keys_major(v, head_dim) if pv8 else v
+        err = load_flash_fwd_q8_sm90().svi_flash_fwd_q8_sm90(
+            pv8, out_f32, q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), kscale.data_ptr(),
+            vt.data_ptr(), vss_ptr, out.data_ptr(), lse.data_ptr(), b, n, sq, sk,
+            vt.shape[-1] if pv8 else sk, kv_len, float(scale), _strides12(*views), stream)
+    else:
+        from ..kernels.build import load_flash_fwd_q8
+
+        err = load_flash_fwd_q8().svi_flash_fwd_q8(
+            pv8, out_f32, head_dim, q8.data_ptr(), qs.data_ptr(), k8.data_ptr(),
+            kscale.data_ptr(), v.data_ptr(), vss_ptr, out.data_ptr(), lse.data_ptr(), b, n, sq,
+            sk, kv_len, float(scale), _strides12(*views), stream)
     if err != 0:
-        raise RuntimeError(f"int8 flash forward kernel launch failed: cudaError {err}")
-    return lse
+        raise RuntimeError(f"int8 flash forward kernel ({route}) launch failed: {err} "
+                           + _LAUNCH_FAILED)
+    return lse, route
 
 
 def flash_fwd_flat_q8(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor,
@@ -845,7 +935,8 @@ def flash_fwd_flat_q8(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor,
     float (qk8) or int8 with vss (B, N, D) (qk8pv8). Keys >= kv_len are
     masked. Returns (out (B, Sq, N*D) in out_dtype, lse (B, N, Sq) of the
     centred logits). The kernel takes bf16 v and out for qk8, and bf16 or
-    f32 out for qk8pv8; other types raise on the card."""
+    f32 out for qk8pv8; other types raise on the card. Launches count in
+    `.launches` and per (route, mode, head_dim) in `.routes`."""
     _check_q8_inputs(q8, qs, k8, kscale, v, vss, head_dim)
     kv_len = k8.shape[1] if kv_len is None else min(int(kv_len), k8.shape[1])
     if kv_len < 0:
@@ -854,12 +945,14 @@ def flash_fwd_flat_q8(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor,
     if _on_cpu(q8, qs, k8, kscale, v, vss):
         return _flash_fwd_q8_reference(q8, qs, k8, kscale, v, vss, kv_len, scale, out_dtype)
     out = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
-    lse = _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale)
+    lse, route = _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale)
     flash_fwd_flat_q8.launches += 1
+    flash_fwd_flat_q8.routes[(route, "qk8" if vss is None else "qk8pv8", head_dim)] += 1
     return out, lse
 
 
 flash_fwd_flat_q8.launches = 0
+flash_fwd_flat_q8.routes = collections.Counter()
 
 
 class _QuantFlashAttention(torch.autograd.Function):

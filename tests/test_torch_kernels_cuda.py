@@ -2,7 +2,9 @@
 bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, 3xTF32 for f32 --,
 the K4 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
-D=64 --, the K3 int4 unpack and the K6 int8 forward) against their plain
+D=64 --, the K3 int4 unpack, the W4A8 linear -- its activation pre-pass and
+its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
+sm90 TMA + integer wgmma at D=128, mma.sync at D=64 --) against their plain
 PyTorch versions, on the card.
 
 Marked `cuda`; every test skips where torch sees no CUDA device. Run on a
@@ -455,7 +457,8 @@ def test_unpack_requant_kernel_bit_exact(n, k, group):
 # K6: the int8 attention forward
 # ---------------------------------------------------------------------------
 
-# The plain version at the kernel's 64-key tiles runs the same integer scores,
+# The plain version at the kernel's key tiles (Q8_BLOCK_K: 128 for the sm90
+# route at D = 128, 64 for the mma route at D = 64) runs the same integer scores,
 # the same row max and the same f32 steps, and rounds out to bf16 the same
 # way; what remains is exp2 (a few f32 ulps) and the order of the sums, which
 # can put the two on neighbouring bf16 values (one ulp, at most 2^-7 of the
@@ -471,10 +474,14 @@ def _q8_out_tol(ref: torch.Tensor, rel: float = Q8_OUT_REL) -> float:
 
 @pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
 @pytest.mark.parametrize("d,sq,sk,kv_len", [(128, 189, 189, None), (128, 189, 77, None),
-                                            (64, 150, 300, 211), (128, 70, 257, 0)])
+                                            (64, 150, 300, 211), (128, 70, 257, 0),
+                                            (128, 300, 1000, 700), (128, 1, 129, 128)])
 def test_q8_kernel_matches_plain(quant, d, sq, sk, kv_len):
-    """Ragged Sq and Sk against the 64-row and 64-key tiles, a masked tail,
-    and every key masked (kv_len 0: out 0, lse finite)."""
+    """Ragged Sq and Sk against the row and key tiles, a masked tail (on the
+    sm90 route at D = 128 also whole masked tiles: Sk 1000 with kv_len 700),
+    every key masked (kv_len 0: out 0, lse finite), a 4-stage K/V ring that
+    wraps more than once (8 tiles) and a single query row; each launch on
+    the route its head dim names."""
     n, b = 3, 2
     pv8 = quant == "qk8pv8"
     q = _rand((b, sq, n * d), torch.bfloat16, 50)
@@ -485,14 +492,31 @@ def test_q8_kernel_matches_plain(quant, d, sq, sk, kv_len):
     v_in = v8 if pv8 else v
     kv = sk if kv_len is None else kv_len
     before = tattn.flash_fwd_flat_q8.launches
+    key = (tattn._q8_route(d), quant, d)
+    routed = tattn.flash_fwd_flat_q8.routes[key]
     got = tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv)
     torch.cuda.synchronize()
     assert tattn.flash_fwd_flat_q8.launches == before + 1
+    assert tattn.flash_fwd_flat_q8.routes[key] == routed + 1
+    assert key[0] == ("sm90" if d == 128 else "mma")
     want = tattn._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
-                                         torch.bfloat16, block_k=tattn.Q8_BLOCK_K)
+                                         torch.bfloat16, block_k=tattn.Q8_BLOCK_K[d])
     _check(got, want, _q8_out_tol(want[0]), Q8_LSE_TOL)
     if kv == 0:
         assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("b,sk,n", [(2, 77, 3), (1, 300, 2), (2, 4680, 40)])
+def test_v8_keys_major_kernel_bit_exact(b, sk, n):
+    """qk8pv8's V8 pre-pass (transposed, key-permuted, zero-padded) against
+    its plain version, on a strided view too."""
+    g = torch.Generator(device="cuda").manual_seed(sk)
+    v8 = torch.randint(-127, 128, (b, sk, 2 * n * 128), generator=g, device="cuda",
+                       dtype=torch.int32).to(torch.int8)[..., : n * 128]
+    got = tattn.v8_keys_major(v8, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tattn._v8_keys_major_reference(v8, 128))
+    assert torch.equal(tattn.v8_from_keys_major(got, sk), v8)
 
 
 @pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
@@ -520,8 +544,79 @@ def test_q8pv8_kernel_f32_out_matches_plain():
     q8, qs, k8, kscale, v8, vss = tattn._quant_prep(q, k, v, None, None, d, True)
     got = tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v8, vss, d, out_dtype=torch.float32)
     want = tattn._flash_fwd_q8_reference(q8, qs, k8, kscale, v8, vss, s, d ** -0.5,
-                                         torch.float32, block_k=tattn.Q8_BLOCK_K)
+                                         torch.float32, block_k=tattn.Q8_BLOCK_K[d])
     assert got[0].dtype == torch.float32
     _check(got, want, _q8_out_tol(want[0], 1e-2), Q8_LSE_TOL)
     with pytest.raises(TypeError, match="qk8 takes bfloat16"):
         tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v, None, d, out_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The W4A8 linear (csrc/w4a8_gemm_sm90.cu): its pre-pass and GEMM, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _w4a8_operands(m, n, k, group, dtype, seed, bias=True):
+    from svi_tpu_torch.models import wan_dit
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=g, device="cuda") * 0.02
+    packed, scale = wan_dit._quantize_leaf_int4(w, group)
+    r, s8 = wan_dit._w4a8_leaves(scale)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 2).to(dtype)
+    b = (torch.randn((n,), generator=g, device="cuda") * 0.1).to(dtype) if bias else None
+    return x, packed, r, s8, b
+
+
+# phase 3's shapes of chip_smoke.py with M cut down (ffn.0, ffn.2, self_attn.q,
+# cross-attention k on text, the time embedding at M = batch), then M <= 16,
+# a ragged M past one 256-row tile, no bias, f32 activations, and the tiny
+# configs' K = 48 / 64 with groups of 16 (K/2 % 16 != 0 for K = 48)
+W4A8_CASES = [(300, 13824, 5120, 128, "bfloat16", True), (300, 5120, 13824, 128, "bfloat16", True),
+              (300, 5120, 5120, 128, "bfloat16", True), (256, 5120, 5120, 128, "bfloat16", True),
+              (2, 5120, 256, 128, "bfloat16", True), (1, 1280, 1280, 128, "bfloat16", True),
+              (16, 64, 5120, 128, "bfloat16", True), (257, 384, 512, 128, "bfloat16", False),
+              (37, 256, 256, 16, "float32", True), (5, 128, 48, 16, "float32", True),
+              (64, 128, 64, 16, "bfloat16", True)]
+
+
+@pytest.mark.parametrize("m,n,k,group,dtype,bias", W4A8_CASES)
+def test_w4a8_linear_bit_exact(m, n, k, group, dtype, bias):
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    x, packed, r, s8, b = _w4a8_operands(m, n, k, group, getattr(torch, dtype), m + n + k,
+                                         bias)
+    before = (tqm.w4a8_linear.launches, tqm.quantize_rows_int8.launches,
+              tqm.unpack_requant_int4.launches)
+    got = tqm.w4a8_linear(x, packed, r, s8, b)
+    torch.cuda.synchronize()
+    assert (tqm.w4a8_linear.launches, tqm.quantize_rows_int8.launches,
+            tqm.unpack_requant_int4.launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    assert torch.equal(got, tqm._w4a8_linear_reference(x, packed, r, s8, b))
+
+
+@pytest.mark.parametrize("m,k,dtype", [(9360, 5120, "bfloat16"), (3, 13824, "bfloat16"),
+                                       (5, 48, "float32")])
+def test_w4a8_prepass_bit_exact(m, k, dtype):
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    g = torch.Generator(device="cuda").manual_seed(k)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 3).to(getattr(torch, dtype))
+    x[0] = 0  # xs = 1e-12
+    x8, xs = tqm.quantize_rows_int8(x)
+    rx8, rxs = tqm._quantize_rows_reference(x)
+    assert torch.equal(x8, rx8) and torch.equal(xs, rxs)
+
+
+def test_w4a8_linear_3d_input_and_unsupported_shapes_raise():
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    x, packed, r, s8, b = _w4a8_operands(2 * 150, 256, 512, 128, torch.bfloat16, 5)
+    got = tqm.w4a8_linear(x.reshape(2, 150, 512), packed, r, s8, b)
+    assert got.shape == (2, 150, 256)
+    assert torch.equal(got.reshape(300, 256), tqm._w4a8_linear_reference(x, packed, r, s8, b))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tqm.w4a8_linear(x, packed[:60], r[:60], s8[:60])
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tqm.w4a8_linear(x.half(), packed, r, s8)
