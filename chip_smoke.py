@@ -29,6 +29,18 @@ non-zero exit and no result line:
      W4A8 + qk8 forward at 480x832x81; each fails unless every quantized
      linear went through w4a8_linear (no K3, no torch._int_mm) and every
      int8 attention through the sm90 kernel;
+  4e. the driver, the way users start SVI: checkpoint files written here in
+     the reference's names and formats (Wan2.1-I2V-14B-480P at full width
+     cut to 4 of 40 blocks as two bf16 safetensors shards, umT5-XXL cut to 2
+     of 24 layers, CLIP ViT-H/14 and the VAE whole, a rank-128 LoRA, the
+     tokenizer, a 480x832 reference image as .npy), then the port's driver
+     (svi_tpu_torch.scripts.test_svi.main) on them: two clips untiled, one
+     with --tiled (and a tiled encode of its frames, whose latents are then
+     decoded tiled and untiled), one with --quantize int4_w4a8; it fails
+     unless the LoRA was fused, the loaded tensors are the written ones, the
+     stitched frames are right, the tiled decode is within its bound of the
+     untiled one (and two wrong assemblies are not), the forward kernels
+     ran, and every quantized linear went through w4a8_linear;
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
      card against the same trainer on the CPU, then (b) 4 training steps of
      rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
@@ -863,7 +875,7 @@ def tiny_call_kwargs() -> dict:
     img = rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)
     ctx = rng.standard_normal((1, 12, 48)).astype(np.float32)
     return dict(input_image=img, random_ref_frame=img, seed=0, height=64, width=64, num_frames=9,
-                cfg_scale=5.0, num_inference_steps=3, prompt_emb_posi=ctx,
+                cfg_scale=5.0, num_inference_steps=3, tiled=False, prompt_emb_posi=ctx,
                 prompt_emb_nega=ctx * 0.5, ref_pad_num=-1, return_latents=True)
 
 
@@ -941,10 +953,13 @@ def phase_small_quantized():
 
 
 class PhaseTimer:
-    """Wraps a callable: synchronize, time it on the host clock, synchronize."""
+    """Wraps a callable: synchronize, time it on the host clock, synchronize;
+    also keeps the peak device memory (GiB since the last reset) at the end
+    of each call."""
 
     def __init__(self):
         self.seconds: dict[str, list[float]] = {}
+        self.peak_gib: dict[str, float] = {}
 
     def wrap(self, name, fn):
         def timed(*args, **kwargs):
@@ -953,6 +968,7 @@ class PhaseTimer:
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            self.peak_gib[name] = torch.cuda.max_memory_allocated() / 2**30
             return out
         return timed
 
@@ -1008,10 +1024,10 @@ def phase_slice():
     pipe.vae.decode = timer.wrap("vae_decode", pipe.vae.decode)
     sample = pipe._sample
 
-    def timed_sample(latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None):
+    def timed_sample(latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None, *rest):
         name = "denoise" if tea_cache is None else "denoise_teacache"
         return timer.wrap(name, sample)(latents, ctx_pos, ctx_neg, image_emb, cfg_scale,
-                                        tea_cache)
+                                        tea_cache, *rest)
 
     pipe._sample = timed_sample
 
@@ -1273,11 +1289,12 @@ class count_int_mm:
 
 
 def check_quant_path(path: str, launches: dict, int_mm: count_int_mm, n_q4: int,
-                     forwards: int | None = None) -> None:
+                     forwards: int | None = None, int8_attention: bool = True) -> None:
     """Fails unless every quantized linear of the path went through
     w4a8_linear (n_q4 launches a forward, as many of its pre-pass; `forwards`
     forwards when given), with no K3 and no torch._int_mm launch, and every
-    int8 attention launch took the sm90 kernel."""
+    int8 attention launch took the sm90 kernel (int8_attention=False: the
+    path quantizes weights only, and no int8 attention ran)."""
     from svi_tpu_torch.ops import attention as A
     from svi_tpu_torch.ops import quant_matmul as Q
 
@@ -1289,7 +1306,10 @@ def check_quant_path(path: str, launches: dict, int_mm: count_int_mm, n_q4: int,
         raise RuntimeError(f"{path}: {n} w4a8_linear launches for {n_q4} quantized linears a "
                            f"forward, {Q.unpack_requant_int4.launches} K3 launches, "
                            f"{int_mm.calls} torch._int_mm calls: {launches}")
-    if not routes or any(key[0] != "sm90" for key in routes):
+    if not int8_attention:
+        if routes:
+            raise RuntimeError(f"{path}: int8 attention ran on a weights-only path: {routes}")
+    elif not routes or any(key[0] != "sm90" for key in routes):
         raise RuntimeError(f"{path}: an int8 attention launch took a route other than sm90, "
                            f"or none ran: {routes}")
     log(f"[quant] {path}: {n} w4a8_linear launches ({n // n_q4} forwards x {n_q4} linears), "
@@ -1334,6 +1354,350 @@ def phase_quantized_81f(state: dict) -> None:
         log(f"[forward-81f-quant] profile: {device_time_breakdown(lambda: pipe.dit(*args))}")
     del args
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the driver phase: checkpoint files -> the user's entry point -> frames
+# ---------------------------------------------------------------------------
+
+# Wan2.1-I2V-14B-480P at full width, cut in depth only because about 10 GB
+# are written and read back inside the run (the full-depth DiT runs in 4b)
+DRIVER_DIT_BLOCKS, DRIVER_T5_LAYERS, DRIVER_LORA_RANK = 4, 2, 128
+DRIVER_LORA_TARGETS = tuple(f"{a}.{m}" for a in ("self_attn", "cross_attn") for m in "qkvo") + (
+    "ffn.0", "ffn.2")
+DRIVER_LORA_CHECKED = "blocks.1.self_attn.q.weight"
+# mean |tiled - untiled decode| of the same latents, [-1, 1] units, at the
+# driver's tiles (PERF.md, PR 8 findings: the sound reading and those of two
+# wrong assemblies)
+DECODE_TILED_GAP = 0.02
+# tensors held bit for bit after the load (untouched by the LoRA), per file
+DRIVER_SAMPLES = {
+    "wan_video_dit": ("patch_embedding.weight", "blocks.3.cross_attn.k_img.weight",
+                      "blocks.0.modulation", "head.modulation", "img_emb.proj.1.weight"),
+    "wan_video_text_encoder": ("blocks.1.ffn.fc2.weight", "blocks.0.pos_embedding.embedding.weight",
+                               "norm.weight"),
+    "wan_video_image_encoder": ("visual.transformer.31.mlp.2.weight", "visual.pos_embedding",
+                                "visual.patch_embedding.weight"),
+    "wan_video_vae": ("decoder.head.2.weight", "encoder.middle.1.to_qkv.weight",
+                      "decoder.upsamples.3.resample.1.weight"),
+}
+DRIVER_FILES = {"wan_video_text_encoder": "models_t5_umt5-xxl-enc-bf16.pth",
+                "wan_video_vae": "Wan2.1_VAE.pth",
+                "wan_video_image_encoder":
+                    "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"}
+
+
+def write_driver_checkpoints(root: Path) -> dict:
+    """(a) The files a user points the driver at, in the reference's names
+    and formats, with seeded weights made on the card: the DiT in bf16 as two
+    safetensors shards, umT5-XXL bf16 .pth, CLIP ViT-H/14 and the VAE f32
+    .pth, a rank-128 peft LoRA, the tokenizer (the vendored T5 model stands
+    in for umT5's) and a 480x832 reference image as .npy. Returns the host
+    copies of the tensors checked after the load."""
+    import shutil
+
+    from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    kept, sizes, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    dit = wan_dit.init_params(dataclasses.replace(wan_dit.WAN_14B_I2V,
+                                                  num_layers=DRIVER_DIT_BLOCKS), seed=21,
+                              device="cuda")
+    sd = wan_dit.torch_state_dict_from_params(dit)
+    first = {k: v for k, v in sd.items() if not k.startswith(("blocks.2.", "blocks.3."))}
+    shard = "diffusion_pytorch_model-0000{}-of-00002.safetensors"
+    sizes["dit"] = save_file(first, str(root / shard.format(1)))
+    sizes["dit"] += save_file({k: v for k, v in sd.items() if k not in first},
+                              str(root / shard.format(2)))
+    kept["wan_video_dit"] = {k: sd[k].cpu() for k in DRIVER_SAMPLES["wan_video_dit"]
+                             + (DRIVER_LORA_CHECKED,)}
+    del dit, sd, first
+    torch.cuda.empty_cache()
+    seconds["dit"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    lora, d, f = {}, wan_dit.WAN_14B_I2V.dim, wan_dit.WAN_14B_I2V.ffn_dim
+    for i in range(DRIVER_DIT_BLOCKS):
+        for target in DRIVER_LORA_TARGETS:
+            fo, fi = {"ffn.0": (f, d), "ffn.2": (d, f)}.get(target, (d, d))
+            key = f"diffusion_model.blocks.{i}.{target}"
+            a = torch.randn((DRIVER_LORA_RANK, fi), generator=gen, device="cuda") / fi ** 0.5
+            b = torch.randn((fo, DRIVER_LORA_RANK), generator=gen, device="cuda") * 1e-2
+            lora[f"{key}.lora_A.default.weight"] = a.to(torch.bfloat16)
+            lora[f"{key}.lora_B.default.weight"] = b.to(torch.bfloat16)
+    sizes["lora"] = save_file(lora, str(root / "svi-shot.safetensors"))
+    prefix = "diffusion_model." + DRIVER_LORA_CHECKED.removesuffix(".weight")
+    kept["lora"] = {k: lora[f"{prefix}.lora_{k}.default.weight"].cpu() for k in "AB"}
+    del lora
+    seconds["lora"] = time.perf_counter() - t0
+
+    for kind, make in (
+            ("wan_video_text_encoder", lambda: t5.torch_state_dict_from_params(t5.init_params(
+                dataclasses.replace(t5.UMT5_XXL, num_layers=DRIVER_T5_LAYERS), seed=23,
+                device="cuda"))),
+            ("wan_video_image_encoder", lambda: clip_vision.torch_state_dict_from_params(
+                clip_vision.init_params(clip_vision.VIT_H_14, seed=24, device="cuda"))),
+            ("wan_video_vae", lambda: wan_vae.torch_state_dict_from_params(
+                wan_vae.init_params(wan_vae.WAN_VAE, seed=25, device="cuda")))):
+        t0 = time.perf_counter()
+        sd = make()
+        if kind == "wan_video_text_encoder":  # the reference's file is bf16 throughout
+            sd = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+        sd = {k: v.cpu() for k, v in sd.items()}
+        torch.save(sd, root / DRIVER_FILES[kind])
+        sizes[kind] = (root / DRIVER_FILES[kind]).stat().st_size
+        kept[kind] = {k: sd[k] for k in DRIVER_SAMPLES[kind]}
+        del sd
+        torch.cuda.empty_cache()
+        seconds[kind] = time.perf_counter() - t0
+
+    tok = root / "google" / "umt5-xxl"
+    tok.mkdir(parents=True)
+    shutil.copy(REPO / "svi_tpu_torch" / "tokenizer_configs" / "t5" / "spiece.model", tok)
+    rng = np.random.default_rng(26)
+    np.save(root / "frame.npy", rng.integers(0, 255, (SLICE_H, SLICE_W, 3), dtype=np.uint8))
+    log(f"[driver] wrote {sum(sizes.values()) / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {sizes[k] / 1e9:.3f} GB in {seconds[k]:.2f}s" for k in sizes))
+    return kept
+
+
+class timed_methods:
+    """Wraps methods of classes with a PhaseTimer inside the block: the driver
+    makes its objects itself, so they are timed through their classes."""
+
+    def __init__(self, timer: PhaseTimer, targets: list):
+        self.timer, self.targets = timer, targets
+
+    def __enter__(self):
+        self.saved = []
+        for cls, name, label in self.targets:
+            raw = cls.__dict__[name]
+            self.saved.append((cls, name, raw))
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+            wrapped = self.timer.wrap(label, fn)
+            setattr(cls, name, staticmethod(wrapped) if isinstance(raw, staticmethod) else wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, raw in self.saved:
+            setattr(cls, name, raw)
+
+
+def run_driver(root: Path, tag: str, extra: list[str], card: str):
+    """(b), (c) One in-process run of the port's driver on the files under
+    `root`: launch counts zeroed just before and read just after, per-phase
+    seconds and peak memory, beside the card's name and power limit. Returns
+    (record, launches, timer)."""
+    from svi_tpu_torch.models.clip_vision import ClipVision
+    from svi_tpu_torch.models.model_io import ModelManager
+    from svi_tpu_torch.models.wan_vae import WanVAE
+    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.scripts import test_svi
+
+    argv = ["--dit_root", str(root), "--extra_module_root", str(root / "svi-shot.safetensors"),
+            "--output", str(root / f"videos_{tag}"),
+            "--ref_image_path", str(root / "frame.npy"),
+            "--prompt_path", str(REPO / "data" / "toy_test" / "shot" / "prompt.txt"),
+            "--num_frames", str(SLICE_FRAMES), "--num_steps", str(SLICE_STEPS),
+            "--num_motion_frames", str(MOTION), "--ref_pad_num", "-1", "--cfg_scale_text", "5.0",
+            "--save_format", "npy", *extra]
+    timer = PhaseTimer()
+    targets = [(ModelManager, "load_models", "load"), (ModelManager, "load_lora_v2", "lora_fuse"),
+               (SVIVideoPipeline, "from_model_manager", "pipeline_ready"),
+               (SVIVideoPipeline, "encode_prompt", "tokenize_t5"),
+               (ClipVision, "encode_image", "clip"), (WanVAE, "encode", "vae_encode"),
+               (WanVAE, "decode", "vae_decode"), (WanVAE, "tiled_decode", "vae_tiled_decode"),
+               (SVIVideoPipeline, "_sample", "denoise")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_methods(timer, targets):
+        zero_counts()
+        t0 = time.perf_counter()
+        record = test_svi.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    sec = timer.seconds
+    (sample,) = record["samples"]
+    log(f"[driver {tag}] {' '.join(extra)}: {seconds:.2f}s in all; load {sec['load'][0]:.2f}s "
+        f"(peak {timer.peak_gib['load']:.2f} GiB), LoRA fuse {max(sec['lora_fuse']):.2f}s "
+        f"{record['manager'].lora_log}, pipeline ready {sec['pipeline_ready'][0]:.2f}s (peak of "
+        f"the load {timer.peak_gib['pipeline_ready']:.2f} GiB); tokenize + T5 "
+        f"{[round(x, 3) for x in sec['tokenize_t5']]}, CLIP {[round(x, 3) for x in sec['clip']]}, "
+        f"VAE encode {[round(x, 3) for x in sec['vae_encode']]}, VAE decode "
+        f"{[round(x, 3) for x in sec.get('vae_decode', [])]} (per tile when tiled), tiled decode "
+        f"{[round(x, 3) for x in sec.get('vae_tiled_decode', [])]}, denoise per step "
+        f"{[round(x / SLICE_STEPS, 3) for x in sec['denoise']]}, clip seconds "
+        f"{[round(c['seconds'], 2) for c in sample['clips']]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {card}")
+    return record, launches, timer
+
+
+def check_driver_video(tag: str, sample: dict, clips: int) -> None:
+    video = np.load(sample["path"])
+    expect = (clips * SLICE_FRAMES - (clips - 1) * MOTION, SLICE_H, SLICE_W, 3)
+    std = float(video.astype(np.float32).std())
+    if video.shape != expect or video.dtype != np.uint8 or not std > 1.0:
+        raise RuntimeError(f"[driver {tag}] stitched video {video.shape} {video.dtype} with pixel "
+                           f"std {std}, expected {expect} uint8 with std > 1")
+    log(f"[driver {tag}] stitched {video.shape} uint8, pixel std {std:.2f}; seeds and prompts "
+        f"{[(c['seed'], c['prompt'][:30]) for c in sample['clips']]}")
+
+
+def check_tiled_decode(pipe, lat, card: str) -> None:
+    """The driver's tiled decode on the card against the untiled decode of
+    the same latents: mean |tiled - untiled| in [-1, 1] units within
+    DECODE_TILED_GAP. Two wrong assemblies are read beside it and must
+    exceed the bound: the same tiles blended without their feathered masks
+    (a plain mean where they overlap), and the tiled frames one latent unit
+    (8 px) off."""
+    from svi_tpu_torch.models import wan_vae
+    from svi_tpu_torch.scripts import test_svi
+
+    flags = test_svi.parse_args([])
+    tiles = dict(tiled=True, tile_size=tuple(flags.tile_size), tile_stride=tuple(flags.tile_stride))
+    feathered = wan_vae.build_mask
+    with torch.inference_mode():
+        whole = pipe.decode_video(lat, tiled=False)
+        tiled = pipe.decode_video(lat, **tiles)
+        wan_vae.build_mask = lambda shape, is_bound, border, device=None: feathered(
+            shape, (True,) * 4, border, device)
+        try:
+            unfeathered = pipe.decode_video(lat, **tiles)
+        finally:
+            wan_vae.build_mask = feathered
+        gaps = {name: (v - whole).abs() for name, v in
+                (("tiled", tiled), ("unfeathered", unfeathered),
+                 ("misplaced", tiled.roll(8, dims=-1)))}
+    read = {k: (g.mean().item(), g.max().item()) for k, g in gaps.items()}
+    log(f"[driver b-tiled] tiled decode {tuple(tiled.shape)} against the untiled decode of the "
+        f"same latents, mean / max |difference| in [-1, 1] units: "
+        + ", ".join(f"{k} {m:.5f} / {x:.4f}" for k, (m, x) in read.items())
+        + f"; bound on the mean {DECODE_TILED_GAP}; {card}")
+    if not torch.isfinite(tiled).all() or tiled.shape != whole.shape:
+        raise RuntimeError(f"tiled decode gave {tuple(tiled.shape)} or non-finite values")
+    if not read["tiled"][0] <= DECODE_TILED_GAP:
+        raise RuntimeError(f"the tiled decode is {read['tiled'][0]:.5f} from the untiled one, "
+                           f"over {DECODE_TILED_GAP}")
+    missed = [k for k in ("unfeathered", "misplaced") if not read[k][0] > DECODE_TILED_GAP]
+    if missed:
+        raise RuntimeError(f"the bound {DECODE_TILED_GAP} does not tell {missed} from the sound "
+                           f"tiled decode: {read}")
+
+
+def check_loaded_tensors(mm, kept: dict) -> None:
+    """The sampled tensors of each loaded model, under the reference's names,
+    equal the written ones bit for bit (umT5's f32 position tables as the
+    bf16 written)."""
+    from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+
+    modules = {"wan_video_dit": wan_dit, "wan_video_text_encoder": t5, "wan_video_vae": wan_vae,
+               "wan_video_image_encoder": clip_vision}
+    for kind, module in modules.items():
+        loaded = module.torch_state_dict_from_params(mm.models[kind])
+        for key in DRIVER_SAMPLES[kind]:
+            want = kept[kind][key]
+            if not torch.equal(loaded[key].cpu().to(want.dtype).reshape(want.shape), want):
+                raise RuntimeError(f"{kind} {key}: the loaded tensor differs from the written one")
+
+
+def phase_driver(card: str) -> None:
+    """The way users start SVI, at the full width of Wan2.1-I2V-14B-480P: (a)
+    checkpoint files written here; (b) the port's driver (`main`, in-process)
+    on them, two clips untiled (stitched 2 x 9 - 1 frames), then one clip
+    with --tiled, then a tiled encode of its frames and a tiled decode of
+    their latents; (c) one clip with --quantize int4_w4a8. Fails unless the
+    LoRA was fused (its count, and one weight against W + alpha·B@A in f32),
+    the loaded tensors are the written ones bit for bit, the frames are
+    right, the tiled decode is within its bound of the untiled one, the
+    forward kernels ran in (b) and every quantized linear of (c) went
+    through w4a8_linear."""
+    import shutil
+    import tempfile
+
+    from svi_tpu_torch.models import model_io
+
+    root = Path(tempfile.mkdtemp(prefix="_driver_ckpt_", dir=REPO))
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[driver] checkpoints under {root.name} ({free / 1e9:.1f} GB free); {card}")
+        kept = write_driver_checkpoints(root)
+
+        # (b) two clips, untiled
+        record, launches, _ = run_driver(root, "b", ["--num_clips", "2"], card)
+        routes = check_fwd_routes("the driver", need_f32=True)
+        if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+                                     "rope_rotate_flat", "flash_fwd_bnsd")) <= 0:
+            raise RuntimeError(f"a kernel was not launched on the driver's path: {launches}")
+        log(f"[driver b] forward routes {routes}")
+        check_driver_video("b", record["samples"][0], clips=2)
+        mm = record["manager"]
+        expect_n = DRIVER_DIT_BLOCKS * len(DRIVER_LORA_TARGETS)
+        if [n for _, n in mm.lora_log] != [expect_n]:
+            raise RuntimeError(f"LoRA fused {mm.lora_log}, expected one file of {expect_n}")
+        check_loaded_tensors(mm, kept)
+        w = kept["wan_video_dit"][DRIVER_LORA_CHECKED].cuda().float()
+        delta = kept["lora"]["B"].cuda().float() @ kept["lora"]["A"].cuda().float()
+        fused = model_io.dit_param(mm.models["wan_video_dit"], DRIVER_LORA_CHECKED).float()
+        # bf16 rounds the delta and then the sum, each by at most 2^-8 relative
+        err = ((fused - (w + delta)).abs() - 2.0 ** -8 * (w.abs() + 2 * delta.abs()) * 1.01).max()
+        moved = (fused - w).abs().mean().item()
+        log(f"[driver b] LoRA {DRIVER_LORA_CHECKED}: mean |fused - W| {moved:.3e} (mean |B@A| "
+            f"{delta.abs().mean().item():.3e}), excess over the bf16 bound {err.item():.3e}; "
+            f"{sum(len(v) for k, v in kept.items() if k != 'lora')} sampled tensors bit-equal")
+        if err.item() > 0 or not moved > 0:
+            raise RuntimeError("the fused LoRA weight is not W + alpha * B @ A")
+        del record, mm, w, delta, fused
+
+        # (b) again with --tiled, then a tiled encode of its frames
+        record, tiled_launches, _ = run_driver(root, "b-tiled", ["--num_clips", "1", "--tiled"],
+                                                card)
+        check_driver_video("b-tiled", record["samples"][0], clips=1)
+        pipe = record["pipe"]
+        frames = np.load(record["samples"][0]["path"])
+        video = torch.from_numpy(frames).cuda().permute(3, 0, 1, 2)[None].float() / 127.5 - 1
+        with torch.inference_mode():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat = pipe.encode_video(video, tiled=True)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            f32 = read_counts()["flash_fwd_flat/f32"]
+            t0 = time.perf_counter()
+            lat_whole = pipe.encode_video(video, tiled=False)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+        lt = (SLICE_FRAMES - 1) // 4 + 1
+        if lat.shape != (1, 16, lt, SLICE_H // 8, SLICE_W // 8) or not torch.isfinite(lat).all():
+            raise RuntimeError(f"tiled encode gave {tuple(lat.shape)} or non-finite values")
+        rel = ((lat.float() - lat_whole.float()).abs().mean()
+               / lat_whole.float().abs().mean()).item()
+        log(f"[driver b-tiled] tiled encode of the clip {enc_s:.3f}s ({f32} K1 f32 launches: "
+            f"the mid-block attention of each tile and time chunk), untiled {whole_s:.3f}s, "
+            f"mean relative difference {rel:.4f}; the run's launches {tiled_launches}; {card}")
+        if f32 <= 0:
+            raise RuntimeError("the tiled encode launched no f32 attention")
+        check_tiled_decode(pipe, lat_whole, card)
+        del record, pipe, video, lat, lat_whole
+
+        # (c) one clip with the DiT quantized on load
+        with count_int_mm() as int_mm:
+            record, q_launches, _ = run_driver(root, "c", ["--num_clips", "1", "--quantize",
+                                                           "int4_w4a8"], card)
+        dit = record["pipe"].dit
+        n_q4 = sum(1 for name, _ in dit.named_parameters() if name.endswith("w_q4"))
+        check_quant_path("the driver with --quantize int4_w4a8", q_launches, int_mm, n_q4,
+                         int8_attention=False)
+        check_driver_video("c", record["samples"][0], clips=1)
+        del record, dit
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1569,6 +1933,9 @@ def main() -> int:
     del state
     gc.collect()  # the pipeline's timer wrappers refer back to it
     torch.cuda.empty_cache()
+
+    # the driver: checkpoint files through the user's entry point
+    phase_driver(card)
 
     # 5. the training slice
     phase_small_trainer()

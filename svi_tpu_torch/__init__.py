@@ -1,9 +1,11 @@
-"""svi_tpu_torch: the SVI-Shot inference path (bf16 and quantized) and
-Error-Recycling LoRA training in PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper (sm_90a).
+"""svi_tpu_torch: the SVI-Shot inference path (bf16 and quantized, from
+checkpoint files and text prompts through the clip-loop driver
+`scripts/test_svi.py`) and Error-Recycling LoRA training in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It mirrors the layout of the JAX package `svi_tpu` (ops/, models/,
-schedulers/, pipelines/, training/) and imports no JAX. On a CPU tensor each kernel
+schedulers/, pipelines/, prompters/, training/, utils/, scripts/) and
+imports no JAX. On a CPU tensor each kernel
 wrapper runs its plain PyTorch version; on a CUDA tensor it launches the
 kernel or raises.
 """

@@ -2,8 +2,10 @@
 
 Port of svi_tpu/models/clip_vision.py: `forward_tokens` (the output of 31 of
 32 blocks, (b, 257, 1280)) and `encode_image` with its host bicubic resize
-matrix. Attention heads are 80 wide, so they go through the (B, N, S, D)
-flash entry point, as K2 served them in the JAX package.
+matrix; and the reference's checkpoint (`config_from_state_dict`,
+`params_from_torch_state_dict`). Attention heads are 80 wide, so they go
+through the (B, N, S, D) flash entry point, as K2 served them in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -158,3 +160,80 @@ def params_from_jax(params: dict, cfg: ClipVisionConfig = VIT_H_14) -> ClipVisio
     tree = dict(params)
     tree["blocks"] = unstack(params["blocks"], cfg.num_layers)
     return ClipVision(cfg, convert_tree(tree, cfg.dtype, linear_leaf))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints in the reference's naming (the open-clip XLM-Roberta ViT-H/14)
+# ---------------------------------------------------------------------------
+
+
+def _visual_prefix(sd) -> str:
+    for cand in ("model.visual.", "visual.", ""):
+        if f"{cand}patch_embedding.weight" in sd:
+            return cand
+    raise KeyError("no patch_embedding.weight under model.visual., visual. or the root")
+
+
+def config_from_state_dict(sd) -> ClipVisionConfig:
+    """The vision tower's architecture from the checkpoint's shapes; ViT-H
+    has 16 heads of 80 at dim 1280, other widths heads of 80 (or 64)."""
+    pref = _visual_prefix(sd)
+    pe = sd[f"{pref}patch_embedding.weight"].shape  # (dim, 3, ps, ps)
+    dim, ps = int(pe[0]), int(pe[2])
+    hw = int(round((int(sd[f"{pref}pos_embedding"].shape[1]) - 1) ** 0.5))
+    blocks = [k[len(pref):].split(".")[1] for k in sd if k.startswith(f"{pref}transformer.")]
+    num_layers = 1 + max(int(i) for i in blocks if i.isdigit())
+    mlp = int(sd[f"{pref}transformer.0.mlp.0.weight"].shape[0])
+    return ClipVisionConfig(
+        image_size=hw * ps, patch_size=ps, dim=dim, mlp_ratio=mlp // dim,
+        num_heads=max(1, dim // 80) if dim % 80 == 0 else max(1, dim // 64),
+        num_layers=num_layers)
+
+
+def params_from_torch_state_dict(sd: dict, cfg: ClipVisionConfig, device="cuda") -> ClipVision:
+    """The reference's image-encoder state dict (the vision tower under
+    'model.visual.', 'visual.' or the root; the text tower is dropped) ->
+    ClipVision on `device` in cfg.dtype. The patch conv (dim, 3, ps, ps)
+    becomes the (dim, 3·ps·ps) linear of `forward_tokens`."""
+    pref = _visual_prefix(sd)
+
+    def t(name):
+        return sd[f"{pref}{name}"].to(device=device, dtype=cfg.dtype)
+
+    def wb(name):
+        return {"w": t(f"{name}.weight"), "b": t(f"{name}.bias")}
+
+    def block(i):
+        b = f"transformer.{i}"
+        return {"norm1": wb(f"{b}.norm1"), "norm2": wb(f"{b}.norm2"),
+                "attn": {"to_qkv": wb(f"{b}.attn.to_qkv"), "proj": wb(f"{b}.attn.proj")},
+                "mlp": {"fc1": wb(f"{b}.mlp.0"), "fc2": wb(f"{b}.mlp.2")}}
+
+    patch = {"w": t("patch_embedding.weight").reshape(cfg.dim, -1)}
+    if f"{pref}patch_embedding.bias" in sd:
+        patch["b"] = t("patch_embedding.bias")
+    tree = {"patch_embedding": patch, "cls_embedding": t("cls_embedding"),
+            "pos_embedding": t("pos_embedding"), "pre_norm": wb("pre_norm"),
+            "blocks": [block(i) for i in range(cfg.num_layers)]}
+    return ClipVision(cfg, tree)
+
+
+_CLIP_NAMES = {"fc1": "0", "fc2": "2"}  # the MLP is a Sequential in the reference
+
+
+def torch_state_dict_from_params(clip: ClipVision, prefix: str = "visual.") -> dict:
+    """The inverse of `params_from_torch_state_dict`: the tower's tensors
+    under the reference's names, below `prefix`. For writing checkpoints."""
+    cfg = clip.cfg
+    out = {}
+    for name, p in clip.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            parts[0] = "transformer"
+        parts = [_CLIP_NAMES.get(x, x) for x in parts]
+        parts[-1] = {"w": "weight", "b": "bias"}.get(parts[-1], parts[-1])
+        t = p.detach()
+        if name == "patch_embedding.w":
+            t = t.reshape(cfg.dim, 3, cfg.patch_size, cfg.patch_size)
+        out[prefix + ".".join(parts)] = t
+    return out

@@ -1,6 +1,7 @@
 """umT5-XXL text encoder (Wan's T5).
 
-Port of svi_tpu/models/t5.py: `forward` and `encode_prompt_states`.
+Port of svi_tpu/models/t5.py: `forward`, `encode_prompt_states`, and the
+reference's checkpoint (`config_from_state_dict`, `params_from_torch_state_dict`).
 Relative-position buckets are the JAX package's exactly, there is no QK
 scaling, and masked keys get a bias of -3.4e38 * 0.7. The attention here is
 plain PyTorch (it was plain XLA in JAX): logits and softmax in f32.
@@ -160,3 +161,58 @@ def params_from_jax(params: dict, cfg: T5Config = UMT5_XXL) -> T5Encoder:
     for bt, bj in zip(tree["blocks"], blocks):
         bt["pos_embedding"]["table"] = to_torch(bj["pos_embedding"]["table"], torch.float32)
     return T5Encoder(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints in the reference's naming (WanTextEncoder's state dict)
+# ---------------------------------------------------------------------------
+
+# port leaf path within a block -> the reference's name
+_T5_BLOCK_NAMES = {
+    ("norm1", "w"): "norm1.weight", ("norm2", "w"): "norm2.weight",
+    ("attn", "q"): "attn.q.weight", ("attn", "k"): "attn.k.weight",
+    ("attn", "v"): "attn.v.weight", ("attn", "o"): "attn.o.weight",
+    ("ffn", "gate"): "ffn.gate.0.weight", ("ffn", "fc1"): "ffn.fc1.weight",
+    ("ffn", "fc2"): "ffn.fc2.weight", ("pos_embedding", "table"): "pos_embedding.embedding.weight",
+}
+
+
+def config_from_state_dict(sd, dtype: torch.dtype = torch.bfloat16) -> T5Config:
+    """The architecture from the checkpoint's shapes."""
+    vocab, dim = sd["token_embedding.weight"].shape
+    num_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                         if k.startswith("blocks.") and k.split(".")[1].isdigit())
+    num_buckets, num_heads = sd["blocks.0.pos_embedding.embedding.weight"].shape
+    return T5Config(vocab=int(vocab), dim=int(dim),
+                    dim_attn=int(sd["blocks.0.attn.q.weight"].shape[0]),
+                    dim_ffn=int(sd["blocks.0.ffn.fc1.weight"].shape[0]),
+                    num_heads=int(num_heads), num_layers=int(num_layers),
+                    num_buckets=int(num_buckets), dtype=dtype)
+
+
+def params_from_torch_state_dict(sd: dict, cfg: T5Config, device="cuda") -> T5Encoder:
+    """The reference state dict (torch tensors) -> T5Encoder on `device`: the
+    projections are (out, in) in both, so this renames keys; the
+    relative-position tables are f32, the rest cfg.dtype."""
+    def block(i):
+        p = {}
+        for (group, leaf), ref in _T5_BLOCK_NAMES.items():
+            dtype = torch.float32 if group == "pos_embedding" else cfg.dtype
+            p.setdefault(group, {})[leaf] = sd[f"blocks.{i}.{ref}"].to(device=device, dtype=dtype)
+        return p
+
+    tree = {"token_embedding": sd["token_embedding.weight"].to(device=device, dtype=cfg.dtype),
+            "blocks": [block(i) for i in range(cfg.num_layers)],
+            "norm": {"w": sd["norm.weight"].to(device=device, dtype=cfg.dtype)}}
+    return T5Encoder(cfg, tree)
+
+
+def torch_state_dict_from_params(text: T5Encoder) -> dict[str, torch.Tensor]:
+    """The inverse of `params_from_torch_state_dict`: the encoder's tensors
+    under the reference's names. For writing checkpoints."""
+    out = {"token_embedding.weight": text["token_embedding"].detach(),
+           "norm.weight": text["norm"]["w"].detach()}
+    for i, p in enumerate(text["blocks"]):
+        for (group, leaf), ref in _T5_BLOCK_NAMES.items():
+            out[f"blocks.{i}.{ref}"] = p[group][leaf].detach()
+    return out

@@ -9,9 +9,11 @@ block stack (per block, or in square-root groups), and quantized inference:
 the weight quantizers (`quantize_params_for_inference`, modes
 `QUANTIZE_MODES`), the dense's quantized branches with the int8 execution
 (W4A8 through `ops.quant_matmul.w4a8_linear`, W8A8 through `_int8_exec`),
-and the int8 self-attention forward (`WanDiTConfig.attention_quant`).
-Multitalk/customtalk, the save-attention remat policy and host-offloaded
-carries are not part of this port.
+and the int8 self-attention forward (`WanDiTConfig.attention_quant`); and
+the reference's checkpoints (`config_from_state_dict`,
+`params_from_torch_state_dict`, quantize-on-load, and the inverse for
+writing them). Multitalk/customtalk, the save-attention remat policy and
+host-offloaded carries are not part of this port.
 Activations are in cfg.dtype; norm and softmax statistics f32; base weights
 are frozen.
 """
@@ -604,3 +606,168 @@ def quantize_params_for_inference(dit, mode: str, min_size: int = 1 << 16,
     if isinstance(dit, WanDiT):
         return WanDiT(dit.cfg, fns[mode](dit.tree(consume=consume)))
     return fns[mode](dit)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints in the reference's naming (diffsynth's WanModel state dict)
+# ---------------------------------------------------------------------------
+
+# the port's names that differ from the reference's, besides w/b for
+# weight/bias: the CLIP-feature MLP is a Sequential there
+_IMG_EMB_NAMES = {"norm0": "proj.0", "fc1": "proj.1", "fc3": "proj.3", "norm4": "proj.4"}
+
+
+def config_from_state_dict(sd) -> WanDiTConfig:
+    """The architecture from the checkpoint's shapes (`config_from_state_dict`):
+    num_heads follows Wan's head_dim of 128 where dim divides, else 32 (tiny
+    test configs). A multitalk or customtalk DiT (audio blocks) is not ported
+    (Slice D) and raises."""
+    keys = set(sd.keys())
+    if any("audio" in k or "customtalk" in k for k in keys):
+        raise NotImplementedError("the multitalk / customtalk DiT (audio blocks) is not ported "
+                                  "yet (Slice D)")
+    num_layers = 1 + max(int(k.split(".")[1]) for k in keys
+                         if k.startswith("blocks.") and k.split(".")[1].isdigit())
+    has_image = "blocks.0.cross_attn.k_img.weight" in keys
+    pe = sd["patch_embedding.weight"].shape  # (dim, in_dim, pt, ph, pw)
+    dim, in_dim = int(pe[0]), int(pe[1])
+    patch = tuple(int(x) for x in pe[2:])
+    head_out = int(sd["head.head.weight"].shape[0])
+    return WanDiTConfig(
+        dim=dim, in_dim=in_dim, ffn_dim=int(sd["blocks.0.ffn.0.weight"].shape[0]),
+        out_dim=head_out // (patch[0] * patch[1] * patch[2]),
+        text_dim=int(sd["text_embedding.0.weight"].shape[1]),
+        freq_dim=int(sd["time_embedding.0.weight"].shape[1]), patch_size=patch,
+        num_heads=dim // 128 if dim % 128 == 0 else max(1, dim // 32), num_layers=num_layers,
+        has_image_input=has_image,
+        clip_feature_dim=int(sd["img_emb.proj.0.weight"].shape[0]) if has_image else 1280)
+
+
+def config_from_state_dict_keys(keys) -> WanDiTConfig:
+    """Key-only variant (no shapes): resolves among the known Wan configs."""
+    keys = set(keys)
+    if any("audio" in k for k in keys):
+        raise NotImplementedError("the multitalk DiT (audio blocks) is not ported yet (Slice D)")
+    num_layers = 1 + max(int(k.split(".")[1]) for k in keys
+                         if k.startswith("blocks.") and k.split(".")[1].isdigit())
+    has_image = "blocks.0.cross_attn.k_img.weight" in keys
+    base = (WAN_14B_I2V if has_image else WAN_14B_T2V) if num_layers >= 40 else WAN_1_3B_T2V
+    return dataclasses.replace(base, num_layers=num_layers, has_image_input=has_image,
+                               in_dim=36 if has_image else 16)
+
+
+def params_from_torch_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> WanDiT:
+    """The reference WanModel state dict (torch tensors, e.g. the CPU views
+    `model_io.load_state_dicts` gives) -> WanDiT on `device`, in cfg.dtype.
+    The layouts are the port's own, so this renames keys; the patch
+    embedding's Conv3d weight (dim, c, pt, ph, pw) becomes the (dim, c·pt·ph·pw)
+    linear of `patchify`. Each tensor goes to the device on its own."""
+
+    def t(name):
+        return sd[name].to(device=device, dtype=cfg.dtype)
+
+    def lin(prefix):
+        p = {"w": t(f"{prefix}.weight")}
+        if f"{prefix}.bias" in sd:
+            p["b"] = t(f"{prefix}.bias")
+        return p
+
+    def norm(prefix, bias=False):
+        p = {"w": t(f"{prefix}.weight")}
+        if bias:
+            p["b"] = t(f"{prefix}.bias")
+        return p
+
+    def block(i):
+        b = f"blocks.{i}"
+
+        def attn(kind):
+            a = {k: lin(f"{b}.{kind}.{k}") for k in ("q", "k", "v", "o")}
+            a["norm_q"] = norm(f"{b}.{kind}.norm_q")
+            a["norm_k"] = norm(f"{b}.{kind}.norm_k")
+            return a
+
+        p = {"self_attn": attn("self_attn"), "cross_attn": attn("cross_attn"),
+             "norm3": norm(f"{b}.norm3", bias=True),
+             "ffn": {"0": lin(f"{b}.ffn.0"), "2": lin(f"{b}.ffn.2")},
+             "modulation": t(f"{b}.modulation")}
+        if cfg.has_image_input:
+            p["cross_attn"]["k_img"] = lin(f"{b}.cross_attn.k_img")
+            p["cross_attn"]["v_img"] = lin(f"{b}.cross_attn.v_img")
+            p["cross_attn"]["norm_k_img"] = norm(f"{b}.cross_attn.norm_k_img")
+        return p
+
+    tree = {
+        "patch_embedding": {"w": t("patch_embedding.weight").reshape(cfg.dim, -1),
+                            "b": t("patch_embedding.bias")},
+        "text_embedding": {"0": lin("text_embedding.0"), "2": lin("text_embedding.2")},
+        "time_embedding": {"0": lin("time_embedding.0"), "2": lin("time_embedding.2")},
+        "time_projection": {"1": lin("time_projection.1")},
+        "head": {"head": lin("head.head"), "modulation": t("head.modulation")},
+        "blocks": [block(i) for i in range(cfg.num_layers)],
+    }
+    if cfg.has_image_input:
+        tree["img_emb"] = {"norm0": norm("img_emb.proj.0", bias=True),
+                           "fc1": lin("img_emb.proj.1"), "fc3": lin("img_emb.proj.3"),
+                           "norm4": norm("img_emb.proj.4", bias=True)}
+    return WanDiT(cfg, tree)
+
+
+def quantized_params_from_torch_state_dict(sd: dict, cfg: WanDiTConfig, min_size: int = 1 << 16,
+                                           group: int = INT4_GROUP, w4a8: bool = False,
+                                           device="cuda") -> WanDiT:
+    """`quantize_params_for_inference(params_from_torch_state_dict(...))` in
+    int4 (w4a8=True: int4_w4a8) with the float weights staged on the host:
+    each block moves to `device` and is quantized there on its own, so the
+    device never holds the float tree."""
+    return quantize_to_device(params_from_torch_state_dict(sd, cfg, device="cpu"),
+                              "int4_w4a8" if w4a8 else "int4", device, min_size, group)
+
+
+def quantize_to_device(dit: WanDiT, mode: str, device, min_size: int = 1 << 16,
+                       group: int = INT4_GROUP) -> WanDiT:
+    """Quantize a DiT held anywhere (e.g. bf16 on the host) onto `device`,
+    one top-level subtree or block at a time: each is copied to the device,
+    quantized there (consume=True) and its float weights dropped before the
+    next one moves. `dit` is emptied."""
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        return tree.to(device)
+
+    def quantize(tree):
+        return quantize_params_for_inference(move(tree), mode, min_size, group, consume=True)
+
+    cfg, tree = dit.cfg, dit.tree(consume=True)
+    out = {}
+    for key in list(tree):
+        sub = tree.pop(key)
+        if key == "blocks":
+            out[key] = []
+            for i in range(len(sub)):
+                out[key].append(quantize(sub[i]))
+                sub[i] = None
+        else:
+            out[key] = quantize(sub) if isinstance(sub, dict) else sub.to(device)
+        del sub
+    return WanDiT(cfg, out)
+
+
+def torch_state_dict_from_params(dit: WanDiT) -> dict[str, torch.Tensor]:
+    """The inverse of `params_from_torch_state_dict` for a float DiT: its
+    tensors under the reference's names (views where the layout agrees; the
+    patch embedding back to its Conv3d shape). For writing checkpoints."""
+    cfg = dit.cfg
+    out = {}
+    for name, p in dit.named_parameters():
+        parts = name.split(".")
+        if parts[-1] not in ("w", "b") and parts[-1] != "modulation":
+            raise ValueError(f"{name}: a quantized leaf has no reference name")
+        parts[-1] = {"w": "weight", "b": "bias"}.get(parts[-1], parts[-1])
+        if parts[0] == "img_emb":
+            parts[1] = _IMG_EMB_NAMES[parts[1]]
+        t = p.detach()
+        if name == "patch_embedding.w":
+            t = t.reshape(cfg.dim, cfg.in_dim, *cfg.patch_size)
+        out[".".join(parts)] = t
+    return out

@@ -5,8 +5,9 @@ layout with `F.conv3d`. Every causal 3x3x3 conv carries a cache of its last
 two input frames (zeros at stream start); the encoder consumes 1 + 4k frames
 as a first frame then chunks, the decoder one latent frame then chunks, with
 chunk sizes from `_pick_chunk` as in the JAX package. The mid-block spatial
-attention goes through the port's flash kernel. Tiled encode/decode is not
-ported yet.
+attention goes through the port's flash kernel. `tiled_encode` /
+`tiled_decode` run it on overlapping spatial tiles blended with feathered
+masks, and `params_from_torch_state_dict` reads the reference's checkpoint.
 """
 
 from __future__ import annotations
@@ -274,6 +275,92 @@ class WanVAE(ParamTree):
         return out.clamp(-1.0, 1.0) if clamp else out
 
 
+    def tiled_encode(self, video: torch.Tensor, tile_size=(272, 272),
+                     tile_stride=(144, 128)) -> torch.Tensor:
+        """`encode` on overlapping spatial tiles blended with feathered masks.
+        tile_size / tile_stride in PIXELS."""
+        b, _, T, H, W = video.shape
+        up = 8
+        out_T = (T + 3) // 4
+        values = torch.zeros((b, self.cfg.z_dim, out_T, H // up, W // up), dtype=torch.float32,
+                             device=video.device)
+        weight = torch.zeros((1, 1, out_T, H // up, W // up), dtype=torch.float32,
+                             device=video.device)
+        border = ((tile_size[0] - tile_stride[0]) // up, (tile_size[1] - tile_stride[1]) // up)
+        for hh, h_, ww, w_ in _tile_tasks(H, W, tile_size, tile_stride):
+            h_, w_ = min(h_, H), min(w_, W)
+            lat = self.encode(video[:, :, :, hh:h_, ww:w_]).float()
+            mask = build_mask(lat.shape[-2:], (hh == 0, h_ >= H, ww == 0, w_ >= W), border,
+                              lat.device)
+            th, tw = hh // up, ww // up
+            values[:, :, :, th:th + lat.shape[3], tw:tw + lat.shape[4]] += lat * mask
+            weight[:, :, :, th:th + lat.shape[3], tw:tw + lat.shape[4]] += mask
+        return values / weight
+
+    def tiled_decode(self, latents: torch.Tensor, tile_size=(34, 34),
+                     tile_stride=(18, 16)) -> torch.Tensor:
+        """`decode` on overlapping spatial tiles blended with feathered masks,
+        clamped to [-1, 1] after blending. tile_size / tile_stride in LATENT
+        units."""
+        b, _, T, h, w = latents.shape
+        up = 8
+        out_T = T * 4 - 3
+        values = torch.zeros((b, 3, out_T, h * up, w * up), dtype=torch.float32,
+                             device=latents.device)
+        weight = torch.zeros((1, 1, out_T, h * up, w * up), dtype=torch.float32,
+                             device=latents.device)
+        border = ((tile_size[0] - tile_stride[0]) * up, (tile_size[1] - tile_stride[1]) * up)
+        for hh, h_, ww, w_ in _tile_tasks(h, w, tile_size, tile_stride):
+            h_, w_ = min(h_, h), min(w_, w)
+            vid = self.decode(latents[:, :, :, hh:h_, ww:w_], clamp=False).float()
+            mask = build_mask(vid.shape[-2:], (hh == 0, h_ >= h, ww == 0, w_ >= w), border,
+                              vid.device)
+            th, tw = hh * up, ww * up
+            values[:, :, :, th:th + vid.shape[3], tw:tw + vid.shape[4]] += vid * mask
+            weight[:, :, :, th:th + vid.shape[3], tw:tw + vid.shape[4]] += mask
+        return (values / weight).clamp(-1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Spatial tiles with feathered blending
+# ---------------------------------------------------------------------------
+
+
+def _build_1d_mask(length, left_bound, right_bound, border_width) -> np.ndarray:
+    x = np.ones((length,), np.float32)
+    bw = min(border_width, length)
+    if not left_bound and bw > 0:
+        x[:bw] = (np.arange(bw) + 1) / bw
+    if not right_bound and bw > 0:
+        x[-bw:] = ((np.arange(bw) + 1) / bw)[::-1]
+    return x
+
+
+def build_mask(shape_hw, is_bound, border_width, device=None) -> torch.Tensor:
+    """Feathered blend mask, (1, 1, 1, H, W) f32: ramps of border_width over
+    each edge of the tile that is not the frame's (is_bound: top, bottom,
+    left, right)."""
+    H, W = shape_hw
+    hm = _build_1d_mask(H, is_bound[0], is_bound[1], border_width[0])
+    wm = _build_1d_mask(W, is_bound[2], is_bound[3], border_width[1])
+    m = np.minimum(hm[:, None], wm[None, :])
+    return torch.from_numpy(m[None, None, None]).to(device)
+
+
+def _tile_tasks(H, W, size, stride):
+    """(h0, h1, w0, w1) of each tile; a tile whose predecessor already reaches
+    the frame's edge is skipped."""
+    tasks = []
+    for hh in range(0, H, stride[0]):
+        if hh - stride[0] >= 0 and hh - stride[0] + size[0] >= H:
+            continue
+        for ww in range(0, W, stride[1]):
+            if ww - stride[1] >= 0 and ww - stride[1] + size[1] >= W:
+                continue
+            tasks.append((hh, hh + size[0], ww, ww + size[1]))
+    return tasks
+
+
 # ---------------------------------------------------------------------------
 # Weights
 # ---------------------------------------------------------------------------
@@ -351,3 +438,107 @@ def _conv_leaf(path: tuple, arr: np.ndarray) -> np.ndarray:
 def params_from_jax(params: dict, cfg: WanVAEConfig = WAN_VAE) -> WanVAE:
     """The svi_tpu VAE pytree (numpy leaves) -> WanVAE."""
     return WanVAE(cfg, convert_tree(params, cfg.dtype, _conv_leaf))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints in the reference's naming (VideoVAE_'s state dict)
+# ---------------------------------------------------------------------------
+
+# the sub-modules of each plan entry: the port's name -> the reference's, under
+# the entry's prefix (`_layer_prefixes`)
+_VAE_NAMES = {
+    "conv_in": {"conv": "conv1"},
+    "head": {"norm": "head.0", "conv": "head.2"},
+    "res": {"norm1": "residual.0", "conv1": "residual.2", "norm2": "residual.3",
+            "conv2": "residual.6", "shortcut": "shortcut"},
+    "attn": {"norm": "norm", "to_qkv": "to_qkv", "proj": "proj"},
+}
+for _kind in ("upsample2d", "upsample3d", "downsample2d", "downsample3d"):
+    _VAE_NAMES[_kind] = {"conv": "resample.1", "time_conv": "time_conv"}
+_LEAF_NAMES = {"w": "weight", "b": "bias", "gamma": "gamma"}
+
+
+def _layer_prefixes(plan, root: str) -> list[str]:
+    """The reference's module path of each plan entry: Encoder3d / Decoder3d
+    hold conv1, then downsamples.{i} (encoder) or middle.{0,1,2} and
+    upsamples.{i} (decoder), then middle (encoder), then head."""
+    middle = set(range(len(plan) - 4, len(plan) - 1)) if root == "encoder" else {1, 2, 3}
+    body = "downsamples" if root == "encoder" else "upsamples"
+    out, seq_i, mid_i = [], 0, 0
+    for i, (kind, _, _) in enumerate(plan):
+        if kind in ("conv_in", "head"):
+            out.append(root)
+        elif i in middle:
+            out.append(f"{root}.middle.{mid_i}")
+            mid_i += 1
+        else:
+            out.append(f"{root}.{body}.{seq_i}")
+            seq_i += 1
+    return out
+
+
+def _strip_model_prefix(sd: dict) -> dict:
+    """WanVideoVAE keeps the VAE under 'model.'; VideoVAE_ at the root."""
+    if any(k.startswith("model.") for k in sd):
+        return {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    return sd
+
+
+def config_from_state_dict(sd) -> WanVAEConfig:
+    """Width and latent channels from the checkpoint's shapes (the structure
+    is fixed); always f32."""
+    sd = _strip_model_prefix(sd)
+    return WanVAEConfig(dim=int(sd["encoder.conv1.weight"].shape[0]),
+                        z_dim=int(sd["conv2.weight"].shape[0]))
+
+
+def params_from_torch_state_dict(sd: dict, cfg: WanVAEConfig = WAN_VAE, device="cuda") -> WanVAE:
+    """The reference state dict -> WanVAE on `device` in cfg.dtype. Conv
+    weights are PyTorch's layout in both; the RMS-norm gammas lose their
+    trailing unit axes."""
+    sd = _strip_model_prefix(sd)
+
+    def t(name, flat=False):
+        x = sd[name].to(device=device, dtype=cfg.dtype)
+        return x.reshape(-1) if flat else x
+
+    def layers(plan, root):
+        out = []
+        for (kind, _, _), prefix in zip(plan, _layer_prefixes(plan, root)):
+            p = {}
+            for sub, ref in _VAE_NAMES[kind].items():
+                if f"{prefix}.{ref}.gamma" in sd:
+                    p[sub] = {"gamma": t(f"{prefix}.{ref}.gamma", flat=True)}
+                elif f"{prefix}.{ref}.weight" in sd:
+                    p[sub] = {"w": t(f"{prefix}.{ref}.weight"), "b": t(f"{prefix}.{ref}.bias")}
+                elif sub not in ("shortcut", "time_conv"):  # present only where needed
+                    raise KeyError(f"{prefix}.{ref}.weight (or .gamma)")
+            out.append(p)
+        return out
+
+    tree = {"encoder": layers(encoder_plan(cfg), "encoder"),
+            "decoder": layers(decoder_plan(cfg), "decoder"),
+            "conv1": {"w": t("conv1.weight"), "b": t("conv1.bias")},
+            "conv2": {"w": t("conv2.weight"), "b": t("conv2.bias")}}
+    return WanVAE(cfg, tree)
+
+
+def torch_state_dict_from_params(vae: WanVAE) -> dict[str, torch.Tensor]:
+    """The inverse of `params_from_torch_state_dict` (VideoVAE_'s names, the
+    gammas in the reference's shapes: (c, 1, 1) in attention blocks, (c, 1,
+    1, 1) elsewhere). For writing checkpoints."""
+    cfg = vae.cfg
+    out = {f"{k}.{_LEAF_NAMES[leaf]}": vae[k][leaf].detach()
+           for k in ("conv1", "conv2") for leaf in ("w", "b")}
+    for root, plan in (("encoder", encoder_plan(cfg)), ("decoder", decoder_plan(cfg))):
+        for (kind, _, _), prefix, p in zip(plan, _layer_prefixes(plan, root), vae[root]):
+            for sub, ref in _VAE_NAMES[kind].items():
+                if sub not in p:
+                    continue
+                for leaf in ("w", "b", "gamma"):
+                    if leaf in p[sub]:
+                        x = p[sub][leaf].detach()
+                        if leaf == "gamma":
+                            x = x.reshape(-1, *(1,) * (2 if kind == "attn" else 3))
+                        out[f"{prefix}.{ref}.{_LEAF_NAMES[leaf]}"] = x
+    return out

@@ -1,22 +1,26 @@
 """SVI per-clip image-to-video pipeline (shot / film variants).
 
-Port of svi_tpu/pipelines/svi_video.py: `SVIVideoPipeline.__call__`,
-`encode_images_adaptive` (temporal mask + VAE latent of [condition frames |
-padding] + CLIP features), the batched classifier-free-guidance denoise loop
-and its TeaCache variant, and an untiled decode to uint8 frames.
+Port of svi_tpu/pipelines/svi_video.py: `SVIVideoPipeline.__call__` with
+its prompts (the umT5 prompter), `encode_images_adaptive` (temporal mask +
+VAE latent of [condition frames | padding] + CLIP features), video-to-video
+(`input_video` + `denoising_strength`), `last_latent` and `y_extra`, the
+batched classifier-free-guidance denoise loop and its TeaCache variant, and
+the decode to uint8 frames, tiled by default as in the JAX pipeline; and
+`from_model_manager` (models.model_io.ModelManager).
 
 Differences from the JAX pipeline: frames come back as (H, W, 3) uint8 numpy
-arrays instead of PIL images, prompts must arrive as embeddings
-(`prompt_emb_posi/nega`, e.g. from models.t5.T5Encoder.encode_prompt_states)
-because the umT5 tokenizer is not in the repository, and tiled encode/decode
-is not ported yet. Everything runs under `torch.inference_mode()`.
+arrays instead of PIL images, and `add_condition` (the dance / talk
+variants, Slice D) raises. Everything runs under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ..prompters.wan_prompter import WanPrompter
 from ..schedulers.flow_match import FlowMatchScheduler
 from . import base
 
@@ -96,20 +100,80 @@ def _prep(img, height: int, width: int) -> np.ndarray:
 
 
 class SVIVideoPipeline:
-    """Per-clip I2V generation with motion-frame conditioning. Set `dit`
-    (models.wan_dit.WanDiT), `vae` (models.wan_vae.WanVAE) and
-    `image_encoder` (models.clip_vision.ClipVision) on `device` before calling."""
+    """Per-clip I2V generation with motion-frame conditioning. Its models
+    (`dit`: models.wan_dit.WanDiT, `vae`: models.wan_vae.WanVAE,
+    `image_encoder`: models.clip_vision.ClipVision, `text_encoder`:
+    models.t5.T5Encoder) live on `device`: set them, or take them from a
+    ModelManager with `from_model_manager`."""
 
-    def __init__(self, device="cuda", torch_dtype=torch.bfloat16, num_train_timesteps=1000):
+    def __init__(self, device="cuda", torch_dtype=torch.bfloat16, tokenizer_path=None,
+                 num_train_timesteps=1000):
         self.device = torch.device(device)
         self.dtype = torch_dtype
         self.scheduler = FlowMatchScheduler(
             shift=5, sigma_min=0.0, extra_one_step=True, num_train_timesteps=num_train_timesteps,
         )
+        self.prompter = WanPrompter(tokenizer_path=tokenizer_path)
+        self.text_encoder = None
         self.dit = None
         self.vae = None
         self.image_encoder = None
         self.last_tea_cache = None  # the last clip's TeaCache (skip count), if any
+
+    # -- construction -----------------------------------------------------------
+
+    def fetch_models(self, model_manager):
+        """Take the four models from a ModelManager; the tokenizer from
+        google/umt5-xxl beside the text encoder's checkpoint, where it is."""
+        res = model_manager.fetch_model("wan_video_text_encoder", require_model_path=True)
+        if res is not None:
+            self.text_encoder, path = res
+            self.prompter.fetch_models(self.text_encoder)
+            if path:
+                cand = os.path.join(os.path.dirname(path if isinstance(path, str) else path[0]),
+                                    "google/umt5-xxl")
+                if os.path.isdir(cand):
+                    self.prompter.fetch_tokenizer(cand)
+        self.dit = model_manager.fetch_model("wan_video_dit")
+        self.vae = model_manager.fetch_model("wan_video_vae")
+        self.image_encoder = model_manager.fetch_model("wan_video_image_encoder")
+        return self
+
+    @staticmethod
+    def from_model_manager(model_manager, torch_dtype=None, device="cuda",
+                           num_train_timesteps=1000):
+        pipe = SVIVideoPipeline(device=device, torch_dtype=torch_dtype or model_manager.dtype,
+                                num_train_timesteps=num_train_timesteps)
+        return pipe.fetch_models(model_manager)
+
+    def enable_vram_management(self, num_persistent_param_in_dit=None):
+        """The reference's layer offload is a VRAM workaround; the 14B DiT fits
+        the card, so this is a no-op kept for the API (as in the JAX package)."""
+        self.vram_budget = num_persistent_param_in_dit
+
+    # -- prompts and video <-> latents --------------------------------------------
+
+    def encode_prompt(self, prompt, positive=True) -> dict:
+        return {"context": self.prompter.encode_prompt(prompt, positive=positive)}
+
+    def encode_video(self, input_video, tiled=True, tile_size=(34, 34), tile_stride=(18, 16)):
+        """(1, 3, T, H, W) in [-1, 1] -> latents in the pipeline's dtype; tile
+        sizes in latent units (x8 pixels)."""
+        v = torch.as_tensor(input_video).to(self.device, torch.float32)
+        if tiled:
+            lat = self.vae.tiled_encode(v, tile_size=(tile_size[0] * 8, tile_size[1] * 8),
+                                        tile_stride=(tile_stride[0] * 8, tile_stride[1] * 8))
+        else:
+            lat = self.vae.encode(v)
+        return lat.to(self.dtype)
+
+    def decode_video(self, latents, tiled=True, tile_size=(34, 34), tile_stride=(18, 16)):
+        """latents -> (b, 3, T, H, W) f32 video in [-1, 1]; tile sizes in latent
+        units."""
+        z = torch.as_tensor(latents).to(self.device, torch.float32)
+        if tiled:
+            return self.vae.tiled_decode(z, tile_size=tile_size, tile_stride=tile_stride)
+        return self.vae.decode(z)
 
     # -- conditioning -----------------------------------------------------------
 
@@ -165,10 +229,12 @@ class SVIVideoPipeline:
 
     # -- denoising --------------------------------------------------------------
 
-    def _sample(self, latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None):
+    def _sample(self, latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None,
+                progress_bar_cmd=None):
         """Euler flow-match loop. With cfg_scale != 1 the [cond, uncond] pair
         runs as one batch-2 DiT forward; pred = uncond + s * (cond - uncond);
-        the Euler step runs in f32 and is cast back."""
+        the Euler step runs in f32 and is cast back. progress_bar_cmd (e.g.
+        tqdm) wraps the range of steps."""
         dit = self.dit
         sigmas = self.scheduler.sigmas.to(self.device)
         timesteps = self.scheduler.timesteps.to(self.device)
@@ -186,7 +252,7 @@ class SVIVideoPipeline:
         clip_in, y_in = batched(clip_feature), batched(y)
         n_img = clip_feature.shape[1] if (dit.cfg.has_image_input
                                           and clip_feature is not None) else 257
-        for i in range(n):
+        for i in (progress_bar_cmd or iter)(range(n)):
             t = timesteps[i:i + 1]
             xin = batched(latents)
             if tea_cache is None:
@@ -214,7 +280,11 @@ class SVIVideoPipeline:
     @torch.inference_mode()
     def __call__(
         self,
+        prompt=None,
+        negative_prompt="",
         input_image=None,
+        input_video=None,
+        denoising_strength=1.0,
         seed=None,
         height=480,
         width=832,
@@ -222,37 +292,64 @@ class SVIVideoPipeline:
         cfg_scale=5.0,
         num_inference_steps=50,
         sigma_shift=5.0,
-        tiled=False,
+        tiled=True,
+        tile_size=(30, 52),
+        tile_stride=(15, 26),
         tea_cache_l1_thresh=None,
         tea_cache_model_id="",
+        progress_bar_cmd=None,
         random_ref_frame=None,
+        args=None,
+        last_latent=None,
         prompt_emb_posi=None,
         prompt_emb_nega=None,
-        ref_pad_cfg=False,
+        ref_pad_cfg=None,
         ref_pad_num=None,
         return_latents=False,
+        add_condition=None,
+        y_extra=None,
     ):
-        """Generate one clip. Returns a list of (H, W, 3) uint8 frames, and the
-        final latents too with return_latents=True."""
-        if tiled:
-            raise NotImplementedError("tiled VAE encode/decode is not ported yet")
-        if prompt_emb_posi is None or prompt_emb_nega is None:
-            raise NotImplementedError(
-                "the umT5 tokenizer is not in the repository: pass prompt_emb_posi and "
-                "prompt_emb_nega (e.g. from models.t5.T5Encoder.encode_prompt_states)")
+        """Generate one clip. Returns a list of (H, W, 3) uint8 frames; with
+        return_latents=True, (frames, final latents); else with
+        args.sequential_cfg == 'latent', (frames, the latents' last channel),
+        as the JAX pipeline does. Prompts come as text (`prompt`,
+        `negative_prompt`: tokenized and encoded by umT5) unless
+        `prompt_emb_posi` / `prompt_emb_nega` are given. tile_size /
+        tile_stride in latent units, for the encode of `input_video` and the
+        decode."""
+        if add_condition is not None:
+            raise NotImplementedError("add_condition (the dance / talk variants) is not ported "
+                                      "yet (Slice D)")
         height, width = base.check_resize_height_width(height, width)
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
-        if isinstance(cfg_scale, dict):  # the clip-loop script passes dict(text=...)
+        if isinstance(cfg_scale, dict):  # the clip-loop driver passes dict(text=...)
             cfg_scale = cfg_scale["text"]
+        if ref_pad_cfg is None:
+            ref_pad_cfg = getattr(args, "ref_pad_cfg", False) if args is not None else False
+        if ref_pad_num is None:
+            ref_pad_num = getattr(args, "ref_pad_num", None) if args is not None else None
+        tiler = dict(tiled=tiled, tile_size=tile_size, tile_stride=tile_stride)
         dev, dtype = self.device, self.dtype
-        self.scheduler.set_timesteps(num_inference_steps, shift=sigma_shift)
+        self.scheduler.set_timesteps(num_inference_steps, denoising_strength=denoising_strength,
+                                     shift=sigma_shift)
 
         lt = (num_frames - 1) // 4 + 1
         z_dim = self.vae.cfg.z_dim
         noise = base.generate_noise((1, z_dim, lt, height // 8, width // 8), seed=seed)
-        latents = noise.to(dev, dtype)
+        noise = noise.to(dev, dtype)
+        if input_video is not None:
+            frames_chw = np.concatenate([base.preprocess_image(f) for f in input_video], axis=0)
+            vid = torch.from_numpy(np.ascontiguousarray(np.transpose(frames_chw, (1, 0, 2, 3))))
+            latents = self.encode_video(vid[None], **tiler)
+            latents = self.scheduler.add_noise(latents, noise, self.scheduler.timesteps[0])
+        else:
+            latents = noise
 
+        if prompt_emb_posi is None:
+            prompt_emb_posi = self.encode_prompt(prompt, positive=True)["context"]
+        if prompt_emb_nega is None:
+            prompt_emb_nega = self.encode_prompt(negative_prompt, positive=False)["context"]
         ctx_pos = torch.as_tensor(prompt_emb_posi).to(dev, dtype)
         ctx_neg = torch.as_tensor(prompt_emb_nega).to(dev, dtype)
 
@@ -264,6 +361,10 @@ class SVIVideoPipeline:
                 input_image, ref_img, num_frames, height, width,
                 ref_pad_cfg=ref_pad_cfg, ref_pad_num=ref_pad_num,
             )
+            if last_latent is not None:
+                image_emb["y"][:, 0] = torch.as_tensor(last_latent).to(dev, dtype)
+            if y_extra is not None:  # additive conditioning on the y grid
+                image_emb["y"] = image_emb["y"] + torch.as_tensor(y_extra).to(dev, dtype)
         else:
             image_emb = {}
 
@@ -271,9 +372,14 @@ class SVIVideoPipeline:
                               model_id=tea_cache_model_id)
                      if tea_cache_l1_thresh is not None else None)
         self.last_tea_cache = tea_cache
-        latents = self._sample(latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache)
+        latents = self._sample(latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache,
+                               progress_bar_cmd)
 
-        video = self.vae.decode(latents.float())
+        video = self.decode_video(latents, **tiler)
         frames_u8 = ((video + 1) * 127.5).clamp(0, 255).to(torch.uint8)
         frames = base.frames_from_uint8(frames_u8[0].cpu().numpy())
-        return (frames, latents) if return_latents else frames
+        if return_latents:
+            return frames, latents
+        if args is not None and getattr(args, "sequential_cfg", None) == "latent":
+            return frames, latents[:, -1, ...]
+        return frames

@@ -28,6 +28,11 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.models.clip_vision, svi_tpu_torch.models.t5\n"
         "import svi_tpu_torch.pipelines.svi_video\n"
         "import svi_tpu_torch.training, svi_tpu_torch.training.lora\n"
+        "import svi_tpu_torch.models.model_io, svi_tpu_torch.utils.safetensors_io\n"
+        "import svi_tpu_torch.utils.proto, svi_tpu_torch.utils.prompt_files\n"
+        "import svi_tpu_torch.utils.image_process, svi_tpu_torch.utils.video\n"
+        "import svi_tpu_torch.prompters.sp_tokenizer, svi_tpu_torch.prompters.wan_prompter\n"
+        "import svi_tpu_torch.scripts.test_svi\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -65,17 +70,28 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
 
 
 @pytest.mark.parametrize("entry", ["wan_dit", "t5", "clip_vision", "wan_vae", "pipeline",
-                                   "trainer"])
+                                   "trainer", "model_manager", "from_model_manager", "driver",
+                                   "dit_from_checkpoint", "t5_from_checkpoint",
+                                   "vae_from_checkpoint", "clip_from_checkpoint",
+                                   "dit_quantized_from_checkpoint"])
 def test_entry_points_default_to_the_card(entry):
     import inspect
 
     from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+    from svi_tpu_torch.models.model_io import ModelManager
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.scripts import test_svi
     from svi_tpu_torch.training import ErrorRecyclingTrainer
 
     fn = {"wan_dit": wan_dit.init_params, "t5": t5.init_params,
           "clip_vision": clip_vision.init_params, "wan_vae": wan_vae.init_params,
-          "pipeline": SVIVideoPipeline, "trainer": ErrorRecyclingTrainer}[entry]
+          "pipeline": SVIVideoPipeline, "trainer": ErrorRecyclingTrainer,
+          "model_manager": ModelManager, "from_model_manager": SVIVideoPipeline.from_model_manager,
+          "driver": test_svi.main, "dit_from_checkpoint": wan_dit.params_from_torch_state_dict,
+          "t5_from_checkpoint": t5.params_from_torch_state_dict,
+          "vae_from_checkpoint": wan_vae.params_from_torch_state_dict,
+          "clip_from_checkpoint": clip_vision.params_from_torch_state_dict,
+          "dit_quantized_from_checkpoint": wan_dit.quantized_params_from_torch_state_dict}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
