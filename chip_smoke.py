@@ -41,6 +41,17 @@ non-zero exit and no result line:
      stitched frames are right, the tiled decode is within its bound of the
      untiled one (and two wrong assemblies are not), the forward kernels
      ran, and every quantized linear went through w4a8_linear;
+  4f. the variants: the tiny dance and talk pipelines on the card against
+     the CPU; beside 4e's files a multitalk.safetensors (the 4 blocks'
+     audio branches and audio_proj at the published widths), a dance LoRA
+     with the pose embedding at dim 5120 and a full-size wav2vec2
+     directory; wav2vec2 on data/toy_test/talk/speech.wav, card against
+     CPU; the talk driver (two 9-frame clips at 480x832, bf16, then
+     --quantize int4_w4a8) and the dance driver (two clips at 368x640 on a
+     seeded .npy pose video), each with per-phase seconds and peak memory,
+     and two controls (zeroed audio, --remove_pose) that must move the
+     clip beyond the card-vs-CPU gap; and, on 4b's bf16 weights, one
+     denoise-step forward of the full-depth multitalk 14B at B=3, profiled;
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
      card against the same trainer on the CPU, then (b) 4 training steps of
      rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
@@ -521,6 +532,9 @@ def kernel_cases():
     yield fwd_case("masked_kv_len", 2, 4680, 4680, 40, 128, grid=(3, 30, 52), kv_len=4100)
     # the training slice's self-attention forward (21 frames: 6 x 30 x 52 tokens)
     yield fwd_case("dit_self_attn_rope_21f", 1, 9360, 9360, 40, 128, grid=(6, 30, 52))
+    # the talk variant's step: its three CFG branches as batch 3 (self and text cross)
+    yield fwd_case("talk_self_attn_rope_b3", 3, 4680, 4680, 40, 128, grid=(3, 30, 52))
+    yield fwd_case("talk_text_cross_attn_b3", 3, 4680, 512, 40, 128)
 
     # CLIP ViT-H/14: 257 tokens, 16 heads of 80, f32, through the (B, N, S, D) entry
     q, k, v = (randn((1, 16, 257, 80), torch.float32) for _ in range(3))
@@ -1694,10 +1708,379 @@ def phase_driver(card: str) -> None:
                          int8_attention=False)
         check_driver_video("c", record["samples"][0], clips=1)
         del record, dit
+
+        # 4f: the variants' drivers on these files and the ones they add
+        phase_variants(root, card)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the variants (SVI-Dance, SVI-Talk) through their drivers
+# ---------------------------------------------------------------------------
+
+# the talk and dance runs: two clips of 9 frames, 4 steps, as phase 4e's
+VARIANT_CLIPS = 2
+# wav2vec2's 12 hidden states of speech.wav, card against CPU, f32 with TF32
+# off: sums in another order through 7 convs, the 128-tap grouped
+# positional conv and 12 layers. Relative to the largest |state|; the first
+# reading on an H100 was 2.05e-6 (PERF.md, section 6), the bound ten times
+# that: a wrong tap, stride or weight-norm fold moves the states by their
+# own size
+W2V_CARD_REL = 2e-5
+# the tiny dance and talk pipelines, card against CPU (as phase 4a's)
+VARIANT_LAT_TOL, VARIANT_FRAME_LEVELS = 1e-3, 2
+# the dance driver caps the width at 640: a 480x832 image becomes 368x640
+DANCE_H, DANCE_W = 368, 640
+SPEECH = REPO / "data" / "toy_test" / "talk" / "speech.wav"
+
+
+def tiny_variant_pipeline(device, variant: str):
+    """Phase 4a's tiny f32 pipeline as the dance variant (a pose embedding of
+    the DiT's width) or the talk variant (a 3-block multitalk DiT, audio
+    windows 32 wide)."""
+    from svi_tpu_torch.models import clip_vision, pose_embedding, wan_dit, wan_vae
+    from svi_tpu_torch.pipelines.svi_video_dance import SVIDanceVideoPipeline
+    from svi_tpu_torch.pipelines.svi_video_talk import SVITalkVideoPipeline
+
+    cls = SVIDanceVideoPipeline if variant == "dance" else SVITalkVideoPipeline
+    pipe = cls(device=device, torch_dtype=torch.float32)
+    pipe.vae = wan_vae.init_params(wan_vae.WanVAEConfig(dim=16, z_dim=4), seed=1,
+                                   device="cpu").to(device)
+    audio = dict(enable_multitalk=True, audio_hidden_dim=32, audio_context_tokens=4) \
+        if variant == "talk" else {}
+    pipe.dit = wan_dit.init_params(wan_dit.WanDiTConfig(
+        dim=64, in_dim=12, ffn_dim=128, out_dim=4, text_dim=48, freq_dim=32, num_heads=2,
+        num_layers=3, has_image_input=True, clip_feature_dim=64, dtype=torch.float32, **audio),
+        seed=2, device="cpu").to(device)
+    pipe.image_encoder = clip_vision.init_params(clip_vision.ClipVisionConfig(
+        image_size=28, patch_size=14, dim=64, mlp_ratio=2, num_heads=2, num_layers=2),
+        seed=3, device="cpu").to(device)
+    if variant == "dance":
+        pipe.dwpose_embedding = pose_embedding.init_params(64, seed=4, device="cpu").to(device)
+    return pipe
+
+
+def phase_small_variants(card: str) -> int:
+    """(a) The tiny dance and talk pipelines on the card against the same on
+    the CPU; returns the largest frame difference (levels), the card-vs-CPU
+    gap that the controls must exceed."""
+    from svi_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(40)
+    extra = {"dance": dict(humanpose_data=rng.integers(0, 255, (3, 9, 64, 64)).astype(np.float32),
+                           cond_wo_pose=True, cfg_scale=dict(text=5.0, audio=2.0)),
+             "talk": dict(audio_embed=rng.standard_normal((1, 9, 5, 12, 32)).astype(np.float32),
+                          cfg_scale=dict(text=5.0, audio=2.0))}
+    gap = 0
+    for variant, kw in extra.items():
+        kw = dict(tiny_call_kwargs(), **kw)
+        launches = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches
+        frames_gpu, lat_gpu = tiny_variant_pipeline("cuda", variant)(**kw)
+        used = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches - launches
+        frames_cpu, lat_cpu = tiny_variant_pipeline("cpu", variant)(**kw)
+        lat_err = (lat_gpu.cpu() - lat_cpu).abs().max().item()
+        px = int(np.abs(np.stack(frames_gpu).astype(int) - np.stack(frames_cpu).astype(int)).max())
+        gap = max(gap, px)
+        log(f"[variants-small] {variant}: card vs CPU on a tiny f32 pipeline, latents max abs "
+            f"err {lat_err:.3e} (bound {VARIANT_LAT_TOL}), frames max diff {px} levels (bound "
+            f"{VARIANT_FRAME_LEVELS}), kernel launches {used}; {card}")
+        if not (lat_err <= VARIANT_LAT_TOL and px <= VARIANT_FRAME_LEVELS and used > 0):
+            raise RuntimeError(f"the tiny {variant} pipeline on the card disagrees with the CPU")
+    return gap
+
+
+def write_variant_checkpoints(root: Path, card: str) -> None:
+    """(b) Beside phase 4e's files: multitalk.safetensors (the 4 blocks' audio
+    cross-attention and norm, and audio_proj, bf16, at the published widths),
+    svi-dance.safetensors (4e's LoRA plus the pose embedding at dim 5120,
+    f32), a full-size chinese-wav2vec2-base directory in transformers'
+    naming (f32), a 368x640 reference image and a seeded pose video
+    (12 frames of 448x256, as data/toy_test/dance/pose.mp4's) as .npy."""
+    from svi_tpu_torch.models import pose_embedding, wan_dit, wav2vec2
+    from svi_tpu_torch.utils.safetensors_io import load_file, save_file
+
+    t0 = time.perf_counter()
+    sizes = {}
+    cfg = dataclasses.replace(wan_dit.WAN_14B_I2V_MULTITALK, num_layers=DRIVER_DIT_BLOCKS)
+    dit = wan_dit.init_params(cfg, seed=41, device="cuda")
+    audio = {k: v for k, v in wan_dit.torch_state_dict_from_params(dit).items()
+             if "audio" in k or ".norm_x." in k}
+    sizes["multitalk"] = save_file(audio, str(root / "multitalk.safetensors"))
+    del dit, audio
+    torch.cuda.empty_cache()
+    lora = load_file(str(root / "svi-shot.safetensors"))
+    lora.update(pose_embedding.torch_state_dict_from_params(
+        pose_embedding.init_params(cfg.dim, seed=42, device="cuda")))
+    sizes["dance_lora"] = save_file(lora, str(root / "svi-dance.safetensors"))
+    w2v = root / "chinese-wav2vec2-base"
+    w2v.mkdir()
+    sizes["wav2vec2"] = save_file(wav2vec2.torch_state_dict_from_params(
+        wav2vec2.init_params(seed=43, device="cuda")), str(w2v / "model.safetensors"))
+    rng = np.random.default_rng(44)
+    np.save(root / "dance_frame.npy", rng.integers(0, 255, (DANCE_H, DANCE_W, 3), dtype=np.uint8))
+    np.save(root / "pose.npy", rng.integers(0, 255, (12, 448, 256, 3), dtype=np.uint8))
+    log(f"[variants] wrote {sum(sizes.values()) / 1e9:.3f} GB ("
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items())
+        + f") in {time.perf_counter() - t0:.2f}s; {card}")
+
+
+def phase_wav2vec2_card(root: Path, card: str) -> None:
+    """(c) The tower from the written directory, on the card and on the CPU,
+    over data/toy_test/talk/speech.wav: the 12 hidden states within
+    W2V_CARD_REL of the largest |state|."""
+    from svi_tpu_torch.models import wav2vec2
+    from svi_tpu_torch.utils import audio
+
+    speech = audio.load_audio(str(SPEECH))
+    embs, secs = {}, {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        model = wav2vec2.load_params(str(root / "chinese-wav2vec2-base"), device=dev)
+        audio.wav2vec_embedding(speech[:16000], model)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs[where] = audio.wav2vec_embedding(speech, model)
+        secs[where] = time.perf_counter() - t0
+        del model
+    err = float(np.abs(embs["card"] - embs["host"]).max())
+    scale = float(np.abs(embs["host"]).max())
+    log(f"[variants] wav2vec2 of speech.wav ({speech.size / 16000:.2f} s -> "
+        f"{embs['card'].shape}): card {secs['card']:.3f}s, CPU {secs['host']:.3f}s; card vs CPU "
+        f"max abs err {err:.3e} of max |state| {scale:.3f} = {err / scale:.3e} (bound "
+        f"{W2V_CARD_REL}); {card}")
+    if not (np.isfinite(embs["card"]).all() and err <= W2V_CARD_REL * scale):
+        raise RuntimeError("the wav2vec2 states on the card disagree with the CPU port")
+
+
+def run_variant_driver(module, argv: list[str], tag: str, card: str):
+    """One in-process run of a variant's driver: launch counts zeroed just
+    before and read just after, per-phase seconds and peak memory. Returns
+    (record, launches, timer)."""
+    from svi_tpu_torch.models.clip_vision import ClipVision
+    from svi_tpu_torch.models.model_io import ModelManager
+    from svi_tpu_torch.models.pose_embedding import PoseEmbedding
+    from svi_tpu_torch.models.wan_vae import WanVAE
+    from svi_tpu_torch.models.wav2vec2 import Wav2Vec2
+    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.pipelines.svi_video_talk import SVITalkVideoPipeline
+
+    timer = PhaseTimer()
+    targets = [(ModelManager, "load_models", "load"), (ModelManager, "load_lora_v2", "lora_fuse"),
+               (SVIVideoPipeline, "encode_prompt", "tokenize_t5"),
+               (ClipVision, "encode_image", "clip"), (WanVAE, "encode", "vae_encode"),
+               (WanVAE, "decode", "vae_decode"), (Wav2Vec2, "forward", "wav2vec2"),
+               (PoseEmbedding, "forward", "pose_embedding"),
+               (SVIVideoPipeline, "_sample", "denoise_b2"),
+               (SVITalkVideoPipeline, "_sample_talk", "denoise_b3")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_methods(timer, targets):
+        zero_counts()
+        t0 = time.perf_counter()
+        record = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    sec = timer.seconds
+
+    def r(name, per=1):
+        return [round(x / per, 3) for x in sec.get(name, [])]
+
+    log(f"[variants {tag}] {seconds:.2f}s in all; load {sec['load'][0]:.2f}s, LoRA fuse "
+        f"{sec['lora_fuse'][0]:.2f}s; wav2vec2 {r('wav2vec2')}, pose embedding "
+        f"{r('pose_embedding')}, tokenize + T5 {r('tokenize_t5')}, CLIP {r('clip')}, VAE "
+        f"encode {r('vae_encode')}, denoise step B=3 {r('denoise_b3', SLICE_STEPS)}, B=2 "
+        f"{r('denoise_b2', SLICE_STEPS)}, VAE decode {r('vae_decode')}; clip seconds "
+        f"{[round(c['seconds'], 2) for c in record['clips']]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {card}")
+    return record, launches, timer
+
+
+def check_variant_video(tag: str, frames: np.ndarray, expect: tuple) -> None:
+    std = float(frames.astype(np.float32).std())
+    if frames.shape != expect or frames.dtype != np.uint8 or not std > 1.0:
+        raise RuntimeError(f"[variants {tag}] stitched video {frames.shape} {frames.dtype} with "
+                           f"pixel std {std}, expected {expect} uint8 with std > 1")
+
+
+def control_gap(tag: str, run: np.ndarray, control: np.ndarray, gap: int, card: str) -> None:
+    """A control clip must differ from the clip it shadows by more than the
+    card-vs-CPU gap of the tiny pipelines (mean levels over the frames)."""
+    d = float(np.abs(run.astype(np.float32) - control.astype(np.float32)).mean())
+    log(f"[variants {tag}] control: mean |run - control| {d:.2f} levels (must exceed the "
+        f"card-vs-CPU gap {gap}); {card}")
+    if not d > gap:
+        raise RuntimeError(f"the {tag} control does not move the clip beyond the card-vs-CPU gap")
+
+
+def phase_variants(root: Path, card: str) -> dict:
+    """Phase 4f, the SVI-Talk and SVI-Dance drivers on phase 4e's 14B-width
+    files (4 of 40 blocks) and the files (b) adds: (a) the tiny pipelines,
+    card against CPU; (c) wav2vec2, card against CPU; (d) talk on
+    speech.wav, two clips of 9 frames at 480x832, 4 steps, bf16, and a
+    control with a zeroed audio embedding; (e) the same with --quantize
+    int4_w4a8; (f) dance on the seeded pose video, two clips at 368x640, and
+    a control with --remove_pose. Fails unless every bf16 D=128 forward took
+    sm90 and every f32 one f32, every quantized linear (the audio ones
+    included) went through w4a8_linear, the stitched videos are right and
+    the controls differ."""
+    from svi_tpu_torch.scripts import test_svi_dance, test_svi_talk
+    from svi_tpu_torch.utils import audio
+
+    t_phase = time.perf_counter()
+    gap = phase_small_variants(card)
+    write_variant_checkpoints(root, card)
+    phase_wav2vec2_card(root, card)
+    common = ["--dit_root", str(root), "--num_frames", str(SLICE_FRAMES), "--num_steps",
+              str(SLICE_STEPS), "--save_format", "npy"]
+    talk = [*common, "--extra_module_root", str(root / "svi-shot.safetensors"),
+            "--multitalk_path", str(root / "multitalk.safetensors"),
+            "--wav2vec_path", str(root / "chinese-wav2vec2-base"),
+            "--ref_image_path", str(root / "frame.npy"), "--audio_path", str(SPEECH)]
+    launches = {}
+
+    # (d) talk, bf16
+    record, launches["talk"], _ = run_variant_driver(
+        test_svi_talk, [*talk, "--num_clips", str(VARIANT_CLIPS), "--output",
+                        str(root / "videos_talk")], "talk", card)
+    routes = check_fwd_routes("the talk driver", need_f32=True)
+    if not record["pipe"].dit.cfg.enable_multitalk:
+        raise RuntimeError("the talk driver's DiT did not load as multitalk")
+    if min(launches["talk"][k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+                                         "rope_rotate_flat", "flash_fwd_bnsd")) <= 0:
+        raise RuntimeError(f"a kernel was not launched on the talk driver's path: "
+                           f"{launches['talk']}")
+    frames = np.load(record["paths"][-1])
+    check_variant_video("talk", frames, (VARIANT_CLIPS * SLICE_FRAMES, SLICE_H, SLICE_W, 3))
+    log(f"[variants talk] forward routes {routes}; stitched {frames.shape}, pixel std "
+        f"{frames.astype(np.float32).std():.2f}, audio starts "
+        f"{[c['audio_start'] for c in record['clips']]}")
+    del record
+    real_embedding = audio.wav2vec_embedding
+    audio.wav2vec_embedding = lambda speech, model: np.zeros_like(real_embedding(speech, model))
+    try:
+        record, _, _ = run_variant_driver(
+            test_svi_talk, [*talk, "--num_clips", "1", "--output", str(root / "videos_talk0")],
+            "talk-zero-audio", card)
+    finally:
+        audio.wav2vec_embedding = real_embedding
+    control_gap("talk", frames[:SLICE_FRAMES], np.load(record["paths"][-1]), gap, card)
+    del record
+
+    # (e) talk, int4_w4a8
+    with count_int_mm() as int_mm:
+        record, launches["talk_q"], _ = run_variant_driver(
+            test_svi_talk, [*talk, "--num_clips", str(VARIANT_CLIPS), "--quantize", "int4_w4a8",
+                            "--output", str(root / "videos_talk_q")], "talk-int4_w4a8", card)
+    names = [name for name, _ in record["pipe"].dit.named_parameters() if name.endswith("w_q4")]
+    n_audio = sum(1 for name in names if "audio" in name)
+    check_quant_path("the talk driver with --quantize int4_w4a8", launches["talk_q"], int_mm,
+                     len(names), forwards=VARIANT_CLIPS * SLICE_STEPS, int8_attention=False)
+    check_fwd_routes("the quantized talk driver", need_f32=True)
+    log(f"[variants talk-int4_w4a8] {len(names)} quantized linears a forward, {n_audio} of them "
+        f"audio (4 audio_proj + 3 a block)")
+    if n_audio != 4 + 3 * DRIVER_DIT_BLOCKS:
+        raise RuntimeError(f"{n_audio} audio linears quantized, expected "
+                           f"{4 + 3 * DRIVER_DIT_BLOCKS}")
+    check_variant_video("talk-int4_w4a8", np.load(record["paths"][-1]),
+                        (VARIANT_CLIPS * SLICE_FRAMES, SLICE_H, SLICE_W, 3))
+    del record
+
+    # (f) dance
+    dance = [*common, "--extra_module_root", str(root / "svi-dance.safetensors"),
+             "--image_path", str(root / "dance_frame.npy"),
+             "--pose_path", str(root / "pose.npy")]
+    motion = test_svi_dance.parse_args(["--image_path", "x", "--pose_path", "x"]).num_motion_frames
+    record, launches["dance"], _ = run_variant_driver(
+        test_svi_dance, [*dance, "--num_clips", str(VARIANT_CLIPS), "--output",
+                         str(root / "videos_dance")], "dance", card)
+    routes = check_fwd_routes("the dance driver", need_f32=True)
+    if record["pipe"].dwpose_embedding is None or launches["dance"]["flash_fwd_flat/sm90"] <= 0:
+        raise RuntimeError("the dance driver ran without its pose embedding or K1")
+    frames = np.load(record["path"])
+    check_variant_video("dance", frames, (VARIANT_CLIPS * SLICE_FRAMES - (VARIANT_CLIPS - 1)
+                                          * motion, DANCE_H, DANCE_W, 3))
+    log(f"[variants dance] forward routes {routes}; stitched {frames.shape}, pixel std "
+        f"{frames.astype(np.float32).std():.2f}")
+    del record
+    record, _, _ = run_variant_driver(
+        test_svi_dance, [*dance, "--num_clips", "1", "--remove_pose", "--output",
+                         str(root / "videos_dance0")], "dance-remove-pose", card)
+    control_gap("dance", frames[:SLICE_FRAMES - motion],
+                np.load(record["path"])[:SLICE_FRAMES - motion], gap, card)
+    del record
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[variants] phase 4f passed in {time.perf_counter() - t_phase:.1f}s; {card}")
+    return launches
+
+
+def phase_multitalk_step(state: dict, card: str) -> None:
+    """Phase 4f's full-depth step: one denoise-step forward (batch 3: cond,
+    drop-text, null audio) of the multitalk 14B at 480x832x9, 40 blocks:
+    phase 4b's bf16 base weights with seeded audio branches and audio_proj
+    added (a second DiT of the same tensors), timed, then profiled."""
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.models.params import Init
+
+    pipe = state["pipe"]
+    cfg = dataclasses.replace(pipe.dit.cfg, enable_multitalk=True)
+    t0 = time.perf_counter()
+    r = Init(45, "cuda", cfg.dtype)  # init_params's distributions
+    d, ad = cfg.dim, cfg.audio_hidden_dim
+    tree = pipe.dit.tree()  # the same tensors: nothing of the base DiT is copied
+    for blk in tree["blocks"]:
+        blk["audio_cross_attn"] = {"q_linear": r.linear(d, d), "kv_linear": r.linear(ad, 2 * d),
+                                   "proj": r.linear(d, d)}
+        blk["norm_x"] = {"w": r.ones((d,)), "b": r.zeros((d,))}
+    tree["audio_proj"] = {"proj1": r.linear(5 * 12 * ad, 512),
+                          "proj1_vf": r.linear(8 * 12 * ad, 512), "proj2": r.linear(512, 512),
+                          "proj3": r.linear(512, cfg.audio_context_tokens * ad),
+                          "norm": {"w": r.ones((ad,)), "b": r.zeros((ad,))}}
+    dit = wan_dit.WanDiT(cfg, tree)
+    n_params = sum(p.numel() for p in dit.parameters())
+    init_s = time.perf_counter() - t0
+    lt, lh, lw = (SLICE_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
+    g = torch.Generator(device="cuda").manual_seed(47)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    ctx = torch.cat([state["ctx_pos"], state["ctx_neg"], state["ctx_neg"]])
+    args = (randn(3, 16, lt, lh, lw), pipe.scheduler.timesteps[:1].cuda(), ctx,
+            randn(3, 257, cfg.clip_feature_dim), randn(3, cfg.in_dim - 16, lt, lh, lw))
+    first, vf = randn(1, 1, 5, 12, 768), randn(1, lt - 1, 8, 12, 768)
+    audio3 = (torch.cat([first, first, torch.zeros_like(first)]),
+              torch.cat([vf, vf, torch.zeros_like(vf)]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        dit(*args, audio_embed_tuple=audio3)  # warm-up
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dit(*args, audio_embed_tuple=audio3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        routes = check_fwd_routes("the full-depth multitalk step")
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if out.shape != args[0].shape or not torch.isfinite(out).all():
+            raise RuntimeError("the full-depth multitalk forward gave the wrong shape or "
+                               "non-finite values")
+        del out
+        log(f"[variants-14b] multitalk 14B, {cfg.num_layers} blocks, {n_params / 1e9:.2f}B "
+            f"params (audio branches added in {init_s:.2f}s), one denoise step at {SLICE_H}x"
+            f"{SLICE_W}x{SLICE_FRAMES} (B3 S{lt * lh * lw // 4}): {seconds:.3f}s, peak memory "
+            f"{peak:.2f} GiB, launches {launches}, forward routes {routes}; {card}")
+        log(f"[variants-14b] profile: "
+            f"{device_time_breakdown(lambda: dit(*args, audio_embed_tuple=audio3))}; {card}")
+    del dit, tree, args, audio3
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1927,6 +2310,7 @@ def main() -> int:
     phase_small_reference()
     infer_launches, state = phase_slice()
     phase_forward_81f(state)
+    phase_multitalk_step(state, card)  # phase 4f's full-depth step, on 4b's bf16 weights
     phase_small_quantized()
     quant_launches = phase_quantized_slice(state)
     phase_quantized_81f(state)

@@ -1,6 +1,8 @@
 """svi_tpu_torch: the SVI-Shot inference path (bf16 and quantized, from
 checkpoint files and text prompts through the clip-loop driver
-`scripts/test_svi.py`) and Error-Recycling LoRA training in PyTorch, with
+`scripts/test_svi.py`), the SVI-Dance and SVI-Talk variants' inference
+(`scripts/test_svi_dance.py`, `scripts/test_svi_talk.py`) and
+Error-Recycling LoRA training in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It mirrors the layout of the JAX package `svi_tpu` (ops/, models/,

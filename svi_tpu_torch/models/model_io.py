@@ -11,8 +11,11 @@
   files load; the SD family raises (Slice F).
 * `fuse_lora_into_dit`: W += α·B@A for peft `lora_A` / `lora_B` pairs, the
   delta in f32 and cast to the weight's dtype before the add.
-* `ModelManager`: loads the files, fuses LoRA into the DiT, and hands each
-  model to the pipeline (`fetch_model`). Each model's tensors go from the
+* `ModelManager`: loads the files, fuses LoRA into the DiT (keeping the
+  extra modules a LoRA file carries, `state_dict_new_module`), and hands
+  each model to the pipeline (`fetch_model`). A DiT given as shards plus
+  `multitalk.safetensors` (the audio branches) loads as one state dict, so
+  its config follows the keys. Each model's tensors go from the
   file to the device one at a time. With `quantize_dit`, the DiT stays on
   the host in its float dtype until the first fetch (LoRA is fused there),
   then moves to the device block by block, each block quantized as it
@@ -151,8 +154,9 @@ def lora_name_map(lora_sd: dict) -> dict:
 
 def extract_side_modules(sd: dict) -> dict:
     """Extra-module weights carried inside LoRA files (dwpose / randomref /
-    inpaint / learn_in embeddings). Their consumers, the pose and talk
-    pipelines, are Slice D's: nothing in this slice holds them."""
+    inpaint / learn_in embeddings): `ModelManager.load_lora_v2` keeps them in
+    `state_dict_new_module`, where the dance pipeline finds its pose
+    embedding."""
     markers = ("dwpose_embedding", "randomref_embedding_pose", "inpaint_embedding",
                "learn_in_embedding", "randomref")
     return {k: v for k, v in sd.items() if any(m in k for m in markers)}
@@ -222,6 +226,7 @@ class ModelManager:
         self._dit_quantized = False
         self.models: dict[str, nn.Module] = {}
         self.model_paths: dict = {}
+        self.state_dict_new_module: dict[str, torch.Tensor] = {}
         self.lora_log: list = []
 
     # -- loading ----------------------------------------------------------------
@@ -265,12 +270,14 @@ class ModelManager:
 
     def load_lora_v2(self, file_path, lora_alpha=1.0):
         """Fuse LoRA file(s) into the loaded DiT, where it lies (on the host
-        while it waits to be quantized)."""
+        while it waits to be quantized); the extra modules a file carries go
+        to state_dict_new_module."""
         if isinstance(file_path, (list, tuple)):
             for p in file_path:
                 self.load_lora_v2(p, lora_alpha=lora_alpha)
             return
         sd = load_state_dict(file_path)
+        self.state_dict_new_module.update(extract_side_modules(sd))
         if "wan_video_dit" not in self.models:
             raise RuntimeError("load the DiT before LoRA")
         n = fuse_lora_into_dit(self.models["wan_video_dit"], sd, alpha=lora_alpha)

@@ -5,14 +5,21 @@ unpatchify, time embedding, the plain DiT block (self-attention with 3D RoPE
 through the flash kernel, text + image cross-attention), the CLIP-feature
 MLP, the head, the split prelude / blocks / head forward that TeaCache
 needs, the unfused LoRA side path of training, rematerialisation of the
-block stack (per block, or in square-root groups), and quantized inference:
+block stack (per block, or in square-root groups), the audio variants
+(`enable_multitalk`: a per-frame audio cross-attention after the text one;
+`enable_customtalk`: bottleneck FFNs that gate the text and audio
+attentions' inputs, each block's audio output carried to the next as its
+`add_condition`; both fed by `audio_proj_forward`), the pose tokens of
+SVI-Dance (`add_condition`, added to the patch tokens), and quantized
+inference:
 the weight quantizers (`quantize_params_for_inference`, modes
 `QUANTIZE_MODES`), the dense's quantized branches with the int8 execution
 (W4A8 through `ops.quant_matmul.w4a8_linear`, W8A8 through `_int8_exec`),
 and the int8 self-attention forward (`WanDiTConfig.attention_quant`); and
 the reference's checkpoints (`config_from_state_dict`,
 `params_from_torch_state_dict`, quantize-on-load, and the inverse for
-writing them). Multitalk/customtalk, the save-attention remat policy and
+writing them). The multi-speaker audio attention
+(`single_stream_multi_attention`), the save-attention remat policy and
 host-offloaded carries are not part of this port.
 Activations are in cfg.dtype; norm and softmax statistics f32; base weights
 are frozen.
@@ -47,7 +54,11 @@ class WanDiTConfig:
     num_heads: int = 12
     num_layers: int = 30
     has_image_input: bool = False
+    enable_multitalk: bool = False
+    enable_customtalk: bool = False
     clip_feature_dim: int = 1280
+    audio_hidden_dim: int = 768
+    audio_context_tokens: int = 32
     dtype: torch.dtype = torch.bfloat16
     # int8 SELF-attention forward: "none" | "qk8" | "qk8pv8" (K6,
     # ops.attention.flash_fwd_flat_q8). Inference only: a backward through it
@@ -63,12 +74,17 @@ class WanDiTConfig:
     def head_dim(self) -> int:
         return self.dim // self.num_heads
 
+    @property
+    def has_audio(self) -> bool:
+        return self.enable_multitalk or self.enable_customtalk
+
 
 WAN_1_3B_T2V = WanDiTConfig()
 WAN_14B_T2V = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
 WAN_14B_I2V = WanDiTConfig(
     dim=5120, in_dim=36, ffn_dim=13824, num_heads=40, num_layers=40, has_image_input=True
 )
+WAN_14B_I2V_MULTITALK = dataclasses.replace(WAN_14B_I2V, enable_multitalk=True)
 
 
 def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -269,8 +285,14 @@ class WanDiT(ParamTree):
         return dense_lora(p["o"], o.reshape(b, s, d), _l(lora, "o"), lora_scale)
 
     def dit_block(self, p, x, context, t_mod, cos, sin, num_img_tokens: int = 257, lora=None,
-                  lora_scale: float = 1.0):
-        """One adaLN-modulated DiT block; `lora` is this block's adapters or None."""
+                  lora_scale: float = 1.0, audio_embed=None, num_frames: int = 0,
+                  add_condition=None):
+        """One adaLN-modulated DiT block; `lora` is this block's adapters or
+        None. With audio_embed (b, f, 32, 768) a multitalk block adds the
+        per-frame audio cross-attention after the text one; a customtalk
+        block gates both attentions' inputs with its bottleneck FFNs (the
+        text one's from add_condition) and returns (x, its audio-attention
+        output), which the next block takes as add_condition."""
         cfg = self.cfg
         mod = p["modulation"].to(t_mod.dtype) + t_mod  # (b, 6, d)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -278,13 +300,72 @@ class WanDiT(ParamTree):
         input_x = modulate(layer_norm(x, eps=1e-6), shift_msa, scale_msa)
         x = x + gate_msa * self._self_attention(p["self_attn"], input_x, cos, sin,
                                                 _l(lora, "self_attn"), lora_scale)
-        x = x + self._cross_attention(
-            p["cross_attn"], layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps),
-            context, num_img_tokens, _l(lora, "cross_attn"), lora_scale)
+        x_a = None
+        if cfg.enable_customtalk and audio_embed is not None:
+            def pre_ffn(fp, v):
+                return dense(fp["2"], gelu_tanh(dense(fp["0"], v)))
+
+            cond_in = add_condition if add_condition is not None else x
+            x_in_ctx = x + pre_ffn(p["customtalk_context_pre_ffns"],
+                                   layer_norm(cond_in, eps=cfg.eps))
+            x_c = self._cross_attention(
+                p["cross_attn"],
+                layer_norm(x_in_ctx, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps),
+                context, num_img_tokens, _l(lora, "cross_attn"), lora_scale)
+            x = x + x_c
+            x_in_audio = x + pre_ffn(p["customtalk_audio_pre_ffns"], layer_norm(x_c, eps=cfg.eps))
+            x_a = self._audio_cross_attention(
+                p["audio_cross_attn"],
+                layer_norm(x_in_audio, p["norm_x"]["w"], p["norm_x"]["b"], eps=cfg.eps),
+                audio_embed, num_frames)
+            x = x + x_a
+        else:
+            x = x + self._cross_attention(
+                p["cross_attn"], layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps),
+                context, num_img_tokens, _l(lora, "cross_attn"), lora_scale)
+            if cfg.enable_multitalk and audio_embed is not None:
+                xa = layer_norm(x, p["norm_x"]["w"], p["norm_x"]["b"], eps=cfg.eps)
+                x = x + self._audio_cross_attention(p["audio_cross_attn"], xa, audio_embed,
+                                                    num_frames)
         input_x = modulate(layer_norm(x, eps=1e-6), shift_mlp, scale_mlp)
         ffn_lora = _l(lora, "ffn")
         h = gelu_tanh(dense_lora(p["ffn"]["0"], input_x, _l(ffn_lora, "0"), lora_scale))
-        return x + gate_mlp * dense_lora(p["ffn"]["2"], h, _l(ffn_lora, "2"), lora_scale)
+        x = x + gate_mlp * dense_lora(p["ffn"]["2"], h, _l(ffn_lora, "2"), lora_scale)
+        return x if x_a is None else (x, x_a)
+
+    def _audio_cross_attention(self, p, x, audio, num_frames: int):
+        """Per-frame audio cross-attention (`_audio_cross_attention`): the
+        video tokens of each latent frame attend to that frame's audio tokens
+        (32), logits and softmax in f32, no q/k norm."""
+        cfg = self.cfg
+        b, s_all, d = x.shape
+        s = s_all // num_frames
+        n, hd = cfg.num_heads, cfg.head_dim
+        bf = b * num_frames
+        q = dense(p["q_linear"], x.reshape(bf, s, d)).reshape(bf, s, n, hd)
+        na = audio.shape[2]
+        kv = dense(p["kv_linear"], audio.reshape(bf, na, -1).to(x.dtype)).reshape(bf, na, 2, n, hd)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        logits = torch.einsum("bsnd,bknd->bnsk", q.float(), k.float()) * hd ** -0.5
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        o = torch.einsum("bnsk,bknd->bsnd", probs, v).reshape(bf, s, d)
+        return dense(p["proj"], o).reshape(b, s_all, d)
+
+    def audio_proj_forward(self, audio_first: torch.Tensor, audio_vf: torch.Tensor):
+        """AudioProjModel (`audio_proj_forward`): the wav2vec2 windows of the
+        first frame (b, 1, 5, 12, 768) and of each later group of 4 frames
+        (b, n_t - 1, 8, 12, 768), cast to the DiT's dtype first, -> context
+        tokens (b, n_t, 32, 768)."""
+        cfg = self.cfg
+        p = self["audio_proj"]
+        b, f1 = audio_first.shape[:2]
+        fv = audio_vf.shape[1]
+        a = F.relu(dense(p["proj1"], audio_first.to(cfg.dtype).reshape(b, f1, -1)))
+        av = F.relu(dense(p["proj1_vf"], audio_vf.to(cfg.dtype).reshape(b, fv, -1)))
+        x = F.relu(dense(p["proj2"], torch.cat([a, av], dim=1)))
+        x = dense(p["proj3"], x).reshape(b, f1 + fv, cfg.audio_context_tokens,
+                                         cfg.audio_hidden_dim)
+        return layer_norm(x, p["norm"]["w"], p["norm"]["b"], eps=1e-5)
 
     def _img_mlp(self, x: torch.Tensor) -> torch.Tensor:
         """CLIP-feature MLP: LN, Linear, GELU (exact, f32), Linear, LN."""
@@ -303,8 +384,11 @@ class WanDiT(ParamTree):
 
     # -- split forward ----------------------------------------------------------
 
-    def forward_prelude(self, x, timestep, context, clip_feature=None, y=None):
-        """Everything before the block stack. Returns (tokens, ctx, t, t_mod, grid)."""
+    def forward_prelude(self, x, timestep, context, clip_feature=None, y=None,
+                        add_condition=None):
+        """Everything before the block stack; add_condition (b, S, dim), the
+        pose tokens of SVI-Dance, is added to the patch tokens. Returns
+        (tokens, ctx, t, t_mod, grid)."""
         cfg = self.cfg
         dtype = cfg.dtype
         x = x.to(dtype)
@@ -319,18 +403,24 @@ class WanDiT(ParamTree):
             clip_emb = self._img_mlp(clip_feature.to(dtype))
             ctx = torch.cat([clip_emb, ctx], dim=1)
         tokens, grid = self.patchify(x)
+        if add_condition is not None:
+            tokens = add_condition.to(dtype) + tokens
         return tokens, ctx, t, t_mod, grid
 
     def forward_blocks(self, tokens, ctx, t_mod, grid, num_img_tokens: int = 257, lora=None,
                        lora_scale: float = 1.0, use_remat: bool = False,
                        remat_granularity: int = 1, save_attention: bool = False,
-                       offload_carries: bool = False):
+                       offload_carries: bool = False, audio_embed=None,
+                       block_add_condition=None):
         """The block stack. lora: the adapters (training.lora), whose
         ["blocks"][i] feeds block i. use_remat: each block runs under
         torch.utils.checkpoint, so only its input carry is saved; with
         remat_granularity g > 1 dividing the depth (and below it), groups of g
         blocks are checkpointed around the per-block checkpoints, saving L/g
-        + g carries instead of L (`scan_blocks_remat`)."""
+        + g carries instead of L (`scan_blocks_remat`). audio_embed: the
+        audio context tokens (`audio_proj_forward`); a customtalk DiT then
+        carries (tokens, add_condition) from block to block, the first block
+        taking block_add_condition (zeros when None)."""
         if save_attention or offload_carries:
             raise NotImplementedError(
                 "save_attention and offload_carries are not ported yet (ROADMAP)")
@@ -339,49 +429,66 @@ class WanDiT(ParamTree):
         sin = torch.from_numpy(sin).to(tokens.device)
         blocks = self["blocks"]
         lora_blocks = None if lora is None else lora["blocks"]
+        carry = self.cfg.enable_customtalk and audio_embed is not None
 
-        def run(tok, i):
+        def run(state, i):
+            tok, cond = state if carry else (state, None)
             lbp = None if lora_blocks is None else lora_blocks[i]
             return self.dit_block(blocks[i], tok, ctx, t_mod, cos, sin, num_img_tokens, lbp,
-                                  lora_scale)
+                                  lora_scale, audio_embed=audio_embed, num_frames=grid[0],
+                                  add_condition=cond)
 
-        def run_remat(tok, i):
-            return checkpoint(run, tok, i, use_reentrant=False)
+        def run_remat(state, i):
+            return checkpoint(run, state, i, use_reentrant=False)
 
+        state = tokens
+        if carry:
+            cond0 = (block_add_condition if block_add_condition is not None
+                     else torch.zeros_like(tokens))
+            state = (tokens, cond0.to(tokens.dtype))
         n = len(blocks)
         group = remat_granularity if use_remat else None
         if not group or group <= 1 or n % group or n == group:
             step = run_remat if use_remat else run
             for i in range(n):
-                tokens = step(tokens, i)
-            return tokens
+                state = step(state, i)
+        else:
+            def run_group(st, first):
+                for i in range(first, first + group):
+                    st = run_remat(st, i)
+                return st
 
-        def run_group(tok, first):
-            for i in range(first, first + group):
-                tok = run_remat(tok, i)
-            return tok
-
-        for first in range(0, n, group):
-            tokens = checkpoint(run_group, tokens, first, use_reentrant=False)
-        return tokens
+            for first in range(0, n, group):
+                state = checkpoint(run_group, state, first, use_reentrant=False)
+        return state[0] if carry else state
 
     def forward_head(self, tokens, t, grid):
         return self.unpatchify(self.apply_head(tokens, t), grid)
 
-    def forward(self, x, timestep, context, clip_feature=None, y=None, lora=None,
-                lora_scale: float = 1.0, use_remat: bool = False, remat_granularity: int = 1,
-                save_attention: bool = False, offload_carries: bool = False):
+    def forward(self, x, timestep, context, clip_feature=None, y=None, add_condition=None,
+                lora=None, lora_scale: float = 1.0, use_remat: bool = False,
+                remat_granularity: int = 1, save_attention: bool = False,
+                offload_carries: bool = False, audio_embed_tuple=None):
         """x: (b, in_dim - y channels, f, h, w) latents; timestep (b,) or scalar;
-        context (b, L, text_dim); clip_feature (b, 257, clip_dim); y: (b, c, f, h, w).
-        The rest as `forward_blocks` (training)."""
-        tokens, ctx, t, t_mod, grid = self.forward_prelude(x, timestep, context, clip_feature, y)
-        n_img = clip_feature.shape[1] if (self.cfg.has_image_input
+        context (b, L, text_dim); clip_feature (b, 257, clip_dim); y: (b, c, f, h, w);
+        add_condition (b, S, dim): pose tokens (SVI-Dance); audio_embed_tuple:
+        the wav2vec2 windows ((b, 1, 5, 12, 768), (b, n_t - 1, 8, 12, 768)) of
+        an audio DiT (SVI-Talk). The rest as `forward_blocks` (training)."""
+        cfg = self.cfg
+        tokens, ctx, t, t_mod, grid = self.forward_prelude(x, timestep, context, clip_feature, y,
+                                                           add_condition)
+        n_img = clip_feature.shape[1] if (cfg.has_image_input
                                           and clip_feature is not None) else 257
+        audio_embed = None
+        if cfg.has_audio and audio_embed_tuple is not None:
+            audio_embed = self.audio_proj_forward(*audio_embed_tuple)
         tokens = self.forward_blocks(tokens, ctx, t_mod, grid, num_img_tokens=n_img, lora=lora,
                                      lora_scale=lora_scale, use_remat=use_remat,
                                      remat_granularity=remat_granularity,
                                      save_attention=save_attention,
-                                     offload_carries=offload_carries)
+                                     offload_carries=offload_carries, audio_embed=audio_embed,
+                                     block_add_condition=(add_condition if cfg.enable_customtalk
+                                                          else None))
         return self.forward_head(tokens, t, grid)
 
 
@@ -411,6 +518,14 @@ def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
             p["cross_attn"]["k_img"] = r.linear(d, d)
             p["cross_attn"]["v_img"] = r.linear(d, d)
             p["cross_attn"]["norm_k_img"] = {"w": r.ones((d,))}
+        if cfg.has_audio:  # per-frame audio cross-attention + its affine norm
+            p["audio_cross_attn"] = {"q_linear": r.linear(d, d),
+                                     "kv_linear": r.linear(cfg.audio_hidden_dim, 2 * d),
+                                     "proj": r.linear(d, d)}
+            p["norm_x"] = {"w": r.ones((d,)), "b": r.zeros((d,))}
+        if cfg.enable_customtalk:  # the bottleneck FFNs that gate the attentions' inputs
+            for name in ("customtalk_context_pre_ffns", "customtalk_audio_pre_ffns"):
+                p[name] = {"0": r.linear(d, 128), "2": r.linear(128, d)}
         return p
 
     tree = {
@@ -430,6 +545,15 @@ def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
             "fc3": r.linear(cd, d),
             "norm4": {"w": r.ones((d,)), "b": r.zeros((d,))},
         }
+    if cfg.has_audio:
+        # AudioProjModel: windows of 5 (first frame) / 8 (later 4-frame
+        # groups) x 12 wav2vec2 layers x 768 -> 32 tokens of 768
+        ad, blocks12 = cfg.audio_hidden_dim, 12
+        tree["audio_proj"] = {"proj1": r.linear(5 * blocks12 * ad, 512),
+                              "proj1_vf": r.linear(8 * blocks12 * ad, 512),
+                              "proj2": r.linear(512, 512),
+                              "proj3": r.linear(512, cfg.audio_context_tokens * ad),
+                              "norm": {"w": r.ones((ad,)), "b": r.zeros((ad,))}}
     return WanDiT(cfg, tree)
 
 
@@ -620,15 +744,13 @@ _IMG_EMB_NAMES = {"norm0": "proj.0", "fc1": "proj.1", "fc3": "proj.3", "norm4": 
 def config_from_state_dict(sd) -> WanDiTConfig:
     """The architecture from the checkpoint's shapes (`config_from_state_dict`):
     num_heads follows Wan's head_dim of 128 where dim divides, else 32 (tiny
-    test configs). A multitalk or customtalk DiT (audio blocks) is not ported
-    (Slice D) and raises."""
+    test configs). Customtalk where its bottleneck FFNs are, else multitalk
+    where any key names audio."""
     keys = set(sd.keys())
-    if any("audio" in k or "customtalk" in k for k in keys):
-        raise NotImplementedError("the multitalk / customtalk DiT (audio blocks) is not ported "
-                                  "yet (Slice D)")
     num_layers = 1 + max(int(k.split(".")[1]) for k in keys
                          if k.startswith("blocks.") and k.split(".")[1].isdigit())
     has_image = "blocks.0.cross_attn.k_img.weight" in keys
+    customtalk = "blocks.0.customtalk_context_pre_ffns.0.weight" in keys
     pe = sd["patch_embedding.weight"].shape  # (dim, in_dim, pt, ph, pw)
     dim, in_dim = int(pe[0]), int(pe[1])
     patch = tuple(int(x) for x in pe[2:])
@@ -640,20 +762,22 @@ def config_from_state_dict(sd) -> WanDiTConfig:
         freq_dim=int(sd["time_embedding.0.weight"].shape[1]), patch_size=patch,
         num_heads=dim // 128 if dim % 128 == 0 else max(1, dim // 32), num_layers=num_layers,
         has_image_input=has_image,
+        enable_multitalk=(not customtalk) and any("audio" in k for k in keys),
+        enable_customtalk=customtalk,
         clip_feature_dim=int(sd["img_emb.proj.0.weight"].shape[0]) if has_image else 1280)
 
 
 def config_from_state_dict_keys(keys) -> WanDiTConfig:
-    """Key-only variant (no shapes): resolves among the known Wan configs."""
+    """Key-only variant (no shapes): resolves among the known Wan configs;
+    multitalk where any key names audio."""
     keys = set(keys)
-    if any("audio" in k for k in keys):
-        raise NotImplementedError("the multitalk DiT (audio blocks) is not ported yet (Slice D)")
     num_layers = 1 + max(int(k.split(".")[1]) for k in keys
                          if k.startswith("blocks.") and k.split(".")[1].isdigit())
     has_image = "blocks.0.cross_attn.k_img.weight" in keys
     base = (WAN_14B_I2V if has_image else WAN_14B_T2V) if num_layers >= 40 else WAN_1_3B_T2V
     return dataclasses.replace(base, num_layers=num_layers, has_image_input=has_image,
-                               in_dim=36 if has_image else 16)
+                               in_dim=36 if has_image else 16,
+                               enable_multitalk=any("audio" in k for k in keys))
 
 
 def params_from_torch_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> WanDiT:
@@ -695,6 +819,13 @@ def params_from_torch_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> 
             p["cross_attn"]["k_img"] = lin(f"{b}.cross_attn.k_img")
             p["cross_attn"]["v_img"] = lin(f"{b}.cross_attn.v_img")
             p["cross_attn"]["norm_k_img"] = norm(f"{b}.cross_attn.norm_k_img")
+        if cfg.has_audio:
+            p["audio_cross_attn"] = {k: lin(f"{b}.audio_cross_attn.{k}")
+                                     for k in ("q_linear", "kv_linear", "proj")}
+            p["norm_x"] = norm(f"{b}.norm_x", bias=True)
+        if cfg.enable_customtalk:
+            for name in ("customtalk_context_pre_ffns", "customtalk_audio_pre_ffns"):
+                p[name] = {k: lin(f"{b}.{name}.{k}") for k in ("0", "2")}
         return p
 
     tree = {
@@ -710,6 +841,10 @@ def params_from_torch_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> 
         tree["img_emb"] = {"norm0": norm("img_emb.proj.0", bias=True),
                            "fc1": lin("img_emb.proj.1"), "fc3": lin("img_emb.proj.3"),
                            "norm4": norm("img_emb.proj.4", bias=True)}
+    if cfg.has_audio:
+        tree["audio_proj"] = {k: lin(f"audio_proj.{k}")
+                              for k in ("proj1", "proj1_vf", "proj2", "proj3")}
+        tree["audio_proj"]["norm"] = norm("audio_proj.norm", bias=True)
     return WanDiT(cfg, tree)
 
 

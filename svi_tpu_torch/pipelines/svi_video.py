@@ -8,9 +8,13 @@ batched classifier-free-guidance denoise loop and its TeaCache variant, and
 the decode to uint8 frames, tiled by default as in the JAX pipeline; and
 `from_model_manager` (models.model_io.ModelManager).
 
+`add_condition` (pose tokens, SVI-Dance) goes to the DiT's patch tokens as a
+(cond, uncond) pair: the uncond branch takes zeros where the pair's second
+is None. The dance and talk pipelines (svi_video_dance.py, svi_video_talk.py)
+build on this one.
+
 Differences from the JAX pipeline: frames come back as (H, W, 3) uint8 numpy
-arrays instead of PIL images, and `add_condition` (the dance / talk
-variants, Slice D) raises. Everything runs under `torch.inference_mode()`.
+arrays instead of PIL images. Everything runs under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -230,11 +234,13 @@ class SVIVideoPipeline:
     # -- denoising --------------------------------------------------------------
 
     def _sample(self, latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None,
-                progress_bar_cmd=None):
+                progress_bar_cmd=None, add_condition=None):
         """Euler flow-match loop. With cfg_scale != 1 the [cond, uncond] pair
         runs as one batch-2 DiT forward; pred = uncond + s * (cond - uncond);
         the Euler step runs in f32 and is cast back. progress_bar_cmd (e.g.
-        tqdm) wraps the range of steps."""
+        tqdm) wraps the range of steps. add_condition: None, or a (cond,
+        uncond) pair of tokens (b, S, dim) added to the patch tokens, zeros
+        standing in for an uncond of None."""
         dit = self.dit
         sigmas = self.scheduler.sigmas.to(self.device)
         timesteps = self.scheduler.timesteps.to(self.device)
@@ -250,16 +256,21 @@ class SVIVideoPipeline:
             return None if t is None else torch.cat([t] * nb, dim=0)
 
         clip_in, y_in = batched(clip_feature), batched(y)
+        ac_cond, ac_uncond = add_condition if add_condition is not None else (None, None)
+        ac_in = ac_cond
+        if ac_cond is not None and use_cfg:
+            ac_in = torch.cat([ac_cond, ac_uncond if ac_uncond is not None
+                               else torch.zeros_like(ac_cond)], dim=0)
         n_img = clip_feature.shape[1] if (dit.cfg.has_image_input
                                           and clip_feature is not None) else 257
         for i in (progress_bar_cmd or iter)(range(n)):
             t = timesteps[i:i + 1]
             xin = batched(latents)
             if tea_cache is None:
-                out = dit(xin, t, ctx, clip_in, y_in)
+                out = dit(xin, t, ctx, clip_in, y_in, ac_in)
             else:
                 tokens, ctx_emb, t_emb, t_mod, grid = dit.forward_prelude(
-                    xin, t, ctx, clip_in, y_in)
+                    xin, t, ctx, clip_in, y_in, ac_in)
                 if tea_cache.check(tokens, t_mod):
                     tokens = tea_cache.update(tokens)
                 else:
@@ -316,10 +327,8 @@ class SVIVideoPipeline:
         `negative_prompt`: tokenized and encoded by umT5) unless
         `prompt_emb_posi` / `prompt_emb_nega` are given. tile_size /
         tile_stride in latent units, for the encode of `input_video` and the
-        decode."""
-        if add_condition is not None:
-            raise NotImplementedError("add_condition (the dance / talk variants) is not ported "
-                                      "yet (Slice D)")
+        decode. add_condition: tokens (1, S, dim) for the cond branch, or a
+        (cond, uncond) pair (`_sample`)."""
         height, width = base.check_resize_height_width(height, width)
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
@@ -331,6 +340,10 @@ class SVIVideoPipeline:
             ref_pad_num = getattr(args, "ref_pad_num", None) if args is not None else None
         tiler = dict(tiled=tiled, tile_size=tile_size, tile_stride=tile_stride)
         dev, dtype = self.device, self.dtype
+        if add_condition is not None:
+            pair = add_condition if isinstance(add_condition, tuple) else (add_condition, None)
+            add_condition = tuple(None if a is None else torch.as_tensor(a).to(dev, dtype)
+                                  for a in pair)
         self.scheduler.set_timesteps(num_inference_steps, denoising_strength=denoising_strength,
                                      shift=sigma_shift)
 
@@ -373,7 +386,7 @@ class SVIVideoPipeline:
                      if tea_cache_l1_thresh is not None else None)
         self.last_tea_cache = tea_cache
         latents = self._sample(latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache,
-                               progress_bar_cmd)
+                               progress_bar_cmd, add_condition)
 
         video = self.decode_video(latents, **tiler)
         frames_u8 = ((video + 1) * 127.5).clamp(0, 255).to(torch.uint8)

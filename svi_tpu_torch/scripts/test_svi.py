@@ -106,39 +106,42 @@ def _samples(args) -> list[dict]:
     return samples
 
 
-def main(argv=None, device="cuda") -> dict:
-    """Run the driver; returns {"pipe", "manager", "samples": [{"prompt_name",
-    "path", "frames", "clips": [{"seed", "prompt", "seconds"}]}]}."""
-    from ..models.model_io import ModelManager
-    from ..pipelines.svi_video import SVIVideoPipeline
-    from ..utils.image_process import (calculate_dimensions, find_reference_image,
-                                       load_reference_image)
-    from ..utils.video import AsyncVideoSaver, save_frames_npy, save_video
-
-    args = parse_args(argv)
-    if args.train_architecture != "lora":
-        raise NotImplementedError(f"--train_architecture {args.train_architecture}: the "
-                                  "customtalk DiT blocks are Slice D's (ROADMAP.md, Queue 1)")
-    if args.sequential_cfg == "latent":
-        raise NotImplementedError("--sequential_cfg latent: the pipeline then returns (frames, "
-                                  "latent) for a caller that chains clips itself; this driver "
-                                  "recycles frames, as scripts/test_svi.py does")
+def card_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist (no silent CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the driver runs on the card (main(device='cpu') "
                            "runs it on the CPU)")
-    samples = _samples(args)
+    return device
 
-    # ---- models ----
+
+def refuse_sequential_cfg(args) -> None:
+    if args.sequential_cfg == "latent":
+        raise NotImplementedError("--sequential_cfg latent: the pipeline then returns (frames, "
+                                  "latent) for a caller that chains clips itself; this driver "
+                                  "recycles frames, as scripts/test_svi.py does")
+
+
+def load_manager(args, device, extra_dit_files=()):
+    """The ModelManager of a driver: the DiT (the `diffusion_pytorch_model*`
+    shards under --dit_root, else the directory, then `extra_dit_files` in
+    the same state dict), umT5, the VAE and CLIP where their files are, the
+    LoRA file(s) of --extra_module_root fused. Returns (manager, seconds of
+    the load, seconds of the fuse)."""
+    from ..models.model_io import ModelManager
+
     t0 = time.perf_counter()
     mm = ModelManager(torch_dtype=torch.bfloat16, device=device,
                       quantize_dit=None if args.quantize == "none" else args.quantize)
-    dit_root = args.dit_root
-    shards = sorted(glob.glob(os.path.join(dit_root, "diffusion_pytorch_model*.safetensors")))
-    model_paths = [shards if shards else dit_root]
+    shards = sorted(glob.glob(os.path.join(args.dit_root,
+                                           "diffusion_pytorch_model*.safetensors")))
+    dit = shards if shards else args.dit_root
+    if extra_dit_files:
+        dit = (dit if isinstance(dit, list) else [dit]) + list(extra_dit_files)
+    model_paths = [dit]
     for name in ("models_t5_umt5-xxl-enc-bf16.pth", "Wan2.1_VAE.pth",
                  "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"):
-        pth = os.path.join(dit_root, name)
+        pth = os.path.join(args.dit_root, name)
         if os.path.exists(pth):
             model_paths.append(pth)
     mm.load_models(model_paths)
@@ -147,17 +150,42 @@ def main(argv=None, device="cuda") -> dict:
     lora_files = [extra] if extra.endswith(".safetensors") else sorted(
         glob.glob(os.path.join(extra, "*.safetensors")))
     mm.load_lora_v2(lora_files, lora_alpha=args.lora_alpha)
-    t2 = time.perf_counter()
-    pipe = SVIVideoPipeline.from_model_manager(mm, torch_dtype=torch.bfloat16, device=device)
-    pipe.enable_vram_management(num_persistent_param_in_dit=args.num_persistent_param_in_dit)
-    tok_dir = os.path.join(dit_root, "google/umt5-xxl")
+    return mm, t1 - t0, time.perf_counter() - t1
+
+
+def ready_pipeline(pipe, args, mm, device, load_s, fuse_s, t_fetch):
+    """The tokenizer under --dit_root, then the load's summary line."""
+    tok_dir = os.path.join(args.dit_root, "google/umt5-xxl")
     if os.path.isdir(tok_dir):
         pipe.prompter.fetch_tokenizer(tok_dir)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"[driver] loaded {sorted(mm.models)} in {t1 - t0:.2f}s, fused LoRA {mm.lora_log} in "
-          f"{t2 - t1:.2f}s, pipeline ready (quantize {args.quantize}) after "
-          f"{time.perf_counter() - t2:.2f}s")
+    print(f"[driver] loaded {sorted(mm.models)} in {load_s:.2f}s, fused LoRA {mm.lora_log} in "
+          f"{fuse_s:.2f}s, pipeline ready (quantize {args.quantize}) after "
+          f"{time.perf_counter() - t_fetch:.2f}s")
+    return pipe
+
+
+def main(argv=None, device="cuda") -> dict:
+    """Run the driver; returns {"pipe", "manager", "samples": [{"prompt_name",
+    "path", "frames", "clips": [{"seed", "prompt", "seconds"}]}]}."""
+    from ..pipelines.svi_video import SVIVideoPipeline
+    from ..utils.image_process import (calculate_dimensions, find_reference_image,
+                                       load_reference_image)
+    from ..utils.video import AsyncVideoSaver, save_frames_npy, save_video
+
+    args = parse_args(argv)
+    # --train_architecture is read nowhere at inference, as in the JAX driver:
+    # the DiT's variant (customtalk, multitalk) follows the checkpoint's keys
+    refuse_sequential_cfg(args)
+    device = card_device(device)
+    samples = _samples(args)
+
+    mm, load_s, fuse_s = load_manager(args, device)
+    t_fetch = time.perf_counter()
+    pipe = SVIVideoPipeline.from_model_manager(mm, torch_dtype=torch.bfloat16, device=device)
+    pipe.enable_vram_management(num_persistent_param_in_dit=args.num_persistent_param_in_dit)
+    ready_pipeline(pipe, args, mm, device, load_s, fuse_s, t_fetch)
 
     record = {"pipe": pipe, "manager": mm, "samples": []}
     for sample in samples:

@@ -1,2 +1,2 @@
 """Host utilities of the port: safetensors files, prompt files, reference
-images, video output."""
+images, pose and audio inputs, video input and output."""

@@ -1,0 +1,117 @@
+"""The audio features of SVI-Talk (port of svi_tpu/utils/audio.py).
+
+`load_audio` takes the same branches as the JAX package on the same machine:
+librosa where it is installed, else scipy's wavfile reader and a polyphase
+resample to 16 kHz; then pyloudnorm's loudness normalization where that is
+installed. `load_wav2vec` loads the native tower (models.wav2vec2) from a
+checkpoint directory; transformers' module, the JAX package's parity
+fallback, is not ported. The window helpers are numpy, as there.
+"""
+
+from __future__ import annotations
+
+from math import gcd
+
+import numpy as np
+import torch
+
+AUDIO_SR = 16000
+AUDIO_FPS = 25
+AUDIO_WINDOW = 5
+VAE_SCALE = 4
+
+
+def load_audio(path: str, sr: int = AUDIO_SR) -> np.ndarray:
+    """An audio file -> mono float32 at `sr`, loudness-normalized to -23 LUFS
+    when pyloudnorm is installed."""
+    try:
+        import librosa
+
+        wav, _ = librosa.load(path, sr=sr)
+    except ImportError:
+        from scipy.io import wavfile
+        from scipy.signal import resample_poly
+
+        src_sr, wav = wavfile.read(path)
+        wav = np.asarray(wav, np.float32)
+        if wav.ndim == 2:
+            wav = wav.mean(axis=1)
+        if wav.dtype.kind != "f":
+            wav = wav / 32768.0
+        if np.abs(wav).max() > 10:  # int-scaled float
+            wav = wav / 32768.0
+        if src_sr != sr:
+            g = gcd(int(src_sr), sr)
+            wav = resample_poly(wav, sr // g, int(src_sr) // g).astype(np.float32)
+    try:
+        import pyloudnorm as pyln
+
+        meter = pyln.Meter(sr)
+        loudness = meter.integrated_loudness(wav)
+        if abs(loudness) <= 100:
+            wav = pyln.normalize.loudness(wav, loudness, -23)
+    except ImportError:
+        pass
+    return np.asarray(wav, np.float32)
+
+
+def load_wav2vec(path: str, device="cuda"):
+    """The wav2vec2 tower from a local chinese-wav2vec2-base directory
+    (model.safetensors or pytorch_model.bin), on `device`."""
+    from ..models import wav2vec2
+
+    return wav2vec2.load_params(path, device=device)
+
+
+@torch.inference_mode()
+def wav2vec_embedding(speech: np.ndarray, model, sr: int = AUDIO_SR) -> np.ndarray:
+    """speech -> (video_frames, 12, 768): the 12 encoder hidden states of the
+    normalized waveform, its conv features interpolated to 25 frames a
+    second, on the tower's device."""
+    from ..models import wav2vec2
+
+    video_length = int(len(speech) / sr * AUDIO_FPS)
+    device = next(model.parameters()).device
+    x = torch.from_numpy(wav2vec2.normalize_input(speech)[None]).to(device)
+    states = model(x, video_length)  # (12, 1, s, 768)
+    return states[:, 0].transpose(0, 1).float().cpu().numpy()
+
+
+def slice_audio_windows(audio_embed: np.ndarray, num_frames: int,
+                        audio_start_idx: int = 0) -> np.ndarray:
+    """Per-frame windows of ±2 frames, clamped at the ends:
+    (s, 12, 768) -> (1, num_frames, 5, 12, 768)."""
+    indices = np.arange(2 * 2 + 1) - 2
+    centers = np.arange(audio_start_idx, audio_start_idx + num_frames)[:, None] + indices[None, :]
+    centers = np.clip(centers, 0, audio_embed.shape[0] - 1)
+    return audio_embed[centers][None, ...]
+
+
+def regroup_audio_windows(audio_embed: np.ndarray, audio_window: int = AUDIO_WINDOW,
+                          vae_scale: int = VAE_SCALE):
+    """(1, F, 5, 12, 768) -> (first (1, 1, 5, 12, 768), later (1, (F-1)/4,
+    8, 12, 768)): for each group of 4 frames of a latent frame, the first
+    frame's leading half-window, the middle frames' centers and the last
+    frame's trailing half-window."""
+    first = audio_embed[:, :1]
+    latter = audio_embed[:, 1:]
+    b, fm1, w, blk, c = latter.shape
+    n_t = fm1 // vae_scale
+    latter = latter.reshape(b, n_t, vae_scale, w, blk, c)
+    mid = audio_window // 2
+    head = latter[:, :, :1, : mid + 1].reshape(b, n_t, -1, blk, c)
+    middle = latter[:, :, 1:-1, mid: mid + 1].reshape(b, n_t, -1, blk, c)
+    tail = latter[:, :, -1:, mid:].reshape(b, n_t, -1, blk, c)
+    return first, np.concatenate([head, middle, tail], axis=2)
+
+
+def cut_audio_embedding(audio_embed: np.ndarray, num_frames: int, audio_start_idx: int = 0):
+    """Training-side slicing and grouping of a stored embedding (12, s, 768)
+    or (s, 12, 768). Returns (first (1, 5, 12, 768), later (n_t, 8, 12,
+    768)), without the batch axis."""
+    audio_embed = np.asarray(audio_embed, np.float32)
+    if audio_embed.shape[0] == 12 and audio_embed.shape[1] != 12:
+        audio_embed = np.transpose(audio_embed, (1, 0, 2))  # -> (s, 12, 768)
+    first, latter = regroup_audio_windows(
+        slice_audio_windows(audio_embed, num_frames, audio_start_idx))
+    return first[0], latter[0]

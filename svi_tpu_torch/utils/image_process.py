@@ -1,5 +1,5 @@
-"""Reference images (port of svi_tpu/utils/image_process.py:
-`calculate_dimensions`, `find_reference_image`).
+"""Reference images and pose frames (port of svi_tpu/utils/image_process.py:
+`calculate_dimensions`, `find_reference_image`, `resize_and_pad_to_target`).
 
 A `.npy` file holding an (H, W, 3) uint8 image is read with numpy, so that a
 machine without Pillow (the card's) can run the driver; Pillow is imported
@@ -68,3 +68,18 @@ def load_reference_image(path: str, height: int, width: int) -> np.ndarray:
                              "uint8 (a .npy image is not resized)")
         return img
     return np.array(_open_pil(path).convert("RGB").resize((width, height)))
+
+
+def resize_and_pad_to_target(frames: np.ndarray, target_size, pad_value=0.0) -> np.ndarray:
+    """(b, c, h, w) -> an aspect-preserving nearest-neighbour resize, padded
+    with pad_value around the centre to target_size (th, tw)."""
+    th, tw = target_size
+    b, c, h, w = frames.shape
+    scale = min(th / h, tw / w)
+    nh, nw = int(h * scale), int(w * scale)
+    yi = (np.arange(nh) * (h / nh)).astype(np.int64).clip(0, h - 1)
+    xi = (np.arange(nw) * (w / nw)).astype(np.int64).clip(0, w - 1)
+    out = np.full((b, c, th, tw), pad_value, frames.dtype)
+    top, left = (th - nh) // 2, (tw - nw) // 2
+    out[:, :, top:top + nh, left:left + nw] = frames[:, :, yi][:, :, :, xi]
+    return out

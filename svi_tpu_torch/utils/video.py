@@ -1,5 +1,6 @@
-"""Video output (port of svi_tpu/utils/video.py: `save_video`,
-`AsyncVideoSaver`), and `save_frames_npy` for machines with no video writer."""
+"""Video input and output (port of svi_tpu/utils/video.py: `save_video`,
+`AsyncVideoSaver`, `load_video_frames`), and `save_frames_npy` for machines
+with no video writer."""
 
 from __future__ import annotations
 
@@ -34,6 +35,57 @@ def save_video(frames, save_path: str, fps: int = 24, quality: int = 8) -> None:
     for frame in frames:
         writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
     writer.release()
+
+
+def load_video_frames(path: str, indices=None) -> list[np.ndarray]:
+    """A video -> a list of (H, W, 3) uint8 RGB frames (all, or those at
+    `indices`). A `.npy` of (N, H, W, 3) uint8 is read with numpy (for
+    machines with neither cv2 nor imageio); other files through OpenCV, as
+    the JAX package reads them, else imageio where it has a backend."""
+    if path.endswith(".npy"):
+        video = np.load(path)
+        if video.dtype != np.uint8 or video.ndim != 4 or video.shape[-1] != 3:
+            raise ValueError(f"{path}: {video.shape} {video.dtype}, expected (N, H, W, 3) uint8")
+        return [video[i] for i in (range(len(video)) if indices is None else indices)]
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        try:
+            import imageio
+
+            reader = imageio.get_reader(path)
+        except (ImportError, ValueError) as err:
+            raise RuntimeError(f"cannot read {path}: neither cv2 nor imageio (with a backend "
+                               "for it) is installed; pass the frames as an (N, H, W, 3) "
+                               "uint8 .npy") from err
+        try:
+            frames = [np.asarray(f)[..., :3] for f in reader]
+        finally:
+            reader.close()
+        return frames if indices is None else [frames[int(i)] for i in indices]
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video: {path}")
+    frames = []
+    try:
+        if indices is None:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        else:
+            for idx in indices:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, int(idx))
+                ok, frame = cap.read()
+                if not ok:
+                    raise IOError(f"cannot read frame {idx} of {path}")
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    return frames
 
 
 def save_frames_npy(frames, save_path: str) -> None:

@@ -131,12 +131,14 @@ def test_driver_defaults_to_the_card(inputs, tmp_path):
         port_driver.main(_argv(root, tmp_path))
 
 
-@pytest.mark.parametrize("flags", [("--train_architecture", "customtalk"),
+@pytest.mark.parametrize("flags", [("--sequential_cfg", "latent", "--train_architecture",
+                                    "customtalk"),
                                    ("--sequential_cfg", "latent")])
 def test_driver_refuses_modes_it_does_not_run(inputs, tmp_path, flags):
-    """The customtalk blocks wait for a later slice; with --sequential_cfg latent
-    the pipeline returns (frames, latent), which the frame-recycling loop of
-    scripts/test_svi.py does not take either. Both raise before any loading."""
+    """With --sequential_cfg latent the pipeline returns (frames, latent),
+    which the frame-recycling loop of scripts/test_svi.py does not take: it
+    raises before any loading, whatever --train_architecture says (customtalk
+    itself runs: tests/test_torch_driver_variants.py)."""
     root, _ = inputs
     with pytest.raises(NotImplementedError, match=flags[0]):
         port_driver.main(_argv(root, tmp_path, *flags), device="cpu")

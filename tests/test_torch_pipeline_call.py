@@ -168,6 +168,26 @@ def test_call_with_prompts_tiles_video_and_conditioning_matches_svi_tpu(pipeline
 
 
 def test_add_condition_is_not_ported(pipelines):
-    _, tpipe = pipelines
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        tpipe(prompt="a", add_condition=np.zeros(1))
+    """add_condition (the pose tokens of SVI-Dance; the test's name is from
+    before the variants were ported) now reaches the DiT's patch tokens, as
+    in svi_tpu: a (cond, uncond) pair, or cond alone with zeros in the uncond
+    branch; each moves the clip."""
+    jpipe, tpipe = pipelines
+    rng = np.random.default_rng(5)
+    lt = (NF - 1) // 4 + 1
+    tokens = lt * (H // 16) * (W // 16)
+    cond = rng.standard_normal((1, tokens, 64)).astype(np.float32)
+    uncond = rng.standard_normal((1, tokens, 64)).astype(np.float32)
+    kwargs = dict(input_image=[rng.integers(0, 255, (H, W, 3), dtype=np.uint8)],
+                  random_ref_frame=rng.integers(0, 255, (H, W, 3), dtype=np.uint8), seed=2,
+                  height=H, width=W, num_frames=NF, cfg_scale=5.0, num_inference_steps=STEPS,
+                  tiled=False, prompt_emb_posi=rng.standard_normal((1, 7, 64)).astype(np.float32),
+                  prompt_emb_nega=rng.standard_normal((1, 7, 64)).astype(np.float32),
+                  ref_pad_num=-1, return_latents=True)
+    got = {}
+    for name, ac in (("pair", (cond, uncond)), ("cond", cond), ("none", None)):
+        _, want = jpipe(**kwargs, add_condition=ac)
+        _, got[name] = tpipe(**kwargs, add_condition=ac)
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want), atol=LATENT_TOL, rtol=0)
+    assert (got["pair"] - got["cond"]).abs().max() > 10 * LATENT_TOL
+    assert (got["cond"] - got["none"]).abs().max() > 10 * LATENT_TOL

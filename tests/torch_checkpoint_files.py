@@ -1,9 +1,12 @@
 """Tiny checkpoint files in the reference's on-disk formats, for the port's
 tests: a Wan I2V DiT as two bf16 safetensors shards, umT5 as a bf16 .pth,
 the VAE and the CLIP vision tower as f32 .pth, a peft-named LoRA, and the
-vendored T5 sentencepiece model standing in for google/umt5-xxl's. The
-weights are the port's seeded `init_params`, written under the names that
-svi_tpu's converters read (`torch_state_dict_from_params`)."""
+vendored T5 sentencepiece model standing in for google/umt5-xxl's; for the
+variants, a multitalk.safetensors with the DiT's audio branches, a dance
+LoRA that also carries the pose embedding (`dwpose_embedding.*`) and a
+wav2vec2 directory in transformers' naming. The weights are the port's
+seeded `init_params`, written under the names that svi_tpu's converters
+read (`torch_state_dict_from_params`)."""
 
 import dataclasses
 import shutil
@@ -12,7 +15,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+from svi_tpu_torch.models import clip_vision, pose_embedding, t5, wan_dit, wan_vae, wav2vec2
 from svi_tpu_torch.utils.safetensors_io import save_file
 
 REPO = Path(__file__).resolve().parent.parent
@@ -36,6 +39,12 @@ T5_FILE = "models_t5_umt5-xxl-enc-bf16.pth"
 VAE_FILE = "Wan2.1_VAE.pth"
 CLIP_FILE = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
 LORA_FILE = "svi-lora.safetensors"
+MULTITALK_FILE = "multitalk.safetensors"
+DANCE_LORA_FILE = "svi-dance.safetensors"
+WAV2VEC_DIR = "chinese-wav2vec2-base"
+# the tower at the published hidden width, heads and depth (svi_tpu's forward
+# builds that config whatever the weights), its convs and FFN cut narrow
+WAV2VEC_CFG = wav2vec2.Wav2Vec2Config(conv_dim=(32,) * 7, intermediate_size=64)
 
 
 def dit_state_dict(cfg=DIT_CFG, seed=1) -> dict:
@@ -93,3 +102,41 @@ def write_tiny_checkpoints(root) -> dict:
     return {"root": str(root), "dit": [str(root / s) for s in DIT_SHARDS],
             "t5": str(root / T5_FILE), "vae": str(root / VAE_FILE),
             "clip": str(root / CLIP_FILE), "lora": str(root / LORA_FILE), "sds": sds}
+
+
+def multitalk_state_dict(cfg=DIT_CFG, seed=6) -> dict:
+    """The audio keys of a multitalk DiT of cfg's shape, bf16: per block the
+    audio cross-attention and its norm, and audio_proj (at the published
+    768-wide windows of 12 layers and 32 tokens)."""
+    dit = wan_dit.init_params(dataclasses.replace(cfg, dtype=torch.bfloat16,
+                                                  enable_multitalk=True), seed=seed, device="cpu")
+    return {k: v for k, v in wan_dit.torch_state_dict_from_params(dit).items()
+            if "audio" in k or ".norm_x." in k}
+
+
+def dance_lora_state_dict(cfg=DIT_CFG, seed=7) -> dict:
+    """The LoRA of lora_state_dict, plus the pose embedding (f32) for a DiT
+    of cfg's width."""
+    sd = lora_state_dict(cfg, seed=seed)
+    sd.update(pose_embedding.torch_state_dict_from_params(
+        pose_embedding.init_params(cfg.dim, seed=seed, device="cpu")))
+    return sd
+
+
+def write_variant_checkpoints(root) -> dict:
+    """write_tiny_checkpoints, then multitalk.safetensors, the dance LoRA and
+    the wav2vec2 directory (model.safetensors, f32) beside them."""
+    files = write_tiny_checkpoints(root)
+    root = Path(root)
+    sds = files["sds"]
+    sds["multitalk"] = multitalk_state_dict()
+    sds["dance_lora"] = dance_lora_state_dict()
+    sds["wav2vec2"] = wav2vec2.torch_state_dict_from_params(
+        wav2vec2.init_params(WAV2VEC_CFG, seed=8, device="cpu"))
+    save_file(sds["multitalk"], str(root / MULTITALK_FILE))
+    save_file(sds["dance_lora"], str(root / DANCE_LORA_FILE))
+    (root / WAV2VEC_DIR).mkdir()
+    save_file(sds["wav2vec2"], str(root / WAV2VEC_DIR / "model.safetensors"))
+    files.update(multitalk=str(root / MULTITALK_FILE), dance_lora=str(root / DANCE_LORA_FILE),
+                 wav2vec2=str(root / WAV2VEC_DIR))
+    return files
