@@ -52,12 +52,33 @@ non-zero exit and no result line:
      and two controls (zeroed audio, --remove_pose) that must move the
      clip beyond the card-vs-CPU gap; and, on 4b's bf16 weights, one
      denoise-step forward of the full-depth multitalk 14B at B=3, profiled;
+  5b. (run at the end of 4e, on its files and 4f's) the training drivers:
+     seeded .npy datasets of 512x928 frames in the JAX package's layouts,
+     then svi_tpu_torch.scripts.train_svi at 480x832, 21 frames, 3 steps
+     (error recycling from step 2, exports at steps 2 and 3, a torch.profiler
+     trace of step 3) and a resume from its checkpoint against the
+     uninterrupted run; the same with --quantize int4_w4a8 (every quantized
+     linear through w4a8_linear in the forward and the recompute, K3 once
+     for each that needs dx in the straight-through backward, no
+     torch._int_mm); train_svi_dance from the dance LoRA and its pose convs
+     and train_svi_talk with multitalk.safetensors, 2 steps each; then the
+     inference driver on the exported LoRA, one 9-frame clip; each with its
+     per-phase seconds (dataset read, T5, VAE encode, CLIP + y, step,
+     export) and peak memory, failing unless every launch took its route
+     and K4 ran once a block a step;
   5. the Error-Recycling LoRA training slice: (a) a tiny bf16 trainer on the
-     card against the same trainer on the CPU, then (b) 4 training steps of
-     rank-128 LoRA on Wan2.1-I2V-14B at full width, 21 frames at 480x832,
-     on a batch made by the port's own frozen encoders; both fail unless
-     every bf16 D=128 split backward (K5a, K5b) took the sm90 kernels;
-  6. a JSON line of the kernels, the nvidia-smi line, and the result line.
+     card against the same trainer on the CPU; (a') the same for each
+     variant: pose training, customtalk training with audio, LoRA with
+     audio, LoRA on an int4_w4a8 base (its K3 and W4A8 launches counted);
+     then (b) 4 training steps of rank-128 LoRA on Wan2.1-I2V-14B at full
+     width, 21 frames at 480x832, on a batch made by the port's own frozen
+     encoders; all fail unless every bf16 D=128 split backward (K5a, K5b)
+     took the sm90 kernels; (c) on that 14B, one step each plain, with
+     save_attention and with offload_carries (time, peak memory, K1
+     launches), then the DiT quantized in place to int4_w4a8 and 2 LoRA
+     steps on it (time, peak, K3 and w4a8_linear launches);
+  6. a JSON line of the kernels (K3's launches from 5b's quantized run),
+     the nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -186,8 +207,13 @@ KERNELS = {
     "w4a8_linear": ("svi_tpu_torch/csrc/w4a8_gemm_sm90.cu", "svi_tpu/ops/quant_matmul.py:33"),
     "flash_fwd_flat_q8/sm90": ("svi_tpu_torch/csrc/flash_fwd_q8_sm90.cu",
                                "svi_tpu/ops/attention.py:289"),
+    # K3 standalone: the straight-through backward of every W4A8 linear that
+    # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
+    "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
+                            "svi_tpu/ops/quant_matmul.py:33"),
 }
 QUANT_KERNELS = ("quantize_rows_int8", "w4a8_linear", "flash_fwd_flat_q8/sm90")
+QUANT_TRAIN = ("unpack_requant_int4",)  # launched only by training on a quantized base
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
@@ -198,7 +224,7 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
               "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd",
               "quantize_rows_int8": "w4a8_prepass_ffn_0", "w4a8_linear": "w4a8_ffn_0",
-              "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8"}
+              "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8", "unpack_requant_int4": "ffn_0"}
 
 
 def log(msg: str) -> None:
@@ -279,11 +305,8 @@ def launch_counters():
 
 
 def zero_counts() -> None:
-    """Every KERNELS counter to 0, and K3's (no longer on a main path, but
-    the quantized paths check that it stays at 0)."""
-    from svi_tpu_torch.ops import quant_matmul as Q
-
-    Q.unpack_requant_int4.launches = 0
+    """Every KERNELS counter to 0 (K3's too: the quantized inference paths
+    check that it stays at 0)."""
     for fn, _ in launch_counters().values():
         if hasattr(fn, "launches"):
             fn.launches = 0
@@ -1149,6 +1172,8 @@ def device_time_breakdown(fn) -> str:
             group = "K1/K2"
         elif "flash_bwd" in name or "finalize_grad" in name:
             group = "K4/K5"
+        elif any(w in low for w in ("fprop", "dgrad", "wgrad", "conv")):  # cuDNN convolutions
+            group = "convs"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
             group = "GEMMs"
         else:
@@ -1618,7 +1643,7 @@ def check_loaded_tensors(mm, kept: dict) -> None:
                 raise RuntimeError(f"{kind} {key}: the loaded tensor differs from the written one")
 
 
-def phase_driver(card: str) -> None:
+def phase_driver(card: str) -> dict:
     """The way users start SVI, at the full width of Wan2.1-I2V-14B-480P: (a)
     checkpoint files written here; (b) the port's driver (`main`, in-process)
     on them, two clips untiled (stitched 2 x 9 - 1 frames), then one clip
@@ -1628,7 +1653,8 @@ def phase_driver(card: str) -> None:
     the loaded tensors are the written ones bit for bit, the frames are
     right, the tiled decode is within its bound of the untiled one, the
     forward kernels ran in (b) and every quantized linear of (c) went
-    through w4a8_linear."""
+    through w4a8_linear. Then phases 4f and 5b on these files; returns 5b's
+    quantized training run's launches."""
     import shutil
     import tempfile
 
@@ -1711,6 +1737,8 @@ def phase_driver(card: str) -> None:
 
         # 4f: the variants' drivers on these files and the ones they add
         phase_variants(root, card)
+        # 5b: the training drivers on the same files
+        return phase_train_drivers(root, card)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2167,7 +2195,7 @@ def phase_training():
     checkpointing, batch 1 of 21 frames at 480x832 (9360 tokens). The batch
     is made as scripts/train_svi.py makes it: umT5-XXL on seeded ids, the VAE
     encode of seeded frames, and encode_images_adaptive for y and the CLIP
-    features."""
+    features. Then phase 5c on the same trainer (`phase_full_depth_variants`)."""
     from svi_tpu_torch.models import clip_vision, wan_dit, wan_vae
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
     from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
@@ -2245,7 +2273,7 @@ def phase_training():
     # clean_buffer_update_prob draw
     if not (totals[-1] > 0 and all(b >= a for a, b in zip(totals, totals[1:]))):
         raise RuntimeError(f"the error buffers did not grow: {totals}")
-    if min(n for k, n in launches.items() if k not in QUANT_KERNELS) <= 0:
+    if min(n for k, n in launches.items() if k not in QUANT_KERNELS + QUANT_TRAIN) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -2257,9 +2285,541 @@ def phase_training():
         if launches[entry] != 2 * k4_expected:
             raise RuntimeError(f"{launches[entry]} {entry} launches on the training path, "
                                f"expected {2 * k4_expected}")
-    del trainer, dit
-    torch.cuda.empty_cache()
+    held = {"trainer": trainer}
+    del trainer, dit, b_start
+    phase_full_depth_variants(held, batch)
     return launches, step_s, peak_gib
+
+
+def one_train_step(trainer, batch: dict, tag: str) -> dict:
+    """One training step: seconds (synchronized), peak memory from a reset
+    just before, the step's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.training_step(batch["latents"], batch["context"], y=batch["y"],
+                              clip_feature=batch["clip_feature"])
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated() / 2**30,
+               launches=read_counts(), loss=m["loss"], grad_norm=m["grad_norm"])
+    log(f"[train-14b {tag}] step {out['seconds']:.3f}s, peak {out['peak']:.2f} GiB, loss "
+        f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, K1 sm90 "
+        f"{out['launches']['flash_fwd_flat/sm90']}, K4 {out['launches']['flash_bwd_onepass']}, "
+        f"K3 {out['launches']['unpack_requant_int4']}, w4a8_linear "
+        f"{out['launches']['w4a8_linear']}")
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+        raise RuntimeError(f"[train-14b {tag}] a loss or grad norm is not finite")
+    return out
+
+
+def phase_full_depth_variants(held: dict, batch: dict) -> None:
+    """Phase 5c, on phase 5's 14B trainer (40 blocks, 21 frames at 480x832):
+    one plain step, one with save_attention (each block's self-attention out
+    / lse kept: the recompute skips its K1, 40 launches fewer), one with
+    offload_carries (the checkpoints' carries in pinned host memory); then
+    the DiT quantized in place to int4_w4a8 and 2 LoRA steps on it. Fails
+    unless the K1 counts differ as they should, the quantized steps' linears
+    all took w4a8_linear (forward and recompute) and K3 ran once for each
+    that needs dx, with no torch._int_mm. `held` holds the only reference to
+    the trainer, so that its adapters and optimizer state are freed before
+    the quantized trainer's."""
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.training import ErrorRecyclingTrainer
+
+    trainer = held.pop("trainer")
+    layers = trainer.dit_cfg.num_layers
+    log(f"[train-14b] profile of one plain step: "
+        f"{device_time_breakdown(lambda: trainer.training_step(**batch))}")
+    modes = {"plain": {}, "save_attention": dict(save_attention_activations=True),
+             "offload_carries": dict(use_gradient_checkpointing_offload=True)}
+    runs = {name: [] for name in modes}
+    for rnd in range(FULL_DEPTH_ROUNDS):  # in turns, so that a drift of the card hits each
+        for name, flags in modes.items():
+            for key, value in flags.items():
+                setattr(trainer.cfg, key, value)
+            runs[name].append(one_train_step(trainer, batch, f"{name} round {rnd + 1}"))
+            for key in flags:
+                setattr(trainer.cfg, key, False)
+    k1 = {name: {r["launches"]["flash_fwd_flat/sm90"] for r in rs} for name, rs in runs.items()}
+    log("[train-14b] " + ", ".join(
+        f"{name} {[round(r['seconds'], 3) for r in rs]}s / {max(r['peak'] for r in rs):.2f} GiB"
+        for name, rs in runs.items()) + f"; K1 launches a step {k1}")
+    plain_k1 = layers * 6  # self, text and image cross-attention, forward and recompute
+    if k1 != {"plain": {plain_k1}, "save_attention": {plain_k1 - layers},
+              "offload_carries": {plain_k1}}:
+        raise RuntimeError(f"save_attention should skip one K1 a block in the recompute: {k1}")
+
+    t0 = time.perf_counter()
+    dit, cfg = trainer.dit, trainer.cfg
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    qdit = wan_dit.quantize_params_for_inference(dit, "int4_w4a8", consume=True)
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    qtrainer = ErrorRecyclingTrainer(qdit, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train-14b-int4_w4a8] quantized in place and a fresh trainer in "
+        f"{time.perf_counter() - t0:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    expect = {"w4a8_linear": w4a8_per_step(qdit), "quantize_rows_int8": w4a8_per_step(qdit),
+              "unpack_requant_int4": k3_per_step(qdit)}
+    with count_int_mm() as int_mm:
+        steps = [one_train_step(qtrainer, batch, f"int4_w4a8 step {i + 1}") for i in range(2)]
+    log(f"[train-14b-int4_w4a8] profile of one more step: "
+        f"{device_time_breakdown(lambda: qtrainer.training_step(**batch))}")
+    got = [{k: r["launches"][k] for k in expect} for r in steps]
+    log(f"[train-14b-int4_w4a8] 2 LoRA steps on the int4_w4a8 base: "
+        f"{[round(r['seconds'], 3) for r in steps]}s, peak {max(r['peak'] for r in steps):.2f} "
+        f"GiB; launches a step {got} (expected {expect}), torch._int_mm {int_mm.calls}")
+    if any(g != expect for g in got) or int_mm.calls:
+        raise RuntimeError("the 14B int4_w4a8 LoRA step's linears did not all take w4a8_linear "
+                           "and K3 as counted")
+    del qtrainer, qdit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5a': the trainer variants, card against CPU
+# ---------------------------------------------------------------------------
+
+# The tiny bf16 trainer of phase 5a as each variant: pose training, customtalk
+# training with audio, LoRA with audio (multitalk), LoRA on an int4_w4a8
+# base (groups of 16, every linear of 1024 weights or more, as phase 4c's
+# tiny DiT). One head of 128 on a 2 x 8 x 8 latent grid, 512 text and 257
+# image tokens: every backward takes the sm90 split kernels on the card.
+VARIANT_TRAINERS = {
+    "pose": (dict(), dict(train_pose=True, pose_drop_prob1=0.3, cond_drop_prob=0.3), None),
+    "customtalk": (dict(enable_customtalk=True, audio_hidden_dim=32, audio_context_tokens=4),
+                   dict(train_architecture="customtalk", audio_drop_prob=0.3), None),
+    "audio": (dict(enable_multitalk=True, audio_hidden_dim=32, audio_context_tokens=4),
+              dict(audio_drop_prob=0.3), None),
+    "int4_w4a8": (dict(), dict(), "int4_w4a8"),
+}
+# bf16 on both sides, as phase 5a's bounds: a few tenths of a percent per
+# step in loss and gradient norm from bf16 roundings in other places; the
+# int4_w4a8 base also rounds activations to int8 on both sides (one level
+# apart where a value lands near a boundary), within the same bounds; Adam's
+# first steps move each parameter by about lr * sign(grad), so the update
+# directions agree up to the components whose gradient is within that noise
+# of zero. The smallest trainable, the first pose conv (1296 weights, six
+# convs and the DiT away from the loss), has the most such components: its
+# update read a cosine of 0.896 on the first card run (NVIDIA H100 80GB
+# HBM3, 700 W) while the loss agreed to 6e-5; a wrong gradient (sign, scale,
+# a dropped term) gives a cosine of 0.5 or less
+SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_NORM_REL, SMALL_TRAIN_MIN_COS = 2e-2, 5e-2, 0.8
+# phase 5c's full-depth steps: rounds of (plain, save_attention, offload_carries)
+FULL_DEPTH_ROUNDS = 2
+
+
+def k3_per_step(dit) -> int:
+    """The standalone K3 launches one training step gives on an int4_w4a8
+    base: one for each quantized linear whose input needs a gradient (a
+    linear whose input comes from no trainable leaf has no backward node):
+    the blocks' and the head's, except block 0's self-attention q, k, v
+    (they read the patch tokens) and each block's cross-attention k, v,
+    k_img, v_img and audio kv_linear (they read the text, image and audio
+    context). Held against a count on the CPU in
+    tests/test_torch_training_variants.py."""
+    count = 0
+    for name, _ in dit.named_parameters():
+        if not name.endswith("w_q4"):
+            continue
+        parts = name.split(".")
+        if parts[0] == "head":
+            count += 1
+        elif parts[0] == "blocks":
+            block, module, linear = int(parts[1]), parts[2], parts[3]
+            context = (module == "cross_attn" and linear in ("k", "v", "k_img", "v_img")) or (
+                module == "audio_cross_attn" and linear == "kv_linear")
+            if not context and not (block == 0 and module == "self_attn"
+                                    and linear in ("q", "k", "v")):
+                count += 1
+    return count
+
+
+def w4a8_per_step(dit) -> int:
+    """w4a8_linear launches of one training step with per-block remat: every
+    quantized linear in the forward, the blocks' again in the recompute."""
+    names = [n for n, _ in dit.named_parameters() if n.endswith("w_q4")]
+    return len(names) + sum(1 for n in names if n.startswith("blocks."))
+
+
+def _trainable_deltas(trainer, start):
+    return {k: (p.detach().float().cpu() - start[k]).flatten()
+            for k, p in trainer.named_trainables().items()}
+
+
+def phase_small_variant_trainers(card: str) -> dict:
+    """(5a') Each variant's tiny bf16 trainer on the card against the same
+    trainer on the CPU, 3 steps on one batch: the same host draws
+    (timestep, grid, clean input, buffer counts), losses and gradient norms
+    within SMALL_TRAIN_*_REL, the trainables' updates in the same
+    directions; the quantized base's K3 and W4A8 launches as counted.
+    Returns the card's launches per variant."""
+    import copy
+
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
+
+    rng = np.random.default_rng(60)
+    batch = dict(latents=rng.standard_normal((1, 16, 2, 16, 16)).astype(np.float32),
+                 context=rng.standard_normal((1, 512, 64)).astype(np.float32),
+                 y=rng.standard_normal((1, 20, 2, 16, 16)).astype(np.float32),
+                 clip_feature=rng.standard_normal((1, 257, 64)).astype(np.float32))
+    pose = rng.uniform(0, 255, (1, 3, 5, 128, 128)).astype(np.float32)
+    audio = (rng.standard_normal((1, 1, 5, 12, 32)).astype(np.float32),
+             rng.standard_normal((1, 1, 8, 12, 32)).astype(np.float32))
+    out = {}
+    for variant, (dit_kw, train_kw, quant) in VARIANT_TRAINERS.items():
+        cfg = wan_dit.WanDiTConfig(dim=128, in_dim=36, ffn_dim=256, out_dim=16, text_dim=64,
+                                   freq_dim=32, num_heads=1, num_layers=2,
+                                   has_image_input=True, clip_feature_dim=64,
+                                   dtype=torch.bfloat16, **dit_kw)
+        base = wan_dit.init_params(cfg, seed=61, device="cpu")
+        if quant:
+            base = wan_dit.quantize_params_for_inference(base, quant, min_size=1024, group=16)
+        tcfg = TrainerConfig(lora_rank=16, lora_alpha=16.0, buffer_warmup_iter=2,
+                             error_buffer_k=8, num_grids=10, seed=0, **train_kw)
+        kw = dict(batch)
+        if "pose" in variant:
+            kw["pose"] = pose
+        if dit_kw:
+            kw["audio_tuple"] = audio
+        cpu = ErrorRecyclingTrainer(copy.deepcopy(base), tcfg, device="cpu")
+        if cpu.lora is not None:
+            with torch.no_grad():  # non-zero B, so that step 1 moves A as well
+                g = torch.Generator().manual_seed(62)
+                for name, p in cpu.lora.named_parameters():
+                    if name.endswith(".b"):
+                        p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+        card_t = ErrorRecyclingTrainer(copy.deepcopy(base).to("cuda"), tcfg, device="cuda")
+        if cpu.lora is not None:
+            card_t.lora = copy.deepcopy(cpu.lora).to("cuda")
+        if cpu.pose_params is not None:
+            card_t.pose_params = copy.deepcopy(cpu.pose_params).to("cuda")
+        start = {k: p.detach().float().cpu().clone() for k, p in cpu.named_trainables().items()}
+        runs = {}
+        for where, trainer in (("card", card_t), ("cpu", cpu)):
+            zero_counts()
+            steps = []
+            for _ in range(3):
+                m = trainer.training_step(**kw)
+                steps.append((m, _trainable_deltas(trainer, start)))
+            runs[where] = (steps, read_counts(), trainer.buffers.stats())
+            if where == "card":
+                check_split_routes(f"the tiny {variant} trainer")
+        worst = {"loss": 0.0, "norm": 0.0, "cos": 1.0, "at": None}
+        draws_equal = True
+        for (mg, dg), (mc, dc) in zip(runs["card"][0], runs["cpu"][0]):
+            draws_equal &= all(mg[k] == mc[k] for k in ("timestep", "grid", "used_clean_input",
+                                                        "buffer_latent_total",
+                                                        "buffer_y_total"))
+            worst["loss"] = max(worst["loss"], abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]))
+            worst["norm"] = max(worst["norm"],
+                                abs(mg["grad_norm"] - mc["grad_norm"]) / abs(mc["grad_norm"]))
+            for k, b in dc.items():
+                cos = float(torch.nn.functional.cosine_similarity(dg[k], b, dim=0))
+                if b.abs().max() > 0 and cos < worst["cos"]:
+                    worst["cos"], worst["at"] = cos, k
+        counts = runs["card"][1]
+        expect = {}
+        if quant:
+            expect = {"unpack_requant_int4": 3 * k3_per_step(card_t.dit),
+                      "w4a8_linear": 3 * w4a8_per_step(card_t.dit)}
+        got = {k: counts[k] for k in expect}
+        log(f"[train-small-{variant}] card vs CPU, 3 steps: loss rel err {worst['loss']:.2e} "
+            f"(bound {SMALL_TRAIN_LOSS_REL}), grad_norm rel err {worst['norm']:.2e} (bound "
+            f"{SMALL_TRAIN_NORM_REL}), min cosine of the updates {worst['cos']:.5f} at "
+            f"{worst['at']} (bound {SMALL_TRAIN_MIN_COS}), host draws equal {draws_equal}, buffers "
+            f"{runs['card'][2]} vs {runs['cpu'][2]}, losses "
+            f"{[round(m['loss'], 6) for m, _ in runs['card'][0]]} (card) "
+            f"{[round(m['loss'], 6) for m, _ in runs['cpu'][0]]} (CPU); K3 / W4A8 launches "
+            f"{got} (expected {expect}); card launches {counts}; {card}")
+        if not (draws_equal and runs["card"][2] == runs["cpu"][2]
+                and worst["loss"] <= SMALL_TRAIN_LOSS_REL
+                and worst["norm"] <= SMALL_TRAIN_NORM_REL and worst["cos"] >= SMALL_TRAIN_MIN_COS
+                and got == expect and counts["flash_fwd_flat/sm90"] > 0):
+            raise RuntimeError(f"the tiny {variant} trainer on the card disagrees with the CPU")
+        out[variant] = counts
+        del cpu, card_t, base
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the training drivers on files
+# ---------------------------------------------------------------------------
+
+# frames larger than 480x832, so that the random crop and the resize run
+TRAIN_VIDEO_FRAMES, TRAIN_VIDEO_H, TRAIN_VIDEO_W = 30, 512, 928
+TRAIN_DRIVER_STEPS, VARIANT_DRIVER_STEPS = 3, 2
+# the resumed step against the uninterrupted one (same trainables, same
+# batch, same host draws): the forward is the same computation on the same
+# values (the loss is expected bit-equal; the bound leaves room for cuBLAS
+# picking another algorithm); the backward sums dq (K4) and dk / dv (K5b)
+# by TMA reduce-adds in an order that changes from run to run, a few bf16
+# roundings of the gradient; Adam then moves a parameter by at most about
+# lr = 1e-4 either way
+RESUME_LOSS_REL, RESUME_NORM_REL, RESUME_PARAM_ABS = 1e-3, 2e-2, 2.5e-4
+
+
+def write_train_datasets(root: Path, card: str) -> dict:
+    """Seeded datasets in the JAX package's layouts, as .npy videos (the card
+    has neither OpenCV nor Pillow) of TRAIN_VIDEO_FRAMES frames at
+    TRAIN_VIDEO_H x TRAIN_VIDEO_W: shot (one category dir with two videos
+    and its captions csv), dance (video.npy + dwpose.npy), talk (video.npy +
+    audio_embedding.pkl, a numpy (12, 40, 768) array)."""
+    import pickle
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(50)
+    shape = (TRAIN_VIDEO_FRAMES, TRAIN_VIDEO_H, TRAIN_VIDEO_W, 3)
+
+    def video():
+        return rng.integers(0, 255, shape, dtype=np.uint8)
+
+    paths = {k: root / f"train_{k}" for k in ("shot", "dance", "talk")}
+    cat = paths["shot"] / "seeded"
+    cat.mkdir(parents=True)
+    lines = ["Filename,Video Description"]
+    for i in range(2):
+        np.save(cat / f"clip_{i:02d}.npy", video())
+        lines.append(f'clip_{i:02d}.npy,"A seeded training clip, number {i}."')
+    (cat / "seeded.csv").write_text("\n".join(lines) + "\n")
+    for name in ("dance", "talk"):
+        (paths[name] / "00001").mkdir(parents=True)
+        np.save(paths[name] / "00001" / "video.npy", video())
+    np.save(paths["dance"] / "00001" / "dwpose.npy", video())
+    with open(paths["talk"] / "00001" / "audio_embedding.pkl", "wb") as f:
+        pickle.dump(rng.standard_normal((12, 40, 768)).astype(np.float32), f)
+    log(f"[train-drivers] wrote the seeded .npy datasets ({TRAIN_VIDEO_FRAMES} frames of "
+        f"{TRAIN_VIDEO_H}x{TRAIN_VIDEO_W} a video, 5 videos) in "
+        f"{time.perf_counter() - t0:.2f}s; {card}")
+    return {k: str(v) for k, v in paths.items()}
+
+
+def run_train_driver(module, argv: list[str], tag: str, card: str):
+    """One in-process run of a training driver: launch counts zeroed just
+    before and read just after, per-phase seconds, peak memory. Returns
+    (record, launches, int_mm calls)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with count_int_mm() as int_mm:
+        zero_counts()
+        t0 = time.perf_counter()
+        record = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    sec = record["seconds"]
+
+    def r(name):
+        return [round(x, 3) for x in sec.get(name, [])]
+
+    metrics = record["metrics"]
+    log(f"[train-driver {tag}] {seconds:.2f}s in all; per sample: dataset read (wait) "
+        f"{r('data')}, T5 {r('t5')}, VAE encode {r('vae_encode')}, CLIP + y {r('clip_and_y')}; "
+        f"step {r('step')}; export {r('export')}; losses {[round(m['loss'], 5) for m in metrics]}, "
+        f"grad norms {[round(m['grad_norm'], 5) for m in metrics]}, timesteps "
+        f"{[m['timestep'] for m in metrics]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
+        f"torch._int_mm {int_mm.calls}; {card}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise RuntimeError(f"[train-driver {tag}] a loss or grad norm is not finite")
+    return record, launches, int_mm.calls
+
+
+def check_train_driver(tag: str, record: dict, launches: dict, steps: int, out: Path,
+                       blocks: int) -> None:
+    """The files a run leaves and the kernels it took: args.json, one
+    metrics line a step, the exports, every forward and split-backward
+    launch on its route, one K4 launch a block a step."""
+    lines = (out / "metrics.jsonl").read_text().splitlines()
+    if not (out / "args.json").is_file() or len(lines) != steps or not record["exports"]:
+        raise RuntimeError(f"[train-driver {tag}] args.json, {len(lines)} metrics lines or the "
+                           f"exports {record['exports']} missing")
+    check_fwd_routes(f"the {tag} training driver", need_f32=True)
+    check_split_routes(f"the {tag} training driver")
+    if launches["flash_bwd_onepass"] != steps * blocks:
+        raise RuntimeError(f"[train-driver {tag}] {launches['flash_bwd_onepass']} K4 launches, "
+                           f"expected {steps} steps x {blocks} blocks")
+
+
+def profile_train_step(tag: str, trainer, batch: dict, card: str) -> None:
+    """One more step of a driver's trainer on its last batch, profiled:
+    device time by kind of kernel (the encoders are not in it)."""
+    log(f"[train-driver {tag}] profile of one step: "
+        f"{device_time_breakdown(lambda: trainer.training_step(**batch))}; {card}")
+
+
+def check_resume(trainer, batch: dict, ckpt: Path, card: str) -> None:
+    """save_checkpoint after the driver's run, restore_checkpoint into a
+    fresh trainer on the same DiT, then one step of each on the driver's
+    last batch: the same host draws, the loss and gradient norm and the
+    trainables within the RESUME_* bounds."""
+    from svi_tpu_torch.training import ErrorRecyclingTrainer
+
+    trainer.save_checkpoint(str(ckpt))
+    fresh = ErrorRecyclingTrainer(trainer.dit, trainer.cfg, device="cuda")
+    fresh.restore_checkpoint(str(ckpt))
+    got, want = fresh.training_step(**batch), trainer.training_step(**batch)
+    draws = all(got[k] == want[k] for k in ("timestep", "grid", "used_clean_input",
+                                            "buffer_latent_total", "buffer_y_total"))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    norm_rel = abs(got["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+    mine = trainer.named_trainables()
+    param = max((p - mine[k]).abs().max().item() for k, p in fresh.named_trainables().items())
+    log(f"[train-driver b-resume] step {trainer.iteration_count} resumed from "
+        f"{sum(f.stat().st_size for f in ckpt.iterdir()) / 1e6:.1f} MB of checkpoint: host "
+        f"draws equal {draws} (timestep {got['timestep']}, grid {got['grid']}), loss "
+        f"{got['loss']:.6f} vs {want['loss']:.6f} (rel {loss_rel:.2e}, bound {RESUME_LOSS_REL}), "
+        f"grad norm rel {norm_rel:.2e} (bound {RESUME_NORM_REL}), trainables max |diff| "
+        f"{param:.2e} (bound {RESUME_PARAM_ABS}); {card}")
+    if not (draws and loss_rel <= RESUME_LOSS_REL and norm_rel <= RESUME_NORM_REL
+            and param <= RESUME_PARAM_ABS):
+        raise RuntimeError("the resumed run disagrees with the uninterrupted one")
+    del fresh
+
+
+def phase_train_drivers(root: Path, card: str) -> dict:
+    """Phase 5b, the training drivers on phase 4e / 4f's files (the 14B at
+    full width, 4 of 40 blocks; umT5 2 of 24 layers; CLIP and the VAE
+    whole) and seeded .npy datasets: (a) train_svi at 480x832, 21 frames,
+    3 steps with error recycling from step 2 and an export at step 2, then
+    a resume from its checkpoint; (b) the same with --quantize int4_w4a8;
+    (c) train_svi_dance and (d) train_svi_talk, 2 steps each; (e) the
+    inference driver on (a)'s exported LoRA, one 9-frame clip. Fails unless
+    the files are written, every launch took its route, K4 ran once a block
+    a step, the quantized run's linears went through w4a8_linear (forward
+    and recompute) and K3 ran once for each that needs dx, with no
+    torch._int_mm, the dance run loaded and trained the pose convs, and the
+    clip fused the export (B non-zero) into finite frames. Returns the
+    quantized run's launches."""
+    from svi_tpu_torch.scripts import test_svi, train_svi, train_svi_dance, train_svi_talk
+    from svi_tpu_torch.utils.safetensors_io import load_file
+
+    t_phase = time.perf_counter()
+    data = write_train_datasets(root, card)
+    shards = ",".join(str(p) for p in sorted(root.glob("diffusion_pytorch_model*.safetensors")))
+    common = ["--dit_path", shards, "--vae_path", str(root / DRIVER_FILES["wan_video_vae"]),
+              "--text_encoder_path", str(root / DRIVER_FILES["wan_video_text_encoder"]),
+              "--image_encoder_path", str(root / DRIVER_FILES["wan_video_image_encoder"]),
+              "--height", str(SLICE_H), "--width", str(SLICE_W),
+              "--num_frames", str(TRAIN_FRAMES), "--use_error_recycling",
+              "--buffer_warmup_iter", "1", "--save_every_n_steps", "2"]
+
+    # (a) shot, bf16, then the resume
+    out = root / "train_out_shot"
+    record, launches, _ = run_train_driver(train_svi, [
+        *common, "--dataset_path", data["shot"], "--output_path", str(out),
+        "--max_steps", str(TRAIN_DRIVER_STEPS), "--profile_dir", str(root / "train_trace")],
+        "a-shot", card)
+    check_train_driver("a-shot", record, launches, TRAIN_DRIVER_STEPS, out, DRIVER_DIT_BLOCKS)
+    trace = root / "train_trace" / "trace.json"
+    log(f"[train-driver a-shot] exports {[Path(p).name for p in record['exports']]}; step-3 "
+        f"trace {trace.stat().st_size / 1e6:.1f} MB")
+    check_resume(record["trainer"], record["last_batch"], root / "train_ckpt", card)
+    profile_train_step("a-shot", record["trainer"], record["last_batch"], card)
+    export = record["exports"][-1]
+    del record
+    gc.collect()
+
+    # (b) the same on an int4_w4a8 base
+    out = root / "train_out_shot_q"
+    record, q_launches, int_mm = run_train_driver(train_svi, [
+        *common, "--dataset_path", data["shot"], "--output_path", str(out),
+        "--max_steps", str(TRAIN_DRIVER_STEPS), "--quantize", "int4_w4a8"], "b-int4_w4a8", card)
+    check_train_driver("b-int4_w4a8", record, q_launches, TRAIN_DRIVER_STEPS, out,
+                       DRIVER_DIT_BLOCKS)
+    dit = record["trainer"].dit
+    expect = {"w4a8_linear": TRAIN_DRIVER_STEPS * w4a8_per_step(dit),
+              "quantize_rows_int8": TRAIN_DRIVER_STEPS * w4a8_per_step(dit),
+              "unpack_requant_int4": TRAIN_DRIVER_STEPS * k3_per_step(dit)}
+    got = {k: q_launches[k] for k in expect}
+    log(f"[train-driver b-int4_w4a8] {sum(1 for n, _ in dit.named_parameters() if n.endswith('w_q4'))}"
+        f" quantized linears; launches {got} (expected {expect}), torch._int_mm {int_mm}; {card}")
+    if got != expect or int_mm:
+        raise RuntimeError("the quantized training run's linears did not all take w4a8_linear "
+                           "and K3 as counted")
+    profile_train_step("b-int4_w4a8", record["trainer"], record["last_batch"], card)
+    del record, dit
+    gc.collect()
+
+    # (c) dance, from the dance LoRA with its pose convs
+    out = root / "train_out_dance"
+    lora_sd = load_file(str(root / "svi-dance.safetensors"))
+    record, launches, _ = run_train_driver(train_svi_dance, [
+        *common, "--dataset_path", data["dance"], "--output_path", str(out),
+        "--max_steps", str(VARIANT_DRIVER_STEPS),
+        "--pretrained_lora_path", str(root / "svi-dance.safetensors")], "c-dance", card)
+    check_train_driver("c-dance", record, launches, VARIANT_DRIVER_STEPS, out, DRIVER_DIT_BLOCKS)
+    pose = record["trainer"].pose_params["layers"][0]["w"].detach().float().cpu()
+    moved = (pose - lora_sd["dwpose_embedding.0.weight"].float()).abs().max().item()
+    log(f"[train-driver c-dance] pose conv 0 moved by {moved:.2e} from the file's after "
+        f"{VARIANT_DRIVER_STEPS} steps (Adam: at most about {VARIANT_DRIVER_STEPS} x lr)")
+    if not 0 < moved <= 1.5 * VARIANT_DRIVER_STEPS * 1e-4:
+        raise RuntimeError("the dance driver did not start from the file's pose convs, or did "
+                           "not train them")
+    profile_train_step("c-dance", record["trainer"], record["last_batch"], card)
+    # the pose convs are f32 cuDNN convolutions, which this script runs with
+    # TF32 off; PyTorch's default lets cuDNN use TF32: one step so, for context
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record["trainer"].training_step(**record["last_batch"])
+        torch.cuda.synchronize()
+        log(f"[train-driver c-dance] one step with cuDNN TF32 on (PyTorch's default): "
+            f"{time.perf_counter() - t0:.3f}s; {card}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del record, lora_sd
+    gc.collect()
+
+    # (d) talk, with the multitalk branches
+    out = root / "train_out_talk"
+    record, launches, _ = run_train_driver(train_svi_talk, [
+        *common, "--dataset_path", data["talk"], "--output_path", str(out),
+        "--max_steps", str(VARIANT_DRIVER_STEPS),
+        "--multitalk_path", str(root / "multitalk.safetensors")], "d-talk", card)
+    check_train_driver("d-talk", record, launches, VARIANT_DRIVER_STEPS, out, DRIVER_DIT_BLOCKS)
+    if not record["trainer"].dit.cfg.enable_multitalk:
+        raise RuntimeError("the talk training driver's DiT did not load as multitalk")
+    profile_train_step("d-talk", record["trainer"], record["last_batch"], card)
+    del record
+    gc.collect()
+
+    # (e) the exported shot LoRA through the inference driver
+    sd = load_file(export)
+    b_max = max(v.abs().max().item() for k, v in sd.items() if ".lora_B." in k)
+    argv = ["--dit_root", str(root), "--extra_module_root", export,
+            "--output", str(root / "videos_trained"), "--ref_image_path", str(root / "frame.npy"),
+            "--prompt_path", str(REPO / "data" / "toy_test" / "shot" / "prompt.txt"),
+            "--num_frames", str(SLICE_FRAMES), "--num_steps", str(SLICE_STEPS),
+            "--num_motion_frames", str(MOTION), "--ref_pad_num", "-1", "--cfg_scale_text", "5.0",
+            "--num_clips", "1", "--save_format", "npy"]
+    t0 = time.perf_counter()
+    rec = test_svi.main(argv)
+    (sample,) = rec["samples"]
+    fused = rec["manager"].lora_log
+    log(f"[train-driver e-infer] the exported LoRA ({len(sd)} tensors, max |B| {b_max:.3e}) "
+        f"fused {fused} in the inference driver; one clip in {time.perf_counter() - t0:.2f}s; "
+        f"{card}")
+    if not (b_max > 0 and fused and fused[0][1] == len(sd) // 2):
+        raise RuntimeError("the exported LoRA was not fused, or its B matrices are zero")
+    check_driver_video("e-infer", sample, clips=1)
+    del rec, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-drivers] phase 5b passed in {time.perf_counter() - t_phase:.1f}s; {card}")
+    return q_launches
+
 
 
 def main() -> int:
@@ -2318,21 +2878,24 @@ def main() -> int:
     gc.collect()  # the pipeline's timer wrappers refer back to it
     torch.cuda.empty_cache()
 
-    # the driver: checkpoint files through the user's entry point
-    phase_driver(card)
+    # the driver: checkpoint files through the user's entry point (4e, 4f;
+    # 5b: the training drivers, whose quantized run gives K3's launches)
+    train_q_launches = phase_driver(card)
 
     # 5. the training slice
     phase_small_trainer()
+    phase_small_variant_trainers(card)
     train_launches, _, _ = phase_training()
 
     # 6. results: the forward kernels' launches are the bf16 inference path's,
-    # the backward kernels' the training path's, K3's and K6's the quantized
-    # inference path's
+    # the backward kernels' the training path's, the W4A8 linear's and K6's
+    # the quantized inference path's, K3's the quantized training driver's
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (quant_launches if entry in QUANT_KERNELS else infer_launches
+        launches = (train_q_launches if entry in QUANT_TRAIN else quant_launches
+                    if entry in QUANT_KERNELS else infer_launches
                     if entry.startswith("flash_fwd") or entry == "rope_rotate_flat"
                     else train_launches)[entry]
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,

@@ -2,7 +2,9 @@
 checkpoint files and text prompts through the clip-loop driver
 `scripts/test_svi.py`), the SVI-Dance and SVI-Talk variants' inference
 (`scripts/test_svi_dance.py`, `scripts/test_svi_talk.py`) and
-Error-Recycling LoRA training in PyTorch, with
+Error-Recycling LoRA training (the datasets, the pose / audio / customtalk
+variants, LoRA on a quantized base, and the drivers `scripts/train_svi.py`,
+`scripts/train_svi_dance.py`, `scripts/train_svi_talk.py`) in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It mirrors the layout of the JAX package `svi_tpu` (ops/, models/,

@@ -18,23 +18,27 @@ the weight quantizers (`quantize_params_for_inference`, modes
 and the int8 self-attention forward (`WanDiTConfig.attention_quant`); and
 the reference's checkpoints (`config_from_state_dict`,
 `params_from_torch_state_dict`, quantize-on-load, and the inverse for
-writing them). The multi-speaker audio attention
-(`single_stream_multi_attention`), the save-attention remat policy and
-host-offloaded carries are not part of this port.
+writing them); in training, the save-attention remat policy and carries
+offloaded to host memory. The multi-speaker audio attention
+(`single_stream_multi_attention`) is not part of this port.
 Activations are in cfg.dtype; norm and softmax statistics f32; base weights
 are frozen.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
-from ..ops.attention import div_exact, flash_attention, flash_attention_flat
+from ..ops.attention import (div_exact, flash_attention, flash_attention_flat,
+                             save_attention_policy)
 from ..ops.norms import gelu_tanh, layer_norm, modulate, rms_norm
 from ..ops.quant_matmul import unpack_int4, unpack_requant_int4, w4a8_linear
 from ..ops.rope import rope_angles_for_grid, sinusoidal_embedding_1d
@@ -420,10 +424,14 @@ class WanDiT(ParamTree):
         + g carries instead of L (`scan_blocks_remat`). audio_embed: the
         audio context tokens (`audio_proj_forward`); a customtalk DiT then
         carries (tokens, add_condition) from block to block, the first block
-        taking block_add_condition (zeros when None)."""
-        if save_attention or offload_carries:
-            raise NotImplementedError(
-                "save_attention and offload_carries are not ported yet (ROADMAP)")
+        taking block_add_condition (zeros when None).
+        With use_remat, save_attention keeps each block's self-attention
+        (out, lse) from the forward (a selective checkpoint policy over the
+        `flash_fwd_rope` operator), so the backward's recompute skips K1 for
+        +(S x dim) of activations a block; offload_carries saves the carries
+        that the checkpoints keep in pinned host memory
+        (torch.autograd.graph.save_on_cpu, the reference's
+        use_gradient_checkpointing_offload) instead of on the device."""
         cos, sin = rope_angles_for_grid(tuple(grid), self.cfg.head_dim)
         cos = torch.from_numpy(cos).to(tokens.device)
         sin = torch.from_numpy(sin).to(tokens.device)
@@ -431,36 +439,58 @@ class WanDiT(ParamTree):
         lora_blocks = None if lora is None else lora["blocks"]
         carry = self.cfg.enable_customtalk and audio_embed is not None
 
-        def run(state, i):
-            tok, cond = state if carry else (state, None)
+        def block(i):
+            """Block i on the carry's tensors -> the next carry (a tuple)."""
             lbp = None if lora_blocks is None else lora_blocks[i]
-            return self.dit_block(blocks[i], tok, ctx, t_mod, cos, sin, num_img_tokens, lbp,
-                                  lora_scale, audio_embed=audio_embed, num_frames=grid[0],
-                                  add_condition=cond)
 
-        def run_remat(state, i):
-            return checkpoint(run, state, i, use_reentrant=False)
+            def fn(tok, cond=None):
+                out = self.dit_block(blocks[i], tok, ctx, t_mod, cos, sin, num_img_tokens, lbp,
+                                     lora_scale, audio_embed=audio_embed, num_frames=grid[0],
+                                     add_condition=cond)
+                return out if carry else (out,)
+            return fn
 
-        state = tokens
+        context_fn = noop_context_fn
+        if save_attention:
+            context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                           save_attention_policy)
+
+        def remat(fn, state):
+            # the carry's tensors as arguments of their own: checkpoint saves
+            # each through the saved-tensor hooks (save_on_cpu sees them)
+            return checkpoint(fn, *state, use_reentrant=False, context_fn=context_fn)
+
+        def step(i, state):
+            return remat(block(i), state) if use_remat else block(i)(*state)
+
+        state = (tokens,)
         if carry:
             cond0 = (block_add_condition if block_add_condition is not None
                      else torch.zeros_like(tokens))
             state = (tokens, cond0.to(tokens.dtype))
+        # contiguous carries (the pose tokens come transposed): save_on_cpu
+        # hands back a contiguous copy, and the recompute must see the same
+        # strides as the forward
+        state = tuple(t.contiguous() for t in state)
         n = len(blocks)
         group = remat_granularity if use_remat else None
-        if not group or group <= 1 or n % group or n == group:
-            step = run_remat if use_remat else run
-            for i in range(n):
-                state = step(state, i)
-        else:
-            def run_group(st, first):
-                for i in range(first, first + group):
-                    st = run_remat(st, i)
-                return st
+        offload = (torch.autograd.graph.save_on_cpu(pin_memory=True)
+                   if use_remat and offload_carries else contextlib.nullcontext())
+        with offload:
+            if not group or group <= 1 or n % group or n == group:
+                for i in range(n):
+                    state = step(i, state)
+            else:
+                def run_group(first):
+                    def fn(*st):
+                        for i in range(first, first + group):
+                            st = step(i, st)
+                        return st
+                    return fn
 
-            for first in range(0, n, group):
-                state = checkpoint(run_group, state, first, use_reentrant=False)
-        return state[0] if carry else state
+                for first in range(0, n, group):
+                    state = remat(run_group(first), state)
+        return state[0]
 
     def forward_head(self, tokens, t, grid):
         return self.unpatchify(self.apply_head(tokens, t), grid)

@@ -991,14 +991,44 @@ def _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale):
     return out.transpose(1, 2).flatten(2), lse
 
 
+@torch.library.custom_op("svi_tpu_torch::flash_fwd_rope", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor cos, Tensor sin, "
+                                "int head_dim, int kv_len, float scale) -> (Tensor, Tensor)")
+def flash_fwd_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, head_dim: int, kv_len: int,
+                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE self-attention's forward (out, lse) as one operator, so that a
+    selective checkpoint policy can save its outputs (`save_attention_policy`):
+    a ctypes launch inside an autograd.Function is invisible to it. The
+    cross-attentions (no RoPE) call `_forward_flat` directly and are
+    recomputed, as the JAX package's save-attention policy keeps only the
+    self-attention's "flash_out" / "flash_lse"."""
+    return _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
+
+
+def save_attention_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of `WanDiT.forward_blocks(save_attention=True)`:
+    keep the self-attention forward's (out, lse) from the forward, recompute
+    everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.svi_tpu_torch.flash_fwd_rope.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class _FlashAttention(torch.autograd.Function):
     """Mirrors `_flash_core_flat` + `_attn_with_saved`: the forward kernel,
     saving (q, k, v, cos, sin, out, lse); the backward through
-    `flash_bwd_flat`. Gradients flow to q, k and v only."""
+    `flash_bwd_flat`. Gradients flow to q, k and v only. With RoPE the
+    forward goes through the `flash_fwd_rope` operator."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, head_dim, kv_len, scale):
-        out, lse = _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
+        if cos is not None:
+            out, lse = flash_fwd_rope(q, k, v, cos, sin, head_dim, kv_len, scale)
+        else:
+            out, lse = _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         ctx.args = (head_dim, kv_len, scale)
         return out

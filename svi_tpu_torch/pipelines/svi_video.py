@@ -92,15 +92,16 @@ class TeaCache:
         return hidden_states + self.previous_residual
 
 
-def _prep(img, height: int, width: int) -> np.ndarray:
+def _prep(img, height: int, width: int, aug: bool = False) -> np.ndarray:
     """A PIL image (resized as the JAX pipeline does) or an (H, W, 3) uint8
-    array of the target size -> (1, 3, H, W) f32 in [-1, 1]."""
+    array of the target size -> (1, 3, H, W) f32 in [-1, 1]; aug applies the
+    train-time first-frame augmentation (Pillow)."""
     if not isinstance(img, np.ndarray) and hasattr(img, "resize"):
         img = img.resize((width, height))  # PIL, as handed in
     elif np.asarray(img).shape[:2] != (height, width):
         raise ValueError(f"frame of shape {np.asarray(img).shape} must be ({height}, {width}, 3); "
                          "pass a PIL image to have it resized")
-    return base.preprocess_image(img)
+    return base.preprocess_image(img, use_aug=aug)
 
 
 class SVIVideoPipeline:
@@ -185,12 +186,9 @@ class SVIVideoPipeline:
                                use_first_aug=False, ref_pad_cfg=False, ref_pad_num=None):
         """`y` = (4-ch temporal mask | VAE latent of [condition frames |
         padding]) and the CLIP features of the first frame, all encoded in f32.
-        use_first_aug (scripts/train_svi.py's first-frame augmentation, PIL
-        code in the JAX package) is not ported and raises when true."""
-        if use_first_aug:
-            raise NotImplementedError(
-                "use_first_aug: the PIL first-frame augmentation (svi_tpu/pipelines/base.py) "
-                "is not ported yet")
+        use_first_aug applies scripts/train_svi.py's first-frame augmentation
+        (`base.apply_augmentation`, Pillow; it raises without Pillow) to the
+        VAE's condition frames only, never to the CLIP input or the anchor."""
         if not isinstance(first_frames, (list, tuple)):
             first_frames = [first_frames]
         n_cond = len(first_frames)
@@ -212,7 +210,8 @@ class SVIVideoPipeline:
         msk = torch.from_numpy(np.transpose(msk, (0, 2, 1, 3, 4))[0]).to(dev)
 
         # VAE input: condition frames | padding, built on the device
-        cond = np.concatenate([_prep(f, height, width) for f in first_frames], axis=0)
+        cond = np.concatenate([_prep(f, height, width, aug=use_first_aug) for f in first_frames],
+                              axis=0)
         cond = torch.from_numpy(np.transpose(cond, (1, 0, 2, 3))).to(dev)  # (3, n, H, W)
         ref_t = torch.from_numpy(_prep(random_ref_frame, height, width)).to(dev).transpose(0, 1)
         zeros = lambda n: torch.zeros((3, n, height, width), dtype=torch.float32, device=dev)  # noqa: E731

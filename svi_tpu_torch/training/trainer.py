@@ -1,30 +1,39 @@
 """Error-Recycling LoRA trainer (port of svi_tpu/training/trainer.py;
-behavioral ref: train_svi.py:627-1304).
+behavioral ref: train_svi.py:627-1304, train_svi_dance.py, train_svi_talk.py).
 
-  * `ErrorRecyclingTrainer.train_step`: forward of the frozen bf16 DiT with
-    f32 LoRA adapters (rematerialised per block), weighted flow-match MSE,
-    backward through the hand-written attention backward kernels, global-norm
-    clip + AdamW, and the one-step bidirectional error extraction, all on
-    the device;
+  * `ErrorRecyclingTrainer.train_step`: forward of the frozen DiT (bf16, or
+    a quantized base through the straight-through backward) with the
+    trainables (f32 LoRA adapters, or the customtalk FFNs; with train_pose
+    also a PoseEmbedding), rematerialised per block or in groups (optionally
+    keeping the self-attention's out / lse, or with the carries in host
+    memory), weighted flow-match MSE, backward through the hand-written
+    attention backward kernels, one global-norm clip + AdamW over every
+    trainable together, and the one-step bidirectional error extraction,
+    all on the device;
   * `training_step`: the host side, copied from the JAX package so that the
-    same seed draws the same timesteps, noise, injections and buffer updates
-    (error_recycling.ErrorBuffers, `random.Random`, numpy noise).
+    same seed draws the same timesteps, noise, injections, pose / condition
+    / audio dropouts and buffer updates (error_recycling.ErrorBuffers,
+    `random.Random`, numpy noise);
+  * the files a run leaves: the LoRA export in peft naming (with the
+    customtalk FFNs and the pose convs in the reference's naming), and a
+    resumable checkpoint (`torch.save` of the trainables and the optimizer
+    state in place of orbax, plus the JAX package's host pickle).
 
-Not ported yet (ROADMAP): customtalk and pose training, audio conditioning,
-a mesh with sharded optimizer state, the save-attention and host-offload
-remat variants, and the orbax / safetensors checkpoints.
+Not ported yet (ROADMAP, Slice E): a mesh and sharded optimizer state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 import random
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..models import wan_dit
+from ..models import pose_embedding, wan_dit
 from ..schedulers import flow_match as fm
 from . import lora as lora_mod
 from .error_recycling import ErrorBuffers
@@ -45,8 +54,11 @@ class TrainerConfig:
     # blocks per outer checkpoint group (sqrt-remat): 1 = per-block remat,
     # 0 = auto (divisor of num_layers nearest sqrt(L)), n > 1 = explicit
     remat_granularity: int = 1
-    save_attention_activations: bool = False  # not ported: raises
-    use_gradient_checkpointing_offload: bool = False  # not ported: raises
+    # keep each block's self-attention (out, lse) from the forward, so the
+    # backward's recompute skips K1 (+S x dim of activations a block)
+    save_attention_activations: bool = False
+    # the checkpoints' block carries in pinned host memory (save_on_cpu)
+    use_gradient_checkpointing_offload: bool = False
     shard_optimizer_state: bool = False  # not ported (needs a mesh): raises
     # error recycling (ref :684-712)
     use_error_recycling: bool = True
@@ -67,9 +79,9 @@ class TrainerConfig:
     num_train_timesteps: int = 1000
     sigma_shift: float = 5.0
     seed: int = 0
-    # variants (only "lora" without pose is ported)
-    train_architecture: str = "lora"
-    train_pose: bool = False
+    # variants
+    train_architecture: str = "lora"  # lora | customtalk (ref train_svi.py:659-676)
+    train_pose: bool = False  # SVI-Dance: a trainable pose embedding
     pose_drop_prob1: float = 0.05
     pose_drop_prob2: float = 0.1
     cond_drop_prob: float = 0.1
@@ -109,28 +121,55 @@ class ClippedAdamW:
         self.opt.zero_grad(set_to_none=True)
         return norm
 
+    def state_dict(self) -> dict:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+
 
 def make_optimizer(params, cfg: TrainerConfig) -> ClippedAdamW:
     return ClippedAdamW(params, cfg)
 
 
+CUSTOMTALK_FFNS = ("customtalk_context_pre_ffns", "customtalk_audio_pre_ffns")
+
+
+def customtalk_params(dit: wan_dit.WanDiT) -> dict[str, torch.Tensor]:
+    """The customtalk FFNs of every block (`split_customtalk_params`: the
+    leaves whose names hold 'customtalk', ref train_svi.py:670-676) by their
+    names in the DiT, made trainable in place; the rest of the DiT stays
+    frozen."""
+    out = {}
+    for i, blk in enumerate(dit["blocks"]):
+        for name in CUSTOMTALK_FFNS:
+            for idx in ("0", "2"):
+                leaf = blk[name][idx]
+                if "w" not in leaf:
+                    raise ValueError(f"{name}.{idx} is quantized: customtalk training needs its "
+                                     "FFNs in a float dtype")
+                for key in ("w", "b"):
+                    out[f"blocks.{i}.{name}.{idx}.{key}"] = leaf[key].requires_grad_(True)
+    return out
+
+
 class ErrorRecyclingTrainer:
     """Host-side orchestration of one training run (ref training_step
-    :989-1199). `dit` is a `WanDiT` on `device` (its weights stay frozen);
-    the adapters are made on `device` from a generator seeded with
-    `config.seed` (assign `trainer.lora` to start from others)."""
+    :989-1199). `dit` is a `WanDiT` on `device`: its weights stay frozen,
+    except the customtalk FFNs when config.train_architecture is
+    "customtalk". The LoRA adapters are made on `device` from a generator
+    seeded with `config.seed`, the pose embedding (train_pose) from
+    `config.seed + 1`; assign `trainer.lora` / `trainer.pose_params` to start
+    from others (the optimizer then starts afresh, as loading a LoRA does)."""
 
     def __init__(self, dit: wan_dit.WanDiT, config: TrainerConfig | None = None, mesh=None,
                  device="cuda"):
         self.cfg = c = config or TrainerConfig()
-        if c.train_architecture != "lora" or c.train_pose:
-            raise NotImplementedError(
-                "customtalk and pose training are not ported yet (ROADMAP Slice D)")
         if mesh is not None or c.shard_optimizer_state:
             raise NotImplementedError("training on a mesh is not ported yet (ROADMAP Slice E)")
-        if c.save_attention_activations or c.use_gradient_checkpointing_offload:
-            raise NotImplementedError(
-                "save_attention and offloaded carries are not ported yet (ROADMAP)")
+        if c.train_architecture not in ("lora", "customtalk"):
+            raise ValueError(f"train_architecture={c.train_architecture!r}: expected 'lora' or "
+                             "'customtalk'")
         if dit.cfg.attention_quant != "none":
             # the int8 attention forward's lse is that of the centred logits,
             # so a flash backward through it would give wrong gradients
@@ -147,9 +186,20 @@ class ErrorRecyclingTrainer:
         self.lora_scale = lora_mod.lora_scale(c.lora_rank, c.lora_alpha)
         self.remat_group = (wan_dit.pick_remat_group(dit.cfg.num_layers)
                             if c.remat_granularity == 0 else c.remat_granularity)
-        gen = torch.Generator(device=self.device).manual_seed(c.seed)
-        self.lora = lora_mod.init_lora_params(dit.cfg, rank=c.lora_rank, targets=c.lora_targets,
-                                              generator=gen, device=self.device)
+        self.trainable: dict = {}
+        if c.train_architecture == "customtalk":
+            if not dit.cfg.enable_customtalk:
+                raise ValueError("customtalk training needs a customtalk DiT")
+            self.trainable["customtalk"] = customtalk_params(dit)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(c.seed)
+            self.trainable["lora"] = lora_mod.init_lora_params(
+                dit.cfg, rank=c.lora_rank, targets=c.lora_targets, generator=gen,
+                device=self.device)
+        if c.train_pose:
+            self.trainable["pose"] = pose_embedding.init_params(
+                dit.cfg.dim, seed=c.seed + 1, device=self.device).requires_grad_(True)
+        self.reset_optimizer()
         self.buffers = ErrorBuffers(
             num_grids=c.num_grids,
             buffer_size=c.error_buffer_k,
@@ -162,15 +212,38 @@ class ErrorRecyclingTrainer:
         )
         self.iteration_count = 0
 
+    def named_trainables(self) -> dict[str, torch.Tensor]:
+        """Every trainable tensor under a stable name: the optimizer's
+        parameters, in its order, and the checkpoint's keys."""
+        out = {}
+        for kind, tree in self.trainable.items():
+            named = tree.items() if kind == "customtalk" else tree.named_parameters()
+            out.update({f"{kind}.{name}": p for name, p in named})
+        return out
+
+    def reset_optimizer(self) -> None:
+        """A fresh optimizer over every trainable together (one clip, one
+        AdamW, as the JAX package's single `trainable` tree)."""
+        self.optimizer = make_optimizer(self.named_trainables().values(), self.cfg)
+
     @property
     def lora(self):
-        return self._lora
+        return self.trainable.get("lora")
 
     @lora.setter
     def lora(self, value):
         """New adapters start with fresh optimizer state (as loading a LoRA does)."""
-        self._lora = value
-        self.optimizer = make_optimizer(value.parameters(), self.cfg)
+        self.trainable["lora"] = value
+        self.reset_optimizer()
+
+    @property
+    def pose_params(self):
+        return self.trainable.get("pose")
+
+    @pose_params.setter
+    def pose_params(self, value):
+        self.trainable["pose"] = value.requires_grad_(True)
+        self.reset_optimizer()
 
     # -- the device step --------------------------------------------------------
 
@@ -178,20 +251,35 @@ class ErrorRecyclingTrainer:
         """`loss_fn` + `train_step` of the JAX package on device tensors:
         latents, noise_w_error, latents_w_error (b, 16, f, h, w) f32, timestep
         (b,) f32, timestep_id (b,) int, context, clip_feature, y in the DiT's
-        dtype. Returns loss, the unclipped grad_norm, and the f32 one-step
-        errors noise_error = (pred - target)(1 - sigma), y_error =
-        (pred - target)(-sigma)."""
+        dtype; with train_pose, pose (b, 3, F, H, W) f32 in [0, 255] (or None)
+        and pose_keep (b, 1, 1), which zeroes the embedded condition; for an
+        audio DiT, audio_first and audio_vf in the DiT's dtype. Returns loss,
+        the unclipped grad_norm, and the f32 one-step errors noise_error =
+        (pred - target)(1 - sigma), y_error = (pred - target)(-sigma)."""
+        c, dtype = self.cfg, self.dit_cfg.dtype
         tid = batch["timestep_id"]
         sigma = self.sigmas[tid][:, None, None, None, None]
         noisy = (1 - sigma) * batch["latents_w_error"].float() \
             + sigma * batch["noise_w_error"].float()
         # self-corrected velocity target: noise_w_error - CLEAN latents (ref :1139)
         target = batch["noise_w_error"].float() - batch["latents"].float()
-        pred = self.dit(noisy.to(self.dit_cfg.dtype), batch["timestep"], batch["context"],
-                        batch.get("clip_feature"), batch.get("y"), lora=self.lora,
-                        lora_scale=self.lora_scale,
-                        use_remat=self.cfg.use_gradient_checkpointing,
-                        remat_granularity=self.remat_group).float()
+        add_condition = None
+        if c.train_pose and batch.get("pose") is not None:
+            # the trainable embedding; pose_keep gates the embedded condition,
+            # not the raw pose (train_svi_dance.py:1045-1048)
+            cond = self.pose_params(batch["pose"])
+            add_condition = cond.to(dtype) * batch["pose_keep"].to(dtype)
+        audio = None
+        if batch.get("audio_first") is not None:
+            audio = (batch["audio_first"], batch["audio_vf"])
+        pred = self.dit(noisy.to(dtype), batch["timestep"], batch["context"],
+                        batch.get("clip_feature"), batch.get("y"), add_condition=add_condition,
+                        lora=self.lora, lora_scale=self.lora_scale,
+                        use_remat=c.use_gradient_checkpointing,
+                        remat_granularity=self.remat_group,
+                        save_attention=c.save_attention_activations,
+                        offload_carries=c.use_gradient_checkpointing_offload,
+                        audio_embed_tuple=audio).float()
         loss = (((pred - target) ** 2).mean(dim=(1, 2, 3, 4)) * self.weights[tid]).mean()
         loss.backward()
         grad_norm = self.optimizer.step()
@@ -241,11 +329,9 @@ class ErrorRecyclingTrainer:
     def training_step(self, latents, context, y=None, clip_feature=None, pose=None,
                       audio_tuple=None):
         """latents (b,16,f,h,w); context (b,L,4096); y (b,20,f,h,w) or None;
-        clip_feature (b,257,1280) or None, as host arrays. Returns the metrics
-        dict of the JAX package."""
-        if pose is not None or audio_tuple is not None:
-            raise NotImplementedError(
-                "pose and audio conditioning are not ported yet (ROADMAP Slice D)")
+        clip_feature (b,257,1280) or None; pose (b,3,F,H,W) raw [0, 255]
+        (dance); audio_tuple ((b,1,5,12,768), (b,n_t-1,8,12,768)) (talk), as
+        host arrays. Returns the metrics dict of the JAX package."""
         c = self.cfg
         latents = np.asarray(latents, np.float32)
         y_np = None if y is None else np.asarray(y, np.float32)
@@ -256,6 +342,20 @@ class ErrorRecyclingTrainer:
         noise_w_error, latents_w_error, y_np, use_clean = self.corrupt_inputs(
             latents, y_np, timestep
         )
+
+        # variant dropouts (dance :1045-1062, talk :969-973)
+        pose_keep = 1.0
+        if pose is not None:
+            if self.rng.random() < c.pose_drop_prob1 or self.rng.random() < c.pose_drop_prob2:
+                pose_keep = 0.0
+            if self.rng.random() < c.cond_drop_prob:
+                if clip_np is not None:
+                    clip_np = np.zeros_like(clip_np)
+                if y_np is not None:
+                    y_np = np.zeros_like(y_np)
+        if audio_tuple is not None and self.rng.random() < c.audio_drop_prob:
+            audio_tuple = (np.zeros_like(np.asarray(audio_tuple[0])),
+                           np.zeros_like(np.asarray(audio_tuple[1])))
 
         dev, dtype = self.device, self.dit_cfg.dtype
         b = latents.shape[0]
@@ -273,6 +373,13 @@ class ErrorRecyclingTrainer:
             "clip_feature": None if clip_np is None else host(clip_np, dtype),
             "y": None if y_np is None else host(y_np, dtype),
         }
+        if c.train_pose:
+            batch["pose"] = None if pose is None else host(pose)
+            batch["pose_keep"] = torch.full((b, 1, 1), pose_keep, dtype=torch.float32,
+                                            device=dev)
+        if audio_tuple is not None:
+            batch["audio_first"] = host(audio_tuple[0], dtype)
+            batch["audio_vf"] = host(audio_tuple[1], dtype)
         metrics = self.train_step(batch)
 
         if c.use_error_recycling:
@@ -299,3 +406,85 @@ class ErrorRecyclingTrainer:
         out.update({f"buffer_{k}": v for k, v in self.buffers.stats().items()
                     if not isinstance(v, dict)})
         return out
+
+    # -- the files a run leaves ---------------------------------------------------
+
+    def save_lora_safetensors(self, path: str, side_modules: Optional[dict] = None):
+        """LoRA-only export (the analog of Lightning's stripped
+        on_save_checkpoint :1294-1304 + utils/extract_lora.py), f32, written
+        by the port's own safetensors writer: the adapters in peft naming, the
+        customtalk FFNs as blocks.{i}.{ffn}.{0,2}.{weight,bias} ((out, in),
+        fusable by the loaders), the pose convs as
+        dwpose_embedding.{0,2,...}.{weight,bias} (a Sequential's numbering,
+        (out, in, kt, kh, kw)), then side_modules."""
+        from ..utils.safetensors_io import save_file
+
+        sd = {}
+        if self.lora is not None:
+            sd.update({k: torch.from_numpy(v)
+                       for k, v in lora_mod.to_peft_state_dict(self.lora).items()})
+        for name, p in self.trainable.get("customtalk", {}).items():
+            key = name.rsplit(".", 1)[0] + (".weight" if name.endswith(".w") else ".bias")
+            sd[key] = p.detach().float().cpu()
+        if self.cfg.train_pose and self.pose_params is not None:
+            sd.update({k: v.float().cpu() for k, v in
+                       pose_embedding.torch_state_dict_from_params(self.pose_params).items()})
+        if side_modules:
+            sd.update({k: torch.as_tensor(v).detach().float().cpu()
+                       for k, v in side_modules.items()})
+        save_file(sd, path)
+
+    def load_lora_safetensors(self, path: str):
+        """Adapters (and, with train_pose, the pose embedding) from a peft
+        LoRA file; the optimizer starts afresh."""
+        from ..utils.safetensors_io import load_file
+
+        sd = {k: v.float() for k, v in load_file(path).items()}
+        if self.cfg.train_architecture == "lora":
+            self.trainable["lora"] = lora_mod.from_peft_state_dict(sd, self.dit_cfg,
+                                                                   device=self.device)
+        if self.cfg.train_pose and any(pose_embedding.PREFIX in k for k in sd):
+            self.trainable["pose"] = pose_embedding.params_from_torch_state_dict(
+                sd, device=self.device).requires_grad_(True)
+        self.reset_optimizer()
+
+    def save_checkpoint(self, ckpt_dir: str):
+        """Full resumable state: `train_state.pt` (the trainables and the
+        optimizer's state, torch.save) and `host_state.pkl` (iteration count,
+        both error buffers, the host RNG's state). (The reference does NOT
+        checkpoint buffers: a resume restarts buffer warmup; we keep them.)"""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save({"trainable": {k: p.detach() for k, p in self.named_trainables().items()},
+                    "optimizer": self.optimizer.state_dict()},
+                   os.path.join(ckpt_dir, "train_state.pt"))
+        with open(os.path.join(ckpt_dir, "host_state.pkl"), "wb") as f:
+            pickle.dump({
+                "iteration_count": self.iteration_count,
+                "latent_error_buffer": self.buffers.latent_error_buffer,
+                "y_error_buffer": self.buffers.y_error_buffer,
+                "rng_state": self.rng.getstate(),
+            }, f)
+
+    def restore_checkpoint(self, ckpt_dir: str):
+        """The state of `save_checkpoint`, into a trainer of the same
+        configuration: the trainables are copied in place, so the optimizer
+        keeps its parameters."""
+        state = torch.load(os.path.join(ckpt_dir, "train_state.pt"), map_location=self.device,
+                           weights_only=True)
+        mine = self.named_trainables()
+        if state["trainable"].keys() != mine.keys():
+            raise ValueError(f"{ckpt_dir}: the checkpoint's trainables differ from this "
+                             "trainer's (another architecture, pose or LoRA targets)")
+        with torch.no_grad():
+            for k, p in mine.items():
+                p.copy_(state["trainable"][k])
+        self.optimizer.load_state_dict(state["optimizer"])
+        host_path = os.path.join(ckpt_dir, "host_state.pkl")
+        if os.path.exists(host_path):
+            # written by save_checkpoint of this package
+            with open(host_path, "rb") as f:
+                host = pickle.load(f)
+            self.iteration_count = host["iteration_count"]
+            self.buffers.latent_error_buffer = host["latent_error_buffer"]
+            self.buffers.y_error_buffer = host["y_error_buffer"]
+            self.rng.setstate(host["rng_state"])

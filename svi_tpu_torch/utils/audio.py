@@ -105,10 +105,12 @@ def regroup_audio_windows(audio_embed: np.ndarray, audio_window: int = AUDIO_WIN
     return first, np.concatenate([head, middle, tail], axis=2)
 
 
-def cut_audio_embedding(audio_embed: np.ndarray, num_frames: int, audio_start_idx: int = 0):
+def cut_audio_embedding(audio_embed: np.ndarray, num_frames: int, audio_start_idx: int = 0,
+                        audio_end_idx: int = 81):
     """Training-side slicing and grouping of a stored embedding (12, s, 768)
     or (s, 12, 768). Returns (first (1, 5, 12, 768), later (n_t, 8, 12,
-    768)), without the batch axis."""
+    768)), without the batch axis. audio_end_idx is taken and not read, as in
+    the JAX package: the window is num_frames long from audio_start_idx."""
     audio_embed = np.asarray(audio_embed, np.float32)
     if audio_embed.shape[0] == 12 and audio_embed.shape[1] != 12:
         audio_embed = np.transpose(audio_embed, (1, 0, 2))  # -> (s, 12, 768)

@@ -1,6 +1,6 @@
 """Video input and output (port of svi_tpu/utils/video.py: `save_video`,
-`AsyncVideoSaver`, `load_video_frames`), and `save_frames_npy` for machines
-with no video writer."""
+`AsyncVideoSaver`, `load_video_frames`, `video_frame_count`), and
+`save_frames_npy` for machines with no video writer."""
 
 from __future__ import annotations
 
@@ -37,16 +37,39 @@ def save_video(frames, save_path: str, fps: int = 24, quality: int = 8) -> None:
     writer.release()
 
 
+def open_npy_video(path: str) -> np.ndarray:
+    """An (N, H, W, 3) uint8 .npy video, memory-mapped: only the frames that
+    are indexed are read."""
+    video = np.load(path, mmap_mode="r")
+    if video.dtype != np.uint8 or video.ndim != 4 or video.shape[-1] != 3:
+        raise ValueError(f"{path}: {video.shape} {video.dtype}, expected (N, H, W, 3) uint8")
+    return video
+
+
+def video_frame_count(path: str) -> int:
+    """The number of frames of a video: a `.npy`'s from its header, other
+    files' from OpenCV's frame count (as the JAX package reads it)."""
+    if path.endswith(".npy"):
+        return int(open_npy_video(path).shape[0])
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video: {path}")
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
 def load_video_frames(path: str, indices=None) -> list[np.ndarray]:
     """A video -> a list of (H, W, 3) uint8 RGB frames (all, or those at
     `indices`). A `.npy` of (N, H, W, 3) uint8 is read with numpy (for
     machines with neither cv2 nor imageio); other files through OpenCV, as
     the JAX package reads them, else imageio where it has a backend."""
     if path.endswith(".npy"):
-        video = np.load(path)
-        if video.dtype != np.uint8 or video.ndim != 4 or video.shape[-1] != 3:
-            raise ValueError(f"{path}: {video.shape} {video.dtype}, expected (N, H, W, 3) uint8")
-        return [video[i] for i in (range(len(video)) if indices is None else indices)]
+        video = open_npy_video(path)
+        return [np.array(video[i]) for i in (range(len(video)) if indices is None else indices)]
     try:
         import cv2
     except ImportError:

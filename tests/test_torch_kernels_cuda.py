@@ -620,3 +620,56 @@ def test_w4a8_linear_3d_input_and_unsupported_shapes_raise():
         tqm.w4a8_linear(x, packed[:60], r[:60], s8[:60])
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tqm.w4a8_linear(x.half(), packed, r, s8)
+
+
+def test_int4_w4a8_lora_backward_matches_the_cpu_and_counts_k3():
+    """A LoRA forward + backward through a tiny bf16 int4_w4a8 DiT (2 blocks,
+    one head of 128, groups of 16, per-block remat) on the card against the
+    same on the CPU: every quantized linear through w4a8_linear in the
+    forward (33: the blocks' 24, the prelude's 8, the head) and again the
+    blocks' in the recompute (24), K3 once in the straight-through backward
+    of each linear that needs dx (14; the rule of chip_smoke.py's
+    `k3_per_step`, counted on the CPU in tests/test_torch_training_variants.py);
+    the adapters' gradients, all of them as one vector, agree as bf16 allows
+    (roundings in other places, and an activation that lands on another int8
+    level: cosine >= 0.99, norms within 5%; a single adapter's gradient can
+    be as small as 1e-5, near the resolution of the bf16 activations it is
+    made of, and is held only to be finite)."""
+    import copy
+
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.ops import quant_matmul as tqm
+    from svi_tpu_torch.training import lora as tlora
+
+    cfg = wan_dit.WanDiTConfig(dim=128, in_dim=12, ffn_dim=256, out_dim=4, text_dim=64,
+                               freq_dim=32, num_heads=1, num_layers=2, has_image_input=True,
+                               clip_feature_dim=64, dtype=torch.bfloat16)
+    dit = wan_dit.quantize_params_for_inference(wan_dit.init_params(cfg, seed=5, device="cpu"),
+                                                "int4_w4a8", min_size=1024, group=16)
+    lora = tlora.init_lora_params(cfg, rank=8, generator=torch.Generator().manual_seed(6),
+                                  device="cpu")
+    with torch.no_grad():
+        for p in lora.parameters():
+            p.add_(0.02)
+    g = torch.Generator().manual_seed(7)
+    inputs = [torch.randn(shape, generator=g) for shape in
+              ((1, 4, 2, 16, 16), (1, 77, 64), (1, 257, 64), (1, 8, 2, 16, 16))]
+    grads, calls = {}, {}
+    for dev in ("cuda", "cpu"):
+        model, adapters = copy.deepcopy(dit).to(dev), copy.deepcopy(lora).to(dev)
+        x, ctx, clip, y = (t.to(dev) for t in inputs)
+        before = (tqm.w4a8_linear.launches, tqm.unpack_requant_int4.launches)
+        out = model(x, torch.tensor([300.0], device=dev), ctx, clip, y, lora=adapters,
+                    use_remat=True)
+        grads[dev] = torch.autograd.grad(out.float().square().mean(),
+                                         list(adapters.parameters()))
+        calls[dev] = (tqm.w4a8_linear.launches - before[0],
+                      tqm.unpack_requant_int4.launches - before[1])
+    names = [n for n, _ in dit.named_parameters() if n.endswith("w_q4")]
+    assert len(names) == 33 and sum(n.startswith("blocks.") for n in names) == 24
+    assert calls == {"cuda": (57, 14), "cpu": (0, 0)}  # the CPU takes the plain versions
+    a = torch.cat([t.float().cpu().flatten() for t in grads["cuda"]])
+    b = torch.cat([t.float().flatten() for t in grads["cpu"]])
+    assert torch.isfinite(a).all()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    assert cos >= 0.99 and abs(a.norm() - b.norm()) <= 0.05 * b.norm(), (cos, a.norm(), b.norm())

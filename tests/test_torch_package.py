@@ -33,6 +33,9 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.utils.image_process, svi_tpu_torch.utils.video\n"
         "import svi_tpu_torch.prompters.sp_tokenizer, svi_tpu_torch.prompters.wan_prompter\n"
         "import svi_tpu_torch.scripts.test_svi\n"
+        "import svi_tpu_torch.training.dataset, svi_tpu_torch.utils.logging\n"
+        "import svi_tpu_torch.scripts.train_svi, svi_tpu_torch.scripts.train_svi_dance\n"
+        "import svi_tpu_torch.scripts.train_svi_talk\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -96,27 +99,28 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_unported_training_options_raise():
+    """Only the mesh and sharded optimizer state (the parallel slice) are
+    left unported; customtalk, pose, save_attention, offloaded carries and
+    the first-frame augmentation run (tests/test_torch_training_variants.py,
+    tests/test_torch_train_data.py)."""
     from svi_tpu_torch.models import wan_dit
-    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
     from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
 
     cfg = wan_dit.WanDiTConfig(dim=32, in_dim=4, ffn_dim=64, out_dim=4, text_dim=8,
                                freq_dim=16, num_heads=1, num_layers=2, dtype=torch.float32)
     dit = wan_dit.init_params(cfg, device="cpu")
-    for bad in (dict(train_architecture="customtalk"), dict(train_pose=True),
-                dict(shard_optimizer_state=True), dict(save_attention_activations=True),
-                dict(use_gradient_checkpointing_offload=True)):
-        with pytest.raises(NotImplementedError):
-            ErrorRecyclingTrainer(dit, TrainerConfig(**bad), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ErrorRecyclingTrainer(dit, TrainerConfig(shard_optimizer_state=True), device="cpu")
     with pytest.raises(NotImplementedError):
         ErrorRecyclingTrainer(dit, TrainerConfig(), mesh=object(), device="cpu")
+    for ok in (dict(train_pose=True), dict(save_attention_activations=True),
+               dict(use_gradient_checkpointing_offload=True)):
+        ErrorRecyclingTrainer(dit, TrainerConfig(**ok), device="cpu")
+    with pytest.raises(ValueError, match="customtalk"):  # a plain DiT has no customtalk FFNs
+        ErrorRecyclingTrainer(dit, TrainerConfig(train_architecture="customtalk"), device="cpu")
     x = torch.zeros(1, 4, 1, 4, 4)
-    for bad in (dict(save_attention=True), dict(offload_carries=True)):
-        with pytest.raises(NotImplementedError):
-            dit(x, torch.zeros(1), torch.zeros(1, 3, 8), **bad)
-    with pytest.raises(NotImplementedError, match="use_first_aug"):
-        SVIVideoPipeline(device="cpu").encode_images_adaptive(
-            [np.zeros((16, 16, 3), np.uint8)], None, 5, 16, 16, use_first_aug=True)
+    for kw in (dict(save_attention=True), dict(offload_carries=True)):
+        assert dit(x, torch.zeros(1), torch.zeros(1, 3, 8), use_remat=True, **kw).shape == x.shape
 
 
 @pytest.mark.parametrize("quant", ["qk8", "qk8pv8"])
