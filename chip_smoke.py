@@ -5,7 +5,8 @@
 
 Phases, each printing what it found; any failure ends the run with a
 non-zero exit and no result line:
-  1. environment: capability probe, nvidia-smi name and power limit, TF32 choice;
+  1. environment: capability probe, nvidia-smi name and power limit, the TF32
+     switches (left at PyTorch's defaults, as users run them);
   2. build: nvcc builds every kernel source of svi_tpu_torch/csrc, all at once;
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
@@ -14,15 +15,23 @@ non-zero exit and no result line:
      the card could take for the work); the W4A8 linear at the 14B's
      shapes bit for bit, beside torch._int_mm alone and the chain it
      replaced (K3, `_int8_exec`, the bias); K6 beside K1 at the same shape
-     and the exp2 floor; for context, the int8 GEMM of a W4A8 linear
-     (torch._int_mm) against the bf16 one;
+     and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
+     3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
+     GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
   4. the SVI-Shot slice: (a) a tiny pipeline on the card against the same
      pipeline on the CPU, then (b) two clips at the full width of
      Wan2.1-I2V-14B-480P with seeded random weights: 480x832, 9 frames,
-     4 steps, CFG 5, motion-frame recycling, TeaCache on clip 2; then one
-     forward of that DiT at the production token count, 480x832x81 (B2
-     S32760), timed and profiled; (c) a tiny pipeline with int4_w4a8 weights and qk8pv8 attention on the
-     card against the same on the CPU; (d) quantized inference at full
+     4 steps, CFG 5, motion-frame recycling, TeaCache on clip 2; the TF32
+     check (the VAE's encode and decode of clip 1 and a full-width pose
+     embedding forward, bit-identical with cuDNN TF32 switched on and off
+     for the process); then one forward of that DiT at the production token
+     count, 480x832x81 (B2 S32760), timed and profiled; (c) a tiny pipeline
+     with int4_w4a8 weights and qk8pv8 attention on the card against the
+     same on the CPU; the fidelity gate: a tiny f32 int4_w4a8 + qk8 forward
+     (K6's f32 route) card against CPU, then clip_psnr of tiny w8a8 and
+     int4_w4a8 + qk8 clips against their bf16 clip, card against CPU; the
+     two-speaker audio attention, tiny, card against CPU; (d) quantized
+     inference at full
      width: (b)'s DiT quantized in place to int4_w4a8, one DiT forward
      against the bf16 one (each also profiled: device time by kind of
      kernel), then two clips with qk8 and qk8pv8 attention, then one
@@ -36,7 +45,9 @@ non-zero exit and no result line:
      tokenizer, a 480x832 reference image as .npy), then the port's driver
      (svi_tpu_torch.scripts.test_svi.main) on them: two clips untiled, one
      with --tiled (and a tiled encode of its frames, whose latents are then
-     decoded tiled and untiled), one with --quantize int4_w4a8; it fails
+     decoded tiled and untiled), one with --quantize int4_w4a8 and one with
+     --quantize w8a8 (each quantized clip's clip_psnr against the bf16
+     clip 1 printed); it fails
      unless the LoRA was fused, the loaded tensors are the written ones, the
      stitched frames are right, the tiled decode is within its bound of the
      untiled one (and two wrong assemblies are not), the forward kernels
@@ -46,9 +57,12 @@ non-zero exit and no result line:
      audio branches and audio_proj at the published widths), a dance LoRA
      with the pose embedding at dim 5120 and a full-size wav2vec2
      directory; wav2vec2 on data/toy_test/talk/speech.wav, card against
-     CPU; the talk driver (two 9-frame clips at 480x832, bf16, then
-     --quantize int4_w4a8) and the dance driver (two clips at 368x640 on a
-     seeded .npy pose video), each with per-phase seconds and peak memory,
+     CPU; the data tools: prepare_video_audio on the card over a seeded .npy
+     clip and speech.wav (its embedding against the CPU's), make_toy_data's
+     output read by the three datasets; the talk driver (two 9-frame clips
+     at 480x832, bf16, then --quantize int4_w4a8) and the dance driver (two
+     clips at 368x640 on a seeded .npy pose video), each with per-phase
+     seconds and peak memory,
      and two controls (zeroed audio, --remove_pose) that must move the
      clip beyond the card-vs-CPU gap; and, on 4b's bf16 weights, one
      denoise-step forward of the full-depth multitalk 14B at B=3, profiled;
@@ -61,8 +75,9 @@ non-zero exit and no result line:
      linear through w4a8_linear in the forward and the recompute, K3 once
      for each that needs dx in the straight-through backward, no
      torch._int_mm); train_svi_dance from the dance LoRA and its pose convs
-     and train_svi_talk with multitalk.safetensors, 2 steps each; then the
-     inference driver on the exported LoRA, one 9-frame clip; each with its
+     and train_svi_talk with multitalk.safetensors, 2 steps each; then
+     extract_lora on the exported LoRA and the inference driver on the
+     extracted file, one 9-frame clip; each with its
      per-phase seconds (dataset read, T5, VAE encode, CLIP + y, step,
      export) and peak memory, failing unless every launch took its route
      and K4 ran once a block a step;
@@ -134,6 +149,12 @@ BF16_GRAD_REL_BOUND = 2e-2
 # 0.01 at the DiT shapes): 2.5 to 5 bf16 ulps there, while a wrong scale or
 # V channel moves out by a share of its own size.
 Q8_OUT_REL, Q8_LSE_BOUND = 2e-2, 1e-3
+# K6 with f32 v and out (its own kernel, route "sm90_f32"): P.V in 3xTF32
+# (about 2^-21 relative a product) against the plain version's f32 P.V; the
+# same integer scores and row max, so what remains is exp2 (a few f32 ulps)
+# and the order of the sums: out within 1e-4 of the plain version's largest
+# |out|, lse within 1e-4
+Q8_F32_OUT_REL, Q8_F32_LSE_BOUND = 1e-4, 1e-4
 # The tiny W4A8 + qk8pv8 DiT (f32, TF32 off), card against CPU. The
 # correctness gate is one forward on the same inputs: it agrees to f32 sums
 # in another order (the W4A8 linears are bit-equal: w4a8_linear is bit-exact
@@ -207,6 +228,11 @@ KERNELS = {
     "w4a8_linear": ("svi_tpu_torch/csrc/w4a8_gemm_sm90.cu", "svi_tpu/ops/quant_matmul.py:33"),
     "flash_fwd_flat_q8/sm90": ("svi_tpu_torch/csrc/flash_fwd_q8_sm90.cu",
                                "svi_tpu/ops/attention.py:289"),
+    # K6 with f32 v and out (an f32 DiT's qk8 attention): the kernel of its
+    # own in the same source, P.V in 3xTF32; launched by the fidelity gate's
+    # one-forward check
+    "flash_fwd_flat_q8/sm90_f32": ("svi_tpu_torch/csrc/flash_fwd_q8_sm90.cu",
+                                   "svi_tpu/ops/attention.py:289"),
     # K3 standalone: the straight-through backward of every W4A8 linear that
     # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -214,6 +240,7 @@ KERNELS = {
 }
 QUANT_KERNELS = ("quantize_rows_int8", "w4a8_linear", "flash_fwd_flat_q8/sm90")
 QUANT_TRAIN = ("unpack_requant_int4",)  # launched only by training on a quantized base
+QUANT_F32 = ("flash_fwd_flat_q8/sm90_f32",)  # launched only by an f32 DiT's qk8 attention
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
@@ -224,7 +251,9 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
               "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd",
               "quantize_rows_int8": "w4a8_prepass_ffn_0", "w4a8_linear": "w4a8_ffn_0",
-              "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8", "unpack_requant_int4": "ffn_0"}
+              "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8",
+              "flash_fwd_flat_q8/sm90_f32": "slice_self_attn_q8_qk8_f32",
+              "unpack_requant_int4": "ffn_0"}
 
 
 def log(msg: str) -> None:
@@ -717,13 +746,18 @@ def kernel_cases():
     yield w4a8_case("w4a8_cross_attn_k_text", 1024, 5120, 5120)
     yield w4a8_case("w4a8_time_embedding_0", 2, 5120, 256)
 
-    def q8_case(name, quant, b, sq, sk, n, d, grid=None, kv_len=None):
+    def q8_case(name, quant, b, sq, sk, n, d, grid=None, kv_len=None, dtype=torch.bfloat16):
         """K6 on `_quant_prep`'s operands (the prep is torch code, outside the
-        kernel, as the JAX package keeps it in XLA)."""
+        kernel, as the JAX package keeps it in XLA); dtype f32: q, k, v and
+        out in f32, the qk8 kernel of route sm90_f32."""
         pv8 = quant == "qk8pv8"
-        q = randn((b, sq, n * d), torch.bfloat16)
-        k = randn((b, sk, n * d), torch.bfloat16) + 0.5  # biased channels, for the centring
-        v = randn((b, sk, n * d), torch.bfloat16)
+        f32 = dtype == torch.float32
+        entry = "flash_fwd_flat_q8/sm90_f32" if f32 else "flash_fwd_flat_q8/sm90"
+        out_rel, lse_bound = (Q8_F32_OUT_REL, Q8_F32_LSE_BOUND) if f32 else (Q8_OUT_REL,
+                                                                          Q8_LSE_BOUND)
+        q = randn((b, sq, n * d), dtype)
+        k = randn((b, sk, n * d), dtype) + 0.5  # biased channels, for the centring
+        v = randn((b, sk, n * d), dtype)
         cos, sin = tables(grid, d) if grid else (None, None)
         kv = sk if kv_len is None else kv_len
         q8, qs, k8, kscale, v8, vss = A._quant_prep(q, k, v, cos, sin, d, pv8)
@@ -733,20 +767,21 @@ def kernel_cases():
         mask = None if kv == sk else (torch.arange(sk, device="cuda") < kv)[None, None, None]
 
         def kernel():
-            return A.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv)
+            return A.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv,
+                                       out_dtype=dtype)
 
         def plain():
             return A._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
-                                             torch.bfloat16, block_k=A.Q8_BLOCK_K[d])
+                                             dtype, block_k=A.Q8_BLOCK_K[d])
 
         def run():
             (out, lse), (ref_out, ref_lse) = kernel(), plain()
             size = ref_out.float().abs()
             out_max, out_mean = size.max().item(), size.mean().item()
             del size
-            out_err, out_bound = err(out, ref_out), Q8_OUT_REL * out_max
+            out_err, out_bound = err(out, ref_out), out_rel * out_max
             log(f"[q8] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} "
-                f"({Q8_OUT_REL} of the largest |out| {out_max:.3e}; mean |out| {out_mean:.3e})")
+                f"({out_rel} of the largest |out| {out_max:.3e}; mean |out| {out_mean:.3e})")
             if b * sq * sk >= 32760 * 32760:
                 # K1 on the same bf16 q, k, v (no RoPE: K6's operands come rotated),
                 # in turns with K6, and the exp2 floor
@@ -757,20 +792,22 @@ def kernel_cases():
                     f"{k1_dev:.3f} / {k1_dev2:.3f}; K6 <= K1: "
                     f"{max(k6_dev, k6_dev2) <= min(k1_dev, k1_dev2)}; exp2 floor "
                     f"{floor_ms:.2f} ms")
-            return {"flash_fwd_flat_q8/sm90": worst((out_err, out_bound),
-                                                    (err(lse, ref_lse), Q8_LSE_BOUND))}
+            return {entry: worst((out_err, out_bound), (err(lse, ref_lse), lse_bound))}
 
         def k1():
             return A.flash_fwd_flat(q, k, v, d)
 
-        io = _nbytes(q8, qs, k8, kscale, v_in, *([vss] if pv8 else [])) + 2 * q8.numel() \
-            + 4 * b * n * sq  # out bf16, lse f32
-        # Q.K^T at the int8 rate, P.V at the int8 (qk8pv8) or bf16 (qk8) rate
-        peak = PEAK_INT8 if pv8 else 2 / (1 / PEAK_INT8 + 1 / PEAK_BF16)
-        return dict(case=name, shape=[b, sq, sk, n, d], dtype=f"int8 {quant}", run=run,
-                    kernels={"flash_fwd_flat_q8/sm90": kernel}, plain=plain,
+        io = _nbytes(q8, qs, k8, kscale, v_in, *([vss] if pv8 else [])) \
+            + q8.numel() * torch.tensor([], dtype=dtype).element_size() + 4 * b * n * sq
+        # Q.K^T at the int8 rate, P.V at the int8 (qk8pv8), bf16 (qk8) or
+        # f32-accurate rate (f32 qk8: 3xTF32, three TF32 products a product)
+        pv_rate = PEAK_INT8 if pv8 else PEAK_TF32 / 3 if f32 else PEAK_BF16
+        peak = 2 / (1 / PEAK_INT8 + 1 / pv_rate)
+        return dict(case=name, shape=[b, sq, sk, n, d],
+                    dtype=f"int8 {quant}" + (", f32 v and out" if f32 else ""), run=run,
+                    kernels={entry: kernel}, plain=plain,
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                    work={"flash_fwd_flat_q8/sm90": (4 * b * n * sq * kv * d, io, peak)})
+                    work={entry: (4 * b * n * sq * kv * d, io, peak)})
 
     for quant in ("qk8", "qk8pv8"):
         # the 14B self-attention at 81 frames (production), at the slice's 9
@@ -781,6 +818,12 @@ def kernel_cases():
                       grid=(3, 30, 52))
         yield q8_case(f"masked_kv_len_q8_{quant}", quant, 2, 4680, 4680, 40, 128,
                       grid=(3, 30, 52), kv_len=4100)
+    # qk8 with f32 v and out at the slice's shape, and with a masked tail
+    # (SDPA in f32 beside it: a yardstick)
+    yield q8_case("slice_self_attn_q8_qk8_f32", "qk8", 2, 4680, 4680, 40, 128,
+                  grid=(3, 30, 52), dtype=torch.float32)
+    yield q8_case("masked_kv_len_q8_qk8_f32", "qk8", 2, 4680, 4680, 40, 128,
+                  grid=(3, 30, 52), kv_len=4100, dtype=torch.float32)
 
 
 def phase_kernels(card: str):
@@ -989,6 +1032,165 @@ def phase_small_quantized():
         raise RuntimeError("the quantized port on the card disagrees with the port on the CPU")
 
 
+# The clip-level fidelity gate (tests/test_torch_fidelity.py runs it on the
+# CPU against the JAX package, within 0.5 dB): the tiny pipeline with a bf16
+# DiT (one head of 128), then that DiT quantized to w8a8 and to int4_w4a8 with
+# qk8 attention; each device scores its quantized clip against its own bf16
+# clip with clip_psnr, and the card's score must be within FIDELITY_CARD_DB of
+# the CPU port's. Written before the first card run: bf16 and f32 sums in
+# another order and an activation that lands on the other side of an int8
+# rounding boundary move a score by a fraction of a dB; a wrong scale,
+# packing or rounding mode moves it by tens. On seeded weights the scores
+# only catch regressions (PERF.md); a threshold on the score itself waits
+# for trained checkpoints.
+FIDELITY_CARD_DB = 1.0
+FIDELITY_MODES = ("w8a8", "int4_w4a8")
+# The first card run broke FIDELITY_CARD_DB for w8a8 (card 46.817 dB, CPU
+# 48.036 dB: a 1.219 dB gap; int4_w4a8 0.293 dB), while the CPU port on
+# another machine read 45.783 dB for the same clips: near 47 dB a clip is
+# within about one level of its bf16 clip, and bf16 sums in another order
+# move the score by a dB or two (PERF.md, section 6). As phase 4c does for
+# its int8 pipeline, the check of the quantized path is then one DiT forward
+# on the same inputs, card against CPU, for the bf16 DiT and each quantized one:
+# bf16 rounding through 2 blocks and an int8 level that flips (~1% of a
+# row's largest value) stay within FIDELITY_FWD_REL of the output's scale,
+# a wrong scale, packing or rounding mode moves the output by its own size.
+# A clip gap over FIDELITY_CARD_DB is printed as broken and fails the run
+# unless those forwards hold. (This bound was written after the first run.)
+FIDELITY_FWD_REL = 5e-2
+# the tiny multi-speaker audio attention (two speakers, 1-D RoPE class
+# labels, f32 softmax in plain torch), card against CPU: f32 sums in another
+# order, relative to the largest |output|
+MULTITALK_CARD_REL = 1e-5
+
+
+def fidelity_pipeline(device, mode):
+    """The gate's tiny pipeline on `device`: phase 4a's VAE and CLIP (f32)
+    with a bf16 DiT of one head of 128, quantized on `device` when mode is
+    given (groups of 16, every linear of 1024 weights or more) with qk8
+    attention."""
+    from svi_tpu_torch.models import wan_dit
+
+    pipe = tiny_pipeline(device)
+    pipe.dit = wan_dit.init_params(wan_dit.WanDiTConfig(
+        dim=128, in_dim=12, ffn_dim=256, out_dim=4, text_dim=48, freq_dim=32, num_heads=1,
+        num_layers=2, has_image_input=True, clip_feature_dim=64, dtype=torch.bfloat16),
+        seed=2, device="cpu").to(device)
+    if mode is not None:
+        pipe.dit = wan_dit.quantize_params_for_inference(pipe.dit, mode, min_size=1024,
+                                                         group=16, consume=True)
+        pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant="qk8")
+    return pipe
+
+
+def phase_fidelity_gate(card: str) -> dict:
+    """(a) The one-forward check of K6's f32 route: the tiny f32 DiT of phase
+    4c with int4_w4a8 weights and qk8 attention (f32 v and out: route
+    sm90_f32), card against CPU on the same inputs, within SMALL_Q_FWD_REL of
+    the output's scale; its launches are the f32 route's on this path. (b)
+    The clip-level gate: clip_psnr of the w8a8 and int4_w4a8 clips against
+    the bf16 clip, on the card and on the CPU, within FIDELITY_CARD_DB.
+    Returns (a)'s launches."""
+    from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.utils.fidelity import clip_psnr
+
+    pipes = {dev: tiny_pipeline(dev, quantized=True) for dev in ("cuda", "cpu")}
+    for pipe in pipes.values():
+        pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant="qk8")
+    rng = np.random.default_rng(5)
+    inputs = [rng.standard_normal(shape).astype(np.float32) for shape in
+              ((2, 4, 3, 8, 8), (2, 12, 48), (2, 5, 64), (2, 8, 3, 8, 8))]
+    outs = {}
+    with torch.inference_mode():
+        for dev, pipe in pipes.items():
+            x, ctx, clip, y = (torch.from_numpy(a).to(dev) for a in inputs)
+            if dev == "cuda":
+                zero_counts()
+            outs[dev] = pipe.dit(x, torch.tensor([731.0], device=dev), ctx, clip_feature=clip,
+                                 y=y).cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+                routes = dict(A.flash_fwd_flat_q8.routes)
+    del pipes
+    fwd_rel = ((outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+    log(f"[fidelity] card vs CPU, tiny f32 int4_w4a8 + qk8 DiT (K6 route sm90_f32): one "
+        f"forward on the same inputs, max abs err {fwd_rel:.3e} of the output's scale (bound "
+        f"{SMALL_Q_FWD_REL}); int8 attention routes {routes}; {card}")
+    if not (fwd_rel <= SMALL_Q_FWD_REL and launches["flash_fwd_flat_q8/sm90_f32"] > 0
+            and set(k[0] for k in routes) == {"sm90_f32"}):
+        raise RuntimeError("the f32 qk8 forward on the card disagrees with the CPU, or did not "
+                           "take K6's f32 route")
+
+    kw = tiny_call_kwargs()
+    clips, fwd_rel = {}, {}
+    for mode in (None,) + FIDELITY_MODES:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pipe = fidelity_pipeline(dev, mode)
+            x, ctx, clip, y = (torch.from_numpy(a).to(dev) for a in inputs)
+            with torch.inference_mode():
+                outs[dev] = pipe.dit(x, torch.tensor([731.0], device=dev), ctx,
+                                     clip_feature=clip, y=y).float().cpu()
+            frames, _ = pipe(**kw)
+            clips[dev, mode] = np.stack([np.asarray(fr) for fr in frames])
+            del pipe
+        fwd_rel[mode] = ((outs["cuda"] - outs["cpu"]).abs().max()
+                         / outs["cpu"].abs().max()).item()
+        log(f"[fidelity] one forward of the gate's {mode or 'bf16'} DiT on the same inputs, "
+            f"card vs CPU: max abs err {fwd_rel[mode]:.3e} of the output's scale (bound "
+            f"{FIDELITY_FWD_REL}); {card}")
+    forwards_hold = all(v <= FIDELITY_FWD_REL for v in fwd_rel.values())
+    ok = forwards_hold
+    for mode in FIDELITY_MODES:
+        scores = {dev: clip_psnr(clips[dev, mode], clips[dev, None]) for dev in ("cuda", "cpu")}
+        gap = abs(scores["cuda"] - scores["cpu"])
+        held = gap <= FIDELITY_CARD_DB
+        ok = ok and all(np.isfinite(v) for v in scores.values())
+        log(f"[fidelity] tiny pipeline, {mode} + qk8 against bf16: clip_psnr card "
+            f"{scores['cuda']:.3f} dB, CPU {scores['cpu']:.3f} dB, gap {gap:.3f} dB (bound "
+            f"{FIDELITY_CARD_DB}: {'held' if held else 'BROKEN, the one-forward checks decide'}"
+            f"); {card}")
+    if not ok:
+        raise RuntimeError("the fidelity gate: a gate DiT's forward on the card disagrees with "
+                           "the CPU port's, or a score is not finite")
+    return launches
+
+
+def phase_small_multitalk(card: str) -> None:
+    """The multi-speaker audio attention (WanDiT.single_stream_multi_attention,
+    two speakers with a reference map) of a tiny f32 multitalk DiT, card
+    against CPU on the same inputs, within MULTITALK_CARD_REL."""
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.utils import multitalk
+
+    cfg = wan_dit.WanDiTConfig(dim=64, in_dim=12, ffn_dim=128, out_dim=4, text_dim=48,
+                               freq_dim=32, num_heads=2, num_layers=1, has_image_input=True,
+                               clip_feature_dim=64, dtype=torch.float32, enable_multitalk=True,
+                               audio_hidden_dim=32)
+    rng = np.random.default_rng(6)
+    f, s, na = 3, 8, 6
+    x = rng.standard_normal((2, f * s, 64)).astype(np.float32)
+    audio = rng.standard_normal((2, f, na, 32)).astype(np.float32)
+    q = rng.standard_normal((1, f * s, 2, 32)).astype(np.float32)
+    masks = np.zeros((2, s), np.float32)
+    masks[0, :s // 2], masks[1, s // 2:] = 1, 1
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        dit = wan_dit.init_params(cfg, seed=7, device="cpu").to(dev)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        with torch.inference_mode():
+            ref_map = multitalk.get_attn_map_with_target(t(q), t(q), (f, 2, s // 2), t(masks))
+            outs[dev] = dit.single_stream_multi_attention(
+                dit["blocks"][0]["audio_cross_attn"], t(x), t(audio), f, x_ref_attn_map=ref_map,
+                human_num=2).cpu()
+    rel = ((outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+    log(f"[multitalk] two-speaker audio attention of a tiny f32 DiT, card vs CPU: max abs err "
+        f"{rel:.3e} of the output's scale (bound {MULTITALK_CARD_REL}); {card}")
+    if not (torch.isfinite(outs["cuda"]).all() and rel <= MULTITALK_CARD_REL):
+        raise RuntimeError("the multi-speaker audio attention on the card disagrees with the CPU")
+
+
 class PhaseTimer:
     """Wraps a callable: synchronize, time it on the host clock, synchronize;
     also keeps the peak device memory (GiB since the last reset) at the end
@@ -1095,7 +1297,47 @@ def phase_slice():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, forward "
         f"routes {routes}")
     return launches, dict(pipe=pipe, ctx_pos=ctx_pos, ctx_neg=ctx_neg, first=first,
-                          anchor=anchor)
+                          anchor=anchor, clip1=video[:SLICE_FRAMES])
+
+
+def check_tf32_invariance(state: dict, card: str) -> None:
+    """The f32 policy (ops.conv.conv_f32): the VAE's encode and decode of
+    the slice's first clip (480x832, 9 frames) and one forward of the pose
+    embedding at the 14B's width (9 frames of 480x832) run twice, with cuDNN
+    TF32 switched on for the process and off; the outputs must be the same
+    bits, since the package runs every f32 convolution with TF32 off
+    whatever the process sets."""
+    from svi_tpu_torch.models import pose_embedding, wan_dit
+
+    vae = state["pipe"].vae
+    video = torch.from_numpy(state["clip1"]).cuda().permute(3, 0, 1, 2)[None].float() / 127.5 - 1
+    pose = pose_embedding.init_params(wan_dit.WAN_14B_I2V.dim, seed=15, device="cuda")
+    pose_video = torch.rand((1, 3, SLICE_FRAMES, SLICE_H, SLICE_W),
+                            generator=torch.Generator(device="cuda").manual_seed(16),
+                            device="cuda") * 255
+    outs, secs = {}, {}
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                lat = vae.encode(video)
+                outs[tf32] = (lat, vae.decode(lat), pose(pose_video))
+            torch.cuda.synchronize()
+            secs[tf32] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    same = [torch.equal(a, b) for a, b in zip(outs[True], outs[False])]
+    finite = all(bool(torch.isfinite(t).all()) for t in outs[True])
+    log(f"[tf32] VAE encode + decode of the slice's clip 1 {tuple(video.shape)} and the pose "
+        f"embedding at dim {wan_dit.WAN_14B_I2V.dim} on {tuple(pose_video.shape)}: cuDNN TF32 "
+        f"on {secs[True]:.3f}s, off {secs[False]:.3f}s; bit-identical (latents, frames, pose "
+        f"tokens) {same}; {card}")
+    if not (all(same) and finite):
+        raise RuntimeError("an f32 convolution's result depends on the process's cuDNN TF32 "
+                           "switch")
 
 
 def two_clips(pipe, first, anchor, ctx_pos, ctx_neg, tag: str, tea_cache_clip2: bool = False,
@@ -1674,6 +1916,7 @@ def phase_driver(card: str) -> dict:
             raise RuntimeError(f"a kernel was not launched on the driver's path: {launches}")
         log(f"[driver b] forward routes {routes}")
         check_driver_video("b", record["samples"][0], clips=2)
+        bf16_clip1 = np.load(record["samples"][0]["path"])[:SLICE_FRAMES]
         mm = record["manager"]
         expect_n = DRIVER_DIT_BLOCKS * len(DRIVER_LORA_TARGETS)
         if [n for _, n in mm.lora_log] != [expect_n]:
@@ -1733,7 +1976,32 @@ def phase_driver(card: str) -> dict:
         check_quant_path("the driver with --quantize int4_w4a8", q_launches, int_mm, n_q4,
                          int8_attention=False)
         check_driver_video("c", record["samples"][0], clips=1)
+        quant_clips = {"int4_w4a8": np.load(record["samples"][0]["path"])}
         del record, dit
+
+        # (c') the same clip with W8A8 (int8 weights, int8 activations on
+        # torch._int_mm), then each quantized clip against (b)'s bf16 clip 1
+        # (the same files, seed and prompt): full-width numbers on seeded
+        # weights, printed for regressions, with no bound drawn from them
+        with count_int_mm() as int_mm:
+            record, _, _ = run_driver(root, "c-w8a8", ["--num_clips", "1", "--quantize", "w8a8"],
+                                      card)
+        check_driver_video("c-w8a8", record["samples"][0], clips=1)
+        n_q8 = sum(1 for name, _ in record["pipe"].dit.named_parameters()
+                   if name.endswith("w_q8"))
+        quant_clips["w8a8"] = np.load(record["samples"][0]["path"])
+        del record
+        if not (n_q8 > 0 and int_mm.calls > 0):
+            raise RuntimeError(f"--quantize w8a8 loaded {n_q8} int8 linears and made "
+                               f"{int_mm.calls} int8 GEMM calls")
+        from svi_tpu_torch.utils.fidelity import clip_psnr
+
+        scores = {mode: round(clip_psnr(v, bf16_clip1), 3) for mode, v in quant_clips.items()}
+        log(f"[driver fidelity] clip_psnr against the bf16 clip 1 (dB), 4-block 14B-width "
+            f"driver on seeded weights: {scores}; w8a8: {n_q8} int8 linears, "
+            f"{int_mm.calls} torch._int_mm calls; {card}")
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise RuntimeError("a quantized clip's PSNR against bf16 is not finite")
 
         # 4f: the variants' drivers on these files and the ones they add
         phase_variants(root, card)
@@ -1758,6 +2026,9 @@ VARIANT_CLIPS = 2
 # that: a wrong tap, stride or weight-norm fold moves the states by their
 # own size
 W2V_CARD_REL = 2e-5
+# prepare_video_audio on the card against the CPU port's states of the same
+# file: the bound an earlier wav2vec2 card check held (2.051e-6 read)
+PREPARE_CARD_REL = 2.1e-6
 # the tiny dance and talk pipelines, card against CPU (as phase 4a's)
 VARIANT_LAT_TOL, VARIANT_FRAME_LEVELS = 1e-3, 2
 # the dance driver caps the width at 640: a 480x832 image becomes 368x640
@@ -1880,6 +2151,67 @@ def phase_wav2vec2_card(root: Path, card: str) -> None:
         f"{W2V_CARD_REL}); {card}")
     if not (np.isfinite(embs["card"]).all() and err <= W2V_CARD_REL * scale):
         raise RuntimeError("the wav2vec2 states on the card disagree with the CPU port")
+    return embs["host"]
+
+
+def phase_tools(root: Path, host_emb: np.ndarray, card: str) -> None:
+    """The data tools on the card's machine: (a) prepare_video_audio, on the
+    card by default, over a seeded .npy clip and speech.wav with (c)'s
+    full-size wav2vec2: its audio_embedding.pkl within PREPARE_CARD_REL of the
+    CPU port's states of the same file (c), its frames in video.npy where
+    Pillow is missing; (b) make_toy_data (host only) into a directory of its
+    own, its .npy output read by the three training datasets."""
+    import pickle
+    import shutil
+
+    from svi_tpu_torch.scripts import make_toy_data, prepare_video_audio
+    from svi_tpu_torch.training.dataset import (DanceVideoDataset, TalkVideoDataset,
+                                                TextVideoDataset)
+
+    src, wavs, out = root / "talk_clips", root / "talk_wavs", root / "talk_data"
+    src.mkdir()
+    wavs.mkdir()
+    clip = np.random.default_rng(45).integers(0, 255, (12, 96, 160, 3), dtype=np.uint8)
+    np.save(src / "speech.npy", clip)
+    shutil.copy(SPEECH, wavs / "speech.wav")
+    t0 = time.perf_counter()
+    done = prepare_video_audio.main(["--video_dir", str(src), "--audio_dir", str(wavs),
+                                     "--out_dir", str(out),
+                                     "--wav2vec_path", str(root / "chinese-wav2vec2-base")])
+    secs = time.perf_counter() - t0
+    with open(out / "speech" / "audio_embedding.pkl", "rb") as fh:
+        emb = pickle.load(fh)
+    want = np.transpose(host_emb, (1, 0, 2))
+    err = float(np.abs(emb - want).max()) if emb.shape == want.shape else float("inf")
+    scale = float(np.abs(want).max())
+    frames = sorted(p.name for p in (out / "speech").iterdir())
+    log(f"[tools] prepare_video_audio on the card ({secs:.2f}s): {done}, files {frames}; "
+        f"embedding vs the CPU port's max abs err {err:.3e} of max |state| {scale:.3f} = "
+        f"{err / scale:.3e} (bound {PREPARE_CARD_REL}); {card}")
+    if not (err <= PREPARE_CARD_REL * scale and emb.dtype == np.float32):
+        raise RuntimeError("prepare_video_audio's embedding on the card disagrees with the CPU")
+    if "video.npy" in frames and not np.array_equal(np.load(out / "speech" / "video.npy"), clip):
+        raise RuntimeError("prepare_video_audio's video.npy is not the clip's frames")
+    ds = TalkVideoDataset(str(out), max_num_frames=9, num_frames=9, height=96, width=160,
+                          seed=0)
+    if len(ds.video_list) != 1 or not np.isfinite(ds[0]["video"]).all():
+        raise RuntimeError("TalkVideoDataset did not read prepare_video_audio's sample")
+
+    t0 = time.perf_counter()
+    toy = make_toy_data.main(["--root", str(root / "toy_data")])
+    secs = time.perf_counter() - t0
+    kw = dict(max_num_frames=9, num_frames=9, height=96, width=160, seed=0)
+    read = {}
+    for cls, rel in ((TextVideoDataset, "svi-film-shot"), (DanceVideoDataset, "svi-dance"),
+                     (TalkVideoDataset, "svi-talk")):
+        ds = cls(str(Path(toy) / "toy_train" / rel), **kw)
+        sample = ds[0]
+        read[rel] = (len(ds.video_list), tuple(np.shape(sample["video"])))
+        if not np.isfinite(sample["video"]).all():
+            raise RuntimeError(f"make_toy_data's {rel} sample is not finite")
+    files = sorted(p.name for p in (Path(toy) / "toy_test" / "dance").iterdir())
+    log(f"[tools] make_toy_data {secs:.2f}s (toy_test/dance holds {files}); read by the "
+        f"datasets (samples, video shape): {read}; {card}")
 
 
 def run_variant_driver(module, argv: list[str], tag: str, card: str):
@@ -1961,7 +2293,7 @@ def phase_variants(root: Path, card: str) -> dict:
     t_phase = time.perf_counter()
     gap = phase_small_variants(card)
     write_variant_checkpoints(root, card)
-    phase_wav2vec2_card(root, card)
+    phase_tools(root, phase_wav2vec2_card(root, card), card)
     common = ["--dit_root", str(root), "--num_frames", str(SLICE_FRAMES), "--num_steps",
               str(SLICE_STEPS), "--save_format", "npy"]
     talk = [*common, "--extra_module_root", str(root / "svi-shot.safetensors"),
@@ -2273,7 +2605,8 @@ def phase_training():
     # clean_buffer_update_prob draw
     if not (totals[-1] > 0 and all(b >= a for a, b in zip(totals, totals[1:]))):
         raise RuntimeError(f"the error buffers did not grow: {totals}")
-    if min(n for k, n in launches.items() if k not in QUANT_KERNELS + QUANT_TRAIN) <= 0:
+    if min(n for k, n in launches.items()
+           if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -2767,18 +3100,6 @@ def phase_train_drivers(root: Path, card: str) -> dict:
         raise RuntimeError("the dance driver did not start from the file's pose convs, or did "
                            "not train them")
     profile_train_step("c-dance", record["trainer"], record["last_batch"], card)
-    # the pose convs are f32 cuDNN convolutions, which this script runs with
-    # TF32 off; PyTorch's default lets cuDNN use TF32: one step so, for context
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        record["trainer"].training_step(**record["last_batch"])
-        torch.cuda.synchronize()
-        log(f"[train-driver c-dance] one step with cuDNN TF32 on (PyTorch's default): "
-            f"{time.perf_counter() - t0:.3f}s; {card}")
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
     del record, lora_sd
     gc.collect()
 
@@ -2795,10 +3116,22 @@ def phase_train_drivers(root: Path, card: str) -> dict:
     del record
     gc.collect()
 
-    # (e) the exported shot LoRA through the inference driver
-    sd = load_file(export)
+    # (e) extract_lora on the exported shot LoRA, then the extracted file
+    # through the inference driver
+    from svi_tpu_torch.scripts import extract_lora
+
+    extracted = str(root / "svi-shot-extracted.safetensors")
+    n_extracted = extract_lora.main(["--input", export, "--output", extracted])
+    sd = load_file(extracted)
+    exported = load_file(export)
+    log(f"[train-driver e-infer] extract_lora: {n_extracted} of the export's {len(exported)} "
+        f"tensors, f32: {all(v.dtype == torch.float32 for v in sd.values())}")
+    if sorted(sd) != sorted(k for k in exported if "lora_" in k) or any(
+            not torch.equal(sd[k], exported[k].float()) for k in sd):
+        raise RuntimeError("extract_lora did not keep the export's LoRA tensors as they are")
+    del exported
     b_max = max(v.abs().max().item() for k, v in sd.items() if ".lora_B." in k)
-    argv = ["--dit_root", str(root), "--extra_module_root", export,
+    argv = ["--dit_root", str(root), "--extra_module_root", extracted,
             "--output", str(root / "videos_trained"), "--ref_image_path", str(root / "frame.npy"),
             "--prompt_path", str(REPO / "data" / "toy_test" / "shot" / "prompt.txt"),
             "--num_frames", str(SLICE_FRAMES), "--num_steps", str(SLICE_STEPS),
@@ -2808,7 +3141,7 @@ def phase_train_drivers(root: Path, card: str) -> dict:
     rec = test_svi.main(argv)
     (sample,) = rec["samples"]
     fused = rec["manager"].lora_log
-    log(f"[train-driver e-infer] the exported LoRA ({len(sd)} tensors, max |B| {b_max:.3e}) "
+    log(f"[train-driver e-infer] the extracted LoRA ({len(sd)} tensors, max |B| {b_max:.3e}) "
         f"fused {fused} in the inference driver; one clip in {time.perf_counter() - t0:.2f}s; "
         f"{card}")
     if not (b_max > 0 and fused and fused[0][1] == len(sd) // 2):
@@ -2837,12 +3170,12 @@ def main() -> int:
     log(f"[env] {json.dumps(svi_tpu_torch.capability_probe())}")
     card = nvidia_smi_line()
     log(f"[env] nvidia-smi: {card}")
-    # f32 stays f32: the VAE and CLIP run in f32 for fidelity, and the plain
-    # attention versions are the reference for the kernels
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"[env] TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"cudnn {torch.backends.cudnn.allow_tf32} (both off: f32 math stays f32)")
+    # both TF32 switches stay at PyTorch's defaults, as a user's process has
+    # them, so every phase measures what users run: f32 matmuls are f32 by
+    # default, and the package runs its f32 convolutions with cuDNN TF32 off
+    # itself (ops.conv.conv_f32; phase 4b checks that the switch moves no bit)
+    log(f"[env] TF32 (PyTorch's defaults, left as they are): matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -2869,9 +3202,12 @@ def main() -> int:
     # 4. the inference slice, in bf16 and quantized
     phase_small_reference()
     infer_launches, state = phase_slice()
+    check_tf32_invariance(state, card)
     phase_forward_81f(state)
     phase_multitalk_step(state, card)  # phase 4f's full-depth step, on 4b's bf16 weights
     phase_small_quantized()
+    f32_q8_launches = phase_fidelity_gate(card)
+    phase_small_multitalk(card)
     quant_launches = phase_quantized_slice(state)
     phase_quantized_81f(state)
     del state
@@ -2889,12 +3225,14 @@ def main() -> int:
 
     # 6. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
-    # the quantized inference path's, K3's the quantized training driver's
+    # the quantized inference path's (K6's f32 route the fidelity gate's f32
+    # forward), K3's the quantized training driver's
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (train_q_launches if entry in QUANT_TRAIN else quant_launches
+        launches = (f32_q8_launches if entry in QUANT_F32
+                    else train_q_launches if entry in QUANT_TRAIN else quant_launches
                     if entry in QUANT_KERNELS else infer_launches
                     if entry.startswith("flash_fwd") or entry == "rope_rotate_flat"
                     else train_launches)[entry]

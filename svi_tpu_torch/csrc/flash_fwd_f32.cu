@@ -86,46 +86,6 @@ __device__ __forceinline__ float lse_of(float m, float l) {
   return mm + logf(fmaxf(l, 1e-30f));
 }
 
-// f32 bits rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away
-// from zero: half of the 13 dropped bits added to the magnitude, then
-// cleared), in two integer operations instead of a conversion
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
-  return (bits + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo, each rounded to TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(__float_as_uint(x));
-  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
-}
-
-// d += a (16x8 row-major tf32) * b (8x8 col-major tf32), f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b in 3xTF32: the small cross terms first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)

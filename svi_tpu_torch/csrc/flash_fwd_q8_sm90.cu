@@ -14,7 +14,9 @@
 //                                          masked and zero-padded ones too
 //   p     = exp2((s * c - m_t) + shift)    0 for keys >= min(kv_len, Sk)
 //   l     = alpha * l + sum(p),  alpha = exp2(m - m_t)
-//   qk8:    acc = acc * alpha + bf16(p) . v
+//   qk8:    acc = acc * alpha + bf16(p) . v     (bf16 v and out)
+//           acc = acc * alpha + p . v           (f32 v and out: the JAX
+//           kernel's P.V in v's dtype when q is f32, p_t.astype(v_ref.dtype))
 //   qk8pv8: acc = acc * alpha + float(rint(p) . v8)   (exact int32; the
 //           kernel keeps the int32 sums of the tiles that share a max and
 //           folds them into acc when the max moves: the same sum, rounded
@@ -63,8 +65,12 @@
 //      padded keys); only tiles that reach past kv_len are masked. The out
 //      rows are written from registers (no staging tile fits beside the
 //      ring at qk8's 48 KB stages). qk8pv8 keeps O in shared memory (see
-//      o_bytes): its registers hold S, the int32 sums, P and Q.
+//      o_bytes): its registers hold S, the int32 sums, P and Q;
+//   6. qk8 with f32 v and out is a kernel of its own below
+//      (flash_fwd_q8_f32v_kernel): the same Q.K^T and softmax, P.V in 3xTF32
+//      on mma.sync (see there).
 
+#include "flash_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -532,6 +538,192 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// qk8 with f32 v and out. Q.K^T is the integer wgmma above and the softmax
+// the same code; P.V must keep f32 accuracy (one TF32 pass drifts ~1e-3
+// relative), so it runs in 3xTF32 on mma.sync m16n8k8 (P and V each split
+// into two TF32 halves, the small cross terms first: flash_fwd_f32.cu's
+// product), straight from the scores' registers. The m64n128 accumulator of
+// a warp's 16 rows is m16n8's C layout, 8 columns a group; the keys {2t,
+// 2t + 1} that lane 4g + t holds of an 8-key group serve as its A
+// fragment's k = t and k = t + 4, and its B fragment reads V at the same two
+// keys, so P needs no shuffle. V arrives by TMA as four 32-column boxes of
+// 128 keys, 128-byte swizzled, which puts a warp's B loads (keys 2t, 2t + 1,
+// columns 8jn + g) on 32 distinct banks. An f32 V stage is 64 KB, so the ring
+// holds two stages (the Q tile, 2 x (16 + 64) KB: 177 KB); the two consumer
+// warpgroups run without ping-pong, each tile's P.V after its softmax (O is
+// rescaled first, as the plain version's acc * alpha + pv). What bounds it:
+// the 3 mma.sync a product and the B fragments' split on the CUDA cores, not
+// bytes (each V tile is read once per 128 query rows).
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Stages = 2;
+constexpr int kF32BoxCols = 32;
+constexpr uint32_t kF32Box = kBN * kRowBytes;                 // 16 KB: 128 keys x 32 f32
+constexpr uint32_t kF32VTile = (kD / kF32BoxCols) * kF32Box;  // 64 KB
+constexpr size_t kF32Smem =
+    kI8Tile + kF32Stages * (kI8Tile + kF32VTile) + 8 * (3 * kF32Stages + 1) + 1024;
+
+// shared-memory map: the Q tile, the K ring, the V ring, the barriers (full
+// K of stage st: st; full V: kF32Stages + st; empty: 2 kF32Stages + st; Q: 3
+// kF32Stages)
+__device__ __forceinline__ uint32_t f32v_k_tile(uint32_t base, int st) {
+  return base + kI8Tile * (1 + st);
+}
+__device__ __forceinline__ uint32_t f32v_v_tile(uint32_t base, int st) {
+  return base + kI8Tile * (1 + kF32Stages) + kF32VTile * st;
+}
+__device__ __forceinline__ uint32_t f32v_bar(uint32_t base, int i) {
+  return base + kI8Tile * (1 + kF32Stages) + kF32VTile * kF32Stages + 8 * i;
+}
+
+// V's (key, col) of an f32 tile: box col / 32, 16-byte chunk (col % 32) / 4
+__device__ __forceinline__ float ld_v_f32(uint32_t v_base, int key, int col) {
+  const uint32_t addr = v_base + (col / kF32BoxCols) * kF32Box +
+                        swizzle128(key, (col % kF32BoxCols) / 4) + 4 * (col % 4);
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// O += P V over a 128-key tile in 3xTF32; P (f32 bits) in s, 16 steps of 8
+// keys, each over the 16 8-column groups of O
+__device__ __forceinline__ void issue_pv_f32(float (&o)[64], const int (&s)[64], uint32_t v_base,
+                                             int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 8; ++kk) {
+    // A: (row g, k t), (row g + 8, k t), (row g, k t + 4), (row g + 8, k t + 4)
+    const float a[4] = {pf_at(s, 4 * kk), pf_at(s, 4 * kk + 2), pf_at(s, 4 * kk + 1),
+                        pf_at(s, 4 * kk + 3)};
+    uint32_t ah[4], al[4];
+    svi::split4(a, ah, al);
+    const int key = 8 * kk + 2 * t4;
+#pragma unroll
+    for (int jn = 0; jn < kD / 8; ++jn) {
+      float d[4] = {o[4 * jn], o[4 * jn + 1], o[4 * jn + 2], o[4 * jn + 3]};
+      svi::mma_3xtf32(d, ah, al, ld_v_f32(v_base, key, 8 * jn + g),
+                      ld_v_f32(v_base, key + 1, 8 * jn + g));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[4 * jn + i] = d[i];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_q8_f32v_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const int q0 = blockIdx.x * kBM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (int)((p.sk + kBN - 1) / kBN);
+  const int wg = threadIdx.x / 128;
+  const uint32_t bar_q = f32v_bar(base, 3 * kF32Stages);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(f32v_bar(base, st), 1);
+      mbar_init(f32v_bar(base, kF32Stages + st), 1);
+      mbar_init(f32v_bar(base, 2 * kF32Stages + st), kConsumerWarps);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, kI8Tile);
+      tma_load(base, &tq, bar_q, 0, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kF32Stages;
+        if (j >= kF32Stages)
+          mbar_wait(f32v_bar(base, 2 * kF32Stages + st), ((j / kF32Stages) - 1) & 1);
+        const uint32_t fk = f32v_bar(base, st), fv = f32v_bar(base, kF32Stages + st);
+        mbar_expect_tx(fk, kI8Tile);
+        tma_load(f32v_k_tile(base, st), &tk, fk, 0, h, j * kBN, b);
+        mbar_expect_tx(fv, kF32VTile);
+        for (int c = 0; c < kD / kF32BoxCols; ++c)
+          tma_load(f32v_v_tile(base, st) + c * kF32Box, &tv, fv, c * kF32BoxCols, h, j * kBN, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const long long bh = (long long)b * p.n_heads + h;
+    const long long row0 = q0 + wg * 64 + warp * 16 + g;
+    const float kc = __fmul_rn(__fmul_rn(p.kscale[bh], p.scale), kLog2e);
+    const float* qsrow = p.qs + bh * p.sq;
+    const float c[2] = {row0 < p.sq ? __fmul_rn(qsrow[row0], kc) : 0.f,
+                        row0 + 8 < p.sq ? __fmul_rn(qsrow[row0 + 8], kc) : 0.f};
+    const long long mask_from = p.kv_end / kBN;
+
+    float o[64], m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f}, alpha[2];
+    int s[64];
+    uint32_t qf[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    mbar_wait(bar_q, 0);
+    load_q_frags(qf, base + wg * 64 * kRowBytes, warp, g, t4);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kF32Stages;
+      const uint32_t phase = (j / kF32Stages) & 1;
+      mbar_wait(f32v_bar(base, st), phase);
+      wgmma_fence();
+      issue_qk(s, qf, f32v_k_tile(base, st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_iregs(s);
+      softmax_tile<false>(s, m, l, alpha, c, j >= mask_from, (long long)j * kBN, p.kv_end, t4);
+      rescale(o, alpha);
+      mbar_wait(f32v_bar(base, kF32Stages + st), phase);
+      issue_pv_f32(o, s, f32v_v_tile(base, st), g, t4);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(f32v_bar(base, 2 * kF32Stages + st));
+    }
+
+    // epilogue: normalise and write this thread's two rows from registers
+    float lm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lm[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+    float* ob = static_cast<float*>(p.out) + b * p.osb + h * p.osn;
+#pragma unroll
+    for (int jn = 0; jn < kD / 8; ++jn) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = row0 + 8 * half;
+        if (row < p.sq)
+          store_pair<float>(ob + row * p.oss + jn * 8 + 2 * t4,
+                            __fdiv_rn(o[4 * jn + 2 * half], lm[half]),
+                            __fdiv_rn(o[4 * jn + 2 * half + 1], lm[half]));
+      }
+    }
+    if (t4 == 0) {
+      float* lrow = p.lse + bh * p.sq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = row0 + 8 * half;
+        if (row < p.sq) lrow[row] = __fadd_rn(__fdiv_rn(m[half], kLog2e), logf(lm[half]));
+      }
+    }
+  }
+}
+
+int launch_f32v(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                const Params& p, dim3 grid, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_q8_f32v_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kF32Smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_q8_f32v_kernel<<<grid, kThreads, kF32Smem, st>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // qk8pv8's V8 pre-pass: v8 (B, Sk, N*D) int8 -> v8^T (B, N, D, Sk_pad), keys
 // contiguous and permuted inside each 32-key chunk (slot 16h + 4t + i holds
 // key 16h + (2t, 2t+1, 8+2t, 9+2t)[i]), zeros past Sk. One CTA per
@@ -592,9 +784,10 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 
 }  // namespace
 
-// q8, k8: int8 (B, S, N, 128) views; v: bf16 (B, Sk, N, 128) view (qk8) or,
-// for qk8pv8, the contiguous (B, N, 128, sk_pad) int8 v8^T in the key order
-// above (sk_pad a multiple of 128); out: bf16 (or f32 for qk8pv8) view.
+// q8, k8: int8 (B, S, N, 128) views; v: bf16 or f32 (B, Sk, N, 128) view
+// (qk8; out_f32 says which, and out has v's type) or, for qk8pv8, the
+// contiguous (B, N, 128, sk_pad) int8 v8^T in the key order above (sk_pad a
+// multiple of 128); out: bf16 or f32 view.
 // strides: 12 element strides, (b, s, n) for q8, k8, v and out in that order
 // (v's are not read for qk8pv8). Sk must be at least 1. Returns 0 when the
 // kernel was launched, a cudaError_t value, kNoEncodeEntry, or
@@ -606,7 +799,7 @@ extern "C" int svi_flash_fwd_q8_sm90(int pv8, int out_f32, const void* q8, const
                                      long long sk_pad, long long kv_len, float scale,
                                      const long long* strides, void* stream) {
   if (batch == 0 || n_heads == 0 || sq == 0) return (int)cudaSuccess;
-  if (sk <= 0 || (!pv8 && out_f32) || (pv8 && (sk_pad < sk || sk_pad % kBN)))
+  if (sk <= 0 || (pv8 && (sk_pad < sk || sk_pad % kBN)))
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kNoEncodeEntry;
@@ -622,6 +815,9 @@ extern "C" int svi_flash_fwd_q8_sm90(int pv8, int out_f32, const void* q8, const
     // rows of sk_pad keys: (sk_pad, 1, N * D, B)
     const long long st[3] = {n_heads * kD * sk_pad, sk_pad, sk_pad};
     r = encode_map(fn, &tv, u8, 1, v, sk_pad, 1, n_heads * kD, batch, st, kBN, kD);
+  } else if (out_f32) {
+    r = encode_map(fn, &tv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v, kD, n_heads, sk, batch,
+                   strides + 6, kF32BoxCols, kBN);
   } else {
     r = encode_map(fn, &tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, kD, n_heads, sk, batch,
                    strides + 6, kBf16BoxCols, kBN);
@@ -644,7 +840,9 @@ extern "C" int svi_flash_fwd_q8_sm90(int pv8, int out_f32, const void* q8, const
   p.scale = scale;
   const dim3 grid((unsigned)((sq + kBM - 1) / kBM), (unsigned)n_heads, (unsigned)batch);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (!pv8) return launch<false, __nv_bfloat16>(tq, tk, tv, p, grid, st);
+  if (!pv8)
+    return out_f32 ? launch_f32v(tq, tk, tv, p, grid, st)
+                   : launch<false, __nv_bfloat16>(tq, tk, tv, p, grid, st);
   return out_f32 ? launch<true, float>(tq, tk, tv, p, grid, st)
                  : launch<true, __nv_bfloat16>(tq, tk, tv, p, grid, st);
 }

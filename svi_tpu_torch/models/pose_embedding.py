@@ -5,8 +5,9 @@ that compresses the pose video (3, F + 3, H, W) to patch-grid tokens
 (F'/4 · H/16 · W/16, dim), added to the DiT's patch tokens as
 `add_condition`. Its weights ride inside the SVI-Dance LoRA file under
 `dwpose_embedding.{0,2,...,12}.{weight,bias}` (the indices of an
-nn.Sequential). The convolutions are cuDNN's `F.conv3d` (the JAX package
-runs XLA's here, no Pallas kernel).
+nn.Sequential). The convolutions are cuDNN's `F.conv3d` in f32, TF32 off in
+the forward and the backward (`ops.conv.conv_f32`; the JAX package runs
+XLA's here, no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv import conv_f32
 from .params import Init, ParamTree, to_torch
 
 # (kernel, stride, padding) per conv; channels 3 -> 16 -> ... -> 16 -> dim
@@ -49,7 +51,7 @@ class PoseEmbedding(ParamTree):
         layers = self["layers"]
         x = x.to(layers[0]["w"].dtype)
         for i, (_, stride, pad) in enumerate(LAYERS):
-            x = F.conv3d(x, layers[i]["w"], layers[i]["b"], stride=stride, padding=pad)
+            x = conv_f32(F.conv3d, x, layers[i]["w"], layers[i]["b"], stride=stride, padding=pad)
             if i < len(LAYERS) - 1:
                 x = F.silu(x)
         return x.flatten(2).transpose(1, 2)

@@ -19,9 +19,10 @@ and the int8 self-attention forward (`WanDiTConfig.attention_quant`); and
 the reference's checkpoints (`config_from_state_dict`,
 `params_from_torch_state_dict`, quantize-on-load, and the inverse for
 writing them); in training, the save-attention remat policy and carries
-offloaded to host memory. The multi-speaker audio attention
-(`single_stream_multi_attention`) is not part of this port.
-Activations are in cfg.dtype; norm and softmax statistics f32; base weights
+offloaded to host memory; the multi-speaker audio attention
+(`WanDiT.single_stream_multi_attention`, which no pipeline calls, as in the
+JAX package) and `init_params_int4`, a quantized tree made on the device
+without the float one. Activations are in cfg.dtype; norm and softmax statistics f32; base weights
 are frozen.
 """
 
@@ -355,6 +356,59 @@ class WanDiT(ParamTree):
         o = torch.einsum("bnsk,bknd->bsnd", probs, v).reshape(bf, s, d)
         return dense(p["proj"], o).reshape(b, s_all, d)
 
+    def single_stream_multi_attention(self, p, x, audio, num_frames: int,
+                                      x_ref_attn_map=None, human_num: int = 1,
+                                      class_range: int = 24, class_interval: int = 4):
+        """The multi-speaker per-frame audio cross-attention
+        (`single_stream_multi_attention`): x (b, N_t * S, d); audio (b, N_t,
+        N_a, 768), the speakers' windows concatenated (the first half of the
+        N_a tokens speaker 1's, the second half speaker 2's);
+        x_ref_attn_map (classes, N_t * S), each token's affinity to each
+        speaker (`utils.multitalk.get_attn_map_with_target`). Each video
+        token's query is rotated by a 1-D RoPE at its speaker's class label
+        (its affinity rescaled into that speaker's range, or the background
+        label), each audio key at its speaker's class centre; then the
+        per-frame attention of `_audio_cross_attention`, logits and softmax
+        in f32. With human_num 1 or no map it is `_audio_cross_attention`."""
+        if human_num == 1 or x_ref_attn_map is None:
+            return self._audio_cross_attention(p, x, audio, num_frames)
+        from ..utils.multitalk import normalize_and_scale, rope_1d
+
+        cfg = self.cfg
+        b, s_all, d = x.shape
+        f = num_frames
+        s = s_all // f
+        n, hd = cfg.num_heads, cfg.head_dim
+        rope_h1 = (0, class_interval)
+        rope_h2 = (class_range - class_interval, class_range)
+        q = dense(p["q_linear"], x.reshape(b * f, s, d)).reshape(b * f, s, n, hd)
+
+        # each token's position: its speaker's rescaled affinity, or the background's
+        m = x_ref_attn_map.float()
+        human1 = normalize_and_scale(m[0], (m[0].min(), m[0].max()), rope_h1)
+        human2 = normalize_and_scale(m[1], (m[1].min(), m[1].max()), rope_h2)
+        back = torch.full((s_all,), float(class_range // 2), device=x.device)
+        normalized_map = torch.stack([human1, human2, back], dim=1)  # (N_t * S, 3)
+        pos = normalized_map.gather(1, m.argmax(0)[:, None])[:, 0]
+        q = rope_1d(q.reshape(b, f * s, n, hd).transpose(1, 2), pos)
+        q = q.transpose(1, 2).reshape(b * f, s, n, hd)
+
+        na = audio.shape[2]
+        kv = dense(p["kv_linear"], audio.reshape(b * f, na, -1).to(x.dtype)).reshape(
+            b * f, na, 2, n, hd)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        # the audio keys at their speaker's class centre
+        per_frame = torch.cat([
+            torch.full((na // 2,), (rope_h1[0] + rope_h1[1]) / 2, device=x.device),
+            torch.full((na - na // 2,), (rope_h2[0] + rope_h2[1]) / 2, device=x.device)])
+        k = rope_1d(k.reshape(b, f * na, n, hd).transpose(1, 2), per_frame.repeat(f))
+        k = k.transpose(1, 2).reshape(b * f, na, n, hd)
+
+        logits = torch.einsum("bsnd,bknd->bnsk", q.float(), k.float()) * hd ** -0.5
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        o = torch.einsum("bnsk,bknd->bsnd", probs, v).reshape(b * f, s, d)
+        return dense(p["proj"], o).reshape(b, s_all, d)
+
     def audio_proj_forward(self, audio_first: torch.Tensor, audio_vf: torch.Tensor):
         """AudioProjModel (`audio_proj_forward`): the wav2vec2 windows of the
         first frame (b, 1, 5, 12, 768) and of each later group of 4 frames
@@ -529,7 +583,11 @@ class WanDiT(ParamTree):
 
 def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
     """Seeded random weights with the JAX package's distributions (init_params)."""
-    r = Init(seed, device, cfg.dtype)
+    return WanDiT(cfg, _init_tree(cfg, Init(seed, device, cfg.dtype)))
+
+
+def _init_tree(cfg: WanDiTConfig, r: Init) -> dict:
+    """init_params' tree, its tensors made by r."""
     d, f = cfg.dim, cfg.ffn_dim
     pt, ph, pw = cfg.patch_size
 
@@ -584,7 +642,21 @@ def init_params(cfg: WanDiTConfig, seed: int = 0, device="cuda") -> WanDiT:
                               "proj2": r.linear(512, 512),
                               "proj3": r.linear(512, cfg.audio_context_tokens * ad),
                               "norm": {"w": r.ones((ad,)), "b": r.zeros((ad,))}}
-    return WanDiT(cfg, tree)
+    return tree
+
+
+class _ShapeInit(Init):
+    """init_params' shapes and dtypes without the values: every tensor on
+    the meta device, so no memory is taken."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.device, self.dtype = torch.device("meta"), dtype
+
+    def uniform(self, shape, lim: float, dtype=None) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype or self.dtype, device=self.device)
+
+    normal = uniform
+
 
 
 _QUANT_LEAVES = ("w_q4", "scale_q4", "r_q4", "s8_q4", "w_q8", "scale8", "w_q", "scale")
@@ -760,6 +832,53 @@ def quantize_params_for_inference(dit, mode: str, min_size: int = 1 << 16,
     if isinstance(dit, WanDiT):
         return WanDiT(dit.cfg, fns[mode](dit.tree(consume=consume)))
     return fns[mode](dit)
+
+
+def init_params_int4(cfg: WanDiTConfig, generator: torch.Generator, device="cuda",
+                     min_size: int = 1 << 16, group: int = INT4_GROUP,
+                     weight_scale: float = 0.02, w4a8: bool = False) -> WanDiT:
+    """Random int4-packed weights with the layout of
+    quantize_params_int4(init_params(cfg)) (`init_params_int4`), made
+    directly on `device` from `generator` (a torch.Generator of that device)
+    and never through the float tree: a 14B DiT in int4_w4a8 takes 8.6 GiB
+    without a 30.5 GiB float tree on the way. The layout is read from
+    init_params run on the meta device. Each large linear gets uniform
+    random packed bytes (w_q4) and constant group scales (scale_q4 =
+    weight_scale / 7; with w4a8, r_q4 = 127 / 7 and s8_q4 = weight_scale /
+    127); modulations and the other linears N(0, weight_scale) in cfg.dtype,
+    biases zeros, norm weights ones. As in the JAX package min_size counts a
+    block linear's elements over all the blocks (its stacked array there),
+    and a linear is packed only when its inputs divide by the group. For
+    memory and speed measurements: the values are not a model's."""
+    shapes = _init_tree(cfg, _ShapeInit(cfg.dtype))
+
+    def build(tree, copies: int):
+        if isinstance(tree, list):
+            return [build(e, copies) for e in tree]
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, (dict, list)):
+                out[k] = build(v, cfg.num_layers if k == "blocks" else copies)
+            elif (k == "w" and v.ndim == 2 and v.numel() * copies >= min_size
+                  and v.shape[1] % group == 0):
+                cout, cin = v.shape
+                out["w_q4"] = torch.empty((cout, cin // 2), dtype=torch.int8,
+                                          device=device).random_(-128, 128, generator=generator)
+                out["scale_q4"] = torch.full((cout, cin // group), weight_scale / 7.0,
+                                             device=device)
+                if w4a8:  # constant group scales: r = 127 / 7, s8 = weight_scale / 127
+                    out["r_q4"] = torch.full((cout, cin // group), 127.0 / 7.0, device=device)
+                    out["s8_q4"] = torch.full((cout, 1), weight_scale / 127.0, device=device)
+            elif k == "b":
+                out[k] = torch.zeros(v.shape, dtype=v.dtype, device=device)
+            elif k == "modulation" or (k == "w" and v.ndim >= 2):
+                out[k] = torch.empty(v.shape, dtype=v.dtype, device=device).normal_(
+                    0.0, weight_scale, generator=generator)
+            else:
+                out[k] = torch.ones(v.shape, dtype=v.dtype, device=device)
+        return out
+
+    return WanDiT(cfg, build(shapes, 1))
 
 
 # ---------------------------------------------------------------------------

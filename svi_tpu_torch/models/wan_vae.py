@@ -1,7 +1,8 @@
 """Wan 2.1 causal 3D video VAE: untiled encode and decode, f32.
 
 Port of svi_tpu/models/wan_vae.py (`encode`, `decode`) in PyTorch's NCDHW
-layout with `F.conv3d`. Every causal 3x3x3 conv carries a cache of its last
+layout with `F.conv3d` (f32 convolutions in f32, TF32 off:
+`ops.conv.conv_f32`). Every causal 3x3x3 conv carries a cache of its last
 two input frames (zeros at stream start); the encoder consumes 1 + 4k frames
 as a first frame then chunks, the decoder one latent frame then chunks, with
 chunk sizes from `_pick_chunk` as in the JAX package. The mid-block spatial
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
+from ..ops.conv import conv_f32
 from ..ops.norms import channel_rms_norm
 from .params import Init, ParamTree, convert_tree
 
@@ -62,7 +64,7 @@ def _conv3d(p, x, stride=(1, 1, 1), spatial_pad=None):
     kh, kw = p["w"].shape[3:]
     if spatial_pad is None:
         spatial_pad = (kh // 2, kw // 2)
-    return F.conv3d(x, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=stride,
+    return conv_f32(F.conv3d, x, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=stride,
                     padding=(0, *spatial_pad))
 
 
@@ -79,7 +81,7 @@ def _conv2d(p, x, stride=1, padding=None):
     w = p["w"]  # (out, in, kh, kw)
     if padding is None:
         padding = w.shape[2] // 2  # 'SAME' for the odd, stride-1 kernels used here
-    return F.conv3d(x, w[:, :, None].to(x.dtype), p["b"].to(x.dtype),
+    return conv_f32(F.conv3d, x, w[:, :, None].to(x.dtype), p["b"].to(x.dtype),
                     stride=(1, stride, stride), padding=(0, padding, padding))
 
 

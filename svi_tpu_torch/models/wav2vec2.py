@@ -7,7 +7,8 @@ projection, and the 12-layer post-norm encoder with its grouped positional
 convolution; `forward` returns all 12 hidden states, which SVI-Talk's
 AudioProjModel reads. Checkpoints are in transformers' naming
 (`params_from_torch`, `load_params`), no transformers module is built.
-The attention is plain softmax in f32, as in the JAX package.
+The attention is plain softmax in f32, as in the JAX package, and the
+convolutions run in f32 with cuDNN TF32 off (`ops.conv.conv_f32`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv import conv_f32
 from ..ops.norms import layer_norm
 from ..utils.safetensors_io import load_file
 from .params import Init, ParamTree, dense
@@ -54,7 +56,7 @@ class Wav2Vec2(ParamTree):
         cfg = self.cfg
         x = input_values[:, None, :]
         for i, p in enumerate(self["conv_layers"]):
-            x = F.conv1d(x, p["w"], stride=cfg.conv_stride[i])
+            x = conv_f32(F.conv1d, x, p["w"], stride=cfg.conv_stride[i])
             if "group_norm" in p:  # GroupNorm(C, C): each channel normalized over time
                 gp = p["group_norm"]
                 mu = x.mean(-1, keepdim=True)
@@ -70,7 +72,7 @@ class Wav2Vec2(ParamTree):
         cfg = self.cfg
         k = cfg.num_conv_pos_embeddings
         pc = self["pos_conv"]
-        pos = F.conv1d(hidden.transpose(1, 2), pc["w"], pc["b"], padding=k // 2,
+        pos = conv_f32(F.conv1d, hidden.transpose(1, 2), pc["w"], pc["b"], padding=k // 2,
                        groups=cfg.num_conv_pos_embedding_groups).transpose(1, 2)
         if k % 2 == 0:  # the reference's same-pad layer drops the extra last column
             pos = pos[:, :-1]

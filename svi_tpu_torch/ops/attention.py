@@ -18,8 +18,8 @@ instead):
     (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward;
   * `flash_fwd_flat_q8` -- K6's contract (`_fwd_kernel_flat_q8`): the int8
     forward on operands quantized by `_quant_prep` (the torch version of
-    `_quant_prep_xla`), modes qk8 (int8 Q.K^T, bf16 P.V) and qk8pv8 (int8
-    P.V too).
+    `_quant_prep_xla`), modes qk8 (int8 Q.K^T, P.V in v's type: bf16, or
+    f32 in 3xTF32 at D = 128) and qk8pv8 (int8 P.V too).
 
 The forward entries (a layout is only strides) take the route `_fwd_route`
 names for the dtype and head dim: bf16 D = 128 (every DiT attention) runs
@@ -883,9 +883,14 @@ def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> tupl
         raise RuntimeError("int8 flash forward: every tensor must be on one CUDA device "
                            f"(got {sorted({str(t.device) for t in tensors})})")
     route = _q8_route(head_dim)
-    if (vss is None and (v.dtype, out.dtype) != (torch.bfloat16, torch.bfloat16)) or \
+    # qk8 takes v and out of one type: bf16 on both routes, f32 on the sm90
+    # route (the JAX kernel's P.V in v's dtype when q is f32)
+    qk8_types = [(torch.bfloat16, torch.bfloat16)] + (
+        [(torch.float32, torch.float32)] if route == "sm90" else [])
+    if (vss is None and (v.dtype, out.dtype) not in qk8_types) or \
             out.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError("int8 flash forward kernel: qk8 takes bfloat16 v and out; qk8pv8 "
+        raise TypeError(f"int8 flash forward kernel ({route}): qk8 takes v and out both "
+                        f"bfloat16{' or both float32' if route == 'sm90' else ''}; qk8pv8 "
                         f"bfloat16 or float32 out (got v {v.dtype}, out {out.dtype})")
     for name, t in dict(q8=q8, k8=k8, v=v, out=out).items():
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
@@ -909,6 +914,8 @@ def _launch_q8(q8, qs, k8, kscale, v, vss, out, head_dim, kv_len, scale) -> tupl
             raise ValueError(f"int8 flash forward kernel (sm90): Sk = {sk} must be at least 1 "
                              f"(and at most {_Q8_PV8_MAX_SK} for qk8pv8: its int32 sums)")
         vt = v8_keys_major(v, head_dim) if pv8 else v
+        if not pv8 and out_f32:
+            route = "sm90_f32"  # qk8 with f32 v and out: a kernel of its own (3xTF32 P.V)
         err = load_flash_fwd_q8_sm90().svi_flash_fwd_q8_sm90(
             pv8, out_f32, q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), kscale.data_ptr(),
             vt.data_ptr(), vss_ptr, out.data_ptr(), lse.data_ptr(), b, n, sq, sk,
@@ -934,8 +941,9 @@ def flash_fwd_flat_q8(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor,
     qs (B, N, Sq); k8 (B, Sk, N*D) int8 with kscale (B, N); v (B, Sk, N*D)
     float (qk8) or int8 with vss (B, N, D) (qk8pv8). Keys >= kv_len are
     masked. Returns (out (B, Sq, N*D) in out_dtype, lse (B, N, Sq) of the
-    centred logits). The kernel takes bf16 v and out for qk8, and bf16 or
-    f32 out for qk8pv8; other types raise on the card. Launches count in
+    centred logits). The kernel takes v and out both bf16 for qk8 (both f32
+    too on the sm90 route, D = 128, counted as route "sm90_f32"), and bf16
+    or f32 out for qk8pv8; other types raise on the card. Launches count in
     `.launches` and per (route, mode, head_dim) in `.routes`."""
     _check_q8_inputs(q8, qs, k8, kscale, v, vss, head_dim)
     kv_len = k8.shape[1] if kv_len is None else min(int(kv_len), k8.shape[1])

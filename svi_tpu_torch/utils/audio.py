@@ -4,13 +4,15 @@
 librosa where it is installed, else scipy's wavfile reader and a polyphase
 resample to 16 kHz; then pyloudnorm's loudness normalization where that is
 installed. `load_wav2vec` loads the native tower (models.wav2vec2) from a
-checkpoint directory; transformers' module, the JAX package's parity
-fallback, is not ported. The window helpers are numpy, as there.
+checkpoint directory, or with engine="torch" transformers' Wav2Vec2Model and
+its feature extractor (the JAX package's parity fallback; it raises where
+transformers is not installed). The window helpers are numpy, as there.
 """
 
 from __future__ import annotations
 
 from math import gcd
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,24 +57,66 @@ def load_audio(path: str, sr: int = AUDIO_SR) -> np.ndarray:
     return np.asarray(wav, np.float32)
 
 
-def load_wav2vec(path: str, device="cuda"):
-    """The wav2vec2 tower from a local chinese-wav2vec2-base directory
-    (model.safetensors or pytorch_model.bin), on `device`."""
-    from ..models import wav2vec2
+WAV2VEC_ENGINES = ("native", "torch")
 
-    return wav2vec2.load_params(path, device=device)
+
+class TransformersWav2Vec2(NamedTuple):
+    """transformers' Wav2Vec2Model and Wav2Vec2FeatureExtractor (engine="torch")."""
+
+    feature_extractor: object
+    model: object
+
+
+def load_wav2vec(path: str, device="cuda", engine: str = "native"):
+    """The wav2vec2 tower from a local chinese-wav2vec2-base directory, on
+    `device`: engine "native" (the default) reads model.safetensors or
+    pytorch_model.bin into the port's tower (models.wav2vec2); engine "torch"
+    builds transformers' Wav2Vec2Model and its feature extractor from the
+    directory (config.json and preprocessor_config.json beside the weights),
+    the JAX package's parity fallback."""
+    if engine == "native":
+        from ..models import wav2vec2
+
+        return wav2vec2.load_params(path, device=device)
+    if engine != "torch":
+        raise ValueError(f"wav2vec2 engine {engine!r}; choose from {WAV2VEC_ENGINES}")
+    try:
+        from transformers import Wav2Vec2FeatureExtractor, Wav2Vec2Model
+    except ImportError as e:
+        raise ImportError("the wav2vec2 engine 'torch' needs the transformers package, which "
+                          "is not installed; the native tower (engine='native') needs only "
+                          "torch") from e
+    model = Wav2Vec2Model.from_pretrained(path, local_files_only=True).eval().to(device)
+    fe = Wav2Vec2FeatureExtractor.from_pretrained(path, local_files_only=True)
+    return TransformersWav2Vec2(fe, model)
+
+
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
 
 
 @torch.inference_mode()
 def wav2vec_embedding(speech: np.ndarray, model, sr: int = AUDIO_SR) -> np.ndarray:
     """speech -> (video_frames, 12, 768): the 12 encoder hidden states of the
     normalized waveform, its conv features interpolated to 25 frames a
-    second, on the tower's device."""
+    second, on the tower's device. `model` is the native tower or the
+    TransformersWav2Vec2 pair of `load_wav2vec(engine="torch")`."""
+    video_length = int(len(speech) / sr * AUDIO_FPS)
+    if isinstance(model, TransformersWav2Vec2):
+        import torch.nn.functional as F
+
+        tower = model.model
+        inputs = model.feature_extractor(speech, sampling_rate=sr,
+                                         return_tensors="pt").input_values
+        feats = tower.feature_extractor(inputs.to(_model_device(tower)))  # (1, c, s')
+        feats = F.interpolate(feats, size=video_length, align_corners=True, mode="linear")
+        hidden, _ = tower.feature_projection(feats.transpose(1, 2))
+        out = tower.encoder(hidden, output_hidden_states=True)
+        emb = torch.stack(out.hidden_states[1:], dim=1)[0]  # (12, s, 768)
+        return emb.permute(1, 0, 2).float().cpu().numpy()
     from ..models import wav2vec2
 
-    video_length = int(len(speech) / sr * AUDIO_FPS)
-    device = next(model.parameters()).device
-    x = torch.from_numpy(wav2vec2.normalize_input(speech)[None]).to(device)
+    x = torch.from_numpy(wav2vec2.normalize_input(speech)[None]).to(_model_device(model))
     states = model(x, video_length)  # (12, 1, s, 768)
     return states[:, 0].transpose(0, 1).float().cpu().numpy()
 

@@ -547,8 +547,44 @@ def test_q8pv8_kernel_f32_out_matches_plain():
                                          torch.float32, block_k=tattn.Q8_BLOCK_K[d])
     assert got[0].dtype == torch.float32
     _check(got, want, _q8_out_tol(want[0], 1e-2), Q8_LSE_TOL)
-    with pytest.raises(TypeError, match="qk8 takes bfloat16"):
-        tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v, None, d, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="qk8 takes v and out both"):
+        tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v, None, d, out_dtype=torch.bfloat16)
+
+
+# qk8 with f32 v and out: P.V in 3xTF32 (about 2^-21 relative a product)
+# against the plain version's f32 P.V; the same integer scores and row max,
+# so what remains is exp2 (a few f32 ulps) and the order of the sums
+Q8_F32_OUT_REL, Q8_F32_LSE_TOL = 1e-4, 1e-4
+
+
+@pytest.mark.parametrize("b,sq,sk,n,kv_len", [(2, 189, 189, 3, None), (1, 300, 1000, 2, 700),
+                                              (2, 70, 257, 3, 0), (1, 1, 129, 2, 128),
+                                              (1, 600, 4680, 2, None)])
+def test_q8_kernel_f32_matches_plain(b, sq, sk, n, kv_len):
+    """qk8 with f32 v and out (an f32 DiT's quantized attention) on the
+    sm90 route, counted as "sm90_f32": ragged Sq and Sk, whole masked tiles
+    (Sk 1000, kv_len 700), every key masked, one query row, and a 2-stage
+    f32 ring that wraps many times (37 tiles); within 1e-4 of the plain
+    version's largest |out|."""
+    d = 128
+    q = _rand((b, sq, n * d), torch.float32, 80)
+    k = _rand((b, sk, n * d), torch.float32, 81) + 0.5
+    v = _rand((b, sk, n * d), torch.float32, 82)
+    cos, sin = _tables(max(sq, sk), d)
+    q8, qs, k8, kscale, _, _ = tattn._quant_prep(q, k, v, cos, sin, d, False)
+    kv = sk if kv_len is None else kv_len
+    key = ("sm90_f32", "qk8", d)
+    routed = tattn.flash_fwd_flat_q8.routes[key]
+    got = tattn.flash_fwd_flat_q8(q8, qs, k8, kscale, v, None, d, kv_len=kv,
+                                  out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_flat_q8.routes[key] == routed + 1
+    want = tattn._flash_fwd_q8_reference(q8, qs, k8, kscale, v, None, kv, d ** -0.5,
+                                         torch.float32, block_k=tattn.Q8_BLOCK_K[d])
+    assert got[0].dtype == torch.float32
+    _check(got, want, max(_q8_out_tol(want[0], Q8_F32_OUT_REL), 1e-30), Q8_F32_LSE_TOL)
+    if kv == 0:
+        assert (got[0] == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -673,3 +709,33 @@ def test_int4_w4a8_lora_backward_matches_the_cpu_and_counts_k3():
     assert torch.isfinite(a).all()
     cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
     assert cos >= 0.99 and abs(a.norm() - b.norm()) <= 0.05 * b.norm(), (cos, a.norm(), b.norm())
+
+
+# ---------------------------------------------------------------------------
+# The f32 convolutions stay f32 whatever the process sets
+# ---------------------------------------------------------------------------
+
+
+def test_f32_convs_ignore_the_process_tf32_switch():
+    """The VAE's encode and decode and the pose stack in f32 give the same
+    bits with cuDNN TF32 switched on and off for the process: the package
+    runs every f32 convolution with TF32 off (ops.conv.conv_f32)."""
+    from svi_tpu_torch.models import pose_embedding, wan_vae
+
+    vae = wan_vae.init_params(wan_vae.WanVAEConfig(dim=32, z_dim=4), seed=0, device="cuda")
+    pose = pose_embedding.init_params(64, seed=0, device="cuda")
+    video = _rand((1, 3, 5, 64, 64), torch.float32, 90).clamp(-1, 1)
+    pose_video = _rand((1, 3, 8, 128, 128), torch.float32, 91).abs() * 100
+    outs = {}
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                lat = vae.encode(video)
+                outs[tf32] = (lat, vae.decode(lat), pose(pose_video))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for a, b in zip(outs[True], outs[False]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)

@@ -36,6 +36,11 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.training.dataset, svi_tpu_torch.utils.logging\n"
         "import svi_tpu_torch.scripts.train_svi, svi_tpu_torch.scripts.train_svi_dance\n"
         "import svi_tpu_torch.scripts.train_svi_talk\n"
+        "import svi_tpu_torch.ops.conv, svi_tpu_torch.utils.fidelity\n"
+        "import svi_tpu_torch.utils.multitalk, svi_tpu_torch.utils.project_utils\n"
+        "import svi_tpu_torch.utils.audio\n"
+        "import svi_tpu_torch.scripts.extract_lora, svi_tpu_torch.scripts.prepare_video_audio\n"
+        "import svi_tpu_torch.scripts.make_toy_data, svi_tpu_torch.scripts.process_mixkit\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -76,7 +81,7 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                                    "trainer", "model_manager", "from_model_manager", "driver",
                                    "dit_from_checkpoint", "t5_from_checkpoint",
                                    "vae_from_checkpoint", "clip_from_checkpoint",
-                                   "dit_quantized_from_checkpoint"])
+                                   "dit_quantized_from_checkpoint", "dit_int4", "wav2vec2"])
 def test_entry_points_default_to_the_card(entry):
     import inspect
 
@@ -85,8 +90,10 @@ def test_entry_points_default_to_the_card(entry):
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
     from svi_tpu_torch.scripts import test_svi
     from svi_tpu_torch.training import ErrorRecyclingTrainer
+    from svi_tpu_torch.utils import audio
 
-    fn = {"wan_dit": wan_dit.init_params, "t5": t5.init_params,
+    fn = {"wan_dit": wan_dit.init_params, "dit_int4": wan_dit.init_params_int4,
+          "wav2vec2": audio.load_wav2vec, "t5": t5.init_params,
           "clip_vision": clip_vision.init_params, "wan_vae": wan_vae.init_params,
           "pipeline": SVIVideoPipeline, "trainer": ErrorRecyclingTrainer,
           "model_manager": ModelManager, "from_model_manager": SVIVideoPipeline.from_model_manager,
