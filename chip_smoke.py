@@ -92,8 +92,25 @@ non-zero exit and no result line:
      save_attention and with offload_carries (time, peak memory, K1
      launches), then the DiT quantized in place to int4_w4a8 and 2 LoRA
      steps on it (time, peak, K3 and w4a8_linear launches);
-  6. a JSON line of the kernels (K3's launches from 5b's quantized run),
-     the nvidia-smi line, and the result line.
+  6. the parallel slice, ranks sharing the one card (the card's machine has
+     one GPU): (a) a tiny DiT (head dim 128) on 4 gloo ranks: forward_sp
+     with all-gather and ring on padded shards, forward_tp, forward_tpsp
+     (f32) and sharded bf16 LoRA gradients, each against the card's
+     single-device run and the CPU's, then the same on a one-rank NCCL
+     group; (b) Wan2.1-I2V-14B at full width cut to 4 of 40 blocks on 2
+     gloo ranks: forward_sp at 480x832x81 (all-gather and ring) against the
+     single-device forward, one SP LoRA train step at 21 frames and one at
+     81 frames (496x848: an odd token count, so the backward runs K4 on
+     masked keys) beside the single-device step with each process's peak
+     memory, forward_tp with each rank's weight bytes; (c) (at the end of
+     5b, on its files) train_svi under torchrun --nproc_per_node 2 with sp
+     and with data_parallel --shard_optimizer_state. Fails unless every
+     sharded result is within its bound, every sharded self-attention
+     backward took K4 or K5 and every ring step K2's sm90 route; the speed
+     of ranks sharing one card is printed and measures no multi-card speed;
+  7. a JSON line of the kernels (K3's launches from 5b's quantized run;
+     each entry's launches on phase 6's sharded runs as
+     `launches_parallel`), the nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -213,7 +230,12 @@ KERNELS = {
                            "svi_tpu/ops/attention.py:75"),
     "rope_rotate_flat": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                          "svi_tpu/ops/attention.py:60"),
-    "flash_fwd_bnsd": ("svi_tpu_torch/csrc/flash_fwd_f32.cu", "svi_tpu/ops/attention.py:465"),
+    "flash_fwd_bnsd/f32": ("svi_tpu_torch/csrc/flash_fwd_f32.cu",
+                           "svi_tpu/ops/attention.py:465"),
+    # K2 at bf16 D=128: the ring's steps (phase 6), the sm90 kernel on
+    # (B, N, S, D) views
+    "flash_fwd_bnsd/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                            "svi_tpu/ops/attention.py:465"),
     "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd_sm90.cu",
                           "svi_tpu/ops/attention.py:721"),
     "flash_bwd_dq/sm90": ("svi_tpu_torch/csrc/flash_bwd_split_sm90.cu",
@@ -242,11 +264,12 @@ QUANT_KERNELS = ("quantize_rows_int8", "w4a8_linear", "flash_fwd_flat_q8/sm90")
 QUANT_TRAIN = ("unpack_requant_int4",)  # launched only by training on a quantized base
 QUANT_F32 = ("flash_fwd_flat_q8/sm90_f32",)  # launched only by an f32 DiT's qk8 attention
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
+PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90",)  # launched only by the ring (phase 6)
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
               "rope_rotate_flat": "rope_prepass",
-              "flash_fwd_bnsd": "clip_vit_h",
+              "flash_fwd_bnsd/f32": "clip_vit_h", "flash_fwd_bnsd/sm90": "ring_block",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
               "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
               "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd",
@@ -471,15 +494,21 @@ def kernel_cases():
                                                   _nbytes(q, k, v, q) + 4 * b * n * sq,
                                                   PEAK_BF16)})
 
-    def bwd_case(name, b, sq, sk, n, d, grid=None):
-        """One backward at the route the autograd function picks for it."""
+    def bwd_case(name, b, sq, sk, n, d, grid=None, kv_len=None):
+        """One backward at the route the autograd function picks for it. With
+        kv_len < Sk (a padded sequence-parallel shard's gathered keys) the
+        kernels run on the first kv_len keys, routed by that cut, as
+        flash_bwd_flat runs them; the plain version masks the full keys, and
+        its dk and dv past kv_len must be exactly 0."""
+        kv = sk if kv_len is None else kv_len
         q = randn((b, sq, n * d), torch.bfloat16)
-        k = randn((b, sk, n * d), torch.bfloat16)
-        v = randn((b, sk, n * d), torch.bfloat16)
+        k_full = randn((b, sk, n * d), torch.bfloat16)
+        v_full = randn((b, sk, n * d), torch.bfloat16)
         g = randn((b, sq, n * d), torch.bfloat16)
         cos, sin = tables(grid, d) if grid else (None, None)
-        out, lse = A.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
-        route = A._bwd_route(n, d, sq, sk, sk)
+        out, lse = A.flash_fwd_flat(q, k_full, v_full, d, cos=cos, sin=sin, kv_len=kv)
+        k, v = k_full[:, :kv], v_full[:, :kv]  # the keys the kernels see
+        route = A._bwd_route(n, d, sq, kv, kv)
         args = (q, k, v, out, lse, g, d)
         rope = dict(cos=cos, sin=sin)
         if route == "onepass":
@@ -489,12 +518,16 @@ def kernel_cases():
                        "flash_bwd_dkv/sm90": lambda: A.flash_bwd_dkv(*args, **rope)}
 
         def plain():
-            views = [t.unflatten(-1, (n, d)) for t in (q, k, v, out)]
+            views = [t.unflatten(-1, (n, d)) for t in (q, k_full, v_full, out)]
             return [t.flatten(2) for t in A._flash_bwd_reference(
-                *views, lse, g.unflatten(-1, (n, d)), cos, sin, sk, d ** -0.5)]
+                *views, lse, g.unflatten(-1, (n, d)), cos, sin, kv, d ** -0.5)]
 
         def run():
             ref = plain()
+            if kv < sk:
+                if any((t[:, kv:] != 0).any() for t in ref[1:]):
+                    raise RuntimeError(f"{name}: the plain dk, dv of masked keys are not 0")
+                ref = [ref[0], ref[1][:, :kv], ref[2][:, :kv]]
             got = {}
             if route == "onepass":
                 got["flash_bwd_onepass"] = kernels["flash_bwd_onepass"]()
@@ -535,7 +568,7 @@ def kernel_cases():
             o = F.scaled_dot_product_attention(*leaves)
             return torch.autograd.grad(o, leaves, gh)
 
-        mm = 2 * b * n * sq * sk * d  # one matrix product of the backward
+        mm = 2 * b * n * sq * kv * d  # one matrix product of the backward
         io = _nbytes(q, k, v, out, g) + 4 * b * n * sq  # inputs (lse f32)
         work = {"flash_bwd_onepass": (5 * mm, io + _nbytes(q, k, v), PEAK_BF16),
                 "flash_bwd_dq/sm90": (3 * mm, io + _nbytes(q), PEAK_BF16),
@@ -546,6 +579,41 @@ def kernel_cases():
                     kernels=kernels, plain=plain, library=library,
                     library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels},
                     **extra)
+
+    def ring_case(name, b, s, n, d, kv_len):
+        """K2 (`flash_fwd_bnsd`, route sm90) at a ring step's shapes: q, k, v
+        as (B, N, S, D) views of (B, S, N, D) shards, the block's valid keys
+        kv_len; a block of padding only (kv_len 0) gives out 0 and lse <=
+        -1e30 (the merge weighs it 0), where the plain version's -1e30 mask
+        averages v instead, and has no library call."""
+        q, k, v = (randn((b, s, n, d), torch.bfloat16).transpose(1, 2) for _ in range(3))
+        mask = None if kv_len in (0, s) else (torch.arange(s, device="cuda") < kv_len)[
+            None, None, None]
+
+        def kernel():
+            return A.flash_fwd_bnsd(q, k, v, kv_len=kv_len)
+
+        def plain():
+            out, lse = A._flash_fwd_reference(*(t.transpose(1, 2) for t in (q, k, v)), None,
+                                              None, kv_len, d ** -0.5)
+            return out.transpose(1, 2), lse
+
+        def run():
+            (out, lse), (ref_out, ref_lse) = kernel(), plain()
+            if kv_len == 0:
+                ok = bool((out == 0).all() and (lse <= -1e30).all() and torch.isfinite(lse).all())
+                return {"flash_fwd_bnsd/sm90": (0.0 if ok else float("inf"), 0.0)}
+            out_bound = min(BF16_OUT_BOUND, BF16_OUT_REL * ref_out.float().abs().max().item())
+            return {"flash_fwd_bnsd/sm90": worst((err(out, ref_out), out_bound),
+                                                 (err(lse, ref_lse), BF16_LSE_BOUND))}
+
+        library = None if kv_len == 0 else (
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
+                    kernels={"flash_fwd_bnsd/sm90": kernel}, plain=plain, library=library,
+                    work={"flash_fwd_bnsd/sm90": (4 * b * n * s * kv_len * d,
+                                                  4 * b * s * n * d * 2 + 4 * b * n * s,
+                                                  PEAK_BF16)})
 
     def rope_case(name, b, s, n, d, grid):
         """The sm90 route's RoPE pre-pass on q and k, held bit for bit against
@@ -598,12 +666,13 @@ def kernel_cases():
 
     def clip_run():
         (out, lse), (ro, rl) = A.flash_fwd_bnsd(q, k, v), clip_plain()
-        return {"flash_fwd_bnsd": worst((err(out, ro), F32_BOUND), (err(lse, rl), F32_BOUND))}
+        return {"flash_fwd_bnsd/f32": worst((err(out, ro), F32_BOUND),
+                                           (err(lse, rl), F32_BOUND))}
 
     yield dict(case="clip_vit_h", shape=[1, 257, 257, 16, 80], dtype="float32", run=clip_run,
-               kernels={"flash_fwd_bnsd": lambda: A.flash_fwd_bnsd(q, k, v)}, plain=clip_plain,
-               library=lambda: F.scaled_dot_product_attention(q, k, v),
-               work={"flash_fwd_bnsd": (4 * 16 * 257 * 257 * 80,
+               kernels={"flash_fwd_bnsd/f32": lambda: A.flash_fwd_bnsd(q, k, v)},
+               plain=clip_plain, library=lambda: F.scaled_dot_product_attention(q, k, v),
+               work={"flash_fwd_bnsd/f32": (4 * 16 * 257 * 257 * 80,
                                         _nbytes(q, k, v, q) + 4 * 16 * 257, F32_ACCURATE)})
 
     # VAE mid-block at 480x832: 60 x 104 = 6240 tokens, one head of 384, f32,
@@ -638,6 +707,19 @@ def kernel_cases():
     yield bwd_case("dit_text_cross_attn_bwd", 1, 9360, 512, 40, 128)
     yield bwd_case("dit_image_cross_attn_bwd", 1, 9360, 257, 40, 128)
     yield bwd_case("short_self_attn_bwd_split_rope", 1, 1560, 1560, 40, 128, grid=(1, 30, 52))
+    # the sequence-parallel path (phase 6): a rank's self-attention backward
+    # on its padded shard against the gathered keys, kv_len < Sk. Phase 6b's
+    # 81-frame step at 496x848 (21 x 31 x 53 = 34503 tokens over 2 ranks:
+    # shards of 17252, keys gathered to 34504) through K4, and a shard under
+    # K4's gate through K5a + K5b
+    yield bwd_case("sp_self_attn_bwd_kvlen_onepass", 1, 17252, 34504, 40, 128, kv_len=34503)
+    yield bwd_case("sp_self_attn_bwd_kvlen_split", 1, 2100, 4200, 40, 128, kv_len=4199)
+    # K2 at the ring's shapes: phase 6b's 81-frame forward over 2 ranks
+    # (32760 tokens, blocks of 16380), a block with a padded tail, and one
+    # of padding only
+    yield ring_case("ring_block", 1, 16380, 40, 128, 16380)
+    yield ring_case("ring_block_partial", 1, 16380, 40, 128, 9000)
+    yield ring_case("ring_block_padding", 1, 16380, 40, 128, 0)
 
     def unpack_case(name, n, k):
         """K3 on a weight of the 14B DiT's shape (out n, in k), quantized by
@@ -1284,7 +1366,7 @@ def phase_slice():
     routes = check_fwd_routes("the bf16 inference path", need_f32=True)
     std = float(video.astype(np.float32).std())
     if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32", "rope_rotate_flat",
-                                 "flash_fwd_bnsd")) <= 0:
+                                 "flash_fwd_bnsd/f32")) <= 0:
         raise RuntimeError(f"a kernel was not launched on the main path: {launches}")
     secs = timer.seconds
     per_step = secs["denoise"][0] / SLICE_STEPS
@@ -1912,7 +1994,7 @@ def phase_driver(card: str) -> dict:
         record, launches, _ = run_driver(root, "b", ["--num_clips", "2"], card)
         routes = check_fwd_routes("the driver", need_f32=True)
         if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
-                                     "rope_rotate_flat", "flash_fwd_bnsd")) <= 0:
+                                     "rope_rotate_flat", "flash_fwd_bnsd/f32")) <= 0:
             raise RuntimeError(f"a kernel was not launched on the driver's path: {launches}")
         log(f"[driver b] forward routes {routes}")
         check_driver_video("b", record["samples"][0], clips=2)
@@ -2310,7 +2392,7 @@ def phase_variants(root: Path, card: str) -> dict:
     if not record["pipe"].dit.cfg.enable_multitalk:
         raise RuntimeError("the talk driver's DiT did not load as multitalk")
     if min(launches["talk"][k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
-                                         "rope_rotate_flat", "flash_fwd_bnsd")) <= 0:
+                                         "rope_rotate_flat", "flash_fwd_bnsd/f32")) <= 0:
         raise RuntimeError(f"a kernel was not launched on the talk driver's path: "
                            f"{launches['talk']}")
     frames = np.load(record["paths"][-1])
@@ -2606,7 +2688,7 @@ def phase_training():
     if not (totals[-1] > 0 and all(b >= a for a, b in zip(totals, totals[1:]))):
         raise RuntimeError(f"the error buffers did not grow: {totals}")
     if min(n for k, n in launches.items()
-           if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32) <= 0:
+           if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32 + PARALLEL_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -3115,6 +3197,10 @@ def phase_train_drivers(root: Path, card: str) -> dict:
     profile_train_step("d-talk", record["trainer"], record["last_batch"], card)
     del record
     gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6c: train_svi under torchrun on these files, the ranks sharing the card
+    phase_parallel_drivers(root, common, data, card)
 
     # (e) extract_lora on the exported shot LoRA, then the extracted file
     # through the inference driver
@@ -3153,6 +3239,463 @@ def phase_train_drivers(root: Path, card: str) -> dict:
     log(f"[train-drivers] phase 5b passed in {time.perf_counter() - t_phase:.1f}s; {card}")
     return q_launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the parallel slice
+# ---------------------------------------------------------------------------
+
+# The card's machine has one GPU, so the ranks share it over gloo (NCCL cannot
+# put two ranks on one GPU); a one-rank NCCL group runs the NCCL code. Speeds
+# of ranks sharing one card measure no multi-card speed: printed, not claimed.
+PARALLEL_DEPTH = 4  # blocks of the 14B in 6b: two ranks and their references on one card
+PARALLEL_SEED = 31
+# 6a's tiny DiT: head dim 128, so that every attention takes the kernels of
+# the 14B's routes (f32: 3xTF32; bf16: sm90); 3 x 3 x 5 = 45 tokens, padded
+# over 2 and 4 ranks
+PAR_TINY = dict(dim=256, in_dim=36, ffn_dim=512, out_dim=16, text_dim=64, freq_dim=32,
+                num_heads=2, num_layers=2, has_image_input=True, clip_feature_dim=64)
+PAR_TINY_LATENT = (3, 6, 10)
+# f32 sharded forwards against the card's single-device forward and the
+# CPU's: f32 rounding (3xTF32 in the attention kernels) summed in other
+# orders, as a share of the output's largest value
+PAR_F32_REL = 1e-4
+# bf16 LoRA gradients (sum over the ranks, as the trainer sums them) against
+# the single-device gradients: bf16 activations rounded where the sharded
+# path rounds them (other GEMM shapes, the gathered keys), 2^-8 relative a
+# rounding through two blocks forward and back, as a share of the largest
+# gradient; a missing or doubled rank's share moves them by their own size
+PAR_BF16_GRAD_REL = 5e-2
+# the 14B at full width, bf16, sharded against single-device on the same
+# card: the mean |difference| over the mean |output| (bf16 roundings in
+# other GEMM tilings and the ring's f32 merge of per-block bf16 results),
+# and the loss and gradient norm of a train step as the training drivers'
+# sharded-against-one-process bounds (tests/test_torch_parallel_training.py)
+PAR_14B_MEAN_REL = 1e-2
+PAR_14B_LOSS_REL, PAR_14B_NORM_REL = 1e-2, 2e-2
+RANK_TIMEOUT = 900  # seconds for a phase-6 rank's result; a hang fails the phase
+
+
+def _rank_entry(fn, rank, world, backend, store, results, args):
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        results.put((rank, None, fn(rank, world, *args)))
+    except BaseException:  # noqa: BLE001 -- sent to the parent, which raises it
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, backend: str, *args) -> list:
+    """fn(rank, world, *args) in `world` spawned processes on the card, joined
+    over `backend` through a FileStore in the checkout; their results in rank
+    order, or the first failure's traceback. Every process is ended."""
+    import multiprocessing
+    import queue
+
+    store = REPO / f"_parallel_store_{fn.__name__}_{world}_{backend}"
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, backend, str(store), results,
+                                                   args), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    try:
+        for _ in range(world):
+            rank, err_text, res = results.get(timeout=RANK_TIMEOUT)
+            if err_text:
+                errors.append(f"rank {rank}:\n{err_text}")
+            out[rank] = res
+    except queue.Empty:
+        errors.append(f"ranks {sorted(set(range(world)) - set(out))} gave no result in "
+                      f"{RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        store.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError(f"{fn.__name__} over {world} {backend} ranks failed:\n"
+                           + "\n".join(errors))
+    return [out[r] for r in range(world)]
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _routes(entry) -> dict:
+    return {"/".join(map(str, k)): n for k, n in entry.routes.items()}
+
+
+def _bwd_routes() -> dict:
+    from svi_tpu_torch.ops import attention as A
+
+    return {"onepass": A.flash_bwd_onepass.launches, "dq": _routes(A.flash_bwd_dq),
+            "dkv": _routes(A.flash_bwd_dkv)}
+
+
+def _rel(x, ref) -> float:
+    x, ref = x.float().cpu(), ref.float().cpu()
+    if not torch.isfinite(x).all():
+        return float("inf")
+    return (x - ref).abs().max().item() / ref.abs().max().item()
+
+
+def _par_tiny(rank, world, meshes):
+    """6a on one rank: the tiny DiT's sharded forwards in f32 (all-gather,
+    ring, TP, TP x SP) and its sharded bf16 LoRA gradients, each against the
+    card's single-device run and the CPU's. Returns the relative errors, the
+    launches of the sharded runs and their routes."""
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.parallel import collectives, make_mesh
+    from svi_tpu_torch.parallel.sequence_parallel import forward_sp
+    from svi_tpu_torch.parallel.tensor_parallel import forward_tp, shard_dit_params_tp
+    from svi_tpu_torch.parallel.tp_sp import forward_tpsp, make_mesh3, shard_dit_params_tpsp
+    from svi_tpu_torch.training import lora as lora_mod
+
+    rng = np.random.default_rng(43)
+    f, h, w = PAR_TINY_LATENT
+    host_in = [torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 16, f, h, w)).astype(np.float32),
+        np.array([300.0, 700.0], np.float32),
+        rng.standard_normal((2, 9, PAR_TINY["text_dim"])).astype(np.float32),
+        rng.standard_normal((2, 257, PAR_TINY["clip_feature_dim"])).astype(np.float32),
+        rng.standard_normal((2, 20, f, h, w)).astype(np.float32))]
+    card_in = [t.cuda() for t in host_in]
+    errors, counts, routes = {}, {}, {}
+
+    def sharded(fn):
+        zero_counts()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        _add_counts(counts, read_counts())
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = wan_dit.WanDiTConfig(dtype=dtype, **PAR_TINY)
+        host = wan_dit.init_params(cfg, seed=41, device="cpu")
+        card = wan_dit.WanDiT(cfg, _tree_to(host.tree(), "cuda"))
+        if dtype == torch.float32:
+            with torch.no_grad():
+                refs = (card(*card_in), host(*host_in))
+            for mesh_shape in meshes["sp"]:
+                mesh = make_mesh(*mesh_shape)
+                for ring in (False, True):
+                    out = sharded(lambda: forward_sp(card, *card_in, mesh=mesh, ring=ring))
+                    errors[f"sp_{mesh_shape}_{'ring' if ring else 'gather'}"] = [
+                        _rel(out, r) for r in refs]
+            mesh = make_mesh(*meshes["tp"])
+            tp = shard_dit_params_tp(host, mesh, device="cuda")
+            errors[f"tp_{meshes['tp']}"] = [_rel(sharded(
+                lambda: forward_tp(tp, *card_in, mesh=mesh)), r) for r in refs]
+            mesh = make_mesh3(*meshes["tpsp"])
+            tpsp = shard_dit_params_tpsp(host, mesh, device="cuda")
+            for ring in (False, True):
+                errors[f"tpsp_{meshes['tpsp']}_{'ring' if ring else 'gather'}"] = [
+                    _rel(sharded(lambda: forward_tpsp(tpsp, *card_in, mesh=mesh, ring=ring)), r)
+                    for r in refs]
+            routes["forward"] = {e: _routes(getattr(A, e))
+                                 for e in ("flash_fwd_flat", "flash_fwd_bnsd")}
+            continue
+        # bf16 LoRA gradients of sum(out * g): sharded (summed over the ranks),
+        # single-device on the card and on the CPU
+        lora_host = lora_mod.init_lora_params(cfg, rank=4, device="cpu",
+                                              generator=torch.Generator().manual_seed(44))
+        with torch.no_grad():
+            for p in lora_host.parameters():
+                p.add_(0.02)
+        g = torch.from_numpy(rng.standard_normal((2, 16, f, h, w)).astype(np.float32))
+
+        def grads(model, lora, inputs, mesh=None):
+            kw = dict(lora=lora, lora_scale=0.5, use_remat=True)
+            out = (forward_sp(model, *inputs, mesh=mesh, **kw) if mesh is not None
+                   else model(*inputs, **kw))
+            (out.float() * g.to(out.device)).sum().backward()
+            gs = [p.grad.detach().clone() for p in lora.parameters()]
+            for p in lora.parameters():
+                p.grad = None
+            return gs
+
+        lora_card = lora_mod.from_peft_state_dict(lora_mod.to_peft_state_dict(lora_host), cfg,
+                                                  device="cuda")
+        want = (grads(card, lora_card, card_in), grads(host, lora_host, host_in))
+        mesh = make_mesh(*meshes["grads"])
+        zero_counts()
+        got = grads(card, lora_card, card_in, mesh)
+        torch.cuda.synchronize()
+        _add_counts(counts, read_counts())
+        routes["backward"] = _bwd_routes()
+        for gr in got:
+            collectives.all_reduce_(gr, mesh.world)
+        scale = [max(t.abs().max().item() for t in ws) for ws in want]
+        errors[f"grads_{meshes['grads']}"] = [
+            max((a.float().cpu() - b.float().cpu()).abs().max().item() for a, b in zip(got, ws))
+            / sc for ws, sc in zip(want, scale)]
+    return {"errors": errors, "counts": counts, "routes": routes}
+
+
+def _par_14b(rank, world):
+    """6b on one rank: the 14B at full width cut to PARALLEL_DEPTH blocks
+    (the same seeded weights on every rank): forward_sp at 480x832x81
+    (all-gather and ring) against rank 0's single-device forward; one SP
+    LoRA train step at 21 frames (480x832) and one at 81 frames (496x848,
+    an odd token count, so every rank's keys carry a padded position) beside
+    rank 0's single-device step, with each process's peak memory; then the
+    blocks sliced for forward_tp from a host copy, its weight bytes."""
+    import torch.distributed as dist
+
+    from svi_tpu_torch.models import wan_dit
+    from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.parallel import make_mesh, make_training_mesh
+    from svi_tpu_torch.parallel.sequence_parallel import forward_sp
+    from svi_tpu_torch.parallel.tensor_parallel import (forward_tp, param_bytes,
+                                                        shard_dit_params_tp)
+    from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
+
+    cfg = dataclasses.replace(wan_dit.WAN_14B_I2V, num_layers=PARALLEL_DEPTH)
+    dit = wan_dit.init_params(cfg, seed=PARALLEL_SEED, device="cuda")
+    mesh = make_mesh(1, world)
+    out = {"rank": rank, "counts": {}, "routes": {}, "seconds": {}, "peak_gib": {}, "rel": {}}
+    rng = np.random.default_rng(32)
+
+    def inputs(frames, h, w):
+        lt = (frames - 1) // 4 + 1
+        return dict(latents=rng.standard_normal((1, 16, lt, h // 8, w // 8)).astype(np.float32),
+                    context=rng.standard_normal((1, 512, 4096)).astype(np.float32),
+                    y=rng.standard_normal((1, 20, lt, h // 8, w // 8)).astype(np.float32),
+                    clip_feature=rng.standard_normal((1, 257, 1280)).astype(np.float32))
+
+    b81 = inputs(FORWARD_FRAMES, SLICE_H, SLICE_W)
+    args = [torch.from_numpy(b81[k]).cuda() for k in ("latents",)] + [
+        torch.tensor([500.0], device="cuda"), torch.from_numpy(b81["context"]).cuda(),
+        torch.from_numpy(b81["clip_feature"]).cuda(), torch.from_numpy(b81["y"]).cuda()]
+    ref = None
+    if rank == 0:
+        with torch.no_grad():
+            ref = dit(*args)
+        torch.cuda.synchronize()
+    dist.barrier()
+
+    def timed(tag, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][tag] = time.perf_counter() - t0
+        out["peak_gib"][tag] = torch.cuda.max_memory_allocated() / 2**30
+        out["counts"][tag] = read_counts()
+        out["routes"][tag] = dict(_bwd_routes(), bnsd=_routes(A.flash_fwd_bnsd))
+        return res
+
+    for ring in (False, True):
+        tag = f"forward_sp_81f_{'ring' if ring else 'gather'}"
+        with torch.no_grad():
+            got = timed(tag, lambda: forward_sp(dit, *args, mesh=mesh, ring=ring))
+        out["rel"][tag] = None if ref is None else (
+            (got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+        out.setdefault("checksum", {})[tag] = got.double().sum().item()
+        del got
+
+    train_cfg = TrainerConfig(lora_rank=128, lora_alpha=128.0, use_gradient_checkpointing=True,
+                              remat_granularity=1, seed=0)
+    for tag, frames, h, w in (("21f", TRAIN_FRAMES, SLICE_H, SLICE_W), ("81f", 81, 496, 848)):
+        batch = inputs(frames, h, w)
+        trainer = ErrorRecyclingTrainer(dit, train_cfg, mesh=make_training_mesh("sp"),
+                                        device="cuda")
+        m = timed(f"train_sp_{tag}", lambda: trainer.training_step(**batch))
+        out[f"train_sp_{tag}"] = {k: m[k] for k in ("loss", "grad_norm", "timestep")}
+        del trainer
+        if rank == 0:
+            single = ErrorRecyclingTrainer(dit, train_cfg, device="cuda")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m1 = single.training_step(**batch)
+            torch.cuda.synchronize()
+            out["seconds"][f"train_single_{tag}"] = time.perf_counter() - t0
+            out["peak_gib"][f"train_single_{tag}"] = torch.cuda.max_memory_allocated() / 2**30
+            out[f"train_single_{tag}"] = {k: m1[k] for k in ("loss", "grad_norm", "timestep")}
+            del single
+        dist.barrier()
+
+    # TP: the blocks sliced from a host copy, so the card never holds a
+    # second full tree
+    host = wan_dit.WanDiT(cfg, _tree_to(dit.tree(), "cpu"))
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = shard_dit_params_tp(host, mesh, device="cuda")
+    out["weight_bytes"] = {"tp_rank": param_bytes(tp), "unsharded": param_bytes(host),
+                           "tp_rank_blocks": param_bytes(tp["blocks"]),
+                           "unsharded_blocks": param_bytes(host["blocks"])}
+    del host
+    with torch.no_grad():
+        got = timed("forward_tp_81f", lambda: forward_tp(tp, *args, mesh=mesh))
+    out["rel"]["forward_tp_81f"] = None if ref is None else (
+        (got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+    out["checksum"]["forward_tp_81f"] = got.double().sum().item()
+    out["finite"] = bool(torch.isfinite(got).all())
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_parallel(card: str) -> dict:
+    """Phase 6, the parallel slice through its entry points, every rank a
+    process on the one card: (a) the tiny DiT on 4 gloo ranks (forward_sp
+    padded with all-gather and ring on (2, 2) and (1, 4), forward_tp on
+    (2, 2), forward_tpsp on (1, 2, 2), sharded bf16 LoRA gradients on
+    (1, 4)), each against the card's single-device run and the CPU's, then
+    the same on a one-rank NCCL group; (b) the 14B at full width cut to
+    PARALLEL_DEPTH blocks on 2 gloo ranks (`_par_14b`). Fails unless every
+    result is within its bound, every sharded self-attention backward took
+    K4 or K5 and every ring step K2's sm90 route. Returns the launches of
+    the sharded runs, summed over the ranks. (6c, the training driver under
+    torchrun, runs at the end of phase 5b on its files:
+    `phase_parallel_drivers`.)"""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total: dict = {}
+    meshes4 = {"sp": [(2, 2), (1, 4)], "tp": (2, 2), "tpsp": (1, 2, 2), "grads": (1, 4)}
+    meshes1 = {"sp": [(1, 1)], "tp": (1, 1), "tpsp": (1, 1, 1), "grads": (1, 1)}
+    for world, backend, meshes in ((4, "gloo", meshes4), (1, "nccl", meshes1)):
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_par_tiny, world, backend, meshes)
+        for res in per_rank:
+            _add_counts(total, res["counts"])
+        worst_err = {name: max(max(r["errors"][name]) for r in per_rank)
+                     for name in per_rank[0]["errors"]}
+        log(f"[parallel a] tiny DiT on {world} {backend} rank(s) in "
+            f"{time.perf_counter() - t0:.1f}s: max relative error (card single-device, CPU) "
+            f"per case {json.dumps({n: r['errors'][n] for r in per_rank[:1] for n in r['errors']})}"
+            f"; worst over ranks {worst_err}; forward routes {per_rank[0]['routes']['forward']}; "
+            f"backward routes {per_rank[0]['routes']['backward']}; {card}")
+        for name, e in worst_err.items():
+            bound = PAR_BF16_GRAD_REL if name.startswith("grads") else PAR_F32_REL
+            if not e <= bound:
+                raise RuntimeError(f"[parallel a] {name} on {world} {backend} ranks: {e:.3e} > "
+                                   f"{bound}")
+        for res in per_rank:
+            bwd = res["routes"]["backward"]
+            if bwd["onepass"] or set(bwd["dq"]) != {"sm90/bfloat16/128"} or set(
+                    bwd["dkv"]) != {"sm90/bfloat16/128"}:
+                raise RuntimeError(f"[parallel a] a sharded backward took another route: {bwd}")
+
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_par_14b, 2, "gloo")
+    r0 = per_rank[0]
+    for res in per_rank:
+        for tag, counts in res["counts"].items():
+            _add_counts(total, counts)
+        log(f"[parallel b] rank {res['rank']}: seconds {json.dumps(res['seconds'])}; peak GiB "
+            f"{json.dumps(res['peak_gib'])}; weight bytes {json.dumps(res['weight_bytes'])}; "
+            f"routes {json.dumps(res['routes'])}; {card}")
+    log(f"[parallel b] Wan2.1-I2V-14B at full width, {PARALLEL_DEPTH} of 40 blocks, 2 gloo ranks "
+        f"on one card ({time.perf_counter() - t0:.1f}s): mean relative difference against the "
+        f"single-device run {json.dumps(r0['rel'])} (bound {PAR_14B_MEAN_REL}); train steps "
+        f"sp {r0['train_sp_21f']} / {r0['train_sp_81f']}, single {r0['train_single_21f']} / "
+        f"{r0['train_single_81f']}; {card}")
+    for tag, rel in r0["rel"].items():
+        if not rel <= PAR_14B_MEAN_REL:
+            raise RuntimeError(f"[parallel b] {tag}: {rel:.3e} > {PAR_14B_MEAN_REL}")
+    if per_rank[0]["checksum"] != per_rank[1]["checksum"] or not r0["finite"]:
+        raise RuntimeError("[parallel b] the ranks' outputs differ, or are not finite")
+    for tag in ("21f", "81f"):
+        sp, one = r0[f"train_sp_{tag}"], r0[f"train_single_{tag}"]
+        if not (sp["timestep"] == one["timestep"]
+                and abs(sp["loss"] - one["loss"]) <= PAR_14B_LOSS_REL * abs(one["loss"])
+                and abs(sp["grad_norm"] - one["grad_norm"])
+                <= PAR_14B_NORM_REL * abs(one["grad_norm"])):
+            raise RuntimeError(f"[parallel b] the {tag} SP train step disagrees with the "
+                               f"single-device one: {sp} vs {one}")
+    for res in per_rank:
+        for tag in ("train_sp_21f", "train_sp_81f"):
+            r = res["routes"][tag]
+            if (r["onepass"] != PARALLEL_DEPTH or set(r["dq"]) != {"sm90/bfloat16/128"}
+                    or r["dq"]["sm90/bfloat16/128"] != 2 * PARALLEL_DEPTH
+                    or r["dkv"] != r["dq"]):
+                raise RuntimeError(f"[parallel b] {tag}: the self-attention backward did not "
+                                   f"take K4 once a block (and K5 twice): {r}")
+        ring = res["routes"]["forward_sp_81f_ring"]["bnsd"]
+        if ring != {"sm90/bfloat16/128": 2 * PARALLEL_DEPTH}:
+            raise RuntimeError(f"[parallel b] the ring steps took another route: {ring}")
+    log(f"[parallel] phase 6 (a, b) passed in {time.perf_counter() - t_phase:.1f}s; launches of "
+        f"the sharded runs over the ranks {total}; {card}")
+    return total
+
+
+def phase_parallel_drivers(root: Path, common: list, data: dict, card: str) -> None:
+    """6c: train_svi as users launch it on several GPUs, `torchrun
+    --nproc_per_node 2 -m svi_tpu_torch.scripts.train_svi`, on phase 5b's
+    files; the two ranks share the card, so the launch picks gloo. Once with
+    --training_strategy sp, once data_parallel --shard_optimizer_state; 2
+    steps of 9 frames each, the export at step 2. Fails unless the run exits
+    0 and rank 0 wrote args.json, a finite metrics line a step and the
+    export."""
+    import socket
+
+    for tag, flags in (("sp", ["--training_strategy", "sp"]),
+                       ("zero1", ["--training_strategy", "data_parallel",
+                                  "--shard_optimizer_state"])):
+        out = root / f"train_out_torchrun_{tag}"
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1", "--master_port", str(port),
+               "-m", "svi_tpu_torch.scripts.train_svi", *common, "--num_frames", "9",
+               "--dataset_path", data["shot"], "--output_path", str(out), "--max_steps", "2",
+               *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = (out / "metrics.jsonl").read_text().splitlines() if (
+            out / "metrics.jsonl").is_file() else []
+        metrics = [json.loads(x) for x in lines]
+        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-30:])
+        log(f"[parallel c] torchrun train_svi {tag}: exit {proc.returncode} in {seconds:.1f}s; "
+            f"losses {[round(m['loss'], 5) for m in metrics]}, grad norms "
+            f"{[round(m['grad_norm'], 5) for m in metrics]}; files "
+            f"{sorted(p.name for p in out.iterdir()) if out.is_dir() else []}; {card}")
+        if proc.returncode != 0 or len(metrics) != 2 or not (out / "args.json").is_file() \
+                or [p.name.split("-")[1] for p in out.glob("*.safetensors")] != [
+                    "step=2.safetensors"] or not all(
+                    np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+            raise RuntimeError(f"[parallel c] torchrun train_svi {tag} failed:\n{tail}")
+        log(f"[parallel c] {tag} log: " + " | ".join(
+            x for x in (proc.stdout + proc.stderr).splitlines()
+            if "torch.distributed" in x or "training mesh" in x))
 
 
 def main() -> int:
@@ -3222,8 +3765,13 @@ def main() -> int:
     phase_small_trainer()
     phase_small_variant_trainers(card)
     train_launches, _, _ = phase_training()
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 6. results: the forward kernels' launches are the bf16 inference path's,
+    # 6. the parallel slice: ranks on the card
+    par_launches = phase_parallel(card)
+
+    # 7. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
     # forward), K3's the quantized training driver's
@@ -3231,13 +3779,14 @@ def main() -> int:
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (f32_q8_launches if entry in QUANT_F32
+        launches = (par_launches if entry in PARALLEL_KERNELS
+                    else f32_q8_launches if entry in QUANT_F32
                     else train_q_launches if entry in QUANT_TRAIN else quant_launches
                     if entry in QUANT_KERNELS else infer_launches
                     if entry.startswith("flash_fwd") or entry == "rope_rotate_flat"
                     else train_launches)[entry]
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches,
+                        "launches": launches, "launches_parallel": par_launches.get(entry, 0),
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

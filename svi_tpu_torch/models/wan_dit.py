@@ -333,10 +333,12 @@ class WanDiT(ParamTree):
                 x = x + self._audio_cross_attention(p["audio_cross_attn"], xa, audio_embed,
                                                     num_frames)
         input_x = modulate(layer_norm(x, eps=1e-6), shift_mlp, scale_mlp)
-        ffn_lora = _l(lora, "ffn")
-        h = gelu_tanh(dense_lora(p["ffn"]["0"], input_x, _l(ffn_lora, "0"), lora_scale))
-        x = x + gate_mlp * dense_lora(p["ffn"]["2"], h, _l(ffn_lora, "2"), lora_scale)
+        x = x + gate_mlp * self._ffn(p["ffn"], input_x, _l(lora, "ffn"), lora_scale)
         return x if x_a is None else (x, x_a)
+
+    def _ffn(self, p, x, lora=None, lora_scale: float = 1.0):
+        h = gelu_tanh(dense_lora(p["0"], x, _l(lora, "0"), lora_scale))
+        return dense_lora(p["2"], h, _l(lora, "2"), lora_scale)
 
     def _audio_cross_attention(self, p, x, audio, num_frames: int):
         """Per-frame audio cross-attention (`_audio_cross_attention`): the
@@ -469,7 +471,7 @@ class WanDiT(ParamTree):
                        lora_scale: float = 1.0, use_remat: bool = False,
                        remat_granularity: int = 1, save_attention: bool = False,
                        offload_carries: bool = False, audio_embed=None,
-                       block_add_condition=None):
+                       block_add_condition=None, rope_tables=None):
         """The block stack. lora: the adapters (training.lora), whose
         ["blocks"][i] feeds block i. use_remat: each block runs under
         torch.utils.checkpoint, so only its input carry is saved; with
@@ -485,10 +487,14 @@ class WanDiT(ParamTree):
         +(S x dim) of activations a block; offload_carries saves the carries
         that the checkpoints keep in pinned host memory
         (torch.autograd.graph.save_on_cpu, the reference's
-        use_gradient_checkpointing_offload) instead of on the device."""
-        cos, sin = rope_angles_for_grid(tuple(grid), self.cfg.head_dim)
-        cos = torch.from_numpy(cos).to(tokens.device)
-        sin = torch.from_numpy(sin).to(tokens.device)
+        use_gradient_checkpointing_offload) instead of on the device.
+        rope_tables: (cos, sin) for the tokens given, in place of the grid's
+        (a sequence-parallel shard's rows)."""
+        if rope_tables is None:
+            cos, sin = rope_angles_for_grid(tuple(grid), self.cfg.head_dim)
+            rope_tables = (torch.from_numpy(cos).to(tokens.device),
+                           torch.from_numpy(sin).to(tokens.device))
+        cos, sin = rope_tables
         blocks = self["blocks"]
         lora_blocks = None if lora is None else lora["blocks"]
         carry = self.cfg.enable_customtalk and audio_embed is not None

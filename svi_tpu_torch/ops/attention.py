@@ -405,7 +405,8 @@ def _onepass_bwd_ok(sq_p: int, sk: int, head_dim: int) -> bool:
 def _bwd_route(n: int, head_dim: int, sq: int, sk: int, kv_len: int) -> str:
     """The backward `_flash_core_flat_bwd` takes for these shapes: 'onepass'
     (K4), 'split' (K5a + K5b), or 'xla' (kv_len < Sk, or a head dim the flat
-    layout cannot take), which has no kernel."""
+    layout cannot take). On the card `flash_bwd_flat` runs a kv_len < Sk call
+    as the kernels' route of the cut shapes (Sk = kv_len)."""
     if kv_len < sk or not _flat_ok(n, head_dim):
         return "xla"
     return "onepass" if _onepass_bwd_ok(_ceil_to(sq, 1024), sk, head_dim) else "split"
@@ -642,22 +643,32 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
     """The attention backward on flat (B, S, N*D) tensors, routed as the JAX
     package routes it (`_flash_core_flat_bwd`): K4 for long self-attention,
     K5a + K5b otherwise, with delta (and, on the sm90 route, the rotated q
-    and k) computed once for both. CPU tensors take the plain version,
-    including for kv_len < Sk; on CUDA tensors kv_len < Sk and the
-    (B, N, S, D) head dims have no kernel and raise."""
+    and k) computed once for both. CPU tensors take the plain version.
+
+    kv_len < Sk (a padded sequence-parallel shard's keys) runs the same
+    kernels on k[:, :kv_len] and v[:, :kv_len], routed by the cut shapes,
+    and pads dk and dv with zeros: a key the forward masked had p = 0, so it
+    adds nothing to dq and its dk and dv are exactly 0, and the lse the
+    forward saved is the one over the cut keys. With RoPE tables it raises
+    (nothing calls it: the sequence-parallel path rotates q and k first).
+    The (B, N, S, D) head dims have no kernel and raise on the card."""
     sk = k.shape[1]
     kv_len = sk if kv_len is None else min(int(kv_len), sk)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
         views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
         return _plain_bwd_flat(views, lse, cos, sin, kv_len, scale)
+    if kv_len < sk:
+        if cos is not None:
+            raise NotImplementedError(f"attention backward with kv_len {kv_len} < Sk {sk} and "
+                                      "RoPE tables: rotate q and k before the call")
+        dq, dk, dv = flash_bwd_flat(q, k[:, :kv_len], v[:, :kv_len], out, lse, g, head_dim,
+                                    scale=scale)
+        pad = (0, 0, 0, sk - kv_len)
+        return dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
     n = q.shape[-1] // head_dim
-    route = _bwd_route(n, head_dim, q.shape[1], sk, kv_len)
+    route = _bwd_route(n, head_dim, q.shape[1], sk, sk)
     if route == "xla":
-        if kv_len < sk:
-            raise NotImplementedError(
-                f"attention backward with kv_len {kv_len} < Sk {sk} (sequence-parallel "
-                "shards): no kernel on the card yet (ROADMAP Slice E)")
         raise NotImplementedError(
             f"attention backward for {n} heads of {head_dim}: the (B, N, S, D) route has "
             "no backward kernel")
@@ -1014,13 +1025,26 @@ def flash_fwd_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch
     return _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
 
 
+@torch.library.custom_op("svi_tpu_torch::flash_fwd_self", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, int head_dim, int kv_len, "
+                                "float scale) -> (Tensor, Tensor)")
+def flash_fwd_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: int,
+                   kv_len: int, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The self-attention forward (out, lse) on q and k rotated before the
+    call (the sequence-parallel path rotates its shard and then gathers the
+    keys), an operator of its own for `save_attention_policy` as
+    `flash_fwd_rope` is."""
+    return _forward_flat(q, k, v, head_dim, None, None, kv_len, scale)
+
+
 def save_attention_policy(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of `WanDiT.forward_blocks(save_attention=True)`:
     keep the self-attention forward's (out, lse) from the forward, recompute
     everything else."""
     from torch.utils.checkpoint import CheckpointPolicy
 
-    if op is torch.ops.svi_tpu_torch.flash_fwd_rope.default:
+    if op in (torch.ops.svi_tpu_torch.flash_fwd_rope.default,
+              torch.ops.svi_tpu_torch.flash_fwd_self.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -1029,12 +1053,15 @@ class _FlashAttention(torch.autograd.Function):
     """Mirrors `_flash_core_flat` + `_attn_with_saved`: the forward kernel,
     saving (q, k, v, cos, sin, out, lse); the backward through
     `flash_bwd_flat`. Gradients flow to q, k and v only. With RoPE the
-    forward goes through the `flash_fwd_rope` operator."""
+    forward goes through the `flash_fwd_rope` operator, a self-attention on
+    rotated q and k (self_attn) through `flash_fwd_self`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, head_dim, kv_len, scale):
+    def forward(ctx, q, k, v, cos, sin, head_dim, kv_len, scale, self_attn=False):
         if cos is not None:
             out, lse = flash_fwd_rope(q, k, v, cos, sin, head_dim, kv_len, scale)
+        elif self_attn:
+            out, lse = flash_fwd_self(q, k, v, head_dim, kv_len, scale)
         else:
             out, lse = _forward_flat(q, k, v, head_dim, cos, sin, kv_len, scale)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
@@ -1047,13 +1074,13 @@ class _FlashAttention(torch.autograd.Function):
         head_dim, kv_len, scale = ctx.args
         dq, dk, dv = flash_bwd_flat(q, k, v, out, lse, g.contiguous(), head_dim, cos=cos,
                                     sin=sin, kv_len=kv_len, scale=scale)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale):
+def _attention_flat(q, k, v, head_dim, cos, sin, kv_len, scale, self_attn=False):
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     scale = head_dim ** -0.5 if scale is None else float(scale)
-    return _FlashAttention.apply(q, k, v, cos, sin, head_dim, kv_len, scale)
+    return _FlashAttention.apply(q, k, v, cos, sin, head_dim, kv_len, scale, self_attn)
 
 
 def _attention4(q, k, v, cos, sin, kv_len, scale):
@@ -1109,6 +1136,17 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     return _QuantFlashAttention.apply(q, k, v, cos, sin, head_dim, kv_len, scale, quant)
+
+
+def flash_attention_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: int,
+                         kv_len: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention on flat (B, S, N*head_dim) q and k that are already
+    rotated (the sequence-parallel path: a shard's queries against the
+    gathered keys, padding masked by kv_len), differentiable in q, k and v;
+    its forward is the `flash_fwd_self` operator that the save-attention
+    policy keeps."""
+    return _attention_flat(q, k, v, head_dim, None, None, kv_len, scale, self_attn=True)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -124,6 +124,9 @@ class SVIVideoPipeline:
         self.vae = None
         self.image_encoder = None
         self.last_tea_cache = None  # the last clip's TeaCache (skip count), if any
+        # USP (the reference's use_usp): the DiT runs sequence-parallel over sp_mesh
+        self.use_unified_sequence_parallel = False
+        self.sp_mesh = None
 
     # -- construction -----------------------------------------------------------
 
@@ -145,11 +148,34 @@ class SVIVideoPipeline:
         return self
 
     @staticmethod
-    def from_model_manager(model_manager, torch_dtype=None, device="cuda",
+    def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
                            num_train_timesteps=1000):
+        """use_usp: every rank of the process group runs the pipeline, and the
+        DiT forward runs sequence-parallel over all of them (`enable_usp`)."""
         pipe = SVIVideoPipeline(device=device, torch_dtype=torch_dtype or model_manager.dtype,
                                 num_train_timesteps=num_train_timesteps)
-        return pipe.fetch_models(model_manager)
+        return pipe.fetch_models(model_manager).enable_usp(use_usp)
+
+    def enable_usp(self, use_usp: bool = True):
+        """With use_usp, the DiT forward of the denoise loop goes through
+        parallel.sequence_parallel.forward_sp over every rank
+        (`make_sp_mesh`; the reference's use_usp, svi_video.py:265-273);
+        the TeaCache loop keeps the single-device forward, as in the JAX
+        package."""
+        if use_usp:
+            from ..parallel.mesh import make_sp_mesh
+
+            self.sp_mesh = make_sp_mesh()
+            self.use_unified_sequence_parallel = True
+        return self
+
+    def _dit_forward(self, x, t, ctx, clip_feature, y, add_condition):
+        if self.use_unified_sequence_parallel and self.sp_mesh is not None:
+            from ..parallel.sequence_parallel import forward_sp
+
+            return forward_sp(self.dit, x, t, ctx, clip_feature, y, add_condition,
+                              mesh=self.sp_mesh)
+        return self.dit(x, t, ctx, clip_feature, y, add_condition)
 
     def enable_vram_management(self, num_persistent_param_in_dit=None):
         """The reference's layer offload is a VRAM workaround; the 14B DiT fits
@@ -266,7 +292,7 @@ class SVIVideoPipeline:
             t = timesteps[i:i + 1]
             xin = batched(latents)
             if tea_cache is None:
-                out = dit(xin, t, ctx, clip_in, y_in, ac_in)
+                out = self._dit_forward(xin, t, ctx, clip_in, y_in, ac_in)
             else:
                 tokens, ctx_emb, t_emb, t_mod, grid = dit.forward_prelude(
                     xin, t, ctx, clip_in, y_in, ac_in)

@@ -32,12 +32,12 @@ class SVIDanceVideoPipeline(SVIVideoPipeline):
         return self
 
     @staticmethod
-    def from_model_manager(model_manager, torch_dtype=None, device="cuda",
+    def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
                            num_train_timesteps=1000):
         pipe = SVIDanceVideoPipeline(device=device,
                                      torch_dtype=torch_dtype or model_manager.dtype,
                                      num_train_timesteps=num_train_timesteps)
-        return pipe.fetch_models(model_manager)
+        return pipe.fetch_models(model_manager).enable_usp(use_usp)
 
     @torch.inference_mode()
     def encode_pose(self, humanpose_data) -> torch.Tensor:

@@ -28,8 +28,10 @@ class SVITalkVideoPipeline(SVIVideoPipeline):
         self._audio_state = None
 
     @staticmethod
-    def from_model_manager(model_manager, torch_dtype=None, device="cuda",
+    def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
                            num_train_timesteps=1000, wav2vec_path=None):
+        """use_usp is accepted and ignored, as in the JAX package (its talk
+        pipeline has no sequence-parallel forward)."""
         pipe = SVITalkVideoPipeline(device=device, torch_dtype=torch_dtype or model_manager.dtype,
                                     num_train_timesteps=num_train_timesteps,
                                     wav2vec_path=wav2vec_path)

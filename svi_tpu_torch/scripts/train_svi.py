@@ -22,9 +22,21 @@ is `google/umt5-xxl/spiece.model` beside the text encoder unless
 Pillow (the card's) the videos are `.npy` files and --use_first_aug stays
 off (it raises without Pillow).
 
-One device: --training_strategy data_parallel runs without a mesh (as the
-JAX driver does on one device); sp, dataxsp and --shard_optimizer_state
-belong to the parallel slice and raise.
+Several GPUs: launch it with torchrun,
+
+    torchrun --nproc_per_node N -m svi_tpu_torch.scripts.train_svi \
+        --training_strategy sp|dataxsp|data_parallel [--shard_optimizer_state] ...
+
+Each rank joins the group torchrun describes (`parallel.mesh.init_distributed`:
+NCCL when every rank has a card of its own, else gloo), runs on
+cuda:LOCAL_RANK, and builds the mesh of --training_strategy
+(`make_training_mesh`: None on one process, where every strategy is the
+single-device path). The global batch holds one sample per 'data' rank, in
+the order the JAX driver concatenates them: every rank reads every sample
+(the dataset's and the curriculum's random draws stay in step), encodes
+only its own 'data' rank's sample (the 'sp' ranks of one 'data' rank encode
+the same one), and the encodings are gathered, so every rank hands the
+trainer the same global batch. Only global rank 0 writes files and prints.
 
 `main(argv, device)` runs in-process: the models go on `device` (the card
 unless the caller asks for the CPU) and it returns what it made.
@@ -41,6 +53,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import is_main_rank
 
 
 def build_parser(description="SVI error-recycling LoRA training (PyTorch, CUDA)"):
@@ -62,10 +76,11 @@ def build_parser(description="SVI error-recycling LoRA training (PyTorch, CUDA)"
     p.add_argument("--use_gradient_checkpointing_offload", action="store_true", default=False,
                    help="keep the checkpoints' block carries in pinned host memory")
     p.add_argument("--training_strategy", type=str, default="data_parallel",
-                   help="data_parallel (one device: no mesh) | sp | dataxsp (not ported: "
-                        "the parallel slice)")
+                   help="mesh layout under torchrun: data_parallel | sp | dataxsp (one "
+                        "process: no mesh)")
     p.add_argument("--shard_optimizer_state", action="store_true", default=False,
-                   help="ZeRO-1 analog over a mesh (not ported: the parallel slice)")
+                   help="ZeRO-1 analog of the reference's deepspeed_stage_2 (train_svi.py"
+                        ":156-161): shard the AdamW moments over the mesh's 'data' axis")
     p.add_argument("--remat_granularity", type=int, default=1,
                    help="blocks per checkpoint group: 1 = per-block remat, 0 = auto "
                         "sqrt(L) grouping, n>1 explicit")
@@ -116,14 +131,6 @@ def build_parser(description="SVI error-recycling LoRA training (PyTorch, CUDA)"
 
 def parse_args(argv=None):
     return build_parser().parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    """The mesh layouts and ZeRO-1 belong to the parallel slice."""
-    if args.training_strategy != "data_parallel" or args.shard_optimizer_state:
-        raise NotImplementedError(
-            f"--training_strategy {args.training_strategy} / --shard_optimizer_state: training "
-            "on a mesh is not ported yet (ROADMAP Slice E); use data_parallel on one device")
 
 
 def trainer_config_from_args(args):
@@ -232,27 +239,66 @@ class Encoders:
 
 
 def write_args(args) -> None:
+    if not is_main_rank():
+        return
     os.makedirs(args.output_path, exist_ok=True)
     with open(os.path.join(args.output_path, "args.json"), "w") as f:
         json.dump(vars(args), f, indent=2)  # provenance dump (ref project_utils.py:46-109)
 
 
-def train_loop(args, trainer, ds, encode_sample, device, rng: random.Random) -> dict:
+def setup(args, device):
+    """The process group (under torchrun), this rank's device, the mesh of
+    --training_strategy (None on one process) and args.json."""
+    from ..parallel.mesh import init_distributed, make_training_mesh
+    from .test_svi import card_device
+
+    device = init_distributed(card_device(device))
+    mesh = make_training_mesh(args.training_strategy)
+    if mesh is not None and is_main_rank():
+        print(f"training mesh: {mesh.shape} ({mesh.world.backend})", flush=True)
+    write_args(args)
+    return device, mesh
+
+
+def gather_batch(batch: dict, mesh, device) -> dict:
+    """The 'data' ranks' encoded samples concatenated in rank order (the
+    global batch), on every rank, as host arrays."""
+    from ..parallel import collectives
+
+    def gather(a):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            return tuple(gather(x) for x in a)
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return collectives.all_gather_tensors(t, mesh["data"]).cpu().numpy()
+
+    return {k: gather(v) for k, v in batch.items()}
+
+
+def train_loop(args, trainer, ds, plan_sample, device, rng: random.Random, mesh=None) -> dict:
     """The loop of the three drivers: epochs over a shuffled order, the
-    samples read ahead, `encode_sample(item)` -> the keyword arguments of
-    `training_step`, one step per sample (batch 1), metrics.jsonl, the
-    exports. Returns {"metrics", "exports", "seconds" (per phase: data wait,
-    step, export), "last_batch"}."""
+    samples read ahead, `plan_sample(item)` (the sample's host random draws)
+    -> a callable that encodes it into the keyword arguments of
+    `training_step`; one step per global batch (one sample per 'data' rank,
+    this rank encoding its own, `gather_batch`), metrics.jsonl, the exports.
+    Returns {"metrics", "exports", "seconds" (per phase: data wait, step,
+    export), "last_batch"}."""
     from ..training.dataset import prefetch_samples
     from ..utils.logging import MetricsLogger, profile_trace
 
+    main_rank = is_main_rank()
+    batch_b = mesh.shape["data"] if mesh is not None else 1
+    mine = mesh["data"].index if mesh is not None else 0
     record = {"metrics": [], "exports": [], "seconds": {"data": [], "step": [], "export": []},
               "last_batch": None}
     step = 0
     max_steps = args.max_steps if args.max_steps > 0 else args.max_epochs * max(len(ds), 1)
     t_start = time.time()
-    with contextlib.closing(MetricsLogger(os.path.join(args.output_path, "metrics.jsonl"))) \
-            as metrics_log:
+    log = (MetricsLogger(os.path.join(args.output_path, "metrics.jsonl")) if main_rank
+           else None)
+    pending = []
+    try:
         for epoch in range(args.max_epochs):
             order = list(range(len(ds)))
             rng.shuffle(order)
@@ -263,10 +309,17 @@ def train_loop(args, trainer, ds, encode_sample, device, rng: random.Random) -> 
                     record["seconds"]["data"].append(time.perf_counter() - t0)
                     if item is None:
                         break
-                    batch = encode_sample(item)
+                    pending.append(plan_sample(item))
+                    if len(pending) < batch_b:
+                        continue
+                    batch = pending[mine]()
+                    pending = []
+                    if batch_b > 1:
+                        batch = gather_batch(batch, mesh, device)
                     record["last_batch"] = batch
                     t0 = time.perf_counter()
-                    with profile_trace(args.profile_dir if step + 1 == 3 else None):
+                    profile = args.profile_dir if step + 1 == 3 and main_rank else None
+                    with profile_trace(profile):
                         metrics = trainer.training_step(**batch)
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
@@ -274,9 +327,10 @@ def train_loop(args, trainer, ds, encode_sample, device, rng: random.Random) -> 
                     step += 1
                     scalars = {k: v for k, v in metrics.items()
                                if isinstance(v, (int, float, bool))}
-                    metrics_log.log(step, **scalars)
+                    if log is not None:
+                        log.log(step, **scalars)
                     record["metrics"].append(scalars)
-                    if step % 10 == 0 or step == 1:
+                    if main_rank and (step % 10 == 0 or step == 1):
                         el = time.time() - t_start
                         print(f"step {step}/{max_steps} epoch {epoch} loss {metrics['loss']:.4f} "
                               f"grad {metrics['grad_norm']:.3f} buffers "
@@ -290,9 +344,13 @@ def train_loop(args, trainer, ds, encode_sample, device, rng: random.Random) -> 
                         trainer.save_lora_safetensors(path)
                         record["seconds"]["export"].append(time.perf_counter() - t0)
                         record["exports"].append(path)
-                        print(f"saved {path}", flush=True)
+                        if main_rank:
+                            print(f"saved {path}", flush=True)
                     if step >= max_steps:
                         return record
+    finally:
+        if log is not None:
+            log.close()
     return record
 
 
@@ -301,16 +359,13 @@ def main(argv=None, device="cuda") -> dict:
     "exports", "seconds", "last_batch"}."""
     from ..training import ErrorRecyclingTrainer
     from ..training.dataset import TextVideoDataset
-    from .test_svi import card_device
 
     args = parse_args(argv)
-    refuse_unported(args)
-    device = card_device(device)
-    write_args(args)
+    device, mesh = setup(args, device)
 
     mm, prompter = load_models_and_prompter(args, device)
     trainer = ErrorRecyclingTrainer(mm.fetch_model("wan_video_dit"),
-                                    trainer_config_from_args(args), device=device)
+                                    trainer_config_from_args(args), mesh=mesh, device=device)
     if args.pretrained_lora_path:
         trainer.load_lora_safetensors(args.pretrained_lora_path)
     enc = Encoders(mm, prompter, device)
@@ -318,13 +373,13 @@ def main(argv=None, device="cuda") -> dict:
     ds = TextVideoDataset(args.dataset_path, max_num_frames=args.num_frames,
                           frame_interval=args.frame_interval, height=args.height,
                           width=args.width, seed=args.seed)
-    print(f"dataset: {len(ds)} videos", flush=True)
+    if is_main_rank():
+        print(f"dataset: {len(ds)} videos", flush=True)
     rng = random.Random(args.seed)
 
-    def encode_sample(item):
-        ctx = enc.text(item["text"])
-        latents = enc.video(item["video"])
-        # motion-frame curriculum (ref :1013-1031)
+    def plan_sample(item):
+        # motion-frame curriculum (ref :1013-1031): drawn for every sample on
+        # every rank, so the draws stay in step
         first_ref_frames = item["first_ref_frames"]
         if args.num_motion_frames > 1:
             if rng.random() < args.p_motion_threshold:
@@ -335,11 +390,17 @@ def main(argv=None, device="cuda") -> dict:
                 cond_frames = first_ref_frames[:1]
         else:
             cond_frames = first_ref_frames[:1]
-        y, clip_feat = enc.images(cond_frames, item["random_ref_frame"], args,
-                                  use_first_aug=args.use_first_aug, ref_pad_cfg=args.ref_pad_cfg)
-        return dict(latents=latents, context=ctx, y=y, clip_feature=clip_feat)
 
-    record = train_loop(args, trainer, ds, encode_sample, device, rng)
+        def encode():
+            ctx = enc.text(item["text"])
+            latents = enc.video(item["video"])
+            y, clip_feat = enc.images(cond_frames, item["random_ref_frame"], args,
+                                      use_first_aug=args.use_first_aug,
+                                      ref_pad_cfg=args.ref_pad_cfg)
+            return dict(latents=latents, context=ctx, y=y, clip_feature=clip_feat)
+        return encode
+
+    record = train_loop(args, trainer, ds, plan_sample, device, rng, mesh)
     record["seconds"].update(enc.seconds)
     return dict(record, trainer=trainer, dataset=ds, encoders=enc)
 

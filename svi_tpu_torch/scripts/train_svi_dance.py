@@ -20,10 +20,12 @@ in the dance inference pipeline.
 
 from __future__ import annotations
 
+import functools
 import random
 
-from .train_svi import (Encoders, build_parser, load_models_and_prompter, refuse_unported,
-                        train_loop, trainer_config_from_args, write_args)
+from ..parallel.mesh import is_main_rank
+from .train_svi import (Encoders, build_parser, load_models_and_prompter, setup, train_loop,
+                        trainer_config_from_args)
 
 
 def parse_args(argv=None):
@@ -42,12 +44,9 @@ def main(argv=None, device="cuda") -> dict:
     from ..models.model_io import extract_side_modules, load_state_dict
     from ..training import ErrorRecyclingTrainer
     from ..training.dataset import DanceVideoDataset
-    from .test_svi import card_device
 
     args = parse_args(argv)
-    refuse_unported(args)
-    device = card_device(device)
-    write_args(args)
+    device, mesh = setup(args, device)
 
     mm, prompter = load_models_and_prompter(args, device)
     tc = trainer_config_from_args(args)
@@ -55,7 +54,7 @@ def main(argv=None, device="cuda") -> dict:
     tc.pose_drop_prob1 = args.pose_drop_prob1
     tc.pose_drop_prob2 = args.pose_drop_prob2
     tc.cond_drop_prob = args.cond_drop_prob
-    trainer = ErrorRecyclingTrainer(mm.fetch_model("wan_video_dit"), tc, device=device)
+    trainer = ErrorRecyclingTrainer(mm.fetch_model("wan_video_dit"), tc, mesh=mesh, device=device)
     if args.pretrained_lora_path:
         trainer.load_lora_safetensors(args.pretrained_lora_path)
     if args.pretrained_pose_path:
@@ -67,16 +66,18 @@ def main(argv=None, device="cuda") -> dict:
     ds = DanceVideoDataset(args.dataset_path, max_num_frames=args.num_frames,
                            frame_interval=args.frame_interval, height=args.height,
                            width=args.width, seed=args.seed)
-    print(f"dance dataset: {len(ds)} samples", flush=True)
+    if is_main_rank():
+        print(f"dance dataset: {len(ds)} samples", flush=True)
 
-    def encode_sample(item):
+    def encode(item):
         ctx = enc.text(item["text"])
         latents = enc.video(item["video"])
         y, clip_feat = enc.images(item["first_ref_frames"][:1], item["random_ref_frame"], args)
         return dict(latents=latents, context=ctx, y=y, clip_feature=clip_feat,
                     pose=item["dwpose_data"][None])
 
-    record = train_loop(args, trainer, ds, encode_sample, device, random.Random(args.seed))
+    record = train_loop(args, trainer, ds, lambda item: functools.partial(encode, item),
+                        device, random.Random(args.seed), mesh)
     record["seconds"].update(enc.seconds)
     return dict(record, trainer=trainer, dataset=ds, encoders=enc)
 

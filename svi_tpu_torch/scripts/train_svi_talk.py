@@ -19,10 +19,12 @@ are not on the path).
 
 from __future__ import annotations
 
+import functools
 import random
 
-from .train_svi import (Encoders, build_parser, load_models_and_prompter, refuse_unported,
-                        train_loop, trainer_config_from_args, write_args)
+from ..parallel.mesh import is_main_rank
+from .train_svi import (Encoders, build_parser, load_models_and_prompter, setup, train_loop,
+                        trainer_config_from_args)
 
 
 def parse_args(argv=None):
@@ -37,23 +39,20 @@ def main(argv=None, device="cuda") -> dict:
     """Run the driver; returns what train_svi.main returns."""
     from ..training import ErrorRecyclingTrainer
     from ..training.dataset import TalkVideoDataset
-    from .test_svi import card_device
 
     args = parse_args(argv)
     if args.multitalk_path:
         args.dit_path = args.dit_path + "," + args.multitalk_path
-    refuse_unported(args)
-    device = card_device(device)
-    write_args(args)
+    device, mesh = setup(args, device)
 
     mm, prompter = load_models_and_prompter(args, device)
     dit = mm.fetch_model("wan_video_dit")
-    if not dit.cfg.has_audio:
+    if not dit.cfg.has_audio and is_main_rank():
         print("WARNING: DiT loaded without audio branches (pass --multitalk_path); audio "
               "conditioning will be ignored", flush=True)
     tc = trainer_config_from_args(args)
     tc.audio_drop_prob = args.audio_drop_prob
-    trainer = ErrorRecyclingTrainer(dit, tc, device=device)
+    trainer = ErrorRecyclingTrainer(dit, tc, mesh=mesh, device=device)
     if args.pretrained_lora_path:
         trainer.load_lora_safetensors(args.pretrained_lora_path)
     enc = Encoders(mm, prompter, device)
@@ -61,16 +60,18 @@ def main(argv=None, device="cuda") -> dict:
     ds = TalkVideoDataset(args.dataset_path, max_num_frames=args.num_frames,
                           frame_interval=args.frame_interval, height=args.height,
                           width=args.width, seed=args.seed)
-    print(f"talk dataset: {len(ds)} samples", flush=True)
+    if is_main_rank():
+        print(f"talk dataset: {len(ds)} samples", flush=True)
 
-    def encode_sample(item):
+    def encode(item):
         ctx = enc.text(item["text"])
         latents = enc.video(item["video"])
         y, clip_feat = enc.images(item["first_ref_frames"][:1], item["random_ref_frame"], args)
         audio = (item["audio_first"], item["audio_vf"]) if dit.cfg.has_audio else None
         return dict(latents=latents, context=ctx, y=y, clip_feature=clip_feat, audio_tuple=audio)
 
-    record = train_loop(args, trainer, ds, encode_sample, device, random.Random(args.seed))
+    record = train_loop(args, trainer, ds, lambda item: functools.partial(encode, item),
+                        device, random.Random(args.seed), mesh)
     record["seconds"].update(enc.seconds)
     return dict(record, trainer=trainer, dataset=ds, encoders=enc)
 

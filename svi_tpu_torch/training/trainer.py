@@ -17,14 +17,24 @@ behavioral ref: train_svi.py:627-1304, train_svi_dance.py, train_svi_talk.py).
   * the files a run leaves: the LoRA export in peft naming (with the
     customtalk FFNs and the pose convs in the reference's naming), and a
     resumable checkpoint (`torch.save` of the trainables and the optimizer
-    state in place of orbax, plus the JAX package's host pickle).
-
-Not ported yet (ROADMAP, Slice E): a mesh and sharded optimizer state.
+    state in place of orbax, plus the JAX package's host pickle);
+  * with a mesh (parallel.mesh, 'data' x 'sp'): every rank runs the host
+    side on the whole global batch (the same seed draws the same numbers,
+    so the buffers stay equal on every rank, banked in the JAX host
+    readback's order), the forward goes through
+    parallel.sequence_parallel.forward_sp (each 'data' rank's rows, each
+    'sp' rank's tokens; every rank gets the global prediction, so the loss
+    is the JAX package's mean over the global batch), and the ranks' partial
+    parameter gradients are summed over the mesh before the clip. With
+    shard_optimizer_state (ZeRO-1) each 'data' rank keeps the AdamW moments
+    of its share of the trainables, steps those, and sends them to the other
+    'data' ranks. Only global rank 0 writes files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import pickle
 import random
@@ -34,6 +44,9 @@ import numpy as np
 import torch
 
 from ..models import pose_embedding, wan_dit
+from ..parallel import collectives
+from ..parallel.mesh import is_main_rank
+from ..parallel.sequence_parallel import forward_sp
 from ..schedulers import flow_match as fm
 from . import lora as lora_mod
 from .error_recycling import ErrorBuffers
@@ -59,7 +72,9 @@ class TrainerConfig:
     save_attention_activations: bool = False
     # the checkpoints' block carries in pinned host memory (save_on_cpu)
     use_gradient_checkpointing_offload: bool = False
-    shard_optimizer_state: bool = False  # not ported (needs a mesh): raises
+    # ZeRO-1 (the reference's deepspeed_stage_2, train_svi.py:156-161): the
+    # AdamW moments sharded over the mesh's 'data' axis; nothing without a mesh
+    shard_optimizer_state: bool = False
     # error recycling (ref :684-712)
     use_error_recycling: bool = True
     error_buffer_k: int = 500
@@ -99,12 +114,27 @@ class ClippedAdamW:
     The clip follows optax's rule: gradients become g / |g| * max_norm only
     when |g| >= max_norm (torch's clip_grad_norm_ divides by |g| + 1e-6 and
     would differ). AdamW is torch's, with optax's defaults (betas 0.9, 0.999,
-    eps 1e-8) and the same decoupled weight decay."""
+    eps 1e-8) and the same decoupled weight decay.
 
-    def __init__(self, params, cfg: TrainerConfig):
+    With a mesh the ranks' gradients are summed over every rank of it first
+    (each rank's are its share of the global loss's); the clip then runs on
+    the whole gradient on every rank. With cfg.shard_optimizer_state
+    (ZeRO-1) each parameter has one owner among the 'data' ranks (the
+    largest first, each to the least loaded rank): only the owner keeps its
+    moments and steps it, then each rank sends what it owns to the others of
+    its 'data' line. `state_dict` is the single-device one either way."""
+
+    def __init__(self, params, cfg: TrainerConfig, mesh=None):
         self.params = [p for p in params if p.requires_grad]
         self.max_norm = float(cfg.gradient_clip_val)
-        self.opt = torch.optim.AdamW(self.params, lr=cfg.learning_rate, betas=(0.9, 0.999),
+        self.mesh = mesh
+        self.owner = None
+        mine = self.params
+        if mesh is not None and cfg.shard_optimizer_state:
+            data = mesh["data"]
+            self.owner = _partition([p.numel() for p in self.params], data.size)
+            mine = [p for p, o in zip(self.params, self.owner) if o == data.index]
+        self.opt = torch.optim.AdamW(mine, lr=cfg.learning_rate, betas=(0.9, 0.999),
                                      eps=1e-8, weight_decay=cfg.weight_decay)
 
     def step(self) -> torch.Tensor:
@@ -113,23 +143,70 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if self.mesh is not None:
+            flat = torch.cat([g.reshape(-1).float() for g in grads])
+            collectives.all_reduce_(flat, self.mesh.world)
+            _unflatten_into(flat, grads)
         norm = global_norm(grads)
         if not bool(norm < self.max_norm):
             for g in grads:
                 g.div_(norm).mul_(self.max_norm)
         self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
+        if self.owner is not None:
+            data = self.mesh["data"]
+            with torch.no_grad():
+                for o in range(data.size):
+                    owned = [p for p, w in zip(self.params, self.owner) if w == o]
+                    flat = torch.cat([p.reshape(-1).float() for p in owned])
+                    _unflatten_into(collectives.broadcast_(flat, o, data), owned)
+        for p in self.params:
+            p.grad = None
         return norm
 
     def state_dict(self) -> dict:
-        return self.opt.state_dict()
+        """torch AdamW's state dict over every parameter (under ZeRO-1 the
+        owners' moments gathered: every 'data' rank must call it)."""
+        if self.owner is None:
+            return self.opt.state_dict()
+        local = self.opt.state_dict()
+        local["state"] = {j: {k: v.cpu() for k, v in st.items()}
+                          for j, st in local["state"].items()}
+        every = collectives.all_gather_object(local, self.mesh["data"])
+        state, seen = {}, [0] * len(every)
+        for i, o in enumerate(self.owner):
+            if seen[o] in every[o]["state"]:
+                state[i] = every[o]["state"][seen[o]]
+            seen[o] += 1
+        group = dict(every[0]["param_groups"][0], params=list(range(len(self.params))))
+        return {"state": state, "param_groups": [group]}
 
     def load_state_dict(self, state: dict) -> None:
+        if self.owner is not None:
+            mine = [i for i, o in enumerate(self.owner) if o == self.mesh["data"].index]
+            state = {"state": {j: state["state"][i] for j, i in enumerate(mine)
+                               if i in state["state"]},
+                     "param_groups": [dict(state["param_groups"][0],
+                                           params=list(range(len(mine))))]}
         self.opt.load_state_dict(state)
 
 
-def make_optimizer(params, cfg: TrainerConfig) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg)
+def _partition(sizes: list[int], n: int) -> list[int]:
+    """Owner of each item: the largest first, each to the least loaded of n."""
+    owner, load = [0] * len(sizes), [0] * n
+    for i in sorted(range(len(sizes)), key=lambda i: -sizes[i]):
+        owner[i] = min(range(n), key=load.__getitem__)
+        load[owner[i]] += sizes[i]
+    return owner
+
+
+def _unflatten_into(flat: torch.Tensor, tensors) -> None:
+    with torch.no_grad():
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
+
+
+def make_optimizer(params, cfg: TrainerConfig, mesh=None) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, mesh)
 
 
 CUSTOMTALK_FFNS = ("customtalk_context_pre_ffns", "customtalk_audio_pre_ffns")
@@ -160,13 +237,15 @@ class ErrorRecyclingTrainer:
     "customtalk". The LoRA adapters are made on `device` from a generator
     seeded with `config.seed`, the pose embedding (train_pose) from
     `config.seed + 1`; assign `trainer.lora` / `trainer.pose_params` to start
-    from others (the optimizer then starts afresh, as loading a LoRA does)."""
+    from others (the optimizer then starts afresh, as loading a LoRA does).
+    `mesh`: a parallel.mesh.Mesh ('data', 'sp') that every rank passes, or
+    None (one device; config.shard_optimizer_state then changes nothing, as
+    in the JAX package)."""
 
     def __init__(self, dit: wan_dit.WanDiT, config: TrainerConfig | None = None, mesh=None,
                  device="cuda"):
         self.cfg = c = config or TrainerConfig()
-        if mesh is not None or c.shard_optimizer_state:
-            raise NotImplementedError("training on a mesh is not ported yet (ROADMAP Slice E)")
+        self.mesh = mesh
         if c.train_architecture not in ("lora", "customtalk"):
             raise ValueError(f"train_architecture={c.train_architecture!r}: expected 'lora' or "
                              "'customtalk'")
@@ -224,7 +303,7 @@ class ErrorRecyclingTrainer:
     def reset_optimizer(self) -> None:
         """A fresh optimizer over every trainable together (one clip, one
         AdamW, as the JAX package's single `trainable` tree)."""
-        self.optimizer = make_optimizer(self.named_trainables().values(), self.cfg)
+        self.optimizer = make_optimizer(self.named_trainables().values(), self.cfg, self.mesh)
 
     @property
     def lora(self):
@@ -248,9 +327,9 @@ class ErrorRecyclingTrainer:
     # -- the device step --------------------------------------------------------
 
     def train_step(self, batch: dict) -> dict:
-        """`loss_fn` + `train_step` of the JAX package on device tensors:
-        latents, noise_w_error, latents_w_error (b, 16, f, h, w) f32, timestep
-        (b,) f32, timestep_id (b,) int, context, clip_feature, y in the DiT's
+        """`loss_fn` + `train_step` of the JAX package on device tensors (the
+        global batch on every rank of a mesh): latents, noise_w_error,
+        latents_w_error (b, 16, f, h, w) f32, timestep (b,) f32, timestep_id (b,) int, context, clip_feature, y in the DiT's
         dtype; with train_pose, pose (b, 3, F, H, W) f32 in [0, 255] (or None)
         and pose_keep (b, 1, 1), which zeroes the embedded condition; for an
         audio DiT, audio_first and audio_vf in the DiT's dtype. Returns loss,
@@ -272,14 +351,17 @@ class ErrorRecyclingTrainer:
         audio = None
         if batch.get("audio_first") is not None:
             audio = (batch["audio_first"], batch["audio_vf"])
-        pred = self.dit(noisy.to(dtype), batch["timestep"], batch["context"],
-                        batch.get("clip_feature"), batch.get("y"), add_condition=add_condition,
-                        lora=self.lora, lora_scale=self.lora_scale,
-                        use_remat=c.use_gradient_checkpointing,
-                        remat_granularity=self.remat_group,
-                        save_attention=c.save_attention_activations,
-                        offload_carries=c.use_gradient_checkpointing_offload,
-                        audio_embed_tuple=audio).float()
+        forward = self.dit
+        if self.mesh is not None:
+            forward = functools.partial(forward_sp, self.dit, mesh=self.mesh)
+        pred = forward(noisy.to(dtype), batch["timestep"], batch["context"],
+                       batch.get("clip_feature"), batch.get("y"), add_condition=add_condition,
+                       lora=self.lora, lora_scale=self.lora_scale,
+                       use_remat=c.use_gradient_checkpointing,
+                       remat_granularity=self.remat_group,
+                       save_attention=c.save_attention_activations,
+                       offload_carries=c.use_gradient_checkpointing_offload,
+                       audio_embed_tuple=audio).float()
         loss = (((pred - target) ** 2).mean(dim=(1, 2, 3, 4)) * self.weights[tid]).mean()
         loss.backward()
         grad_norm = self.optimizer.step()
@@ -383,8 +465,8 @@ class ErrorRecyclingTrainer:
         metrics = self.train_step(batch)
 
         if c.use_error_recycling:
-            # warmup phase banks every batch entry; afterwards too (in one
-            # process the full batch is the gather)
+            # every entry of the global batch, in its order, on every rank
+            # (the JAX host readback of the gathered errors)
             update = True
             if use_clean:
                 update = self.rng.random() < c.clean_buffer_update_prob
@@ -416,9 +498,12 @@ class ErrorRecyclingTrainer:
         customtalk FFNs as blocks.{i}.{ffn}.{0,2}.{weight,bias} ((out, in),
         fusable by the loaders), the pose convs as
         dwpose_embedding.{0,2,...}.{weight,bias} (a Sequential's numbering,
-        (out, in, kt, kh, kw)), then side_modules."""
+        (out, in, kt, kh, kw)), then side_modules. Written by global rank 0
+        only."""
         from ..utils.safetensors_io import save_file
 
+        if not is_main_rank():
+            return
         sd = {}
         if self.lora is not None:
             sd.update({k: torch.from_numpy(v)
@@ -452,18 +537,26 @@ class ErrorRecyclingTrainer:
         """Full resumable state: `train_state.pt` (the trainables and the
         optimizer's state, torch.save) and `host_state.pkl` (iteration count,
         both error buffers, the host RNG's state). (The reference does NOT
-        checkpoint buffers: a resume restarts buffer warmup; we keep them.)"""
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"trainable": {k: p.detach() for k, p in self.named_trainables().items()},
-                    "optimizer": self.optimizer.state_dict()},
-                   os.path.join(ckpt_dir, "train_state.pt"))
-        with open(os.path.join(ckpt_dir, "host_state.pkl"), "wb") as f:
-            pickle.dump({
-                "iteration_count": self.iteration_count,
-                "latent_error_buffer": self.buffers.latent_error_buffer,
-                "y_error_buffer": self.buffers.y_error_buffer,
-                "rng_state": self.rng.getstate(),
-            }, f)
+        checkpoint buffers: a resume restarts buffer warmup; we keep them.)
+        On a mesh every rank calls it (ZeRO-1 gathers the moments), global
+        rank 0 writes the single-device files, and every rank returns once
+        they are written, so any rank can resume from them."""
+        optimizer = self.optimizer.state_dict()
+        if is_main_rank():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save({"trainable": {k: p.detach() for k, p in
+                                      self.named_trainables().items()},
+                        "optimizer": optimizer},
+                       os.path.join(ckpt_dir, "train_state.pt"))
+            with open(os.path.join(ckpt_dir, "host_state.pkl"), "wb") as f:
+                pickle.dump({
+                    "iteration_count": self.iteration_count,
+                    "latent_error_buffer": self.buffers.latent_error_buffer,
+                    "y_error_buffer": self.buffers.y_error_buffer,
+                    "rng_state": self.rng.getstate(),
+                }, f)
+        if self.mesh is not None:
+            collectives.barrier(self.mesh.world)
 
     def restore_checkpoint(self, ckpt_dir: str):
         """The state of `save_checkpoint`, into a trainer of the same

@@ -421,11 +421,79 @@ def test_onepass_autograd_at_the_gate_with_a_ragged_edge():
 
 
 def test_bwd_with_masked_keys_raises_on_cuda():
-    """kv_len < Sk (sequence-parallel shards) has no backward kernel yet: a
-    CUDA tensor raises instead of taking the plain version."""
-    q, k, v, out, lse, g, _, _ = _bwd_inputs(1, 64, 96, 2, 64, False, 40)
+    """kv_len < Sk with RoPE tables raises (nothing calls it: the
+    sequence-parallel path rotates q and k before the call); without tables
+    it runs the kernels (`test_bwd_masked_keys_run_the_kernels`), never the
+    plain version."""
+    q, k, v, out, lse, g, cos, sin = _bwd_inputs(1, 64, 96, 1, 64, True, 40)
     with pytest.raises(NotImplementedError, match="kv_len"):
-        tattn.flash_bwd_flat(q, k, v, out, lse, g, 64, kv_len=80)
+        tattn.flash_bwd_flat(q, k, v, out, lse, g, 64, cos=cos, sin=sin, kv_len=80)
+    out, lse = tattn.flash_fwd_flat(q, k, v, 64, kv_len=80)
+    before = _split_launches("mma")
+    got = tattn.flash_bwd_flat(q, k, v, out, lse, g, 64, kv_len=80)
+    torch.cuda.synchronize()
+    assert _split_launches("mma") == (before[0] + 1, before[1] + 1)
+    _check_grads(got, _plain_bwd_masked(q, k, v, out, lse, g, 64, 80))
+
+
+def _plain_bwd_masked(q, k, v, out, lse, g, d, kv_len):
+    n = q.shape[-1] // d
+    views = [t.unflatten(-1, (n, d)) for t in (q, k, v, out)]
+    grads = tattn._flash_bwd_reference(*views, lse, g.unflatten(-1, (n, d)), None, None, kv_len,
+                                       d ** -0.5)
+    return [t.flatten(2) for t in grads]
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len,n,route", [
+    # a padded sequence-parallel shard: 9361 tokens over 2 ranks (4681 a
+    # rank, keys gathered to 9362 of which 9361 live): past K4's gate
+    (2, 4681, 9362, 9361, 40, "onepass"),
+    # a shard under K4's gate (Sq < 4096): the split kernels
+    (2, 1500, 3000, 2999, 3, "split"),
+])
+def test_bwd_masked_keys_run_the_kernels(b, sq, sk, kv_len, n, route):
+    """kv_len < Sk (the sequence-parallel self-attention's backward: the
+    shard's queries against the gathered, padded keys) on the card: K4 or
+    K5a + K5b, routed by the cut shapes as the JAX package routes a
+    kv_len == Sk call of that size, against the plain masked backward; the
+    masked keys' dk and dv are exactly 0."""
+    d = 128
+    q = _rand((b, sq, n * d), torch.bfloat16, 50)
+    k = _rand((b, sk, n * d), torch.bfloat16, 51)
+    v = _rand((b, sk, n * d), torch.bfloat16, 52)
+    g = _rand((b, sq, n * d), torch.bfloat16, 53)
+    out, lse = tattn.flash_fwd_flat(q, k, v, d, kv_len=kv_len)
+    assert tattn._bwd_route(n, d, sq, kv_len, kv_len) == route
+    before = [tattn.flash_bwd_onepass.launches, *_split_launches("sm90")]
+    got = tattn.flash_bwd_flat(q, k, v, out, lse, g, d, kv_len=kv_len)
+    torch.cuda.synchronize()
+    used = [c - b0 for c, b0 in zip([tattn.flash_bwd_onepass.launches,
+                                     *_split_launches("sm90")], before)]
+    assert used == ([1, 0, 0] if route == "onepass" else [0, 1, 1])
+    assert (got[1][:, kv_len:] == 0).all() and (got[2][:, kv_len:] == 0).all()
+    _check_grads(got, _plain_bwd_masked(q, k, v, out, lse, g, d, kv_len))
+
+
+@pytest.mark.parametrize("kv_len", [2048, 1500, 0])
+def test_k2_ring_block_matches_plain(kv_len):
+    """K2 at the ring's shapes: bf16 D = 128 on (B, N, S, D) views of
+    (B, S, N, D) shards (strided, as ring_attention hands them over), Sq =
+    Sk = a shard, the block's valid keys full, partial or 0 (a block of
+    padding: out 0 and lse <= -1e30, which the merge weighs 0)."""
+    b, s, n, d = 1, 2048, 4, 128
+    q, k, v = (_rand((b, s, n, d), torch.bfloat16, 60 + i).transpose(1, 2) for i in range(3))
+    before = tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 128)]
+    out, lse = tattn.flash_fwd_bnsd(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 128)] == before + 1
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    if kv_len == 0:
+        assert (out == 0).all() and (lse <= -1e30).all()
+        return
+    o_ref, lse_ref = tattn._flash_fwd_reference(*(t.transpose(1, 2) for t in (q, k, v)), None,
+                                                None, kv_len, d ** -0.5)
+    _check((out, lse), (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL,
+           BF16_OUT_REL)
 
 
 # ---------------------------------------------------------------------------

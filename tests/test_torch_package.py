@@ -106,9 +106,11 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_unported_training_options_raise():
-    """Only the mesh and sharded optimizer state (the parallel slice) are
-    left unported; customtalk, pose, save_attention, offloaded carries and
-    the first-frame augmentation run (tests/test_torch_training_variants.py,
+    """Every training option is ported: a mesh is accepted (the parallel
+    slice, tests/test_torch_parallel_training.py), shard_optimizer_state
+    without a mesh changes nothing (one optimizer over every trainable, as
+    in the JAX package); customtalk, pose, save_attention, offloaded carries
+    and the first-frame augmentation run (tests/test_torch_training_variants.py,
     tests/test_torch_train_data.py)."""
     from svi_tpu_torch.models import wan_dit
     from svi_tpu_torch.training import ErrorRecyclingTrainer, TrainerConfig
@@ -116,10 +118,13 @@ def test_unported_training_options_raise():
     cfg = wan_dit.WanDiTConfig(dim=32, in_dim=4, ffn_dim=64, out_dim=4, text_dim=8,
                                freq_dim=16, num_heads=1, num_layers=2, dtype=torch.float32)
     dit = wan_dit.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ErrorRecyclingTrainer(dit, TrainerConfig(shard_optimizer_state=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ErrorRecyclingTrainer(dit, TrainerConfig(), mesh=object(), device="cpu")
+    sharded = ErrorRecyclingTrainer(dit, TrainerConfig(shard_optimizer_state=True),
+                                    device="cpu")
+    plain = ErrorRecyclingTrainer(dit, TrainerConfig(), device="cpu")
+    assert sharded.optimizer.owner is None
+    assert len(sharded.optimizer.opt.param_groups[0]["params"]) == len(plain.optimizer.params)
+    assert ErrorRecyclingTrainer(dit, TrainerConfig(), mesh=object(), device="cpu").mesh \
+        is not None
     for ok in (dict(train_pose=True), dict(save_attention_activations=True),
                dict(use_gradient_checkpointing_offload=True)):
         ErrorRecyclingTrainer(dit, TrainerConfig(**ok), device="cpu")

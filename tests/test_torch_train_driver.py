@@ -156,13 +156,20 @@ def test_train_driver_matches_the_jax_driver(driver, weights, tmp_path, monkeypa
 
 
 def test_train_driver_refuses_what_it_does_not_run(weights, tmp_path):
-    """A mesh layout and ZeRO-1 raise before anything is written; without a
+    """On one process every --training_strategy and --shard_optimizer_state
+    run the single-device path (no mesh, as JAX's make_training_mesh gives
+    on one device): the same metrics and exports as the plain run; the
+    parallel runs are tests/test_torch_parallel_training.py's. Without a
     card the default device raises (no silent CPU)."""
+    plain = port_shot.main(_argv(weights, "svi-film-shot", tmp_path / "plain"), device="cpu")
     for flags in (("--training_strategy", "sp"), ("--training_strategy", "dataxsp"),
                   ("--shard_optimizer_state",)):
-        with pytest.raises(NotImplementedError, match="Slice E"):
-            port_shot.main(_argv(weights, "svi-film-shot", tmp_path / "x", *flags), device="cpu")
-    assert not (tmp_path / "x").exists()
+        args = port_shot.parse_args(_argv(weights, "svi-film-shot", tmp_path / "x", *flags))
+        assert port_shot.setup(args, "cpu") == (torch.device("cpu"), None)
+    run = port_shot.main(_argv(weights, "svi-film-shot", tmp_path / "sp", "--training_strategy",
+                               "dataxsp", "--shard_optimizer_state"), device="cpu")
+    assert [m["loss"] for m in run["metrics"]] == [m["loss"] for m in plain["metrics"]]
+    assert run["trainer"].mesh is None and run["trainer"].optimizer.owner is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_shot.main(_argv(weights, "svi-film-shot", tmp_path / "y"))

@@ -182,7 +182,9 @@ def test_variant_trainer_three_steps_match_jax(variant):
 def test_only_the_variant_trainables_train():
     """customtalk: the FFNs alone of the DiT take gradients (the rest stays
     frozen); every trainable is in the one optimizer; a quantized customtalk
-    FFN, a mesh, sharded optimizer state and int8 attention are refused."""
+    FFN and int8 attention are refused; a mesh is accepted, and sharded
+    optimizer state without one keeps that one optimizer (as in the JAX
+    package)."""
     _, tt = _trainers("customtalk_pose")
     trainables = set(map(id, tt.named_trainables().values()))
     assert trainables == set(map(id, tt.optimizer.params))
@@ -194,9 +196,12 @@ def test_only_the_variant_trainables_train():
     quantized = tdit.quantize_params_for_inference(dit, "int8", min_size=16, group=GROUP)
     with pytest.raises(ValueError, match="quantized"):
         TTrainer(quantized, TConfig(train_architecture="customtalk"), device="cpu")
-    for bad in (dict(mesh=object()), dict(config=TConfig(shard_optimizer_state=True))):
-        with pytest.raises(NotImplementedError, match="Slice E"):
-            TTrainer(dit, device="cpu", **bad)
+    assert TTrainer(dit, device="cpu", mesh=object()).mesh is not None
+    unsharded = TTrainer(dit, TConfig(train_architecture="customtalk",
+                                      shard_optimizer_state=True), device="cpu")
+    assert unsharded.optimizer.owner is None
+    assert set(map(id, unsharded.optimizer.opt.param_groups[0]["params"])) == set(
+        map(id, unsharded.named_trainables().values()))
     with pytest.raises(ValueError, match="attention_quant"):
         TTrainer(tdit.WanDiT(dataclasses.replace(cfg, attention_quant="qk8"), dit.tree()),
                  device="cpu")
