@@ -108,9 +108,21 @@ non-zero exit and no result line:
      sharded result is within its bound, every sharded self-attention
      backward took K4 or K5 and every ring step K2's sm90 route; the speed
      of ranks sharing one card is printed and measures no multi-card speed;
-  7. a JSON line of the kernels (K3's launches from 5b's quantized run;
+  7. (run inside 4e, after 4f, on its files) the pose path: (a) the ONNX
+     executor's op families and tiny UniAnimate, long and replace-anyone
+     pipelines, card against CPU; (b) DWPose's networks at their published
+     widths as seeded ONNX graphs (YOLOX-L at 640x640, the detector steered
+     to 1-4 people; DWPose-l at 384x288), card against CPU, with op counts,
+     FLOPs and ms a frame and a person; (c) prepare_video_pose and
+     run_align_pose on them over a seeded 16-frame 480x640 .npy video; (d)
+     UniAnimate at the 14B's width on 4e's 4-block files and a side-module
+     file through ModelManager: the plain pipeline (and a no-pose control),
+     the long pipeline (33 frames, 3 windows) and replace-anyone, failing
+     unless every K1 / K2 launch took its ported route;
+  8. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
-     `launches_parallel`), the nvidia-smi line, and the result line.
+     `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`),
+     the nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -655,6 +667,13 @@ def kernel_cases():
     # the talk variant's step: its three CFG branches as batch 3 (self and text cross)
     yield fwd_case("talk_self_attn_rope_b3", 3, 4680, 4680, 40, 128, grid=(3, 30, 52))
     yield fwd_case("talk_text_cross_attn_b3", 3, 4680, 512, 40, 128)
+    # the UniAnimate long pipeline's window step: 5 x 30 x 52 tokens, CFG batch 2
+    # (self, text and image cross-attention)
+    yield fwd_case("unianimate_long_window", 2, 7800, 7800, 40, 128, grid=(5, 30, 52))
+    yield fwd_case("unianimate_long_text_cross_attn", 2, 7800, 512, 40, 128)
+    yield fwd_case("unianimate_long_image_cross_attn", 2, 7800, 257, 40, 128)
+    # replace-anyone's two batch-1 forwards a step at 9 frames (3 x 30 x 52 tokens)
+    yield fwd_case("replace_anyone_self_attn_b1", 1, 4680, 4680, 40, 128, grid=(3, 30, 52))
 
     # CLIP ViT-H/14: 257 tokens, 16 heads of 80, f32, through the (B, N, S, D) entry
     q, k, v = (randn((1, 16, 257, 80), torch.float32) for _ in range(3))
@@ -1977,8 +1996,8 @@ def phase_driver(card: str) -> dict:
     the loaded tensors are the written ones bit for bit, the frames are
     right, the tiled decode is within its bound of the untiled one, the
     forward kernels ran in (b) and every quantized linear of (c) went
-    through w4a8_linear. Then phases 4f and 5b on these files; returns 5b's
-    quantized training run's launches."""
+    through w4a8_linear. Then phases 4f, 7 and 5b on these files; returns
+    5b's quantized training run's launches and phase 7's (UniAnimate's)."""
     import shutil
     import tempfile
 
@@ -2087,8 +2106,10 @@ def phase_driver(card: str) -> dict:
 
         # 4f: the variants' drivers on these files and the ones they add
         phase_variants(root, card)
+        # 7: the pose path, UniAnimate on these files
+        pose_launches = phase_pose(root, card)
         # 5b: the training drivers on the same files
-        return phase_train_drivers(root, card)
+        return phase_train_drivers(root, card), pose_launches
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2523,6 +2544,418 @@ def phase_multitalk_step(state: dict, card: str) -> None:
     del dit, tree, args, audio3
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the pose path (the ONNX executor, DWPose, the pose scripts,
+# UniAnimate)
+# ---------------------------------------------------------------------------
+
+# The executor's op families, card against CPU: f32 convs with TF32 off,
+# f32 matmuls, sums in another order: within 1e-5 of the largest |output|;
+# shape outputs exactly equal.
+POSE_OP_REL = 1e-5
+# The full-width YOLOX-L and DWPose-l graphs, card against CPU: a few hundred
+# f32 ops deep, each summing in another order on the card: within 1e-3 of
+# the largest |output|.
+POSE_GRAPH_REL = 1e-3
+POSE_PEOPLE = (1, 4)  # the steered detector's people on the seeded frame
+POSE_H, POSE_W, POSE_FRAMES = 480, 640, 16  # (c)'s seeded video
+# (d): UniAnimate at the 14B's width on 4e's 4-block files, 480x832
+UNI_FRAMES, UNI_LONG_FRAMES, UNI_CONTEXT, UNI_OVERLAP = 9, 33, 5, 2
+UNI_PROMPT = "a person dancing in a bright studio, full body"
+
+
+def _pose_graphs():
+    """tests/torch_dwpose_graphs.py (the seeded ONNX graphs; no JAX)."""
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    import torch_dwpose_graphs
+
+    return torch_dwpose_graphs
+
+
+def capture_decode(pipe) -> dict:
+    """Keep the pipeline's decoded frames (before the uint8 cast) under
+    ["v"]."""
+    seen = {}
+    decode = pipe.decode_video
+
+    def spy(*a, **kw):
+        seen["v"] = decode(*a, **kw)
+        return seen["v"]
+
+    pipe.decode_video = spy
+    return seen
+
+
+def _host_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def tiny_uni_pipeline(device, name: str):
+    """Phase 4a's tiny f32 pipeline as one of wan_video's UniAnimate
+    pipelines, its side stacks cut to the tiny DiT's widths (y has 4 + 4
+    channels, the latents 4)."""
+    from svi_tpu_torch.models import pose_embedding, unianimate
+    from svi_tpu_torch.pipelines import wan_video
+
+    base = tiny_pipeline(device)
+    pipe = getattr(wan_video, name)(device=device, torch_dtype=torch.float32)
+    pipe.vae, pipe.dit, pipe.image_encoder = base.vae, base.dit, base.image_encoder
+    pipe.dwpose_embedding = pose_embedding.init_params(64, seed=4, device="cpu").to(device)
+    pipe.randomref_embedding_pose = unianimate.init_params(
+        "randomref", seed=5, device="cpu", channels=(3, 16, 16, 16, 16, 16, 8)).to(device)
+    if name == "WanRepalceAnyoneVideoPipeline":
+        pipe.learn_in_embedding = unianimate.init_params(
+            "learn_in", seed=6, device="cpu", channels=(4, 16, 16, 16, 4)).to(device)
+        pipe.inpaint_embedding = unianimate.init_params(
+            "inpaint", seed=7, device="cpu", channels=(4, 16, 16, 4)).to(device)
+    return pipe
+
+
+def phase_pose_small(card: str) -> int:
+    """(a) The executor's op families and the tiny UniAnimate, long and
+    replace-anyone pipelines on the card against the same on the CPU.
+    Returns the largest frame difference (levels): the card-vs-CPU gap the
+    pose control must exceed."""
+    from svi_tpu_torch.ops import attention as A
+    from svi_tpu_torch.utils import onnx_torch
+
+    for name, data, feeds in _pose_graphs().op_family_graphs():
+        card_out = onnx_torch.InferenceSession(data, device="cuda").run(None, feeds)
+        cpu_out = onnx_torch.InferenceSession(data, device="cpu").run(None, feeds)
+        errs = []
+        for got, want in zip(card_out, cpu_out):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise RuntimeError(f"[pose-small] {name}: {got.shape} {got.dtype} on the card, "
+                                   f"{want.shape} {want.dtype} on the CPU")
+            if np.issubdtype(want.dtype, np.floating):
+                errs.append(_host_rel(got, want))
+            elif not np.array_equal(got, want):
+                raise RuntimeError(f"[pose-small] {name}: integer outputs differ")
+        log(f"[pose-small] ONNX {name}: card vs CPU max err {max(errs, default=0.0):.3e} of the "
+            f"largest |output| (bound {POSE_OP_REL}); shape outputs equal; {card}")
+        if max(errs, default=0.0) > POSE_OP_REL:
+            raise RuntimeError(f"the executor's {name} on the card disagrees with the CPU")
+
+    rng = np.random.default_rng(60)
+    gap = 0
+    base_kw = tiny_call_kwargs()
+    common = {k: base_kw[k] for k in ("input_image", "seed", "height", "width", "cfg_scale",
+                                      "num_inference_steps", "tiled", "prompt_emb_posi",
+                                      "prompt_emb_nega")}
+    runs = {"WanUniAnimateVideoPipeline": dict(num_frames=9),
+            "WanUniAnimateLongVideoPipeline": dict(num_frames=17, context_size=3,
+                                                   context_overlap=2),
+            "WanRepalceAnyoneVideoPipeline": dict(num_frames=9, batch={
+                "video": rng.uniform(-1, 1, (3, 9, 64, 64)).astype(np.float32),
+                "segmentation_data": (rng.random((9, 64, 64)) > 0.7).astype(np.float32) * 255})}
+    for name, extra in runs.items():
+        kw = dict(common, **extra, random_ref_dwpose=rng.integers(0, 255, (64, 64, 3)).astype(
+            np.float32), dwpose_data=rng.integers(0, 255, (3, extra["num_frames"], 64, 64)).astype(
+            np.float32))
+        outs = {}
+        for where, dev in (("card", "cuda"), ("host", "cpu")):
+            pipe = tiny_uni_pipeline(dev, name)
+            seen = capture_decode(pipe)
+            launches = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches
+            frames = np.stack(pipe(**kw))
+            used = A.flash_fwd_flat.launches + A.flash_fwd_bnsd.launches - launches
+            outs[where] = (frames, seen["v"].float().cpu(), used)
+        err = (outs["card"][1] - outs["host"][1]).abs().max().item()
+        px = int(np.abs(outs["card"][0].astype(int) - outs["host"][0].astype(int)).max())
+        gap = max(gap, px)
+        finite = bool(torch.isfinite(outs["card"][1]).all())
+        log(f"[pose-small] {name}: card vs CPU on a tiny f32 pipeline, decoded frames max abs "
+            f"err {err:.3e} (bound 1e-3), frames max diff {px} levels (bound 2), finite "
+            f"{finite}, kernel launches {outs['card'][2]}; {card}")
+        if not (err <= 1e-3 and px <= 2 and finite and outs["card"][2] > 0):
+            raise RuntimeError(f"the tiny {name} on the card disagrees with the CPU")
+    return gap
+
+
+def phase_dwpose_full(root: Path, card: str) -> dict:
+    """(b) DWPose's two networks at their published widths (YOLOX-L at
+    640x640, DWPose-l at 384x288) as ONNX graphs from seeded weights, the
+    detector's objectness bias steered so that the seeded frame shows
+    1-4 people: each graph on the card against the CPU, its op count and
+    FLOPs, its median ms a frame / a person (one run under sync debug mode
+    'error': it fails if the executor waits for the card), and Wholebody a
+    frame. Writes the two graphs under root; returns their paths."""
+    from svi_tpu_torch.dwpose import Wholebody, onnx_infer
+    from svi_tpu_torch.utils import onnx_torch
+
+    graphs = _pose_graphs()
+    frame = np.random.default_rng(61).integers(0, 256, (POSE_H, POSE_W, 3), dtype=np.uint8)
+    det_in, _ = onnx_infer._preprocess_det(frame, device=torch.device("cuda"))
+    t0 = time.perf_counter()
+    det_bytes, det_stats = graphs.steered_yolox(
+        lambda data: onnx_torch.InferenceSession(data, device="cuda").run(
+            None, {"images": det_in})[0], people=3)
+    pose_bytes, pose_stats = graphs.rtmpose()
+    build_s = time.perf_counter() - t0
+    paths = {"det": root / "yolox_l.onnx", "pose": root / "dw-ll_ucoco_384.onnx"}
+    paths["det"].write_bytes(det_bytes)
+    paths["pose"].write_bytes(pose_bytes)
+
+    sess = {(k, dev): onnx_torch.InferenceSession(str(paths[k]), device=dev)
+            for k in ("det", "pose") for dev in ("cuda", "cpu")}
+    boxes = onnx_infer.inference_detector(sess["det", "cuda"], frame)
+    if not POSE_PEOPLE[0] <= len(boxes) <= POSE_PEOPLE[1]:
+        raise RuntimeError(f"the steered detector found {len(boxes)} people, expected "
+                           f"{POSE_PEOPLE}")
+    img = torch.from_numpy(frame).cuda()
+    center, scale = onnx_infer._bbox_to_center_scale(boxes[0])
+    crop, _ = onnx_infer._crop(img, center, scale)
+    mean = torch.tensor(onnx_infer._POSE_MEAN, device="cuda")
+    std = torch.tensor(onnx_infer._POSE_STD, device="cuda")
+    pose_in = ((crop.float() - mean) / std).permute(2, 0, 1)[None].contiguous()
+    feeds = {"det": {"images": det_in}, "pose": {"input": pose_in}}
+    stats = {"det": det_stats, "pose": pose_stats}
+    wb = Wholebody(str(paths["det"]), str(paths["pose"]), device="cuda")
+    for k in ("det", "pose"):
+        t0 = time.perf_counter()
+        card_out = sess[k, "cuda"].run(None, feeds[k])
+        cpu_feed = {n: v.cpu() for n, v in feeds[k].items()}
+        t1 = time.perf_counter()
+        cpu_out = sess[k, "cpu"].run(None, cpu_feed)
+        cpu_s = time.perf_counter() - t1
+        rel = max(_host_rel(a, b) for a, b in zip(card_out, cpu_out))
+        run = lambda k=k: sess[k, "cuda"].run_tensors(None, feeds[k])  # noqa: E731
+        ms = median_ms(run, reps=10)
+        torch.cuda.synchronize()
+        # the executor's enqueue, the device behind: a run that waited for
+        # the card (a read-back, a blocking upload) raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            run()
+            host_ms = 1e3 * (time.perf_counter() - t1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        st = stats[k]
+        nbytes = 4 * (st["params"] + sum(v.numel() for v in feeds[k].values())
+                      + sum(int(np.prod(o.shape)) for o in card_out))
+        b_ms, b_by, b_rate = bound(st["flops"], nbytes, F32_ACCURATE)
+        log(f"[dwpose] {'YOLOX-L 640x640' if k == 'det' else 'DWPose-l 384x288'}: {st['ops']} "
+            f"ops, {st['flops'] / 1e9:.2f} GFLOP counted from its shapes, "
+            f"{st['params'] / 1e6:.2f}M params; card {ms:.3f} ms a "
+            f"{'frame' if k == 'det' else 'person'} (median of 10 CUDA-event runs after one "
+            f"warm-up), host enqueue {host_ms:.3f} ms ({1e3 * host_ms / st['ops']:.1f} us an "
+            f"op, no host sync under sync debug mode 'error'), bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_rate}); CPU run {cpu_s:.2f}s; card vs CPU "
+            f"max err {rel:.3e} of the largest |output| (bound {POSE_GRAPH_REL}); {card}")
+        if not rel <= POSE_GRAPH_REL:
+            raise RuntimeError(f"the full-width {k} graph on the card disagrees with the CPU")
+    wb(frame)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        kpts, scores = wb(frame)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"[dwpose] graphs built in {build_s:.2f}s (objectness bias "
+        f"{det_stats['obj_bias']:.4f}): {len(boxes)} people on the seeded {POSE_H}x{POSE_W} "
+        f"frame; Wholebody a frame (detect, {len(boxes)} crops and poses, decode) "
+        f"{1e3 * statistics.median(times):.2f} ms median of 5, keypoints {kpts.shape}, "
+        f"finite {bool(np.isfinite(kpts).all())}; {card}")
+    if not np.isfinite(kpts).all():
+        raise RuntimeError("Wholebody's keypoints are not finite")
+    return {k: str(v) for k, v in paths.items()}
+
+
+def _load_frames(paths: list) -> np.ndarray:
+    """Frames written by run_align_pose: .npy, or .jpg through Pillow."""
+    if paths[0].endswith(".npy"):
+        return np.stack([np.load(p) for p in paths])
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(p).convert("RGB")) for p in paths])
+
+
+def phase_pose_scripts(root: Path, graph_paths: dict, card: str) -> dict:
+    """(c) The two pose scripts as users run them, on the full-width graphs:
+    prepare_video_pose over a seeded 16-frame 480x640 .npy video (the sample
+    directory must load in DanceVideoDataset), then run_align_pose of that
+    video to a seeded 480x832 .npy reference image, rendered at 480x832.
+    Returns the aligned skeleton frames and the reference's."""
+    from svi_tpu_torch.scripts import prepare_video_pose, run_align_pose
+    from svi_tpu_torch.training.dataset import DanceVideoDataset
+
+    rng = np.random.default_rng(62)
+    vids = root / "pose_videos"
+    vids.mkdir()
+    np.save(vids / "dance_a.npy", rng.integers(0, 256, (POSE_FRAMES, POSE_H, POSE_W, 3),
+                                                dtype=np.uint8))
+    graphs = ["--det_onnx", graph_paths["det"], "--pose_onnx", graph_paths["pose"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = prepare_video_pose.main(["--video_dir", str(vids), "--out_dir",
+                                    str(root / "pose_samples"), *graphs], device="cuda")
+    prep_s = time.perf_counter() - t0
+    ds = DanceVideoDataset(str(root / "pose_samples"), max_num_frames=9, num_frames=9,
+                           height=256, width=320)
+    item = ds[0]
+    ok = (len(ds) == 1 and item["dwpose_data"].shape[0] == 3
+          and item["dwpose_data"].shape[1:] == item["video"].shape[1:])
+    log(f"[pose-scripts] prepare_video_pose: {done} in {prep_s:.2f}s "
+        f"({POSE_FRAMES / prep_s:.2f} frames/s); DanceVideoDataset reads it: video "
+        f"{item['video'].shape}, dwpose {item['dwpose_data'].shape}; {card}")
+    if not ok:
+        raise RuntimeError("the prepared sample directory does not load as a dance sample")
+
+    ref = rng.integers(0, 256, (SLICE_H, SLICE_W, 3), dtype=np.uint8)
+    np.save(root / "pose_ref.npy", ref)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_align_pose.main(["--ref_name", str(root / "pose_ref.npy"), "--source_video_paths",
+                               str(vids / "dance_a.npy"), "--saved_pose_dir",
+                               str(root / "aligned"), *graphs, "--height", str(SLICE_H),
+                               "--width", str(SLICE_W)], device="cuda")
+    align_s = time.perf_counter() - t0
+    frames = _load_frames([str(root / "aligned" / f) for f in out["files"]])
+    painted = float((frames.max(-1) > 0).mean())
+    log(f"[pose-scripts] run_align_pose: {len(out['aligned'])} aligned frames "
+        f"({POSE_FRAMES} + the reference's pose) in {align_s:.2f}s "
+        f"({(POSE_FRAMES + 1) / align_s:.2f} frames/s), {out['files'][0]}..{out['files'][-1]} "
+        f"{frames.shape}, {100 * painted:.2f}% of the pixels painted; {card}")
+    if frames.shape != (POSE_FRAMES + 1, SLICE_H, SLICE_W, 3) or not painted > 0:
+        raise RuntimeError("run_align_pose wrote no skeleton")
+    return {"poses": frames[:-1], "ref_pose": frames[-1], "ref": ref}
+
+
+def write_uni_side_modules(root: Path) -> Path:
+    """4e's LoRA plus UniAnimate's side stacks at the 14B's widths (seeded,
+    f32, the reference's key names): the file a UniAnimate user passes."""
+    from svi_tpu_torch.models import pose_embedding, unianimate, wan_dit
+    from svi_tpu_torch.utils.safetensors_io import load_file, save_file
+
+    side = load_file(str(root / "svi-shot.safetensors"))
+    side.update(pose_embedding.torch_state_dict_from_params(
+        pose_embedding.init_params(wan_dit.WAN_14B_I2V.dim, seed=63, device="cuda")))
+    for i, kind in enumerate(("randomref", "learn_in", "inpaint")):
+        side.update(unianimate.torch_state_dict_from_params(
+            kind, unianimate.init_params(kind, seed=64 + i, device="cuda")))
+    path = root / "unianimate.safetensors"
+    save_file(side, str(path))
+    return path
+
+
+def phase_unianimate(root: Path, scripts: dict, gap: int, card: str) -> dict:
+    """(d) The UniAnimate pipelines at the width of Wan2.1-I2V-14B on 4e's
+    4-block files and a side-module file, through ModelManager and
+    from_model_manager: the plain pipeline (480x832, 9 frames, 4 steps,
+    (c)'s aligned skeletons) and the same without the pose (a control that
+    must move the clip beyond the card-vs-CPU gap), the long pipeline (33
+    frames in windows of 5 latent frames, overlap 2: 3 windows, every
+    latent frame kept) and replace-anyone (9 frames, a seeded mask). Fails
+    unless the frames are finite and shaped and every K1 / K2 launch took
+    its ported route. Returns the summed launches."""
+    from svi_tpu_torch.models.clip_vision import ClipVision
+    from svi_tpu_torch.models.pose_embedding import PoseEmbedding
+    from svi_tpu_torch.models.unianimate import ConvStack
+    from svi_tpu_torch.models.wan_vae import WanVAE
+    from svi_tpu_torch.pipelines import wan_video
+    from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
+    from svi_tpu_torch.scripts import test_svi
+
+    side = write_uni_side_modules(root)
+    args = test_svi.parse_args(["--dit_root", str(root), "--extra_module_root", str(side)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mm, load_s, fuse_s = test_svi.load_manager(args, torch.device("cuda"))
+    log(f"[unianimate] {side.name} written; ModelManager load {load_s:.2f}s, LoRA fuse "
+        f"{fuse_s:.2f}s {mm.lora_log}, side modules {len(mm.state_dict_new_module)} tensors; "
+        f"{card}")
+    poses = np.transpose(scripts["poses"], (3, 0, 1, 2)).astype(np.float32)  # (3, 16, H, W)
+    cycled = lambda n: poses[:, np.arange(n) % poses.shape[1]]  # noqa: E731 (16, cycled)
+    rng = np.random.default_rng(65)
+    common = dict(prompt=UNI_PROMPT, negative_prompt="", input_image=scripts["ref"], seed=3,
+                  height=SLICE_H, width=SLICE_W, cfg_scale=5.0, num_inference_steps=SLICE_STEPS,
+                  tiled=False, random_ref_dwpose=scripts["ref_pose"].astype(np.float32))
+    runs = [("plain", "WanUniAnimateVideoPipeline",
+             dict(num_frames=UNI_FRAMES, dwpose_data=cycled(UNI_FRAMES))),
+            ("plain-no-pose", "WanUniAnimateVideoPipeline", dict(num_frames=UNI_FRAMES)),
+            ("long", "WanUniAnimateLongVideoPipeline",
+             dict(num_frames=UNI_LONG_FRAMES, dwpose_data=cycled(UNI_LONG_FRAMES),
+                  context_size=UNI_CONTEXT,
+                  context_overlap=UNI_OVERLAP)),
+            ("replace-anyone", "WanRepalceAnyoneVideoPipeline",
+             dict(num_frames=UNI_FRAMES, dwpose_data=cycled(UNI_FRAMES), batch={
+                 "video": rng.uniform(-1, 1, (3, UNI_FRAMES, SLICE_H, SLICE_W)).astype(
+                     np.float32),
+                 "segmentation_data": (rng.random((UNI_FRAMES, SLICE_H, SLICE_W)) > 0.6).astype(
+                     np.float32) * 255}))]
+    total, clips = {}, {}
+    targets = [(SVIVideoPipeline, "encode_prompt", "tokenize_t5"),
+               (ClipVision, "encode_image", "clip"), (WanVAE, "encode", "vae_encode"),
+               (WanVAE, "decode", "vae_decode"), (PoseEmbedding, "forward", "pose_embedding"),
+               (ConvStack, "run", "side_stacks"), (SVIVideoPipeline, "_denoise_step", "step"),
+               (SVIVideoPipeline, "_dit_forward", "forward")]
+    for tag, name, extra in runs:
+        pipe = getattr(wan_video, name).from_model_manager(mm, device="cuda")
+        seen = capture_decode(pipe)
+        timer = PhaseTimer()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_methods(timer, targets):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = np.stack(pipe(**common, **extra))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = read_counts()
+        routes = check_fwd_routes(f"UniAnimate {tag}", need_f32=True)
+        decoded = seen["v"]
+        n_frames = UNI_LONG_FRAMES if tag == "long" else UNI_FRAMES
+        finite = bool(torch.isfinite(decoded).all())
+        sec = timer.seconds
+        # replace-anyone steps by its own two batch-1 forwards and an Euler update
+        forwards = sec.get("forward", [])
+        steps = sec.get("step") or [a + b for a, b in zip(forwards[::2], forwards[1::2])]
+        log(f"[unianimate {tag}] {name}: {run_s:.2f}s in all (T5 {[round(x, 3) for x in sec.get('tokenize_t5', [])]}, CLIP "
+            f"{[round(x, 3) for x in sec.get('clip', [])]}, VAE encode "
+            f"{[round(x, 3) for x in sec.get('vae_encode', [])]}, pose embedding "
+            f"{[round(x, 3) for x in sec.get('pose_embedding', [])]}, side stacks "
+            f"{[round(x, 3) for x in sec.get('side_stacks', [])]}, {len(steps)} denoise "
+            f"steps{' (window steps)' if tag == 'long' else ''} at "
+            f"{statistics.median(steps) if steps else 0:.3f}s each (median), VAE decode "
+            f"{[round(x, 3) for x in sec.get('vae_decode', [])]}); frames {frames.shape}, "
+            f"decoded finite {finite}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; forward routes {routes}; {card}")
+        if frames.shape != (n_frames, SLICE_H, SLICE_W, 3) or not finite:
+            raise RuntimeError(f"UniAnimate {tag}: frames {frames.shape}, finite {finite}")
+        if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+                                     "flash_fwd_bnsd/f32")) <= 0:
+            raise RuntimeError(f"a kernel was not launched on UniAnimate {tag}: {launches}")
+        clips[tag] = frames
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del pipe, decoded, seen
+    control_gap("unianimate pose", clips["plain"], clips["plain-no-pose"], gap, card)
+    del mm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_pose(root: Path, card: str) -> dict:
+    """Phase 7, the pose path: (a) tiny, card against CPU; (b) the full-width
+    DWPose graphs; (c) the pose scripts on them; (d) UniAnimate at the 14B's
+    width on phase 4e's files under root. Returns (d)'s launches."""
+    t0 = time.perf_counter()
+    gap = phase_pose_small(card)
+    paths = phase_dwpose_full(root, card)
+    scripts = phase_pose_scripts(root, paths, card)
+    launches = phase_unianimate(root, scripts, gap, card)
+    log(f"[pose] phase 7 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3759,7 +4192,7 @@ def main() -> int:
 
     # the driver: checkpoint files through the user's entry point (4e, 4f;
     # 5b: the training drivers, whose quantized run gives K3's launches)
-    train_q_launches = phase_driver(card)
+    train_q_launches, pose_launches = phase_driver(card)
 
     # 5. the training slice
     phase_small_trainer()
@@ -3771,7 +4204,7 @@ def main() -> int:
     # 6. the parallel slice: ranks on the card
     par_launches = phase_parallel(card)
 
-    # 7. results: the forward kernels' launches are the bf16 inference path's,
+    # 8. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
     # forward), K3's the quantized training driver's
@@ -3787,6 +4220,7 @@ def main() -> int:
                     else train_launches)[entry]
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "launches_parallel": par_launches.get(entry, 0),
+                        "launches_pose": pose_launches.get(entry, 0),
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

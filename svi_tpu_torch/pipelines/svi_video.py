@@ -258,57 +258,85 @@ class SVIVideoPipeline:
 
     # -- denoising --------------------------------------------------------------
 
-    def _sample(self, latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None,
-                progress_bar_cmd=None, add_condition=None):
-        """Euler flow-match loop. With cfg_scale != 1 the [cond, uncond] pair
-        runs as one batch-2 DiT forward; pred = uncond + s * (cond - uncond);
-        the Euler step runs in f32 and is cast back. progress_bar_cmd (e.g.
-        tqdm) wraps the range of steps. add_condition: None, or a (cond,
-        uncond) pair of tokens (b, S, dim) added to the patch tokens, zeros
-        standing in for an uncond of None."""
-        dit = self.dit
-        sigmas = self.scheduler.sigmas.to(self.device)
-        timesteps = self.scheduler.timesteps.to(self.device)
-        n = len(timesteps)
-        clip_feature = image_emb.get("clip_feature")
-        y = image_emb.get("y")
+    @staticmethod
+    def _cfg_inputs(cfg_scale, ctx_pos, ctx_neg, clip_feature=None, y=None,
+                    add_condition=None):
+        """The inputs of `_denoise_step`: with cfg_scale != 1 the [cond,
+        uncond] batch (ctx = [pos; neg]; clip_feature and y twice; the
+        add_condition pair (cond, uncond) stacked, zeros standing in for an
+        uncond of None); with cfg_scale == 1 the conditional ones. Returns
+        (ctx, clip_feature, y, add_condition)."""
         use_cfg = cfg_scale != 1.0
         nb = 2 if use_cfg else 1
-        ctx = torch.cat([ctx_pos, ctx_neg], dim=0) if use_cfg else ctx_pos
-        b = latents.shape[0]
 
         def batched(t):
             return None if t is None else torch.cat([t] * nb, dim=0)
 
-        clip_in, y_in = batched(clip_feature), batched(y)
         ac_cond, ac_uncond = add_condition if add_condition is not None else (None, None)
         ac_in = ac_cond
         if ac_cond is not None and use_cfg:
             ac_in = torch.cat([ac_cond, ac_uncond if ac_uncond is not None
                                else torch.zeros_like(ac_cond)], dim=0)
+        ctx = torch.cat([ctx_pos, ctx_neg], dim=0) if use_cfg else ctx_pos
+        return ctx, batched(clip_feature), batched(y), ac_in
+
+    @staticmethod
+    def _euler(latents, pred, sigma, sigma_next):
+        """The flow-match Euler update of latents by the prediction, in f32,
+        cast back."""
+        return (latents.float() + pred.float() * (sigma_next - sigma)).to(latents.dtype)
+
+    def _denoise_step(self, latents, t, sigma, sigma_next, ctx, clip_feature, y, cfg_scale,
+                      add_condition=None, forward=None):
+        """One Euler flow-match step on inputs from `_cfg_inputs`. With
+        cfg_scale != 1 the [cond, uncond] pair runs as one batch-2 forward;
+        pred = uncond + s * (cond - uncond). With cfg_scale == 1, one forward
+        and pred = its output. forward(x, t, ctx, clip_feature, y,
+        add_condition) is the DiT's (`_dit_forward`) unless `_sample` gives
+        its TeaCache forward."""
+        forward = forward or self._dit_forward
+        b = latents.shape[0]
+        if cfg_scale != 1.0:
+            out = forward(torch.cat([latents, latents], dim=0), t, ctx, clip_feature, y,
+                          add_condition)
+            pred = out[b:].float() + cfg_scale * (out[:b] - out[b:]).float()
+        else:
+            pred = forward(latents, t, ctx, clip_feature, y, add_condition)
+        return self._euler(latents, pred, sigma, sigma_next)
+
+    def _sample(self, latents, ctx_pos, ctx_neg, image_emb, cfg_scale, tea_cache=None,
+                progress_bar_cmd=None, add_condition=None):
+        """Euler flow-match loop of `_denoise_step`s (batched CFG when
+        cfg_scale != 1). progress_bar_cmd (e.g. tqdm) wraps the range of
+        steps. add_condition: None, or a (cond, uncond) pair of tokens
+        (b, S, dim) added to the patch tokens, zeros standing in for an
+        uncond of None. With tea_cache the block stack is skipped on the
+        steps it picks."""
+        dit = self.dit
+        sigmas = self.scheduler.sigmas.to(self.device)
+        timesteps = self.scheduler.timesteps.to(self.device)
+        n = len(timesteps)
+        clip_feature = image_emb.get("clip_feature")
+        ctx, clip_in, y_in, ac_in = self._cfg_inputs(cfg_scale, ctx_pos, ctx_neg, clip_feature,
+                                                     image_emb.get("y"), add_condition)
         n_img = clip_feature.shape[1] if (dit.cfg.has_image_input
                                           and clip_feature is not None) else 257
+
+        def tea_forward(xin, t, ctx, clip_in, y_in, ac_in):
+            tokens, ctx_emb, t_emb, t_mod, grid = dit.forward_prelude(
+                xin, t, ctx, clip_in, y_in, ac_in)
+            if tea_cache.check(tokens, t_mod):
+                tokens = tea_cache.update(tokens)
+            else:
+                tokens = dit.forward_blocks(tokens, ctx_emb, t_mod, grid, num_img_tokens=n_img)
+                tea_cache.store(tokens)
+            return dit.forward_head(tokens, t_emb, grid)
+
+        forward = None if tea_cache is None else tea_forward
         for i in (progress_bar_cmd or iter)(range(n)):
-            t = timesteps[i:i + 1]
-            xin = batched(latents)
-            if tea_cache is None:
-                out = self._dit_forward(xin, t, ctx, clip_in, y_in, ac_in)
-            else:
-                tokens, ctx_emb, t_emb, t_mod, grid = dit.forward_prelude(
-                    xin, t, ctx, clip_in, y_in, ac_in)
-                if tea_cache.check(tokens, t_mod):
-                    tokens = tea_cache.update(tokens)
-                else:
-                    tokens = dit.forward_blocks(tokens, ctx_emb, t_mod, grid,
-                                                num_img_tokens=n_img)
-                    tea_cache.store(tokens)
-                out = dit.forward_head(tokens, t_emb, grid)
-            if use_cfg:
-                pred = out[b:].float() + cfg_scale * (out[:b] - out[b:]).float()
-            else:
-                pred = out.float()
             sig_next = sigmas[i + 1] if i + 1 < n else torch.zeros((), device=self.device)
-            latents = (latents.float() + pred * (sig_next - sigmas[i])).to(latents.dtype)
+            latents = self._denoise_step(latents, timesteps[i:i + 1], sigmas[i], sig_next, ctx,
+                                         clip_in, y_in, cfg_scale, ac_in, forward)
         return latents
 
     # -- main entry ---------------------------------------------------------------

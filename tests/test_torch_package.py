@@ -41,8 +41,41 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.utils.audio\n"
         "import svi_tpu_torch.scripts.extract_lora, svi_tpu_torch.scripts.prepare_video_audio\n"
         "import svi_tpu_torch.scripts.make_toy_data, svi_tpu_torch.scripts.process_mixkit\n"
+        "import svi_tpu_torch.utils.onnx_torch, svi_tpu_torch.dwpose, svi_tpu_torch.dwpose.align\n"
+        "import svi_tpu_torch.dwpose.onnx_infer, svi_tpu_torch.models.unianimate\n"
+        "import svi_tpu_torch.pipelines.wan_video, svi_tpu_torch.scripts.metadata_gen\n"
+        "import svi_tpu_torch.scripts.prepare_video_pose, svi_tpu_torch.scripts.run_align_pose\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_pose_path_imports_no_cv2():
+    """In a fresh interpreter, importing the pose path (the ONNX executor,
+    dwpose, the UniAnimate pipelines, the two pose scripts) and running
+    DWPose's preprocessing and drawing loads no cv2 and no onnxruntime."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "import svi_tpu_torch.dwpose as dw, svi_tpu_torch.utils.onnx_torch\n"
+        "from svi_tpu_torch.dwpose import onnx_infer\n"
+        "import svi_tpu_torch.pipelines.wan_video, svi_tpu_torch.models.unianimate\n"
+        "import svi_tpu_torch.scripts.prepare_video_pose, svi_tpu_torch.scripts.run_align_pose\n"
+        "img = np.zeros((48, 64, 3), np.uint8)\n"
+        "onnx_infer._preprocess_det(img)\n"
+        "onnx_infer._crop(torch.from_numpy(img), np.array([30.0, 20.0], np.float32),\n"
+        "                 np.array([20.0, 30.0], np.float32))\n"
+        "pose = {'bodies': np.full((1, 18, 2), 0.5, np.float32),\n"
+        "        'body_scores': np.ones((1, 18), np.float32),\n"
+        "        'hands': np.full((2, 21, 2), 0.4, np.float32)}\n"
+        "dw.draw_pose_frame(pose, 64, 48)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'onnxruntime'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
