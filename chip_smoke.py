@@ -14,7 +14,10 @@ non-zero exit and no result line:
      the kernel call's device time without host gaps, and the least time
      the card could take for the work); the W4A8 linear at the 14B's
      shapes bit for bit, beside torch._int_mm alone and the chain it
-     replaced (K3, `_int8_exec`, the bias); K6 beside K1 at the same shape
+     replaced (K3, `_int8_exec`, the bias); the f32 kernel at the SD 1.5
+     stack's shapes (head dims 40, 160 and 512, the UNet's 77-key
+     cross-attention, AnimateDiff's 16-frame temporal attention over 4096
+     batches); K6 beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
      GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
@@ -119,10 +122,23 @@ non-zero exit and no result line:
      file through ModelManager: the plain pipeline (and a no-pose control),
      the long pipeline (33 frames, 3 windows) and replace-anyone, failing
      unless every K1 / K2 launch took its ported route;
-  8. a JSON line of the kernels (K3's launches from 5b's quantized run;
+  8. the SD 1.5 video stack: (a) the narrow SD models of the CPU tests
+     (one head a block) through SDVideoPipeline (tile ControlNet, Contrast
+     smoother) on the card against the CPU; (b) seeded files at the
+     published widths in the reference's diffsynth naming (the SD 1.5 UNet,
+     CLIP ViT-L/14's text tower, the VAE encoder and decoder, AnimateDiff
+     v2's 21 motion modules, one ControlNet); (c) one UNet + ControlNet +
+     motion forward on them at 4 frames of 128x128, card against CPU; (d)
+     SDVideoPipelineRunner.run on a seeded 24-frame 512x512 video (two
+     16-frame windows), 3 steps at strength 0.9, the tile ControlNet at
+     scale 0.5, a Contrast smoother, with per-model seconds, peak memory
+     and the f32 attention launches per head dim, which must be the plans'
+     count;
+  9. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
-     `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`),
-     the nvidia-smi line, and the result line.
+     `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`,
+     on phase 8's runner as `launches_sd`), the nvidia-smi line, and the
+     result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -506,6 +522,37 @@ def kernel_cases():
                                                   _nbytes(q, k, v, q) + 4 * b * n * sq,
                                                   PEAK_BF16)})
 
+    def f32_case(name, b, sq, sk, n, d):
+        """An f32 forward as the SD stack runs it: q, k, v from their own
+        projections, (B, S, N*D); N = 1 through K1's flat entry, else K2's
+        (B, N, S, D) entry on transposed views."""
+        q = randn((b, sq, n * d), torch.float32)
+        k = randn((b, sk, n * d), torch.float32)
+        v = randn((b, sk, n * d), torch.float32)
+        qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
+        entry = "flash_fwd_flat/f32" if n == 1 else "flash_fwd_bnsd/f32"
+
+        def kernel():
+            if n == 1:
+                return A.flash_fwd_flat(q, k, v, d)
+            out, lse = A.flash_fwd_bnsd(qh, kh, vh)
+            return out.transpose(1, 2).flatten(2), lse
+
+        def plain():
+            out, lse = A._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
+                                              None, None, sk, d ** -0.5)
+            return out.flatten(2), lse
+
+        def run():
+            (out, lse), (ref_out, ref_lse) = kernel(), plain()
+            return {entry: worst((err(out, ref_out), F32_BOUND), (err(lse, ref_lse), F32_BOUND))}
+
+        return dict(case=name, shape=[b, sq, sk, n, d], dtype="float32", run=run,
+                    kernels={entry: kernel}, plain=plain,
+                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                    work={entry: (4 * b * n * sq * sk * d, _nbytes(q, k, v, q) + 4 * b * n * sq,
+                                  F32_ACCURATE)})
+
     def bwd_case(name, b, sq, sk, n, d, grid=None, kv_len=None):
         """One backward at the route the autograd function picks for it. With
         kv_len < Sk (a padded sequence-parallel shard's gathered keys) the
@@ -717,6 +764,20 @@ def kernel_cases():
                work={"flash_fwd_flat/f32": (4 * 2 * 6240 * 6240 * 384,
                                             _nbytes(vq, vk, vv, vq) + 4 * 2 * 6240,
                                             F32_ACCURATE)})
+
+    # the SD 1.5 video stack at 512x512 (64 x 64 latents, a 16-frame window,
+    # one CFG branch a pass), f32 through the 3xTF32 kernel: the UNet's first
+    # level (8 heads of 40) self- and cross-attention (77 text keys: one
+    # full 64-key tile and a ragged one), its second and third (8 heads of
+    # 80 over 32 x 32 tokens, of 160 over 16 x 16), AnimateDiff's temporal attention at the first level (16 frames
+    # over 64 x 64 pixels, the short-query tiles), and the VAE's mid-block
+    # (one head of 512 over 64 x 64 tokens, K1 through the flat entry)
+    yield f32_case("sd_unet_self_attn_d40", 16, 4096, 4096, 8, 40)
+    yield f32_case("sd_unet_cross_attn_d40", 16, 4096, 77, 8, 40)
+    yield f32_case("sd_unet_self_attn_d80", 16, 1024, 1024, 8, 80)
+    yield f32_case("sd_unet_self_attn_d160", 16, 256, 256, 8, 160)
+    yield f32_case("sd_motion_attn_d40", 4096, 16, 16, 8, 40)
+    yield f32_case("sd_vae_mid_attn_d512", 1, 4096, 4096, 1, 512)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -3260,8 +3321,9 @@ VARIANT_TRAINERS = {
 # HBM3, 700 W) while the loss agreed to 6e-5; a wrong gradient (sign, scale,
 # a dropped term) gives a cosine of 0.5 or less
 SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_NORM_REL, SMALL_TRAIN_MIN_COS = 2e-2, 5e-2, 0.8
-# phase 5c's full-depth steps: rounds of (plain, save_attention, offload_carries)
-FULL_DEPTH_ROUNDS = 2
+# phase 5c's full-depth steps: rounds of (plain, save_attention, offload_carries);
+# one round since phase 8 joined the script (two before), to keep it under 720 s
+FULL_DEPTH_ROUNDS = 1
 
 
 def k3_per_step(dit) -> int:
@@ -4131,6 +4193,385 @@ def phase_parallel_drivers(root: Path, common: list, data: dict, card: str) -> N
             if "torch.distributed" in x or "training mesh" in x))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the SD 1.5 video stack (UNet, ControlNet, AnimateDiff, VAE, CLIP
+# text) and SDVideoPipelineRunner
+# ---------------------------------------------------------------------------
+
+SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 24, 3, 0.9
+SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 16, 8, 0.5, 1.3, 1
+SD_PROMPT = "a watercolor painting of a city street at dusk, soft light"
+SD_FILES = {"sd_unet": "sd15_unet.safetensors", "sd_text_encoder": "sd15_text_encoder.safetensors",
+            "sd_vae_encoder": "sd15_vae_encoder.safetensors",
+            "sd_vae_decoder": "sd15_vae_decoder.safetensors",
+            "sd_motion_modules": "animatediff_v2_motion.safetensors",
+            "sd_controlnet": "sd15_controlnet_tile.safetensors"}
+# Card against CPU, f32 on both. Before any uint8 cast (the small pipeline's
+# render at the smoother's step, the full-width forward): the card's
+# attention is 3xTF32 (about 2^-21 relative a product), its convolutions
+# cuDNN's f32 algorithms and its GEMMs cuBLAS's, each summing in another
+# order than the CPU's, through 60-odd layers: 1e-4 of the output's scale
+# for the small models, 1e-3 at full width (its sums are 10-40x longer).
+# After the smoother has cast frames to uint8 and encoded them again, an
+# f32 difference can move a value across a rounding boundary: the final
+# latents within 1e-3, the frames within one level.
+SD_SMALL_REL, SD_FULL_REL, SD_SMOOTHED_REL, SD_LEVELS = 1e-4, 1e-3, 1e-3, 1
+
+
+def _sd_fixtures():
+    """tests/torch_sd_fixtures.py (narrow plans, seeded state dicts; no JAX)."""
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    import torch_sd_fixtures
+
+    return torch_sd_fixtures
+
+
+class patched:
+    """Module attributes replaced inside the block: [(module, name, value)]."""
+
+    def __init__(self, sets):
+        self.sets = sets
+
+    def __enter__(self):
+        self.saved = [getattr(m, k) for m, k, _ in self.sets]
+        for m, k, v in self.sets:
+            setattr(m, k, v)
+
+    def __exit__(self, *exc):
+        for (m, k, _), v in zip(self.sets, self.saved):
+            setattr(m, k, v)
+
+
+def sd_plans(unet, vae_encoder, vae_decoder, controlnet) -> patched:
+    """The SD plans of the port's modules set to others inside the block."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import sd
+
+    return patched([(sd, "SD_UNET_PLAN", unet), (sd, "SD_VAE_ENCODER_PLAN", vae_encoder),
+                    (sd, "SD_VAE_DECODER_PLAN", vae_decoder),
+                    (cn, "SD_CONTROLNET_PLAN", controlnet)])
+
+
+def sd_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """(n, h, w, 3) uint8: moving gradients plus seeded noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        base = np.stack([x * 256 // w + 6 * i, y * 256 // h, (x + y) * 128 // (h + w) + 40], -1)
+        out[i] = np.clip(base % 256 + rng.integers(-24, 25, (h, w, 3)), 0, 255)
+    return out
+
+
+def sd_expected_launches(windows: int, branches: int, steps: int, vae_calls: int,
+                         with_controlnet=True, with_motion=True) -> dict:
+    """K2 (flash_fwd_bnsd) launches per (route, dtype, head dim) from the
+    plans: each spatial transformer block runs self- and cross-attention,
+    each motion module two temporal attentions; K1 (flash_fwd_flat) once a
+    VAE call (its mid-block)."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd
+
+    per = {}
+
+    def add(d, n):
+        key = f"f32/float32/{d}"
+        per[key] = per.get(key, 0) + n
+
+    plans = [sd.SD_UNET_PLAN] + ([cn.SD_CONTROLNET_PLAN] if with_controlnet else [])
+    for plan in plans:
+        for desc in plan:
+            if desc[0] == "attn":
+                add(desc[2], 2)
+    if with_motion:
+        chans = mo.plan_channels(sd.SD_UNET_PLAN)
+        for bid in mo.SD_MOTION_CALL_MAP:
+            add(chans[bid] // mo.NUM_HEADS, 2)
+    passes = windows * branches * steps
+    bnsd = {k: n * passes for k, n in per.items()}
+    flat = {f"f32/float32/{sd.SD_VAE_DECODER_PLAN[1][1]}": vae_calls} if vae_calls else {}
+    return {"flash_fwd_bnsd": bnsd, "flash_fwd_flat": flat}
+
+
+def sd_launches() -> dict:
+    from svi_tpu_torch.ops import attention as A
+
+    return {"flash_fwd_bnsd": _routes(A.flash_fwd_bnsd), "flash_fwd_flat": _routes(A.flash_fwd_flat)}
+
+
+def sd_small_pipeline(device, sds: dict, fx):
+    """The SD video pipeline on the narrow models (no motion modules: their
+    8 heads would be 4 wide there, a head dim the kernel has no route for),
+    one tile ControlNet unit."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.pipelines.sd_video import SDVideoPipeline
+
+    unet = sd.sd_unet_params_from_torch(sds["sd_unet"], device=device)
+    te = sd.sd_text_encoder_params_from_torch(sds["sd_text_encoder"], device=device)
+    enc = sd.sd_vae_encoder_params_from_torch(sds["sd_vae_encoder"], device=device)
+    dec = sd.sd_vae_decoder_params_from_torch(sds["sd_vae_decoder"], device=device)
+    cnp = cn.sd_controlnet_params_from_torch(sds["sd_controlnet"], device=device)
+    manager = cn.MultiControlNetManager([(cn.sd_controlnet_forward, cnp, SD_CN_SCALE)],
+                                        [cn.Annotator("tile")])
+    return SDVideoPipeline(unet, None, te, enc, dec, controlnet=manager)
+
+
+def phase_sd_small(card: str) -> None:
+    """(a) The narrow SD models (the CPU tests' widths, one attention head a
+    block so that every head dim has a kernel route: 32, 64, 128) through
+    SDVideoPipeline on the card and on the CPU: 3 frames at 64x64 in windows
+    of 2, a tile ControlNet, video-to-video at 0.9 over 3 steps, a Contrast
+    smoother after step 1."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.processors import ContrastEditor
+
+    fx = _sd_fixtures()
+    plans = dict(unet=fx.narrow_plan(sd.SD_UNET_PLAN, 10, heads=1),
+                 vae_encoder=fx.VAE_ENCODER_PLAN, vae_decoder=fx.VAE_DECODER_PLAN,
+                 controlnet=fx.narrow_plan(cn.SD_CONTROLNET_PLAN, 10, heads=1))
+    frames = list(sd_frames(3, 64, 64, seed=5))
+    out = {}
+    with sd_plans(**plans):
+        sds = {k: v for k, v in fx.state_dicts(seed=11).items() if k != "sd_motion_modules"}
+        for device in ("cuda", "cpu"):
+            pipe = sd_small_pipeline(device, sds, fx)
+            renders = []
+            decode = pipe.decode_video
+
+            def spy(latents, *a, _d=decode, _r=renders, **kw):
+                _r.append(latents.float().cpu())
+                return _d(latents, *a, **kw)
+
+            pipe.decode_video = spy
+            zero_counts()
+            got = pipe(SD_PROMPT, negative_prompt="blurry", cfg_scale=7.5, num_frames=3,
+                       input_frames=frames, denoising_strength=SD_STRENGTH, height=64, width=64,
+                       num_inference_steps=SD_STEPS, animatediff_batch_size=2,
+                       animatediff_stride=1, controlnet_frames=[frames],
+                       smoother=ContrastEditor(SD_CONTRAST),
+                       smoother_progress_ids=[SD_SMOOTH_AT], seed=1)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+            out[device] = (renders, got)
+            del pipe
+    (rc, fc), (rh, fh) = out["cuda"], out["cpu"]
+    render_rel, final_rel = _rel(rc[0], rh[0]), _rel(rc[1], rh[1])
+    gap = int(max(np.abs(a.astype(int) - b.astype(int)).max() for a, b in zip(fc, fh)))
+    want = sd_expected_launches(windows=2, branches=2, steps=SD_STEPS, vae_calls=0,
+                                with_motion=False)["flash_fwd_bnsd"]
+    flat_f32 = sum(n for k, n in launches["flash_fwd_flat"].items() if k.startswith("f32/"))
+    log(f"[sd-small] render at step {SD_SMOOTH_AT} card vs CPU {render_rel:.3e} (bound "
+        f"{SD_SMALL_REL}), final latents {final_rel:.3e} (bound {SD_SMOOTHED_REL}), frames "
+        f"{gap} levels (bound {SD_LEVELS}); launches {launches}; {card}")
+    if not (render_rel <= SD_SMALL_REL and final_rel <= SD_SMOOTHED_REL and gap <= SD_LEVELS):
+        raise RuntimeError("the small SD video pipeline on the card disagrees with the CPU")
+    # one head a block: every attention through K1's flat entry, 12 VAE calls
+    # (3 encodes, 3 renders, 3 encodes, 3 decodes)
+    n_attn = sum(want.values())
+    if flat_f32 != n_attn + 12 or any(not k.startswith("f32/") for k in launches["flash_fwd_flat"]):
+        raise RuntimeError(f"the small SD pipeline launched {launches}, expected {n_attn} + 12 "
+                           "f32 flat forwards")
+
+
+def write_sd_checkpoints(root: Path, card: str) -> dict:
+    """(b) Seeded SD 1.5 family files at their published widths in the
+    reference's diffsynth naming, f16 as SD 1.5 checkpoints ship: the UNet,
+    CLIP ViT-L/14's text tower (12 layers of 768), the VAE encoder and
+    decoder, AnimateDiff v2's 21 motion modules and one ControlNet."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    makers = {"sd_unet": sd.sd_unet_state_dict, "sd_text_encoder": sd.sd_text_encoder_state_dict,
+              "sd_vae_encoder": sd.sd_vae_encoder_state_dict,
+              "sd_vae_decoder": sd.sd_vae_decoder_state_dict,
+              "sd_motion_modules": mo.sd_motion_state_dict,
+              "sd_controlnet": cn.sd_controlnet_state_dict}
+    t0 = time.perf_counter()
+    paths, sizes, params = {}, {}, {}
+    for i, (kind, make) in enumerate(makers.items()):
+        state = make(seed=61 + i, device="cuda", dtype=torch.float16)
+        params[kind] = sum(t.numel() for t in state.values())
+        paths[kind] = str(root / SD_FILES[kind])
+        sizes[kind] = save_file(state, paths[kind])
+        del state
+    torch.cuda.empty_cache()
+    log(f"[sd-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} parameters; "
+        f"{sum(sizes.values()) / 1e9:.3f} GB written in {time.perf_counter() - t0:.2f}s; {card}")
+    return paths
+
+
+def phase_sd_full_forward(paths: dict, card: str) -> None:
+    """(c) One UNet + ControlNet + motion forward at full width on 4 frames
+    at 128x128, the models loaded from (b)'s files by ModelManager on the
+    card and on the CPU."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.models.model_io import ModelManager
+
+    g = torch.Generator().manual_seed(3)
+    lat = torch.randn((4, 4, 16, 16), generator=g)
+    ctx = torch.randn((1, 77, 768), generator=g)
+    cond = torch.rand((4, 3, 128, 128), generator=g)
+    t = torch.tensor([601.0])
+    outs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        mm = ModelManager(device=device)
+        t0 = time.perf_counter()
+        mm.load_models([paths[k] for k in ("sd_unet", "sd_motion_modules", "sd_controlnet")])
+        load_s = time.perf_counter() - t0
+        unet, motion, cnp = (mm.fetch_model(k) for k in ("sd_unet", "sd_motion_modules",
+                                                         "sd_controlnet"))
+        args = [x.to(device) for x in (lat, t, ctx)]
+        with torch.inference_mode():
+            if device == "cuda":
+                zero_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [r * SD_CN_SCALE for r in cn.sd_controlnet_forward(cnp, *args,
+                                                                      cond.to(device))]
+            out = sd.sd_unet_forward(unet, *args, controlnet_res=res,
+                                     motion=mo.motion_hooks(motion))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+            secs[device] = (load_s, time.perf_counter() - t0)
+        outs[device] = out.float().cpu()
+        del mm, unet, motion, cnp, res, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = _rel(outs["cuda"], outs["cpu"])
+    want = sd_expected_launches(windows=1, branches=1, steps=1, vae_calls=0)
+    (card_load, card_fwd), (cpu_load, cpu_fwd) = secs["cuda"], secs["cpu"]
+    log(f"[sd-forward] UNet + ControlNet + motion at full width, 4x4x16x16: card vs CPU "
+        f"{rel:.3e} of the output's scale (bound {SD_FULL_REL}); load s / forward s card "
+        f"{card_load:.2f} / {card_fwd:.3f}, CPU {cpu_load:.2f} / {cpu_fwd:.2f}; launches "
+        f"{launches}; {card}")
+    if not rel <= SD_FULL_REL:
+        raise RuntimeError("the full-width SD forward on the card disagrees with the CPU")
+    if launches["flash_fwd_bnsd"] != want["flash_fwd_bnsd"]:
+        raise RuntimeError(f"the SD forward launched {launches}, expected {want}")
+
+
+def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
+    """(d) SDVideoPipelineRunner.run, the way users start a Diffutoon-style
+    render: a seeded 24-frame 512x512 .npy video (two 16-frame windows at
+    stride 8), the tile ControlNet on the same frames at scale 0.5, 3 steps
+    at strength 0.9, CFG 7.5, a Contrast smoother after step 1; frames,
+    video.npy and config.json written. Returns the launches per entry."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.pipelines.pipeline_runner import SDVideoPipelineRunner
+    from svi_tpu_torch.prompters.sd_prompter import SDPrompter
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+
+    video = sd_frames(SD_FRAMES, SD_H, SD_W, seed=9)
+    np.save(root / "input.npy", video)
+    src = {"video_file": str(root / "input.npy"), "height": SD_H, "width": SD_W,
+           "start_frame_id": 0, "end_frame_id": SD_FRAMES}
+    out_dir = root / "render"
+    config = {
+        "models": {"model_list": [paths[k] for k in ("sd_unet", "sd_text_encoder",
+                                                     "sd_vae_encoder", "sd_vae_decoder",
+                                                     "sd_motion_modules")],
+                   "textual_inversion_folder": None, "device": "cuda", "lora_alphas": [],
+                   "controlnet_units": [{"processor_id": "tile",
+                                         "model_path": paths["sd_controlnet"],
+                                         "scale": SD_CN_SCALE}]},
+        "data": {"input_frames": dict(src), "controlnet_frames": [dict(src)],
+                 "output_folder": str(out_dir), "fps": 8, "save_format": "npy"},
+        "pipeline": {"seed": 0, "pipeline_inputs": {
+            "prompt": SD_PROMPT, "negative_prompt": "blurry, low quality", "cfg_scale": 7.5,
+            "clip_skip": 1, "denoising_strength": SD_STRENGTH,
+            "num_inference_steps": SD_STEPS, "animatediff_batch_size": SD_WINDOW,
+            "animatediff_stride": SD_STRIDE, "smoother_progress_ids": [SD_SMOOTH_AT]}},
+        "smoother_configs": [{"processor_type": "Contrast", "config": {"rate": SD_CONTRAST}}],
+    }
+    timer = PhaseTimer()
+    step_marks = []
+    step = EnhancedDDIMScheduler.step
+
+    def timed_step(self, *a, **kw):
+        out = step(self, *a, **kw)
+        if not kw.get("to_final"):
+            torch.cuda.synchronize()
+            step_marks.append(time.perf_counter())
+        return out
+
+    sets = [(sd, "sd_unet_forward", timer.wrap("unet (with motion)", sd.sd_unet_forward)),
+            (sd, "sd_vae_decode", timer.wrap("vae_decode", sd.sd_vae_decode)),
+            (sd, "sd_vae_encode", timer.wrap("vae_encode", sd.sd_vae_encode)),
+            (mo, "temporal_block", timer.wrap("motion", mo.temporal_block)),
+            (cn, "sd_controlnet_forward", timer.wrap("controlnet", cn.sd_controlnet_forward)),
+            (SDPrompter, "encode_prompt", timer.wrap("text_encoder", SDPrompter.encode_prompt)),
+            (EnhancedDDIMScheduler, "step", timed_step)]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(sets):
+        runner = SDVideoPipelineRunner(device="cuda")
+        frames = runner.run(config)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = {k: sum(v) for k, v in timer.seconds.items()}
+    calls = {k: len(v) for k, v in timer.seconds.items()}
+    windows = len(range(0, SD_FRAMES - SD_WINDOW + SD_STRIDE, SD_STRIDE))
+    step_s = [b - a for a, b in zip(step_marks, step_marks[1:])]
+    per_step = (secs["unet (with motion)"] + secs["controlnet"]) / SD_STEPS
+    log(f"[sd-runner] {SD_FRAMES} frames {SD_H}x{SD_W}, {windows} windows of {SD_WINDOW}, "
+        f"{SD_STEPS} steps, CFG 7.5 (two passes): {total:.2f}s in all; UNet + ControlNet "
+        f"seconds per step {per_step:.3f} (wall between steps 1-2 with the smoother, 2-3: "
+        f"{[round(x, 3) for x in step_s]}); seconds (calls): "
+        + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
+        + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
+    want = sd_expected_launches(windows=windows, branches=2, steps=SD_STEPS,
+                                vae_calls=4 * SD_FRAMES)
+    if launches != want:
+        raise RuntimeError(f"the runner launched {launches}, expected {want}")
+    saved = np.load(out_dir / "video.npy")
+    if len(frames) != SD_FRAMES or saved.shape != (SD_FRAMES, SD_H, SD_W, 3) \
+            or not np.array_equal(saved, np.stack(frames)) or saved.std() == 0:
+        raise RuntimeError(f"the runner's video is {saved.shape}, or not its frames, or flat")
+    pngs = sorted(p.name for p in (out_dir / "frames").iterdir())
+    if len(pngs) != SD_FRAMES or not (out_dir / "config.json").is_file():
+        raise RuntimeError(f"the runner wrote {len(pngs)} frames or no config.json")
+    return {"flash_fwd_bnsd/f32": sum(launches["flash_fwd_bnsd"].values()),
+            "flash_fwd_flat/f32": sum(launches["flash_fwd_flat"].values())}
+
+
+def phase_sd(card: str) -> dict:
+    """Phase 8: (a) the small SD video pipeline card vs CPU, (b) full-width
+    files, (c) one full-width UNet + ControlNet + motion forward card vs CPU,
+    (d) the runner at 512x512x24. Returns (d)'s launches per KERNELS entry."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_sd_small(card)
+    root = Path(tempfile.mkdtemp(prefix="_sd_ckpt_", dir=REPO))
+    try:
+        paths = write_sd_checkpoints(root, card)
+        phase_sd_full_forward(paths, card)
+        launches = phase_sd_runner(root, paths, card)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[sd] phase 8 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
+
+
+
 def main() -> int:
     if not (REPO / "svi_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository "
@@ -4171,9 +4612,18 @@ def main() -> int:
     build.load_w4a8_gemm()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")
 
+    marks = [t_start]
+
+    def mark(phase: str) -> None:
+        """The seconds since the last mark, so that a cut can be placed."""
+        marks.append(time.perf_counter())
+        log(f"[time] {phase}: {marks[-1] - marks[-2]:.1f}s")
+
+    mark("environment and build")
     # 3. kernels against plain
     rows = phase_kernels(card)
     int8_gemm_context(card)
+    mark("phase 3")
 
     # 4. the inference slice, in bf16 and quantized
     phase_small_reference()
@@ -4189,10 +4639,12 @@ def main() -> int:
     del state
     gc.collect()  # the pipeline's timer wrappers refer back to it
     torch.cuda.empty_cache()
+    mark("phase 4 (a-d)")
 
     # the driver: checkpoint files through the user's entry point (4e, 4f;
     # 5b: the training drivers, whose quantized run gives K3's launches)
     train_q_launches, pose_launches = phase_driver(card)
+    mark("phases 4e, 4f, 7, 5b (the drivers' files)")
 
     # 5. the training slice
     phase_small_trainer()
@@ -4200,14 +4652,21 @@ def main() -> int:
     train_launches, _, _ = phase_training()
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 5")
 
     # 6. the parallel slice: ranks on the card
     par_launches = phase_parallel(card)
+    mark("phase 6")
 
-    # 8. results: the forward kernels' launches are the bf16 inference path's,
+    # 8. the SD 1.5 video stack and its runner
+    sd_launches = phase_sd(card)
+    mark("phase 8")
+
+    # 9. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
-    # forward), K3's the quantized training driver's
+    # forward), K3's the quantized training driver's; launches_sd: phase 8's
+    # runner
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -4221,6 +4680,7 @@ def main() -> int:
         kernels.append({"name": entry, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "launches_parallel": par_launches.get(entry, 0),
                         "launches_pose": pose_launches.get(entry, 0),
+                        "launches_sd": sd_launches.get(entry, 0),
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

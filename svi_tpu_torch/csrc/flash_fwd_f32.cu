@@ -5,12 +5,14 @@
 // svi_tpu/ops/attention.py::_fwd_kernel_flat (K1, launched by
 // _flash_fwd_pallas_flat: the Wan VAE's mid-block attention, one head of 384)
 // and svi_tpu/ops/attention.py::_fwd_kernel (K2, launched by
-// _flash_fwd_pallas: CLIP ViT-H/14, 16 heads of 80). The contract is K1's and
+// _flash_fwd_pallas: CLIP ViT-H/14, 16 heads of 80; the SD 1.5 UNet's,
+// ControlNet's and AnimateDiff's attention, 8 heads of 40, 80 or 160; the SD
+// VAE's mid-block, one head of 512, through K1). The contract is K1's and
 // K2's: q, k, v and out as (B, S, N, D) element strides (the last dim
 // contiguous), optional interleaved-pair RoPE from (S, D/2) f32 tables applied
 // on load, keys at or beyond min(kv_len, Sk) masked, base-e lse (B, N, Sq) f32;
 // a row whose keys are all masked gets out = 0 and lse = -1e30 + log(1e-30).
-// D is one of 32, 64, 80, 128, 384.
+// D is one of 32, 40, 64, 80, 128, 160, 384, 512.
 //
 // What bounds it on this card: the two products, 4 * Sq * Sk * D FLOP per
 // head. f32 stays f32 (TF32 is off for the VAE and CLIP), so the kernel does
@@ -39,8 +41,12 @@
 // over a k-step does not depend on the order of its terms' indices. K and V
 // tiles arrive by cp.async in a double-buffered ring, so tile j + 1 loads
 // while tile j is multiplied; rows past Sk are zero-filled by cp.async's
-// source size and masked with kv_len. K's and V's row strides (D + 8 and
-// D + 4 floats) put each warp's fragment loads on distinct banks.
+// source size and masked with kv_len. K's and V's row strides (D + 8, or
+// D + 16 where D + 8 is 16 mod 32 as at D = 40, and D + 4 floats) put each
+// warp's fragment loads on distinct banks. Q is staged through shared memory
+// on its way to the registers: in the second K/V stage while tile 0 loads
+// into the first, or, where BM rows of Q outgrow one stage (D = 512), in both
+// stages before tile 0 is issued.
 
 #include "flash_common.cuh"
 
@@ -72,13 +78,18 @@ struct Cfg {
   static constexpr int KS = DW / 8;           // k-steps of Q.K^T over the slice
   static constexpr int NT = BN / 8;           // 8-key groups of a tile
   static constexpr int OT = DW / 8;           // 8-column groups of the warp's O
-  static constexpr int LDK = D + 8;           // K rows: 64-bit fragment loads, no conflicts
+  // K rows: 64-bit fragment loads, no conflicts (a row stride of 8 or 24 mod 32)
+  static constexpr int LDK = D + ((D + 8) % 32 == 16 ? 16 : 8);
   static constexpr int LDV = D + 4;           // V rows: 32-bit fragment loads, no conflicts
   static constexpr int STAGE = BN * (LDK + LDV);  // floats of one K + V stage
   static constexpr int PART = WC > 1 ? WC * WR * NT * 128 : 0;  // partial scores
   static constexpr size_t SMEM = sizeof(float) * (size_t)(2 * STAGE + PART);
+  // Q is staged in the second stage while tile 0 loads, or in both stages
+  // before tile 0 is issued when it does not fit one
+  static constexpr bool Q_WIDE = BM * LDK > STAGE;
   static_assert(DW % 8 == 0 && D % 4 == 0, "head-dim slice must be whole k-steps");
-  static_assert(BM * LDK <= STAGE, "Q is staged in one K/V stage");
+  static_assert(BM * LDK <= 2 * STAGE, "Q is staged in the K/V stages");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one CTA");
 };
 
 __device__ __forceinline__ float lse_of(float m, float l) {
@@ -146,7 +157,7 @@ __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_f32_tc_kernel(Params 
   // Q (rotated) through stage 1 into registers: pairs (2t, 2t+1) of each
   // k-step; tile 0 loads into stage 0 meanwhile
   {
-    float* sQ = smem + C::STAGE;
+    float* sQ = C::Q_WIDE ? smem : smem + C::STAGE;
     for (int idx = threadIdx.x; idx < C::BM * (C::D / 2); idx += C::THREADS) {
       const int r = idx / (C::D / 2), i = idx % (C::D / 2);
       const long long gr = q0 + r;
@@ -158,11 +169,12 @@ __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_f32_tc_kernel(Params 
       *reinterpret_cast<float2*>(sQ + r * C::LDK + 2 * i) = x;
     }
   }
-  if (n_tiles > 0) issue_kv<C>(smem, smem + C::BN * C::LDK, kb, vb, p, 0);
+  if (!C::Q_WIDE && n_tiles > 0) issue_kv<C>(smem, smem + C::BN * C::LDK, kb, vb, p, 0);
   __syncthreads();
   float qf[C::KS][4];
   {
-    const float* q_lo = smem + C::STAGE + (wr * 16 + g) * C::LDK + c0 + 2 * t;
+    const float* q_lo =
+        smem + (C::Q_WIDE ? 0 : C::STAGE) + (wr * 16 + g) * C::LDK + c0 + 2 * t;
 #pragma unroll
     for (int kk = 0; kk < C::KS; ++kk) {
       const float2 a = *reinterpret_cast<const float2*>(q_lo + kk * 8);
@@ -173,7 +185,8 @@ __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_f32_tc_kernel(Params 
       qf[kk][3] = b2.y;  // row g + 8, k 2t + 1
     }
   }
-  __syncthreads();  // stage 1 is free for tile 1
+  __syncthreads();  // the stages Q passed through are free for the K/V tiles
+  if (C::Q_WIDE && n_tiles > 0) issue_kv<C>(smem, smem + C::BN * C::LDK, kb, vb, p, 0);
 
   float o[C::OT][4];
 #pragma unroll
@@ -338,18 +351,36 @@ cudaError_t launch(const Params& p, long long batch, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// tiles per head dim: (D, WR, WC, BN). D = 384 (the VAE, B2 S6240): 32 rows x
-// 4 column slices of 96 and 32-key tiles (211 KB of shared memory; 390 CTAs
-// are 2.95 waves on 132 SMs). D = 80 (CLIP, S257 N16): 32 rows, 144 CTAs in
-// one wave. D = 32 / 64 / 128: 64 rows.
+// tiles per head dim: (D, WR, WC, BN). D = 384 (the Wan VAE, B2 S6240): 32
+// rows x 4 column slices of 96 and 32-key tiles (211 KB of shared memory;
+// 390 CTAs are 2.95 waves on 132 SMs). D = 512 (the SD VAE, B1 S4096): 32
+// rows x 4 slices of 128 and 16-key tiles (141 KB; Q, 32 rows of 520 floats,
+// outgrows one stage of 16 keys and is staged in both). D = 160 (the SD
+// UNet's deepest levels): 64 rows x 2 slices of 80, as D = 80 runs one (198
+// KB). D = 80 (CLIP, S257 N16): 32 rows, 144 CTAs in one wave. D = 32 / 40 /
+// 64 / 128: 64 rows. Queries of at most 16 rows (AnimateDiff's temporal
+// attention: 16 frames over thousands of (pixel, head) batches) take one row
+// group and 16-key tiles at the SD head dims, so no CTA runs three empty row
+// groups beside its one.
 template <bool ROPE>
 cudaError_t dispatch(int head_dim, const Params& p, long long batch, cudaStream_t st) {
+  if (p.sq <= 16) {
+    switch (head_dim) {
+      case 40: return launch<Cfg<40, 1, 1, 16>, ROPE>(p, batch, st);
+      case 80: return launch<Cfg<80, 1, 1, 16>, ROPE>(p, batch, st);
+      case 160: return launch<Cfg<160, 1, 2, 16>, ROPE>(p, batch, st);
+      default: break;
+    }
+  }
   switch (head_dim) {
     case 32: return launch<Cfg<32, 4, 1, 64>, ROPE>(p, batch, st);
+    case 40: return launch<Cfg<40, 4, 1, 64>, ROPE>(p, batch, st);
     case 64: return launch<Cfg<64, 4, 1, 64>, ROPE>(p, batch, st);
     case 80: return launch<Cfg<80, 2, 1, 64>, ROPE>(p, batch, st);
     case 128: return launch<Cfg<128, 4, 2, 64>, ROPE>(p, batch, st);
+    case 160: return launch<Cfg<160, 4, 2, 64>, ROPE>(p, batch, st);
     case 384: return launch<Cfg<384, 2, 4, 32>, ROPE>(p, batch, st);
+    case 512: return launch<Cfg<512, 2, 4, 16>, ROPE>(p, batch, st);
     default: return cudaErrorInvalidValue;
   }
 }

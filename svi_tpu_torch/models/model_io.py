@@ -7,8 +7,10 @@
   until used); `.pth` / `.bin` / `.ckpt` through `torch.load(weights_only=True,
   mmap=True)`, unwrapping `state_dict` and `model_state`.
 * `hash_state_dict_keys` (the reference's md5 of the sorted keys) and
-  `detect_model_kind` (structural detection). Only the Wan models and LoRA
-  files load; the SD family raises (Slice F).
+  `detect_model_kind` (structural detection): the Wan models, LoRA files
+  and the SD 1.5 family (UNet, text encoder, VAE encoder and decoder,
+  AnimateDiff motion modules, ControlNet) in the reference's diffsynth
+  naming, which load in f32 (the SD pipelines cast to their own dtype).
 * `fuse_lora_into_dit`: W += α·B@A for peft `lora_A` / `lora_B` pairs, the
   delta in f32 and cast to the weight's dtype before the add.
 * `ModelManager`: loads the files, fuses LoRA into the DiT (keeping the
@@ -112,8 +114,11 @@ def detect_model_kind(sd: dict) -> Optional[str]:
         return "sd_motion_modules"
     if has("controlnet_blocks.0.weight") and has("controlnet_conv_in.blocks.0.weight"):
         return "sd_controlnet"
-    if has("time_embedding.0.weight") and has("conv_in.weight") \
-            and has("blocks.2.transformer_blocks.0.attn1.to_q.weight"):
+    # the UNet's first attention block is plan entry 1; svi_tpu looks for
+    # entry 2 (a push block) alone, and so does not identify these files
+    if has("time_embedding.0.weight") and has("conv_in.weight") and (
+            has("blocks.1.transformer_blocks.0.attn1.to_q.weight")
+            or has("blocks.2.transformer_blocks.0.attn1.to_q.weight")):
         return "sd_unet"
     if has("encoders.0.layer_norm1.weight") and has("token_embedding.weight") \
             and has("position_embeds"):
@@ -129,6 +134,19 @@ def detect_model_kind(sd: dict) -> Optional[str]:
 
 _SD_FAMILY = ("sd_motion_modules", "sd_controlnet", "sd_unet", "sd_text_encoder",
               "sd_vae_encoder", "sd_vae_decoder")
+
+
+def _sd_family_loader(kind: str):
+    """The converter of an SD-family state dict in the reference's diffsynth
+    naming (civitai / diffusers layouts are converted to it beforehand)."""
+    from . import controlnets, motion, sd
+
+    return {"sd_unet": sd.sd_unet_params_from_torch,
+            "sd_text_encoder": sd.sd_text_encoder_params_from_torch,
+            "sd_vae_encoder": sd.sd_vae_encoder_params_from_torch,
+            "sd_vae_decoder": sd.sd_vae_decoder_params_from_torch,
+            "sd_motion_modules": motion.motion_params_from_torch,
+            "sd_controlnet": controlnets.sd_controlnet_params_from_torch}[kind]
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +252,12 @@ class ModelManager:
     def load_model(self, paths) -> str:
         """Load one model (a file, a shard list or a directory): detect its
         kind, convert it, and keep it under that kind. The DiT and umT5 take
-        the manager's dtype; the VAE and CLIP stay f32."""
+        the manager's dtype; the VAE, CLIP and the SD family stay f32."""
         sd = load_state_dicts(paths)
         kind = detect_model_kind(sd)
         if kind is None:
             raise ValueError(f"Cannot identify model from {paths}; key hash "
                              f"{hash_state_dict_keys(sd)} (keys like {list(sd)[:3]})")
-        if kind in _SD_FAMILY:
-            raise NotImplementedError(f"{paths}: a '{kind}' file; the SD-family loaders are not "
-                                      "ported yet (Slice F of ROADMAP.md's Queue 1)")
         if kind == "lora":
             raise ValueError(f"load_model cannot load a '{kind}' file; use load_lora_v2")
         if kind == "wan_video_dit":
@@ -254,6 +269,8 @@ class ModelManager:
         elif kind == "wan_video_text_encoder":
             cfg = t5.config_from_state_dict(sd, dtype=self.dtype)
             model = t5.params_from_torch_state_dict(sd, cfg, device=self.device)
+        elif kind in _SD_FAMILY:
+            model = _sd_family_loader(kind)(sd, device=self.device)
         elif kind == "wan_video_vae":
             model = wan_vae.params_from_torch_state_dict(sd, wan_vae.config_from_state_dict(sd),
                                                          device=self.device)

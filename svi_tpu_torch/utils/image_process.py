@@ -1,9 +1,10 @@
 """Reference images and pose frames (port of svi_tpu/utils/image_process.py:
-`calculate_dimensions`, `find_reference_image`, `resize_and_pad_to_target`).
+`calculate_dimensions`, `find_reference_image`, `resize_and_pad_to_target`),
+and `resize_uint8`, Pillow's default resize in numpy.
 
 A `.npy` file holding an (H, W, 3) uint8 image is read with numpy, so that a
 machine without Pillow (the card's) can run the driver; Pillow is imported
-only to open a `.jpg` / `.png`, and only it resizes."""
+only to open a `.jpg` / `.png`, and only it resizes a reference image."""
 
 from __future__ import annotations
 
@@ -83,3 +84,64 @@ def resize_and_pad_to_target(frames: np.ndarray, target_size, pad_value=0.0) -> 
     top, left = (th - nh) // 2, (tw - nw) // 2
     out[:, :, top:top + nh, left:left + nw] = frames[:, :, yi][:, :, :, xi]
     return out
+
+
+
+_PRECISION_BITS = 22  # Pillow's fixed point for 8-bit resampling
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter (a = -0.5)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """Pillow's `precompute_coeffs` + `normalize_coeffs_8bpc` for one axis:
+    (out_size, taps) source indices and fixed-point weights (0 past a
+    window's end)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    taps = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, taps), np.int64)
+    kk = np.zeros((out_size, taps), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        ww = w.sum()
+        if ww != 0:
+            w = w / ww
+        fixed = w * (1 << _PRECISION_BITS)
+        kk[xx, :xmax] = np.where(w < 0, (-0.5 + fixed).astype(np.int64),
+                                 (0.5 + fixed).astype(np.int64))
+        idx[xx, :xmax] = np.arange(xmax) + xmin
+    return idx, kk
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass: fixed-point sums, rounded, clipped to uint8."""
+    idx, kk = _resample_coeffs(img.shape[axis], out_size)
+    x = np.moveaxis(img, axis, -1).astype(np.int64)
+    acc = np.full(x.shape[:-1] + (out_size,), 1 << (_PRECISION_BITS - 1), np.int64)
+    for t in range(idx.shape[1]):
+        acc += x[..., idx[:, t]] * kk[:, t]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, -1, axis)
+
+
+def resize_uint8(image, width: int, height: int) -> np.ndarray:
+    """An (H, W, 3) uint8 frame (or a PIL image) resized to (height, width, 3)
+    as Pillow's default `Image.resize` does, byte for byte: bicubic (a =
+    -0.5) with the support widened by the shrink factor, the horizontal pass
+    first, each pass in Pillow's 22-bit fixed point rounded to uint8."""
+    arr = np.asarray(image)
+    if arr.shape[1] != width:
+        arr = _resample_axis(arr, width, 1)
+    if arr.shape[0] != height:
+        arr = _resample_axis(arr, height, 0)
+    return np.array(arr)

@@ -27,6 +27,9 @@ F32_TOL = 1e-5
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "mma"),
     *((torch.float32, d, "f32") for d in (32, 64, 80, 128, 384)),
     (torch.bfloat16, 80, None),
+    # the SD 1.5 family's f32 head dims; a pair with no kernel still raises
+    *((torch.float32, d, "f32") for d in (40, 160, 512)),
+    (torch.float32, 96, None), (torch.bfloat16, 40, None),
 ])
 def test_fwd_route(dtype, head_dim, route):
     if route is None:

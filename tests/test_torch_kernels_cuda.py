@@ -170,7 +170,7 @@ def test_sm90_misaligned_view_raises():
         tattn.flash_fwd_flat(q, q, q, d)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 384])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512])
 def test_f32_bnsd_kernel_matches_plain(d):
     b, n, sq, sk = 2, 2, 70, 45
     q, k, v = (_rand((b, n, s, d), torch.float32, i) for i, s in enumerate((sq, sk, sk)))
@@ -190,7 +190,7 @@ def _f32_launches():
 
 @pytest.mark.parametrize("kv_len", [None, 211, 0])
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 384])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512])
 def test_f32_tc_kernel_matches_plain(d, rope, kv_len):
     """The 3xTF32 route at every head dim: Sq = 70 ragged against the 32- and
     64-row tiles, Sk = 300 (5 key tiles of 64, 10 of 32: the 2-stage K/V ring
@@ -225,6 +225,47 @@ def test_f32_strided_single_head_like_the_vae():
     ref, _ = tattn._flash_fwd_reference(q[:, :, None], k[:, :, None], v[:, :, None], None,
                                         None, s, c ** -0.5)
     assert (out - ref[:, :, 0]).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_f32_sd_cross_attention_ragged_keys(d):
+    """The SD UNet's cross-attention: 8 heads, 77 text keys, one full 64-key
+    tile and a ragged last one (or five 16-key tiles on the short route)."""
+    for sq in (300, 16):
+        q = _rand((2, sq, 8 * d), torch.float32, 90)
+        k, v = (_rand((2, 77, 8 * d), torch.float32, 91 + i) for i in range(2))
+        got = tattn.flash_attention(*(t.unflatten(-1, (8, d)) for t in (q, k, v)))
+        o_ref, _ = tattn._flash_fwd_reference(*(t.unflatten(-1, (8, d)) for t in (q, k, v)),
+                                              None, None, 77, d ** -0.5)
+        assert (got - o_ref).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_f32_temporal_attention_many_batches(d):
+    """AnimateDiff's temporal attention: Sq = Sk = 16 frames over many
+    (pixel, head) batches, on the short-query tiles."""
+    q, k, v = (_rand((4096, 16, 8 * d), torch.float32, 95 + i) for i in range(3))
+    before = _f32_launches()
+    got = tattn.flash_fwd_bnsd(*(t.unflatten(-1, (8, d)).transpose(1, 2) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert _f32_launches() == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*(t.unflatten(-1, (8, d)) for t in (q, k, v)),
+                                                None, None, 16, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), F32_TOL, F32_TOL)
+
+
+def test_f32_sd_vae_mid_block_s4096():
+    """The SD VAE's mid-block at 512x512: one head of 512 over 64 x 64 = 4096
+    tokens through the flat entry, q, k and v column slices of one qkv
+    tensor (row stride 3 x 512)."""
+    c, s = 512, 4096
+    qkv = _rand((1, s, 3 * c), torch.float32, 7)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    got = tattn.flash_fwd_flat(q, k, v, c)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tattn._flash_fwd_reference(q[:, :, None], k[:, :, None], v[:, :, None],
+                                                None, None, s, c ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), F32_TOL, F32_TOL)
 
 
 def test_f32_rope_kernel_matches_plain():

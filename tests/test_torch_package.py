@@ -45,8 +45,41 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.dwpose.onnx_infer, svi_tpu_torch.models.unianimate\n"
         "import svi_tpu_torch.pipelines.wan_video, svi_tpu_torch.scripts.metadata_gen\n"
         "import svi_tpu_torch.scripts.prepare_video_pose, svi_tpu_torch.scripts.run_align_pose\n"
+        "import svi_tpu_torch.models.sd, svi_tpu_torch.models.tiler, svi_tpu_torch.models.motion\n"
+        "import svi_tpu_torch.models.controlnets, svi_tpu_torch.schedulers.ddim\n"
+        "import svi_tpu_torch.prompters.clip_tokenizer, svi_tpu_torch.prompters.sd_prompter\n"
+        "import svi_tpu_torch.prompters.base_prompter, svi_tpu_torch.prompters.textual_inversion\n"
+        "import svi_tpu_torch.pipelines.sd_image, svi_tpu_torch.pipelines.sd_video\n"
+        "import svi_tpu_torch.pipelines.pipeline_runner, svi_tpu_torch.processors\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_sd_path_imports_no_pillow_or_cv2():
+    """In a fresh interpreter, importing the SD 1.5 video path (the runner,
+    the pipelines, the processors), running the smoothers and writing PNG
+    frames and a .npy video loads no PIL, cv2 or imageio: the card has
+    none of them."""
+    code = (
+        "import sys, tempfile, os\n"
+        "import numpy as np\n"
+        "import svi_tpu_torch.pipelines.pipeline_runner\n"
+        "from svi_tpu_torch.processors import ContrastEditor, SharpnessEditor\n"
+        "from svi_tpu_torch.utils import video\n"
+        "f = [np.full((16, 24, 3), 40 * i, np.uint8) for i in range(3)]\n"
+        "f = SharpnessEditor(1.3)(ContrastEditor(1.5)(f))\n"
+        "d = tempfile.mkdtemp()\n"
+        "video.save_frames(f, os.path.join(d, 'frames'))\n"
+        "video.save_frames_npy(f, os.path.join(d, 'v.npy'))\n"
+        "assert len(video.VideoData(video_file=os.path.join(d, 'v.npy'), height=8, width=8)[2]) == 8\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'imageio'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

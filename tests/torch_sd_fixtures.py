@@ -1,0 +1,153 @@
+"""Narrow SD 1.5 family fixtures for the port's CPU tests: plans of the
+published plans' lengths and kinds at a tenth of the UNet's channels (a
+quarter of the VAE's), patched into both packages' module globals, a 2-layer
+text encoder 96 wide (12 heads of 8), and seeded random state dicts in the
+reference's diffsynth naming (the port's `*_state_dict` writers), as torch
+tensors for the port and numpy arrays for svi_tpu."""
+
+import contextlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from svi_tpu_torch.models import controlnets as tcn
+from svi_tpu_torch.models import motion as tmo
+from svi_tpu_torch.models import sd as tsd
+from svi_tpu_torch.utils.safetensors_io import save_file
+
+TEXT_DIM, TEXT_LAYERS = 96, 2
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch's intra-op threads at 1 inside the block, restored after: the
+    narrow models' many small ops gain nothing from threads, and beside
+    other test workers on the same cores OpenMP's waiting threads slowed
+    them several times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+COND_CHANNELS = (8, 16, 16, 32)
+
+
+def narrow_plan(plan, div, heads=2):
+    out = []
+    for d in plan:
+        if d[0] == "res":
+            out.append(("res", d[1] // div, d[2] // div))
+        elif d[0] == "attn":
+            out.append(("attn", heads, d[3] // div // heads, d[3] // div))
+        elif d[0] == "down":
+            out.append(("down", d[1] // div, d[2], d[3]))
+        elif d[0] in ("up", "vae_attn"):
+            out.append((d[0], d[1] // div))
+        else:
+            out.append(d)
+    return out
+
+
+UNET_PLAN = narrow_plan(tsd.SD_UNET_PLAN, 10)
+VAE_ENCODER_PLAN = narrow_plan(tsd.SD_VAE_ENCODER_PLAN, 4)
+VAE_DECODER_PLAN = narrow_plan(tsd.SD_VAE_DECODER_PLAN, 4)
+CONTROLNET_PLAN = narrow_plan(tcn.SD_CONTROLNET_PLAN, 10)
+
+
+def patch_narrow_plans(monkeypatch):
+    """The narrow plans in svi_tpu's and the port's module globals."""
+    from svi_tpu.models import controlnets as jcn
+    from svi_tpu.models import sd as jsd
+
+    for mod in (jsd, tsd):
+        monkeypatch.setattr(mod, "SD_UNET_PLAN", UNET_PLAN)
+        monkeypatch.setattr(mod, "SD_VAE_ENCODER_PLAN", VAE_ENCODER_PLAN)
+        monkeypatch.setattr(mod, "SD_VAE_DECODER_PLAN", VAE_DECODER_PLAN)
+    for mod in (jcn, tcn):
+        monkeypatch.setattr(mod, "SD_CONTROLNET_PLAN", CONTROLNET_PLAN)
+
+
+def state_dicts(seed=0) -> dict:
+    """{kind: torch state dict} of every SD-family model at the patched plans."""
+    return {
+        "sd_unet": tsd.sd_unet_state_dict(seed, text_dim=TEXT_DIM),
+        "sd_text_encoder": tsd.sd_text_encoder_state_dict(seed + 1, dim=TEXT_DIM,
+                                                          num_layers=TEXT_LAYERS),
+        "sd_vae_encoder": tsd.sd_vae_encoder_state_dict(seed + 2),
+        "sd_vae_decoder": tsd.sd_vae_decoder_state_dict(seed + 3),
+        "sd_motion_modules": tmo.sd_motion_state_dict(seed + 4),
+        "sd_controlnet": tcn.sd_controlnet_state_dict(seed + 5, text_dim=TEXT_DIM,
+                                                      conditioning_channels=COND_CHANNELS),
+    }
+
+
+def to_numpy(sd: dict) -> dict:
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+FILE_NAMES = {"sd_unet": "unet.safetensors", "sd_text_encoder": "text_encoder.safetensors",
+              "sd_vae_encoder": "vae_encoder.safetensors",
+              "sd_vae_decoder": "vae_decoder.safetensors",
+              "sd_motion_modules": "motion.safetensors",
+              "sd_controlnet": "controlnet_tile.safetensors"}
+
+
+def write_files(root: Path, sds: dict) -> dict:
+    """Each state dict as a safetensors file under root; {kind: path}."""
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for kind, sd in sds.items():
+        paths[kind] = str(root / FILE_NAMES[kind])
+        save_file(sd, paths[kind])
+    return paths
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def np32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+_JITTED = {}
+
+
+def jit_jax_blocks(monkeypatch):
+    """svi_tpu's block forwards (resnet, spatial transformer, VAE attention,
+    motion module), its text encoder and the primitives that sd.py calls
+    outside them (conv, group norm, dense, the timestep embedding) patched
+    to jitted versions of themselves, shared across tests: a UNet forward
+    then compiles each distinct block shape once instead of dispatching its
+    thousands of operations one by one. The arithmetic is the same
+    functions'."""
+    import jax
+    from svi_tpu.models import motion as jmo
+    from svi_tpu.models import sd as jsd
+
+    if not _JITTED:
+        _JITTED["res"] = jax.jit(jsd._resnet_block, static_argnames=("groups", "eps"))
+        _JITTED["attn"] = jax.jit(jsd._attention_block, static_argnames=(
+            "num_heads", "head_dim", "eps", "tiled", "tile_size", "tile_stride"))
+        _JITTED["vae_attn"] = jax.jit(jsd._vae_attention_block, static_argnames=("eps",))
+        _JITTED["temporal"] = jax.jit(jmo.temporal_block, static_argnames=(
+            "num_heads", "head_dim", "batch_size"))
+        _JITTED["text"] = jax.jit(jsd.sd_text_encoder_forward, static_argnames=("clip_skip",))
+        _JITTED["conv"] = jax.jit(jsd._conv2d, static_argnames=("stride", "padding"))
+        _JITTED["gn"] = jax.jit(jsd._group_norm, static_argnames=("groups", "eps"))
+        _JITTED["dense"] = jax.jit(jsd._dense)
+        _JITTED["temb"] = jax.jit(jsd.timestep_embedding, static_argnames=("num_channels",))
+    monkeypatch.setattr(jsd, "_resnet_block", _JITTED["res"])
+    monkeypatch.setattr(jsd, "_attention_block", _JITTED["attn"])
+    monkeypatch.setattr(jsd, "_vae_attention_block", _JITTED["vae_attn"])
+    monkeypatch.setattr(jmo, "temporal_block", _JITTED["temporal"])
+    monkeypatch.setattr(jsd, "sd_text_encoder_forward", _JITTED["text"])
+    for name, key in (("_conv2d", "conv"), ("_group_norm", "gn"), ("_dense", "dense"),
+                      ("timestep_embedding", "temb")):
+        monkeypatch.setattr(jsd, name, _JITTED[key])
