@@ -17,7 +17,8 @@ non-zero exit and no result line:
      replaced (K3, `_int8_exec`, the bias); the f32 kernel at the SD 1.5
      stack's shapes (head dims 40, 160 and 512, the UNet's 77-key
      cross-attention, AnimateDiff's 16-frame temporal attention over 4096
-     batches); K6 beside K1 at the same shape
+     batches) and the SDXL stack's at 1024x1024 (heads of 64 over 4096 and
+     1024 tokens, the VAE's mid-block over 16384 tokens); K6 beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
      GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
@@ -100,7 +101,7 @@ non-zero exit and no result line:
      with all-gather and ring on padded shards, forward_tp, forward_tpsp
      (f32) and sharded bf16 LoRA gradients, each against the card's
      single-device run and the CPU's, then the same on a one-rank NCCL
-     group; (b) Wan2.1-I2V-14B at full width cut to 4 of 40 blocks on 2
+     group; (b) Wan2.1-I2V-14B at full width cut to 1 of 40 blocks on 2
      gloo ranks: forward_sp at 480x832x81 (all-gather and ring) against the
      single-device forward, one SP LoRA train step at 21 frames and one at
      81 frames (496x848: an odd token count, so the backward runs K4 on
@@ -133,12 +134,26 @@ non-zero exit and no result line:
      16-frame windows), 3 steps at strength 0.9, the tile ControlNet at
      scale 0.5, a Contrast smoother, with per-model seconds, peak memory
      and the f32 attention launches per head dim, which must be the plans'
-     count;
-  9. a JSON line of the kernels (K3's launches from 5b's quantized run;
+     count; the smoother chain is FastBlend (its default ebsynth config, as
+     a Diffutoon config names it) then Contrast;
+  9. the extensions and the SDXL family: (a) the narrow SDXL models (one
+     head a block) through SDXLImagePipeline and SDXLVideoPipeline (a tile
+     ControlNet Union unit, an IP-Adapter image), RIFE, FastBlend, ESRGAN
+     and the Aesthetic and HPSv2 scores on small inputs, card against CPU;
+     (b) seeded files at the published widths (SDXL base 1.0, AnimateDiff-
+     SDXL, ControlNet Union SDXL, IP-Adapter SDXL with its ViT-H image
+     encoder, RRDBNet x4, IFNet, CLIP ViT-L/14 with the aesthetic MLP,
+     open_clip ViT-H/14); (c) one UNet + ControlNet + motion forward on them
+     at 2 frames of 128x128, card against CPU; (d) SDXLVideoPipeline at
+     1024x1024, 16 frames, 3 steps with ControlNet and IP-Adapter, then RIFE
+     over its frames, FastBlend over its first 3, ESRGAN on 2 and the two
+     scores on 2, with per-part seconds, peak memory and the f32 attention
+     launches per head dim, which must be the plans' count;
+ 10. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
      `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`,
-     on phase 8's runner as `launches_sd`), the nvidia-smi line, and the
-     result line.
+     on phase 8's runner as `launches_sd`, on phase 9's SDXL video pipeline
+     as `launches_sdxl`), the nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -778,6 +793,16 @@ def kernel_cases():
     yield f32_case("sd_unet_self_attn_d160", 16, 256, 256, 8, 160)
     yield f32_case("sd_motion_attn_d40", 4096, 16, 16, 8, 40)
     yield f32_case("sd_vae_mid_attn_d512", 1, 4096, 4096, 1, 512)
+    # the SDXL video stack at 1024x1024 (128 x 128 latents, 16 frames a pass):
+    # the UNet's 64 x 64 level (10 heads of 64) self- and text
+    # cross-attention, its 32 x 32 level (20 heads of 64), and the VAE's
+    # mid-block (one head of 512 over 128 x 128 tokens, K1); AnimateDiff-SDXL's
+    # temporal attention runs SD's head dims on the short-query tiles
+    yield f32_case("sdxl_unet_self_attn_d64", 16, 4096, 4096, 10, 64)
+    yield f32_case("sdxl_unet_cross_attn_d64", 16, 4096, 77, 10, 64)
+    yield f32_case("sdxl_unet_self_attn_d64_n20", 16, 1024, 1024, 20, 64)
+    yield f32_case("sdxl_unet_cross_attn_d64_n20", 16, 1024, 77, 20, 64)
+    yield f32_case("sdxl_vae_mid_attn_d512", 1, 16384, 16384, 1, 512)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -994,7 +1019,7 @@ def phase_kernels(card: str):
     for case in kernel_cases():
         results = case["run"]()
         torch.cuda.synchronize()
-        plain_ms = median_ms(case["plain"], 2)
+        plain_ms = median_ms(case["plain"], 1)  # one timed call: the plain version is no yardstick
         library_ms = None if case["library"] is None else median_ms(case["library"], 5)
         # the backward cases' library call is SDPA's backward alone; its
         # forward + backward is printed beside it, as earlier runs timed it
@@ -3743,7 +3768,7 @@ def phase_train_drivers(root: Path, card: str) -> dict:
 # The card's machine has one GPU, so the ranks share it over gloo (NCCL cannot
 # put two ranks on one GPU); a one-rank NCCL group runs the NCCL code. Speeds
 # of ranks sharing one card measure no multi-card speed: printed, not claimed.
-PARALLEL_DEPTH = 4  # blocks of the 14B in 6b: two ranks and their references on one card
+PARALLEL_DEPTH = 1  # blocks of the 14B in 6b: two ranks and their references on one card
 PARALLEL_SEED = 31
 # 6a's tiny DiT: head dim 128, so that every attention takes the kernels of
 # the 14B's routes (f32: 3xTF32; bf16: sm90); 3 x 3 x 5 = 45 tokens, padded
@@ -4466,6 +4491,7 @@ def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
     stride 8), the tile ControlNet on the same frames at scale 0.5, 3 steps
     at strength 0.9, CFG 7.5, a Contrast smoother after step 1; frames,
     video.npy and config.json written. Returns the launches per entry."""
+    from svi_tpu_torch.extensions import FastBlendSmoother
     from svi_tpu_torch.models import controlnets as cn
     from svi_tpu_torch.models import motion as mo
     from svi_tpu_torch.models import sd
@@ -4493,7 +4519,8 @@ def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
             "clip_skip": 1, "denoising_strength": SD_STRENGTH,
             "num_inference_steps": SD_STEPS, "animatediff_batch_size": SD_WINDOW,
             "animatediff_stride": SD_STRIDE, "smoother_progress_ids": [SD_SMOOTH_AT]}},
-        "smoother_configs": [{"processor_type": "Contrast", "config": {"rate": SD_CONTRAST}}],
+        "smoother_configs": [{"processor_type": "FastBlend", "config": {}},
+                             {"processor_type": "Contrast", "config": {"rate": SD_CONTRAST}}],
     }
     timer = PhaseTimer()
     step_marks = []
@@ -4512,6 +4539,7 @@ def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
             (mo, "temporal_block", timer.wrap("motion", mo.temporal_block)),
             (cn, "sd_controlnet_forward", timer.wrap("controlnet", cn.sd_controlnet_forward)),
             (SDPrompter, "encode_prompt", timer.wrap("text_encoder", SDPrompter.encode_prompt)),
+            (FastBlendSmoother, "__call__", timer.wrap("fastblend", FastBlendSmoother.__call__)),
             (EnhancedDDIMScheduler, "step", timed_step)]
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -4570,6 +4598,504 @@ def phase_sd(card: str) -> dict:
     log(f"[sd] phase 8 passed in {time.perf_counter() - t0:.1f}s; {card}")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the extensions and the SDXL family
+# ---------------------------------------------------------------------------
+
+XL_H, XL_W, XL_FRAMES, XL_STEPS = 1024, 1024, 16, 3  # AnimateDiff-SDXL's setting, 3 steps
+XL_CN_SCALE, XL_IP_SCALE, XL_CFG = 0.5, 0.6, 7.5
+XL_FASTBLEND_FRAMES, XL_ESRGAN_FRAMES, XL_SCORE_FRAMES = 3, 2, 2
+XL_UNET_PARAMS = 2_567_463_684  # SDXL base 1.0's UNet
+XL_PROMPT = "a dancer in a red dress on a rooftop at sunset, cinematic light, highly detailed"
+XL_FILES = {"sdxl_unet": "sdxl_base_unet.safetensors",
+            "sdxl_text_encoder": "sdxl_text_encoder.safetensors",
+            "sdxl_text_encoder_2": "sdxl_text_encoder_2.safetensors",
+            "sdxl_vae_encoder": "sdxl_vae_encoder.safetensors",
+            "sdxl_vae_decoder": "sdxl_vae_decoder.safetensors",
+            "sdxl_motion_modules": "animatediff_sdxl_motion.safetensors",
+            "sdxl_controlnet": "sdxl_controlnet_union.safetensors",
+            "sdxl_ipadapter": "ip_adapter_sdxl.safetensors",
+            "sdxl_ipadapter_clip_image_encoder": "ip_adapter_image_encoder_vit_h.safetensors",
+            "esrgan": "RealESRGAN_x4.safetensors", "rife": "rife_flownet.safetensors",
+            "clip-large": "clip-vit-large-patch14/model.safetensors",
+            "aesthetic_predictor": "aesthetic_mlp.safetensors",
+            "hpsv2": "open_clip_vit_h_14.safetensors"}
+# Card against CPU, f32 on both, as phase 8 holds the SD stack: 1e-4 of the
+# output's scale for the narrow models' outputs (the image before its uint8
+# cast, the video's first UNet output, its positive branch, and its final
+# latents), 1e-3 for the full-width forward (its sums are 10-40x longer),
+# frames within one level, scores within 1e-4 (f32 towers of one or two
+# layers).
+XL_SMALL_REL, XL_FULL_REL, XL_LEVELS, XL_SCORE_REL = 1e-4, 1e-3, 1, 1e-4
+
+
+def xl_expected_launches(passes: int, vae_calls: int, with_controlnet=True,
+                         with_motion=True) -> dict:
+    """K2 (flash_fwd_bnsd) launches per (route, dtype, head dim) from the
+    plans, for `passes` UNet passes (one ControlNet each): two attentions a
+    transformer layer, two a motion module; K1 (flash_fwd_flat) once a VAE
+    call (its mid-block)."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd, sdxl
+
+    per = {}
+
+    def add(d, n):
+        key = f"f32/float32/{d}"
+        per[key] = per.get(key, 0) + n
+
+    for plan in [sdxl.SDXL_UNET_PLAN] + ([cn.SDXL_CONTROLNET_PLAN] if with_controlnet else []):
+        for i, desc in enumerate(plan):
+            if desc[0] == "attn":
+                add(desc[2], 2 * sdxl.SDXL_TRANSFORMER_DEPTH.get(i, 1))
+    if with_motion:
+        chans = mo.plan_channels(sdxl.SDXL_UNET_PLAN)
+        for bid in mo.SDXL_MOTION_CALL_MAP:
+            add(chans[bid] // mo.NUM_HEADS, 2)
+    flat = {f"f32/float32/{sd.SD_VAE_DECODER_PLAN[1][1]}": vae_calls} if vae_calls else {}
+    return {"flash_fwd_bnsd": {k: n * passes for k, n in per.items()}, "flash_fwd_flat": flat}
+
+
+def _blocky(n: int, h: int, w: int, seed: int) -> list:
+    """Integer frames constant on 2x2 blocks, drifting one block a frame."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 200, (h // 2, w // 2, 3))
+    return [np.repeat(np.repeat(np.roll(base, i, 1) + rng.integers(0, 40, base.shape), 2, 0),
+                      2, 1).astype(np.uint8) for i in range(n)]
+
+
+def _levels(got, want) -> int:
+    return max(int(np.abs(np.asarray(g, int) - np.asarray(w, int)).max())
+               for g, w in zip(got, want))
+
+
+def _quality_files(root: Path, sds: dict) -> dict:
+    """The quality towers' files in the reference snapshot's layout."""
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    (root / "clip-vit-large-patch14").mkdir(parents=True, exist_ok=True)
+    paths = {"clip-large": str(root / "clip-vit-large-patch14")}
+    for key in ("clip-large", "aesthetic_predictor", "hpsv2"):
+        save_file(sds[key], str(root / XL_FILES[key]))
+        if key != "clip-large":
+            paths[key] = str(root / XL_FILES[key])
+    return paths
+
+
+def phase_xl_small(root: Path, card: str) -> None:
+    """(a) The narrow SDXL models of the CPU tests (one head a block, so that
+    every head dim has a kernel route) through SDXLImagePipeline (64x64, 2
+    steps, CFG 5) and SDXLVideoPipeline (3 frames, a tile ControlNet Union
+    unit, an IP-Adapter image, video-to-video over 2 steps), RIFE (c=16) on
+    3 frames, FastBlend (its default ebsynth config) on 6 integer frames,
+    ESRGAN (2 blocks) on 2 frames, and the Aesthetic and CLIP scores on
+    one-layer towers, each on the card against the CPU."""
+    from svi_tpu_torch.extensions import ESRGAN, FastBlendSmoother, RIFEInterpolater
+    from svi_tpu_torch.extensions import esrgan as esr
+    from svi_tpu_torch.extensions import image_quality as iq
+    from svi_tpu_torch.extensions import quality_towers as qt
+    from svi_tpu_torch.extensions import rife
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import ipadapter as ip
+    from svi_tpu_torch.models import sd, sdxl
+    from svi_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    from svi_tpu_torch.pipelines.sdxl_video import SDXLVideoPipeline
+
+    fx = _sd_fixtures()
+    unet_plan, cn_plan = fx.xl_plans(heads=1)
+    loaders = {"sdxl_unet": sdxl.sdxl_unet_params_from_torch,
+               "sdxl_text_encoder": sdxl.sdxl_text_encoder_params_from_torch,
+               "sdxl_text_encoder_2": sdxl.sdxl_text_encoder_2_params_from_torch,
+               "sdxl_vae_encoder": sd.sd_vae_encoder_params_from_torch,
+               "sdxl_vae_decoder": sd.sd_vae_decoder_params_from_torch,
+               "sdxl_controlnet": cn.sdxl_controlnet_params_from_torch,
+               "sdxl_ipadapter": ip.ipadapter_params_from_torch,
+               "sdxl_ipadapter_clip_image_encoder": ip.clip_image_encoder_params_from_torch}
+    frames, ref = list(sd_frames(3, 64, 64, seed=21)), sd_frames(1, 64, 64, seed=22)[0]
+    out = {}
+    with patched([(sdxl, "SDXL_UNET_PLAN", unet_plan), (cn, "SDXL_CONTROLNET_PLAN", cn_plan),
+                  (sd, "SD_VAE_ENCODER_PLAN", fx.VAE_ENCODER_PLAN),
+                  (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN)]):
+        sds = fx.xl_state_dicts(seed=23)
+        for device in ("cuda", "cpu"):
+            m = {k: f(sds[k], device=device) for k, f in loaders.items()}
+            image = SDXLImagePipeline(m["sdxl_unet"], m["sdxl_text_encoder"],
+                                      m["sdxl_text_encoder_2"], m["sdxl_vae_encoder"],
+                                      m["sdxl_vae_decoder"])
+            decoded = []
+            to_image = image.vae_output_to_image
+            image.vae_output_to_image = lambda o, _f=to_image, _d=decoded: (
+                _d.append(o.float().cpu()), _f(o))[1]
+            manager = cn.MultiControlNetManager(
+                [(lambda p, s, t, e, c, **kw: cn.sdxl_controlnet_forward(p, s, t, e, c, "tile",
+                                                                         **kw),
+                  m["sdxl_controlnet"], XL_CN_SCALE)], [cn.Annotator("tile")])
+            video = SDXLVideoPipeline(m["sdxl_unet"], None, m["sdxl_text_encoder"],
+                                      m["sdxl_text_encoder_2"], m["sdxl_vae_encoder"],
+                                      m["sdxl_vae_decoder"], ipadapter=m["sdxl_ipadapter"],
+                                      ipadapter_image_encoder=m[
+                                          "sdxl_ipadapter_clip_image_encoder"],
+                                      controlnet=manager)
+            latents, preds = [], []
+            decode, unet = video.decode_video, video._unet_all_frames
+            video.decode_video = lambda lat, *a, _d=decode, _l=latents, **kw: (
+                _l.append(lat.float().cpu()), _d(lat, *a, **kw))[1]
+            video._unet_all_frames = lambda *a, _u=unet, _p=preds, **kw: (
+                lambda out: (_p.append(out.float().cpu()), out)[1])(_u(*a, **kw))
+            zero_counts()
+            img = image(XL_PROMPT, negative_prompt="blurry", cfg_scale=5.0, height=64, width=64,
+                        num_inference_steps=2, seed=2)
+            vid = video(XL_PROMPT, negative_prompt="", cfg_scale=XL_CFG, num_frames=3,
+                        input_frames=frames, denoising_strength=0.9, height=64, width=64,
+                        num_inference_steps=2, controlnet_frames=[frames],
+                        ipadapter_images=[ref], ipadapter_scale=XL_IP_SCALE, seed=3)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+            out[device] = (decoded[0], img, preds[0], latents[-1], vid)
+            del image, video, m
+    (dc, ic, pc, lc, vc), (dh, ih, ph, lh, vh) = out["cuda"], out["cpu"]
+    img_rel, pred_rel, lat_rel = _rel(dc, dh), _rel(pc, ph), _rel(lc, lh)
+    gaps = (_levels([ic], [ih]), _levels(vc, vh))
+    routes = {k for entry in launches.values() for k in entry}
+    log(f"[xl-small] card vs CPU: image before uint8 {img_rel:.3e}, the video's first UNet "
+        f"output (the positive branch) {pred_rel:.3e} (bound {XL_SMALL_REL}), its final latents "
+        f"{lat_rel:.3e}; frames {gaps} levels (bound {XL_LEVELS}); launches "
+        f"{launches}; {card}")
+    if not (img_rel <= XL_SMALL_REL and pred_rel <= XL_SMALL_REL and lat_rel <= XL_SMALL_REL
+            and max(gaps) <= XL_LEVELS):
+        raise RuntimeError("the small SDXL pipelines on the card disagree with the CPU")
+    if not routes or any(not k.startswith("f32/") for k in routes):
+        raise RuntimeError(f"the small SDXL pipelines launched {launches}")
+
+    # the extensions on small inputs
+    ifnet, esr_sd = rife.ifnet_state_dict(c=16, seed=24), esr.esrgan_state_dict(
+        25, cfg=esr.RRDBNetConfig(num_feat=16, num_block=2, num_grow_ch=8))
+    esr_cfg = esr.config_from_state_dict(esr_sd)
+    clip = [sd_frames(3, 64, 96, seed=26)[i] for i in range(3)]
+    style, guide = _blocky(6, 32, 48, 27), _blocky(6, 32, 48, 28)
+    qsds = {"clip-large": qt.hf_clip_state_dict(29, vision_width=48, vision_layers=1, patch=32,
+                                                text_width=32, text_layers=1, projection=24),
+            "aesthetic_predictor": iq.score_mlp_state_dict(30, dim=24),
+            "hpsv2": qt.open_clip_state_dict(31, vision_width=48, vision_layers=1, patch=32,
+                                             text_width=32, text_layers=1, projection=24)}
+    qpaths = _quality_files(root / "quality_small", qsds)
+    res = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        inter = RIFEInterpolater(rife.params_from_torch_state_dict(ifnet, device=device))
+        blend = FastBlendSmoother(device=device)(style, original_frames=guide)
+        up = ESRGAN(esr.params_from_torch_state_dict(esr_sd, esr_cfg, device=device),
+                    esr_cfg).upscale(clip[:2], batch_size=1)
+        scores = (iq.load_preference_model("Aesthetic", device=device, path=qpaths).score(clip),
+                  iq.load_preference_model("HPSv2", device=device, path=qpaths).score(
+                      clip, XL_PROMPT))
+        res[device] = (inter.interpolate(clip), blend, up, scores, time.perf_counter() - t0)
+    (ri, fb, es, sc, t_card), (ri_h, fb_h, es_h, sc_h, t_cpu) = res["cuda"], res["cpu"]
+    gaps = {"rife": _levels(ri, ri_h), "fastblend": _levels(fb, fb_h),
+            "esrgan": _levels(es, es_h)}
+    score_rel = max(_rel(torch.tensor(a), torch.tensor(b)) for a, b in zip(sc, sc_h))
+    log(f"[xl-small-ext] card vs CPU: frames {gaps} levels (bound {XL_LEVELS}; FastBlend "
+        f"identical: {all(np.array_equal(a, b) for a, b in zip(fb, fb_h))}), scores "
+        f"{score_rel:.3e} (bound {XL_SCORE_REL}): Aesthetic {sc[0]}, HPSv2 {sc[1]}; seconds card "
+        f"{t_card:.2f}, CPU {t_cpu:.2f}; {card}")
+    if max(gaps.values()) > XL_LEVELS or not score_rel <= XL_SCORE_REL \
+            or len(ri) != 5 or es[0].shape != (256, 384, 3):
+        raise RuntimeError("the small extensions on the card disagree with the CPU")
+
+
+def write_xl_checkpoints(root: Path, card: str) -> dict:
+    """(b) Seeded files at the published widths in the reference's naming:
+    SDXL base 1.0 (UNet, CLIP ViT-L text, OpenCLIP bigG text, VAE encoder and
+    decoder; f16 as it ships), AnimateDiff-SDXL's motion modules, ControlNet
+    Union SDXL, IP-Adapter SDXL and its ViT-H/14 image encoder (f16),
+    RRDBNet x4 and IFNet (f32), CLIP ViT-L/14 with the aesthetic MLP and
+    open_clip ViT-H/14 (f16)."""
+    from svi_tpu_torch.extensions import esrgan as esr
+    from svi_tpu_torch.extensions import image_quality as iq
+    from svi_tpu_torch.extensions import quality_towers as qt
+    from svi_tpu_torch.extensions import rife
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import ipadapter as ip
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd, sdxl
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    f16, f32 = torch.float16, torch.float32
+    makers = {"sdxl_unet": (sdxl.sdxl_unet_state_dict, f16),
+              "sdxl_text_encoder": (sdxl.sdxl_text_encoder_state_dict, f16),
+              "sdxl_text_encoder_2": (sdxl.sdxl_text_encoder_2_state_dict, f16),
+              "sdxl_vae_encoder": (sd.sd_vae_encoder_state_dict, f16),
+              "sdxl_vae_decoder": (sd.sd_vae_decoder_state_dict, f16),
+              "sdxl_motion_modules": (mo.sdxl_motion_state_dict, f16),
+              "sdxl_controlnet": (cn.sdxl_controlnet_state_dict, f16),
+              "sdxl_ipadapter": (ip.sdxl_ipadapter_state_dict, f16),
+              "sdxl_ipadapter_clip_image_encoder": (ip.clip_image_encoder_state_dict, f16),
+              "esrgan": (esr.esrgan_state_dict, f32), "rife": (rife.ifnet_state_dict, f32),
+              "clip-large": (qt.hf_clip_state_dict, f16),
+              "aesthetic_predictor": (iq.score_mlp_state_dict, f32),
+              "hpsv2": (qt.open_clip_state_dict, f16)}
+    (root / "clip-vit-large-patch14").mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    paths, sizes, params = {}, {}, {}
+    for i, (kind, (make, dtype)) in enumerate(makers.items()):
+        state = make(seed=81 + i, device="cuda", dtype=dtype)
+        params[kind] = sum(t.numel() for t in state.values())
+        path = str(root / XL_FILES[kind])
+        sizes[kind] = save_file(state, path)
+        paths[kind] = str(root / "clip-vit-large-patch14") if kind == "clip-large" else path
+        del state
+    torch.cuda.empty_cache()
+    log(f"[xl-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} parameters; "
+        f"{sum(sizes.values()) / 1e9:.3f} GB written in {time.perf_counter() - t0:.2f}s; {card}")
+    if abs(params["sdxl_unet"] - XL_UNET_PARAMS) > 1e6:
+        raise RuntimeError(f"the SDXL UNet has {params['sdxl_unet']} parameters, not 2.567B")
+    return paths
+
+
+def _xl_manager(paths: dict, kinds, device):
+    """A ModelManager holding `kinds` from (b)'s files (the SDXL VAE named:
+    it has the SD VAE's keys)."""
+    from svi_tpu_torch.models.model_io import ModelManager
+
+    mm = ModelManager(device=device)
+    for kind in kinds:
+        got = mm.load_model(paths[kind], model_names=kind if kind.startswith("sdxl_vae") else None)
+        if got != kind:
+            raise RuntimeError(f"{paths[kind]} loaded as {got}, not {kind}")
+    return mm
+
+
+def phase_xl_full_forward(paths: dict, card: str) -> None:
+    """(c) One UNet + ControlNet Union + AnimateDiff-SDXL forward at full
+    width on 2 frames of 128x128 (16 x 16 latents), the models loaded from
+    (b)'s files by ModelManager on the card and on the CPU."""
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sdxl
+
+    g = torch.Generator().manual_seed(4)
+    lat = torch.randn((2, 4, 16, 16), generator=g)
+    ctx = torch.randn((2, 77, sdxl.SDXL_TEXT_DIM), generator=g)
+    pooled = torch.randn((2, sdxl.SDXL_POOLED_DIM), generator=g)
+    cond = torch.rand((2, 3, 128, 128), generator=g)
+    ids = torch.tensor([[128, 128, 0, 0, 128, 128]] * 2, dtype=torch.float32)
+    t = torch.tensor([601.0])
+    outs, secs = {}, {}
+    kinds = ("sdxl_unet", "sdxl_motion_modules", "sdxl_controlnet")
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        mm = _xl_manager(paths, kinds, device)
+        load_s = time.perf_counter() - t0
+        unet, motion, cnp = (mm.fetch_model(k) for k in kinds)
+        args = [x.to(device) for x in (lat, t, ctx)]
+        with torch.inference_mode():
+            if device == "cuda":
+                zero_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [r * XL_CN_SCALE for r in cn.sdxl_controlnet_forward(
+                cnp, *args, cond.to(device), "tile", ids.to(device), pooled.to(device))]
+            out = sdxl.sdxl_unet_forward(
+                unet, *args, ids.to(device), pooled.to(device), controlnet_res=res,
+                motion=mo.motion_hooks(motion, call_map=mo.SDXL_MOTION_CALL_MAP))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+            secs[device] = (load_s, time.perf_counter() - t0)
+        outs[device] = out.float().cpu()
+        del mm, unet, motion, cnp, res, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = _rel(outs["cuda"], outs["cpu"])
+    want = xl_expected_launches(passes=1, vae_calls=0)
+    (card_load, card_fwd), (cpu_load, cpu_fwd) = secs["cuda"], secs["cpu"]
+    log(f"[xl-forward] SDXL UNet + ControlNet Union + AnimateDiff-SDXL at full width, "
+        f"2x4x16x16: card vs CPU {rel:.3e} of the output's scale (bound {XL_FULL_REL}); load s / "
+        f"forward s card {card_load:.2f} / {card_fwd:.3f}, CPU {cpu_load:.2f} / {cpu_fwd:.2f}; "
+        f"launches {launches}; {card}")
+    if not rel <= XL_FULL_REL:
+        raise RuntimeError("the full-width SDXL forward on the card disagrees with the CPU")
+    if launches != want:
+        raise RuntimeError(f"the SDXL forward launched {launches}, expected {want}")
+
+
+def fastblend_op_times(card: str) -> None:
+    """FastBlend's three patch operations (plain torch gathers, no kernel)
+    at the shape 8d's runner gives them most: a batch of 8 at 512x512 and
+    the largest patch (13, pad 6), the guide and style errors stacked (16);
+    median CUDA-event ms of 3 calls each, beside the bytes their inputs and
+    output take (each read once) over the card's 3.35 TB/s."""
+    from svi_tpu_torch.extensions import fastblend as fb
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h, w, ps = 16, 512, 512, 13
+    pad = ps // 2
+    img = lambda: torch.rand((b, h + 2 * pad, w + 2 * pad, 3), generator=g, device="cuda") * 255
+    src, tgt = img(), img()
+    nnf = torch.stack([torch.randint(0, h, (b, h, w), generator=g, device="cuda"),
+                       torch.randint(0, w, (b, h, w), generator=g, device="cuda")],
+                      -1).to(torch.int32)
+    calls = {"apply_nnf_to_image": lambda: fb.apply_nnf_to_image(src, nnf, ps, pad),
+             "patch_error": lambda: fb.patch_error(src, nnf, tgt, ps, pad),
+             "pairwise_patch_error": lambda: fb.pairwise_patch_error(src, nnf, tgt, nnf, ps,
+                                                                     pad)}
+    out_bytes = {"apply_nnf_to_image": src.numel() * 4, "patch_error": b * h * w * 4,
+                 "pairwise_patch_error": b * h * w * 4}
+    rows = []
+    for name, fn in calls.items():
+        ms = median_ms(fn, 3)
+        nbytes = _nbytes(src, nnf) + (_nbytes(tgt) if name != "apply_nnf_to_image" else 0) \
+            + out_bytes[name]
+        rows.append(f"{name} {ms:.2f} ms (bytes bound {1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms)")
+    log(f"[fastblend-ops] B{b} {h}x{w}, patch {ps} ({ps * ps} offsets): " + "; ".join(rows)
+        + f"; {card}")
+    del src, tgt, nnf
+    torch.cuda.empty_cache()
+
+
+def phase_xl_video(paths: dict, card: str) -> dict:
+    """(d) SDXLVideoPipeline.from_model_manager on (b)'s files at 1024x1024,
+    16 frames (AnimateDiff-SDXL's published setting), 3 steps, CFG 7.5, a
+    tile ControlNet Union unit at 0.5 on a seeded video, an IP-Adapter image
+    at 0.6; then RIFE over its frames, FastBlend (its default ebsynth
+    config) over its first frames guided by the control video, ESRGAN on 2
+    frames, the Aesthetic and HPSv2 scores of 2 frames (HPSv2's token ids
+    from clip_bpe). Per-part seconds, peak memory, and the K2 / K1 launches
+    against the plans'. Returns the launches per KERNELS entry."""
+    from svi_tpu_torch.extensions import ESRGAN, FastBlendSmoother, RIFEInterpolater
+    from svi_tpu_torch.extensions import image_quality as iq
+    from svi_tpu_torch.models import controlnets as cn
+    from svi_tpu_torch.models import ipadapter as ip
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sdxl
+    from svi_tpu_torch.pipelines.sdxl_video import SDXLVideoPipeline
+    from svi_tpu_torch.prompters.sdxl_prompter import SDXLPrompter
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+
+    control = list(sd_frames(XL_FRAMES, XL_H, XL_W, seed=31))
+    ref = sd_frames(1, XL_H, XL_W, seed=32)[0]
+    timer = PhaseTimer()
+    step_marks = []
+    step = EnhancedDDIMScheduler.step
+
+    def timed_step(self, *a, **kw):
+        out = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_marks.append(time.perf_counter())
+        return out
+
+    t0 = time.perf_counter()
+    kinds = ("sdxl_unet", "sdxl_motion_modules", "sdxl_text_encoder", "sdxl_text_encoder_2",
+             "sdxl_vae_decoder", "sdxl_ipadapter", "sdxl_ipadapter_clip_image_encoder")
+    mm = _xl_manager(paths, kinds, "cuda")
+    pipe = SDXLVideoPipeline.from_model_manager(
+        mm, [cn.ControlNetConfigUnit("tile", paths["sdxl_controlnet"], XL_CN_SCALE)])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sets = [(sdxl, "sdxl_unet_forward", timer.wrap("unet (with motion)", sdxl.sdxl_unet_forward)),
+            (sdxl, "sdxl_vae_decode", timer.wrap("vae_decode", sdxl.sdxl_vae_decode)),
+            (mo, "temporal_block", timer.wrap("motion", mo.temporal_block)),
+            (cn, "sdxl_controlnet_forward", timer.wrap("controlnet", cn.sdxl_controlnet_forward)),
+            (ip, "clip_image_encoder_forward", timer.wrap("image_encoder",
+                                                          ip.clip_image_encoder_forward)),
+            (SDXLPrompter, "encode_prompt", timer.wrap("text_encoders",
+                                                       SDXLPrompter.encode_prompt)),
+            (EnhancedDDIMScheduler, "step", timed_step)]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(sets):
+        frames = pipe(XL_PROMPT, negative_prompt="blurry, low quality", cfg_scale=XL_CFG,
+                      num_frames=XL_FRAMES, height=XL_H, width=XL_W,
+                      num_inference_steps=XL_STEPS, controlnet_frames=[control],
+                      ipadapter_images=[ref], ipadapter_scale=XL_IP_SCALE, seed=0)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = {k: sum(v) for k, v in timer.seconds.items()}
+    calls = {k: len(v) for k, v in timer.seconds.items()}
+    step_s = [b - a for a, b in zip(step_marks, step_marks[1:])]
+    log(f"[xl-video] {XL_FRAMES} frames {XL_H}x{XL_W}, {XL_STEPS} steps, CFG {XL_CFG} (two "
+        f"passes of every frame a step), ControlNet Union + IP-Adapter + AnimateDiff-SDXL: load "
+        f"{load_s:.2f}s, {total:.2f}s in all; seconds between steps {[round(x, 3) for x in step_s]}"
+        f"; seconds (calls): " + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
+        + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
+    want = xl_expected_launches(passes=2 * XL_STEPS, vae_calls=XL_FRAMES)
+    if launches != want:
+        raise RuntimeError(f"the SDXL video pipeline launched {launches}, expected {want}")
+    arr = np.stack(frames)
+    if arr.shape != (XL_FRAMES, XL_H, XL_W, 3) or arr.dtype != np.uint8 or arr.std() == 0:
+        raise RuntimeError(f"the SDXL video is {arr.shape} {arr.dtype}, or flat")
+    del pipe
+    mm.models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fastblend_op_times(card)
+    ext = {}
+    mm = _xl_manager(paths, ("rife", "esrgan"), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    doubled = RIFEInterpolater(mm.fetch_model("rife")).interpolate(frames)
+    ext["rife"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blended = FastBlendSmoother(device="cuda")(frames[:XL_FASTBLEND_FRAMES],
+                                                original_frames=control[:XL_FASTBLEND_FRAMES])
+    ext["fastblend"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = ESRGAN(mm.fetch_model("esrgan")).upscale(frames[:XL_ESRGAN_FRAMES], batch_size=1)
+    ext["esrgan"] = time.perf_counter() - t0
+    del mm
+    t0 = time.perf_counter()
+    aesthetic = iq.load_preference_model("Aesthetic", device="cuda", path=paths).score(
+        frames[:XL_SCORE_FRAMES])
+    hps = iq.load_preference_model("HPSv2", device="cuda", path=paths).score(
+        frames[:XL_SCORE_FRAMES], XL_PROMPT)
+    ext["scores (with loading)"] = time.perf_counter() - t0
+    ext_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[xl-extensions] RIFE {len(frames)} -> {len(doubled)} frames, FastBlend "
+        f"{len(blended)} frames, ESRGAN {len(big)} frames -> {big[0].shape}; Aesthetic "
+        f"{aesthetic}, HPSv2 {hps}; seconds " + ", ".join(f"{k} {v:.2f}" for k, v in ext.items())
+        + f"; peak memory {ext_peak:.2f} GiB; {card}")
+    if len(doubled) != 2 * XL_FRAMES - 1 or _levels(doubled[::2], frames) > XL_LEVELS \
+            or len(blended) != XL_FASTBLEND_FRAMES or np.stack(blended).std() == 0 \
+            or big[0].shape != (4 * XL_H, 4 * XL_W, 3) \
+            or not np.isfinite(aesthetic + hps).all():
+        raise RuntimeError("the extensions' outputs on the SDXL frames are wrong")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd_bnsd/f32": sum(launches["flash_fwd_bnsd"].values()),
+            "flash_fwd_flat/f32": sum(launches["flash_fwd_flat"].values())}
+
+
+def phase_xl(card: str) -> dict:
+    """Phase 9: (a) the small SDXL pipelines and extensions card vs CPU, (b)
+    full-width files, (c) one full-width UNet + ControlNet + motion forward
+    card vs CPU, (d) the SDXL video pipeline at 1024x1024x16 with the
+    extensions after it. Returns (d)'s launches per KERNELS entry."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="_xl_ckpt_", dir=REPO))
+    try:
+        phase_xl_small(root, card)
+        log(f"[time] phase 9a: {time.perf_counter() - t0:.1f}s")
+        paths = write_xl_checkpoints(root, card)
+        phase_xl_full_forward(paths, card)
+        log(f"[time] phase 9b-c: {time.perf_counter() - t0:.1f}s")
+        launches = phase_xl_video(paths, card)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[xl] phase 9 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
 
 
 def main() -> int:
@@ -4662,11 +5188,15 @@ def main() -> int:
     sd_launches = phase_sd(card)
     mark("phase 8")
 
+    # 9. the extensions and the SDXL family
+    xl_launches = phase_xl(card)
+    mark("phase 9")
+
     # 9. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
     # forward), K3's the quantized training driver's; launches_sd: phase 8's
-    # runner
+    # runner; launches_sdxl: phase 9's SDXL video pipeline
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -4681,6 +5211,7 @@ def main() -> int:
                         "launches": launches, "launches_parallel": par_launches.get(entry, 0),
                         "launches_pose": pose_launches.get(entry, 0),
                         "launches_sd": sd_launches.get(entry, 0),
+                        "launches_sdxl": xl_launches.get(entry, 0),
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

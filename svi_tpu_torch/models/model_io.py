@@ -8,9 +8,13 @@
   mmap=True)`, unwrapping `state_dict` and `model_state`.
 * `hash_state_dict_keys` (the reference's md5 of the sorted keys) and
   `detect_model_kind` (structural detection): the Wan models, LoRA files
-  and the SD 1.5 family (UNet, text encoder, VAE encoder and decoder,
-  AnimateDiff motion modules, ControlNet) in the reference's diffsynth
-  naming, which load in f32 (the SD pipelines cast to their own dtype).
+  and the SD 1.5 and SDXL families (UNets, text encoders, VAE encoder and
+  decoder, AnimateDiff motion modules, ControlNet, IP-Adapter SDXL and its
+  image encoder) in the reference's diffsynth naming and the extensions'
+  weights (ESRGAN's RRDBNet, RIFE's IFNet), which load in f32 (the
+  pipelines cast to their own dtype). The SDXL VAE has the SD VAE's keys:
+  `load_model(path, model_names="sdxl_vae_decoder")` names the kind where
+  detection cannot (svi_tpu's manager detects none of the SDXL kinds).
 * `fuse_lora_into_dit`: W += α·B@A for peft `lora_A` / `lora_B` pairs, the
   delta in f32 and cast to the weight's dtype before the add.
 * `ModelManager`: loads the files, fuses LoRA into the DiT (keeping the
@@ -109,11 +113,24 @@ def detect_model_kind(sd: dict) -> Optional[str]:
         return "wan_video_vae"
     if any(k.startswith(("visual.", "model.visual.", "textual.")) for k in keys):
         return "wan_video_image_encoder"
-    # SD-family files in diffsynth naming (the zoo's pipelines)
+    # SD-family files in diffsynth naming (the zoo's pipelines); SDXL's
+    # motion modules are 15 where SD's are 21, its IP-Adapter has 70 modules
     if has("motion_modules.0.transformer_blocks.0.pe1"):
-        return "sd_motion_modules"
+        sdxl = has("motion_modules.14.norm.weight") and not has("motion_modules.15.norm.weight")
+        return "sdxl_motion_modules" if sdxl else "sd_motion_modules"
+    if has("ipadapter_modules.0.to_k_ip.weight") and has("image_proj.proj.weight"):
+        return "sdxl_ipadapter" if has("ipadapter_modules.16.to_k_ip.weight") else "sd_ipadapter"
+    if has("embeddings.patch_embedding.weight") and has("visual_projection.weight"):
+        return "sdxl_ipadapter_clip_image_encoder"
+    if has("conv_first.weight") and has("body.0.rdb1.conv1.weight"):
+        return "esrgan"
+    if has("block0.conv0.0.0.weight") or has("module.block0.conv0.0.0.weight"):
+        return "rife"
+    if has("time_embedding.0.weight") and has("add_time_embedding.0.weight") \
+            and has("conv_in.weight") and not has("controlnet_conv_in.blocks.0.weight"):
+        return "sdxl_unet"
     if has("controlnet_blocks.0.weight") and has("controlnet_conv_in.blocks.0.weight"):
-        return "sd_controlnet"
+        return "sdxl_controlnet" if has("task_embedding") else "sd_controlnet"
     # the UNet's first attention block is plan entry 1; svi_tpu looks for
     # entry 2 (a push block) alone, and so does not identify these files
     if has("time_embedding.0.weight") and has("conv_in.weight") and (
@@ -122,7 +139,9 @@ def detect_model_kind(sd: dict) -> Optional[str]:
         return "sd_unet"
     if has("encoders.0.layer_norm1.weight") and has("token_embedding.weight") \
             and has("position_embeds"):
-        return "sd_text_encoder"
+        if has("text_projection.weight"):
+            return "sdxl_text_encoder_2"
+        return "sd_text_encoder" if has("final_layer_norm.weight") else "sdxl_text_encoder"
     if has("quant_conv.weight"):
         return "sd_vae_encoder"
     if has("post_quant_conv.weight"):
@@ -133,20 +152,38 @@ def detect_model_kind(sd: dict) -> Optional[str]:
 
 
 _SD_FAMILY = ("sd_motion_modules", "sd_controlnet", "sd_unet", "sd_text_encoder",
-              "sd_vae_encoder", "sd_vae_decoder")
+              "sd_vae_encoder", "sd_vae_decoder", "sdxl_unet", "sdxl_text_encoder",
+              "sdxl_text_encoder_2", "sdxl_vae_encoder", "sdxl_vae_decoder",
+              "sdxl_motion_modules", "sdxl_controlnet", "sd_ipadapter", "sdxl_ipadapter",
+              "sdxl_ipadapter_clip_image_encoder", "esrgan", "rife")
 
 
 def _sd_family_loader(kind: str):
-    """The converter of an SD-family state dict in the reference's diffsynth
-    naming (civitai / diffusers layouts are converted to it beforehand)."""
-    from . import controlnets, motion, sd
+    """The converter of an SD-family or extension state dict in the
+    reference's naming (civitai / diffusers layouts are converted to it
+    beforehand)."""
+    from ..extensions import esrgan, rife
+    from . import controlnets, ipadapter, motion, sd, sdxl
 
     return {"sd_unet": sd.sd_unet_params_from_torch,
             "sd_text_encoder": sd.sd_text_encoder_params_from_torch,
             "sd_vae_encoder": sd.sd_vae_encoder_params_from_torch,
             "sd_vae_decoder": sd.sd_vae_decoder_params_from_torch,
             "sd_motion_modules": motion.motion_params_from_torch,
-            "sd_controlnet": controlnets.sd_controlnet_params_from_torch}[kind]
+            "sd_controlnet": controlnets.sd_controlnet_params_from_torch,
+            "sdxl_unet": sdxl.sdxl_unet_params_from_torch,
+            "sdxl_text_encoder": sdxl.sdxl_text_encoder_params_from_torch,
+            "sdxl_text_encoder_2": sdxl.sdxl_text_encoder_2_params_from_torch,
+            "sdxl_vae_encoder": sd.sd_vae_encoder_params_from_torch,
+            "sdxl_vae_decoder": sd.sd_vae_decoder_params_from_torch,
+            "sdxl_motion_modules": motion.motion_params_from_torch,
+            "sdxl_controlnet": controlnets.sdxl_controlnet_params_from_torch,
+            "sd_ipadapter": ipadapter.ipadapter_params_from_torch,
+            "sdxl_ipadapter": ipadapter.ipadapter_params_from_torch,
+            "sdxl_ipadapter_clip_image_encoder": ipadapter.clip_image_encoder_params_from_torch,
+            "esrgan": lambda sd_, device: esrgan.params_from_torch_state_dict(
+                sd_, esrgan.config_from_state_dict(sd_), device=device),
+            "rife": rife.params_from_torch_state_dict}[kind]
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +286,16 @@ class ModelManager:
 
     # -- loading ----------------------------------------------------------------
 
-    def load_model(self, paths) -> str:
+    def load_model(self, paths, model_names=None) -> str:
         """Load one model (a file, a shard list or a directory): detect its
-        kind, convert it, and keep it under that kind. The DiT and umT5 take
-        the manager's dtype; the VAE, CLIP and the SD family stay f32."""
+        kind (or take it from model_names, a kind or a one-kind list),
+        convert it, and keep it under that kind. The DiT and umT5 take the
+        manager's dtype; the VAE, CLIP, the SD families and the extensions
+        stay f32."""
         sd = load_state_dicts(paths)
-        kind = detect_model_kind(sd)
+        if isinstance(model_names, (list, tuple)):
+            model_names = model_names[0] if model_names else None
+        kind = model_names or detect_model_kind(sd)
         if kind is None:
             raise ValueError(f"Cannot identify model from {paths}; key hash "
                              f"{hash_state_dict_keys(sd)} (keys like {list(sd)[:3]})")

@@ -1,9 +1,10 @@
-"""AnimateDiff motion modules for the SD UNet, port of svi_tpu/models/motion.py:
-per-pixel temporal self-attention blocks with learned 32-frame positional
-embeddings, run after the UNet plan entries that `SD_MOTION_CALL_MAP` names
-(UNet entry -> motion module). Video frames ride the batch axis. The
-temporal attention (8 heads of 40, 80 or 160 over at most 32 frames) is the
-flash kernel's short-query route on the card.
+"""AnimateDiff motion modules for the SD and SDXL UNets, port of
+svi_tpu/models/motion.py: per-pixel temporal self-attention blocks with
+learned 32-frame positional embeddings, run after the UNet plan entries that
+`SD_MOTION_CALL_MAP` / `SDXL_MOTION_CALL_MAP` name (UNet entry -> motion
+module). Video frames ride the batch axis. The temporal attention (8 heads
+of 40, 80 or 160 over at most 32 frames) is the flash kernel's short-query
+route on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ SD_MOTION_CALL_MAP = {
     34: 10, 36: 11, 40: 12, 43: 13, 46: 14, 50: 15, 53: 16, 56: 17,
     60: 18, 63: 19, 66: 20,
 }
-# the SDXL UNet's map, kept as data until the SDXL family is ported
 SDXL_MOTION_CALL_MAP = {
     0: 0, 2: 1, 7: 2, 10: 3, 15: 4, 18: 5, 25: 6, 28: 7, 31: 8, 35: 9,
     38: 10, 41: 11, 44: 12, 46: 13, 48: 14,
@@ -120,12 +120,14 @@ def plan_channels(plan) -> list:
     return out
 
 
-def sd_motion_state_dict(seed=0, device="cpu", dtype=torch.float32, call_map=None) -> dict:
+def sd_motion_state_dict(seed=0, device="cpu", dtype=torch.float32, call_map=None,
+                         plan=None) -> dict:
     """Seeded random AnimateDiff weights for the SD UNet at `SD_UNET_PLAN`'s
-    widths: one module per call-map entry (21, AnimateDiff v2's), one
-    transformer block of two temporal attentions each."""
+    widths (or another UNet's plan and call map): one module per call-map
+    entry (21, AnimateDiff v2's), one transformer block of two temporal
+    attentions each."""
     call_map = SD_MOTION_CALL_MAP if call_map is None else call_map
-    chans = plan_channels(sd.SD_UNET_PLAN)
+    chans = plan_channels(sd.SD_UNET_PLAN if plan is None else plan)
     m = StateDictMaker(seed, device, dtype)
     for bid, mid in sorted(call_map.items(), key=lambda kv: kv[1]):
         c, mm = chans[bid], f"motion_modules.{mid}"
@@ -141,3 +143,11 @@ def sd_motion_state_dict(seed=0, device="cpu", dtype=torch.float32, call_map=Non
         m.lin(f"{t}.ff", c, 4 * c)
         m.lin(f"{mm}.proj_out", c, c)
     return m.sd
+
+
+def sdxl_motion_state_dict(seed=0, device="cpu", dtype=torch.float32) -> dict:
+    """Seeded random AnimateDiff-SDXL weights: 15 modules at
+    `sdxl.SDXL_UNET_PLAN`'s widths, after the entries of `SDXL_MOTION_CALL_MAP`."""
+    from .sdxl import SDXL_UNET_PLAN
+
+    return sd_motion_state_dict(seed, device, dtype, SDXL_MOTION_CALL_MAP, SDXL_UNET_PLAN)

@@ -560,8 +560,11 @@ class StateDictMaker:
         self.lin(f"{name}.to_v", c, ctx_dim or c, qkv_bias)
         self.lin(f"{name}.to_out", c, c)
 
-    def plan_blocks(self, plan, temb=None, text_dim=768):
-        """The blocks of a plan; resnets get a time projection when temb."""
+    def plan_blocks(self, plan, temb=None, text_dim=768, depth=None):
+        """The blocks of a plan; resnets get a time projection when temb.
+        depth: {plan index: transformer layers} of the attention blocks
+        (default one each)."""
+        depth = depth or {}
         for i, desc in enumerate(plan):
             b, kind = f"blocks.{i}", desc[0]
             if kind == "res":
@@ -575,16 +578,18 @@ class StateDictMaker:
                 if cin != cout:
                     self.conv(f"{b}.conv_shortcut", cout, cin, k=1)
             elif kind == "attn":
-                c, t = desc[3], f"{b}.transformer_blocks.0"
+                c = desc[3]
                 self.norm(f"{b}.norm", c)
                 self.lin(f"{b}.proj_in", c, c)
-                self.norm(f"{t}.norm1", c)
-                self.attn(f"{t}.attn1", c)
-                self.norm(f"{t}.norm2", c)
-                self.attn(f"{t}.attn2", c, text_dim)
-                self.norm(f"{t}.norm3", c)
-                self.lin(f"{t}.act_fn.proj", 8 * c, c)
-                self.lin(f"{t}.ff", c, 4 * c)
+                for j in range(depth.get(i, 1)):
+                    t = f"{b}.transformer_blocks.{j}"
+                    self.norm(f"{t}.norm1", c)
+                    self.attn(f"{t}.attn1", c)
+                    self.norm(f"{t}.norm2", c)
+                    self.attn(f"{t}.attn2", c, text_dim)
+                    self.norm(f"{t}.norm3", c)
+                    self.lin(f"{t}.act_fn.proj", 8 * c, c)
+                    self.lin(f"{t}.ff", c, 4 * c)
                 self.lin(f"{b}.proj_out", c, c)
             elif kind == "vae_attn":
                 c = desc[1]
@@ -635,8 +640,11 @@ def sd_vae_decoder_state_dict(seed=0, device="cpu", dtype=torch.float32) -> dict
 
 
 def sd_text_encoder_state_dict(seed=0, device="cpu", dtype=torch.float32, dim=768,
-                               num_layers=12, vocab=49408, max_len=77) -> dict:
-    """Seeded random CLIP text-tower weights (ViT-L/14's: 12 layers of 768)."""
+                               num_layers=12, vocab=49408, max_len=77, final_norm=True,
+                               projection=None) -> dict:
+    """Seeded random CLIP text-tower weights (ViT-L/14's: 12 layers of 768);
+    final_norm=False leaves out the final LayerNorm (SDXL's first encoder),
+    projection=n adds an (n, dim) text projection (its second)."""
     m = StateDictMaker(seed, device, dtype)
     m.sd["token_embedding.weight"] = m.randn((vocab, dim), 0.02)
     m.sd["position_embeds"] = m.randn((1, max_len, dim), 0.02)
@@ -647,5 +655,8 @@ def sd_text_encoder_state_dict(seed=0, device="cpu", dtype=torch.float32, dim=76
         m.norm(f"{e}.layer_norm2", dim)
         m.lin(f"{e}.fc1", 4 * dim, dim)
         m.lin(f"{e}.fc2", dim, 4 * dim)
-    m.norm("final_layer_norm", dim)
+    if final_norm:
+        m.norm("final_layer_norm", dim)
+    if projection:
+        m.lin("text_projection", projection, dim, bias=False)
     return m.sd

@@ -68,3 +68,13 @@ def conv_f32(conv, x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1, p
     if x.dtype != torch.float32:
         return conv(x, weight, bias, stride, padding, dilation, groups)
     return _F32Conv.apply(conv, x, weight, bias, stride, padding, dilation, groups)
+
+
+def conv_transpose2d_f32(x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1,
+                         padding=0) -> torch.Tensor:
+    """F.conv_transpose2d of x, in full f32 when x is f32 (cuDNN TF32 off,
+    scoped); forward only (RIFE's flow heads, at inference)."""
+    if x.dtype != torch.float32:
+        return torch.nn.functional.conv_transpose2d(x, weight, bias, stride, padding)
+    with _tf32_off():
+        return torch.nn.functional.conv_transpose2d(x, weight, bias, stride, padding)

@@ -1,8 +1,7 @@
 """Config-driven smoother chains, port of
 svi_tpu/processors/sequencial_processor.py (the reference's spelling kept).
-
-FastBlend and RIFE are the extensions (ROADMAP.md, Queue 1: extensions/),
-not ported yet: naming them raises NotImplementedError.
+FastBlend and RIFE are the smoothers of `extensions/`; RIFE takes its IFNet
+weights from the model manager.
 """
 
 from .base import VideoProcessor
@@ -11,10 +10,14 @@ from .base import VideoProcessor
 class AutoVideoProcessor(VideoProcessor):
     @staticmethod
     def from_model_manager(model_manager, processor_type, **kwargs):
-        if processor_type in ("FastBlend", "RIFE"):
-            raise NotImplementedError(
-                f"the {processor_type} smoother is not ported yet (ROADMAP.md, Queue 1: "
-                "extensions/, FastBlend and RIFE first)")
+        if processor_type == "FastBlend":
+            from ..extensions.fastblend import FastBlendSmoother
+
+            return FastBlendSmoother.from_model_manager(model_manager, **kwargs)
+        if processor_type == "RIFE":
+            from ..extensions.rife import RIFESmoother
+
+            return RIFESmoother.from_model_manager(model_manager, **kwargs)
         if processor_type == "Contrast":
             from .pil_editor import ContrastEditor
 

@@ -268,6 +268,36 @@ def test_f32_sd_vae_mid_block_s4096():
     _check(got, (o_ref.flatten(2), lse_ref), F32_TOL, F32_TOL)
 
 
+@pytest.mark.parametrize("sq,n,sk", [(4096, 10, 4096), (4096, 10, 77), (1024, 20, 1024),
+                                     (1024, 20, 77)])
+def test_f32_sdxl_unet_attention(sq, n, sk):
+    """The SDXL UNet's attention at 1024 x 1024: heads of 64 (10 at the
+    64 x 64 level, 20 at 32 x 32), self-attention and the 77-token text
+    cross-attention, through the (B, N, S, D) entry."""
+    q = _rand((2, sq, n * 64), torch.float32, 100)
+    k, v = (_rand((2, sk, n * 64), torch.float32, 101 + i) for i in range(2))
+    before = _f32_launches()
+    got = tattn.flash_attention(*(t.unflatten(-1, (n, 64)) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert _f32_launches() == before + 1
+    o_ref, _ = tattn._flash_fwd_reference(*(t.unflatten(-1, (n, 64)) for t in (q, k, v)),
+                                          None, None, sk, 64 ** -0.5)
+    assert (got - o_ref).abs().max().item() <= F32_TOL
+
+
+def test_f32_sdxl_vae_mid_block_s16384():
+    """The SDXL VAE's mid-block at 1024 x 1024: one head of 512 over
+    128 x 128 = 16384 tokens through the flat entry."""
+    c, s = 512, 16384
+    qkv = _rand((1, s, 3 * c), torch.float32, 8)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    got = tattn.flash_fwd_flat(q, k, v, c)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tattn._flash_fwd_reference(q[:, :, None], k[:, :, None], v[:, :, None],
+                                                None, None, s, c ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), F32_TOL, F32_TOL)
+
+
 def test_f32_rope_kernel_matches_plain():
     d, n = 32, 2
     cos, sin = _tables(40, d)

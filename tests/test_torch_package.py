@@ -51,6 +51,11 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.prompters.base_prompter, svi_tpu_torch.prompters.textual_inversion\n"
         "import svi_tpu_torch.pipelines.sd_image, svi_tpu_torch.pipelines.sd_video\n"
         "import svi_tpu_torch.pipelines.pipeline_runner, svi_tpu_torch.processors\n"
+        "import svi_tpu_torch.extensions, svi_tpu_torch.extensions.image_quality\n"
+        "import svi_tpu_torch.extensions.quality_towers, svi_tpu_torch.utils.clip_bpe\n"
+        "import svi_tpu_torch.models.sdxl, svi_tpu_torch.models.ipadapter\n"
+        "import svi_tpu_torch.prompters.sdxl_prompter, svi_tpu_torch.pipelines.sdxl_image\n"
+        "import svi_tpu_torch.pipelines.sdxl_video\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -63,23 +68,33 @@ def test_port_imports_no_jax():
 
 
 def test_sd_path_imports_no_pillow_or_cv2():
-    """In a fresh interpreter, importing the SD 1.5 video path (the runner,
-    the pipelines, the processors), running the smoothers and writing PNG
-    frames and a .npy video loads no PIL, cv2 or imageio: the card has
-    none of them."""
+    """In a fresh interpreter, importing the SD 1.5 and SDXL video paths (the
+    runner, the pipelines, the processors, the extensions), running the
+    smoothers (FastBlend and RIFE among them) and writing PNG frames and a
+    .npy video loads no PIL, cv2, imageio or safetensors: the card has none
+    of them."""
     code = (
         "import sys, tempfile, os\n"
         "import numpy as np\n"
-        "import svi_tpu_torch.pipelines.pipeline_runner\n"
+        "import svi_tpu_torch.pipelines.pipeline_runner, svi_tpu_torch.pipelines.sdxl_video\n"
+        "import svi_tpu_torch.pipelines.sdxl_image, svi_tpu_torch.extensions\n"
+        "from svi_tpu_torch.extensions import rife\n"
         "from svi_tpu_torch.processors import ContrastEditor, SharpnessEditor\n"
+        "from svi_tpu_torch.processors import AutoVideoProcessor\n"
         "from svi_tpu_torch.utils import video\n"
         "f = [np.full((16, 24, 3), 40 * i, np.uint8) for i in range(3)]\n"
         "f = SharpnessEditor(1.3)(ContrastEditor(1.5)(f))\n"
+        "g = [np.random.default_rng(i).integers(0, 255, (32, 32, 3), np.uint8) for i in range(3)]\n"
+        "fb = AutoVideoProcessor.from_model_manager(None, 'FastBlend', device='cpu',\n"
+        "    ebsynth_config=dict(minimum_patch_size=5, num_iter=1))\n"
+        "assert len(fb(g, original_frames=g)) == 3\n"
+        "assert len(rife.RIFESmoother(rife.init_params(c=8, device='cpu'))(g)) == 3\n"
         "d = tempfile.mkdtemp()\n"
         "video.save_frames(f, os.path.join(d, 'frames'))\n"
         "video.save_frames_npy(f, os.path.join(d, 'v.npy'))\n"
         "assert len(video.VideoData(video_file=os.path.join(d, 'v.npy'), height=8, width=8)[2]) == 8\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'imageio'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('PIL', 'cv2', 'imageio', 'safetensors'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -16,6 +16,7 @@ run's latents are held to 1e-3 and its frames to one level.
 
 import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -278,8 +279,17 @@ def test_runner_matches_jax(sds, narrow, monkeypatch, tmp_path):
 
 def test_processors_match_pillow():
     """The numpy Contrast and Sharpness editors give Pillow's bytes (svi_tpu's
-    editors are Pillow's), alone and chained; the extension smoothers raise."""
+    editors are Pillow's), alone and chained; the extension smoothers build
+    from their configs (FastBlend without a model manager, RIFE from one
+    holding IFNet weights) and match svi_tpu's on a tiny clip (FastBlend
+    exactly, RIFE within one level)."""
+    import jax
+
+    from svi_tpu.extensions import rife as jrife
+    from svi_tpu.processors import AutoVideoProcessor as JAuto
     from svi_tpu.processors import SequencialProcessor as JSeq
+    from svi_tpu_torch.extensions import FastBlendSmoother, RIFESmoother
+    from svi_tpu_torch.extensions import rife as trife
     from svi_tpu_torch.processors import AutoVideoProcessor, SequencialProcessor
 
     frames = _frames(3, 37, 53, seed=4) + [np.full((9, 7, 3), 200, np.uint8)]
@@ -292,9 +302,28 @@ def test_processors_match_pillow():
         got = SequencialProcessor.from_model_manager(None, configs[:n])(frames)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(w))
-    for name in ("FastBlend", "RIFE"):
-        with pytest.raises(NotImplementedError, match="extensions"):
-            AutoVideoProcessor.from_model_manager(None, name)
+    clip = [np.repeat(np.repeat(f[:8, :12] // 8, 2, 0), 2, 1) for f in _frames(3, seed=6)]
+    cfg = {"minimum_patch_size": 3, "num_iter": 1}
+    got = AutoVideoProcessor.from_model_manager(None, "FastBlend", device="cpu",
+                                                ebsynth_config=cfg)
+    assert isinstance(got, FastBlendSmoother)
+    want = JAuto.from_model_manager(None, "FastBlend", ebsynth_config=cfg)
+    for g, w in zip(got(clip, original_frames=clip[::-1]), want(
+            [Image.fromarray(f) for f in clip], original_frames=clip[::-1])):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    jp = jax.jit(lambda k: jrife.init_params(k, c=8))(jax.random.key(0, impl="unsafe_rbg"))
+    mm = SimpleNamespace(fetch_model=lambda name: trife.params_from_jax(
+        jax.tree.map(np.asarray, jp), device="cpu") if name == "rife" else None)
+    jmm = SimpleNamespace(fetch_model=lambda name: (jp, None))
+    got = AutoVideoProcessor.from_model_manager(mm, "RIFE", batch_size=2)
+    assert isinstance(got, RIFESmoother)
+    want = JAuto.from_model_manager(jmm, "RIFE", batch_size=2)
+    frames = _frames(4, 32, 32, seed=7)
+    gap = max(np.abs(g.astype(int) - np.asarray(w, int)).max() for g, w in zip(
+        got(frames), want([Image.fromarray(f) for f in frames])))
+    assert gap <= 1
+    with pytest.raises(ValueError, match="IFNet"):
+        AutoVideoProcessor.from_model_manager(None, "RIFE")
     with pytest.raises(ValueError):
         AutoVideoProcessor.from_model_manager(None, "NotAProcessor")
 

@@ -1,4 +1,5 @@
-"""Narrow SD 1.5 family fixtures for the port's CPU tests: plans of the
+"""Narrow SD 1.5 and SDXL family fixtures for the port's CPU tests (the
+SDXL ones at the end): plans of the
 published plans' lengths and kinds at a tenth of the UNet's channels (a
 quarter of the VAE's), patched into both packages' module globals, a 2-layer
 text encoder 96 wide (12 heads of 8), and seeded random state dicts in the
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 
 from svi_tpu_torch.models import controlnets as tcn
+from svi_tpu_torch.models import ipadapter as tip
 from svi_tpu_torch.models import motion as tmo
 from svi_tpu_torch.models import sd as tsd
+from svi_tpu_torch.models import sdxl as tsdxl
 from svi_tpu_torch.utils.safetensors_io import save_file
 
 TEXT_DIM, TEXT_LAYERS = 96, 2
@@ -151,3 +154,57 @@ def jit_jax_blocks(monkeypatch):
     for name, key in (("_conv2d", "conv"), ("_group_norm", "gn"), ("_dense", "dense"),
                       ("timestep_embedding", "temb")):
         monkeypatch.setattr(jsd, name, _JITTED[key])
+
+
+# ---------------------------------------------------------------------------
+# SDXL: the plan at a tenth of its channels with 2 heads (1 on the card's
+# small run), one or two transformer layers a block, CLIP-L's text tower 96
+# wide and bigG's 1280 wide (its 20 heads of 64 are fixed in svi_tpu) with
+# one layer, ControlNet Union, AnimateDiff-SDXL, IP-Adapter with a one-layer
+# 64-wide image encoder
+# ---------------------------------------------------------------------------
+
+XL_TEXT2_DIM, XL_IMAGE_DIM, XL_IMAGE_PROJ = 1280, 64, 32
+XL_TEXT_DIM = TEXT_DIM + XL_TEXT2_DIM
+XL_DEPTH = {21: 2}  # the mid block two layers deep, every other block one
+
+
+_XL_PLANS = (tsdxl.SDXL_UNET_PLAN, tcn.SDXL_CONTROLNET_PLAN)  # the published ones
+
+
+def xl_plans(heads=2) -> tuple:
+    """The narrow SDXL UNet and ControlNet plans with `heads` heads a block."""
+    return tuple(narrow_plan(plan, 10, heads) for plan in _XL_PLANS)
+
+
+def patch_narrow_xl_plans(monkeypatch, heads=2):
+    """The narrow SDXL plans (and SD's narrow VAE plans, which SDXL's VAE
+    uses) in svi_tpu's and the port's module globals."""
+    from svi_tpu.models import controlnets as jcn
+    from svi_tpu.models import sdxl as jsdxl
+
+    patch_narrow_plans(monkeypatch)
+    unet, cnet = xl_plans(heads)
+    for mod in (jsdxl, tsdxl):
+        monkeypatch.setattr(mod, "SDXL_UNET_PLAN", unet)
+    for mod in (jcn, tcn):
+        monkeypatch.setattr(mod, "SDXL_CONTROLNET_PLAN", cnet)
+
+
+def xl_state_dicts(seed=0) -> dict:
+    """{kind: torch state dict} of the SDXL family at the patched plans."""
+    return {
+        "sdxl_unet": tsdxl.sdxl_unet_state_dict(seed, text_dim=XL_TEXT_DIM, depth=XL_DEPTH),
+        "sdxl_text_encoder": tsdxl.sdxl_text_encoder_state_dict(seed + 1, dim=TEXT_DIM,
+                                                                num_layers=TEXT_LAYERS),
+        "sdxl_text_encoder_2": tsdxl.sdxl_text_encoder_2_state_dict(seed + 2, num_layers=1),
+        "sdxl_vae_encoder": tsd.sd_vae_encoder_state_dict(seed + 3),
+        "sdxl_vae_decoder": tsd.sd_vae_decoder_state_dict(seed + 4),
+        "sdxl_motion_modules": tmo.sdxl_motion_state_dict(seed + 5),
+        "sdxl_controlnet": tcn.sdxl_controlnet_state_dict(
+            seed + 6, text_dim=XL_TEXT_DIM, conditioning_channels=COND_CHANNELS, depth=XL_DEPTH),
+        "sdxl_ipadapter": tip.sdxl_ipadapter_state_dict(seed + 7, image_dim=XL_IMAGE_PROJ,
+                                                        text_dim=XL_TEXT_DIM),
+        "sdxl_ipadapter_clip_image_encoder": tip.clip_image_encoder_state_dict(
+            seed + 8, dim=XL_IMAGE_DIM, num_layers=1, projection=XL_IMAGE_PROJ),
+    }
