@@ -18,7 +18,9 @@ non-zero exit and no result line:
      stack's shapes (head dims 40, 160 and 512, the UNet's 77-key
      cross-attention, AnimateDiff's 16-frame temporal attention over 4096
      batches) and the SDXL stack's at 1024x1024 (heads of 64 over 4096 and
-     1024 tokens, the VAE's mid-block over 16384 tokens); K6 beside K1 at the same shape
+     1024 tokens, AnimateDiff-SDXL's temporal attention at head dims 40, 80
+     and 160 over 16384, 4096 and 1024 batches, the VAE's mid-block over
+     16384 tokens); K6 beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
      GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
@@ -100,9 +102,9 @@ non-zero exit and no result line:
      one GPU): (a) a tiny DiT (head dim 128) on 4 gloo ranks: forward_sp
      with all-gather and ring on padded shards, forward_tp, forward_tpsp
      (f32) and sharded bf16 LoRA gradients, each against the card's
-     single-device run and the CPU's, then the same on a one-rank NCCL
-     group; (b) Wan2.1-I2V-14B at full width cut to 1 of 40 blocks on 2
-     gloo ranks: forward_sp at 480x832x81 (all-gather and ring) against the
+     single-device run and the CPU's, and at the same time the same on a
+     one-rank NCCL group; (b) Wan2.1-I2V-14B at full width cut to 1 of 40
+     blocks on 2 gloo ranks: forward_sp at 480x832x81 (all-gather and ring) against the
      single-device forward, one SP LoRA train step at 21 frames and one at
      81 frames (496x848: an odd token count, so the backward runs K4 on
      masked keys) beside the single-device step with each process's peak
@@ -161,12 +163,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -348,6 +352,26 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def timed_calls(fn):
+    """fn, keeping the CUDA-event ms of each call in `.times`, each timed from
+    an idle device as median_ms times it. Phase 3 wraps every plain version:
+    the call that gives a case's comparison its reference is its warm-up
+    (its time is printed, not used), and the calls after it give plain_ms."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        wrapper.times.append(start.elapsed_time(end))
+        return out
+
+    wrapper.times = []
+    return wrapper
+
+
 def device_ms(fn, reps: int = 5) -> float | None:
     """Device time of one fn() call, ms: reps calls queued behind a device
     sleep that outlasts the host's work of queueing them, between two CUDA
@@ -512,6 +536,7 @@ def kernel_cases():
         def kernel():
             return A.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin, kv_len=kv)
 
+        @timed_calls
         def plain():
             out, lse = A._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
                                               cos, sin, kv, d ** -0.5)
@@ -553,6 +578,7 @@ def kernel_cases():
             out, lse = A.flash_fwd_bnsd(qh, kh, vh)
             return out.transpose(1, 2).flatten(2), lse
 
+        @timed_calls
         def plain():
             out, lse = A._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
                                               None, None, sk, d ** -0.5)
@@ -591,6 +617,7 @@ def kernel_cases():
             kernels = {"flash_bwd_dq/sm90": lambda: A.flash_bwd_dq(*args, **rope),
                        "flash_bwd_dkv/sm90": lambda: A.flash_bwd_dkv(*args, **rope)}
 
+        @timed_calls
         def plain():
             views = [t.unflatten(-1, (n, d)) for t in (q, k_full, v_full, out)]
             return [t.flatten(2) for t in A._flash_bwd_reference(
@@ -667,6 +694,7 @@ def kernel_cases():
         def kernel():
             return A.flash_fwd_bnsd(q, k, v, kv_len=kv_len)
 
+        @timed_calls
         def plain():
             out, lse = A._flash_fwd_reference(*(t.transpose(1, 2) for t in (q, k, v)), None,
                                               None, kv_len, d ** -0.5)
@@ -699,6 +727,7 @@ def kernel_cases():
         def kernel():
             return A.rope_rotate_flat(q, cos, sin, d), A.rope_rotate_flat(k, cos, sin, d)
 
+        @timed_calls
         def plain():
             return tuple(A._apply_rope_reference(t.unflatten(-1, (n, d)), cos[:s],
                                                  sin[:s]).flatten(2) for t in (q, k))
@@ -740,6 +769,7 @@ def kernel_cases():
     # CLIP ViT-H/14: 257 tokens, 16 heads of 80, f32, through the (B, N, S, D) entry
     q, k, v = (randn((1, 16, 257, 80), torch.float32) for _ in range(3))
 
+    @timed_calls
     def clip_plain():
         out, lse = A._flash_fwd_reference(q.transpose(1, 2), k.transpose(1, 2),
                                           v.transpose(1, 2), None, None, 257, 80 ** -0.5)
@@ -761,6 +791,7 @@ def kernel_cases():
     qkv = randn((2, 6240, 3 * 384), torch.float32)
     vq, vk, vv = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
 
+    @timed_calls
     def vae_plain():
         out, lse = A._flash_fwd_reference(*(t[:, :, None] for t in (vq, vk, vv)), None, None,
                                           6240, 384 ** -0.5)
@@ -797,11 +828,15 @@ def kernel_cases():
     # the UNet's 64 x 64 level (10 heads of 64) self- and text
     # cross-attention, its 32 x 32 level (20 heads of 64), and the VAE's
     # mid-block (one head of 512 over 128 x 128 tokens, K1); AnimateDiff-SDXL's
-    # temporal attention runs SD's head dims on the short-query tiles
+    # temporal attention runs SD's head dims on the short-query tiles (16
+    # frames over 128 x 128, 64 x 64 and 32 x 32 pixels, 8 heads)
     yield f32_case("sdxl_unet_self_attn_d64", 16, 4096, 4096, 10, 64)
     yield f32_case("sdxl_unet_cross_attn_d64", 16, 4096, 77, 10, 64)
     yield f32_case("sdxl_unet_self_attn_d64_n20", 16, 1024, 1024, 20, 64)
     yield f32_case("sdxl_unet_cross_attn_d64_n20", 16, 1024, 77, 20, 64)
+    yield f32_case("sdxl_motion_attn_d40", 16384, 16, 16, 8, 40)
+    yield f32_case("sdxl_motion_attn_d80", 4096, 16, 16, 8, 80)
+    yield f32_case("sdxl_motion_attn_d160", 1024, 16, 16, 8, 160)
     yield f32_case("sdxl_vae_mid_attn_d512", 1, 16384, 16384, 1, 512)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
@@ -836,6 +871,7 @@ def kernel_cases():
         def kernel():
             return Q.unpack_requant_int4(packed, r)
 
+        @timed_calls
         def plain():
             return Q._unpack_requant_reference(packed, r)
 
@@ -878,6 +914,7 @@ def kernel_cases():
         def kernel():
             return Q.w4a8_linear(x, packed, r, s8, b)
 
+        @timed_calls
         def plain():
             return Q._w4a8_linear_reference(x, packed, r, s8, b)
 
@@ -910,6 +947,7 @@ def kernel_cases():
         def kernel():
             return Q.quantize_rows_int8(x)
 
+        @timed_calls
         def plain():
             return Q._quantize_rows_reference(x)
 
@@ -957,6 +995,7 @@ def kernel_cases():
             return A.flash_fwd_flat_q8(q8, qs, k8, kscale, v_in, vss, d, kv_len=kv,
                                        out_dtype=dtype)
 
+        @timed_calls
         def plain():
             return A._flash_fwd_q8_reference(q8, qs, k8, kscale, v_in, vss, kv, d ** -0.5,
                                              dtype, block_k=A.Q8_BLOCK_K[d])
@@ -1013,13 +1052,23 @@ def kernel_cases():
                   grid=(3, 30, 52), kv_len=4100, dtype=torch.float32)
 
 
+PLAIN_ONE_CALL_MS = 1000.0
+
+
 def phase_kernels(card: str):
     """Every case's kernels against the plain version; one row per (case, kernel)."""
     rows = []
     for case in kernel_cases():
         results = case["run"]()
-        torch.cuda.synchronize()
-        plain_ms = median_ms(case["plain"], 1)  # one timed call: the plain version is no yardstick
+        plain = case["plain"]
+        if len(plain.times) != 1:
+            raise RuntimeError(f"{case['case']}: the comparison ran the plain version "
+                               f"{len(plain.times)} times, not once")
+        # after that warm-up call, the median of 2 calls, or one call where
+        # the warm-up took over PLAIN_ONE_CALL_MS (the 81-frame shapes)
+        for _ in range(1 if plain.times[0] > PLAIN_ONE_CALL_MS else 2):
+            plain()
+        plain_ms = statistics.median(plain.times[1:])
         library_ms = None if case["library"] is None else median_ms(case["library"], 5)
         # the backward cases' library call is SDPA's backward alone; its
         # forward + backward is printed beside it, as earlier runs timed it
@@ -1034,7 +1083,8 @@ def phase_kernels(card: str):
             row = dict(case=case["case"], entry=entry, shape=case["shape"],
                        dtype=case["dtype"], max_abs_err=max_err, err_bound=err_bound, ms=ms,
                        device_ms=dev_ms,
-                       plain_ms=plain_ms, library_ms=library_ms,
+                       plain_ms=plain_ms, plain_calls_ms=plain.times,
+                       library_ms=library_ms,
                        library_fwd_bwd_ms=fwd_bwd_ms, flops=flops, bytes=nbytes,
                        bound_ms=bound_ms, bound_by=bound_by, bound_rate=bound_rate,
                        tflops=flops / ms / 1e9,
@@ -1569,6 +1619,18 @@ def two_clips(pipe, first, anchor, ctx_pos, ctx_neg, tag: str, tea_cache_clip2: 
     return video, skipped
 
 
+def timed_forward(fn):
+    """fn as a callable that keeps its output in `.out` and its synchronized
+    wall seconds in `.seconds`, so that one run is both timed and profiled."""
+    def run():
+        t0 = time.perf_counter()
+        run.out = fn()
+        torch.cuda.synchronize()
+        run.seconds = time.perf_counter() - t0
+
+    return run
+
+
 def device_time_breakdown(fn) -> str:
     """Runs fn() once under torch.profiler (CUDA activity) and returns its
     device time by kind of kernel, the device-busy share of the wall time
@@ -1622,8 +1684,10 @@ def device_time_breakdown(fn) -> str:
 def phase_forward_81f(state: dict) -> None:
     """One 14B bf16 DiT forward at the production token count, 480x832x81
     (21 x 60 x 104 latents, 32760 tokens, batched CFG: B=2), on phase 4b's
-    DiT with seeded inputs: its seconds and peak memory, then the same forward
-    under the profiler for the device time by kind of kernel."""
+    DiT with seeded inputs, under the profiler: its seconds (the profiler's
+    cost at this size is within the run-to-run spread: 7.020 s profiled
+    against 7.035 s alone on the H100), peak memory and device time by kind
+    of kernel."""
     pipe = state["pipe"]
     lt, lh, lw = (FORWARD_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1640,20 +1704,19 @@ def phase_forward_81f(state: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        out = pipe.dit(*args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        run = timed_forward(lambda: pipe.dit(*args))
+        profile = device_time_breakdown(run)
+        out, seconds = run.out, run.seconds
         peak = torch.cuda.max_memory_allocated() / 2**30
         routes = check_fwd_routes("the 81-frame forward")
         if out.shape != args[0].shape or not torch.isfinite(out).all():
             raise RuntimeError(f"the 81-frame forward gave {tuple(out.shape)}, or non-finite "
                                "values")
-        del out
+        del out, run
         log(f"[forward-81f] 14B bf16 DiT, one forward at {SLICE_H}x{SLICE_W}x{FORWARD_FRAMES} "
-            f"(B2 S{tokens}): {seconds:.3f}s, peak memory {peak:.2f} GiB, forward routes "
-            f"{routes}")
-        log(f"[forward-81f] profile: {device_time_breakdown(lambda: pipe.dit(*args))}")
+            f"(B2 S{tokens}, under the profiler): {seconds:.3f}s, peak memory {peak:.2f} GiB, "
+            f"forward routes {routes}")
+        log(f"[forward-81f] profile: {profile}")
     del args
     torch.cuda.empty_cache()
 
@@ -1786,8 +1849,8 @@ def check_quant_path(path: str, launches: dict, int_mm: count_int_mm, n_q4: int,
 
 def phase_quantized_81f(state: dict) -> None:
     """One W4A8 + qk8 forward of the quantized 14B DiT at 480x832x81 (B2
-    S32760, seeded inputs as in the bf16 81-frame forward): its seconds and
-    peak memory, then the same forward under the profiler."""
+    S32760, seeded inputs as in the bf16 81-frame forward), under the
+    profiler: its seconds, peak memory and device time by kind of kernel."""
     pipe = state["pipe"]
     pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attention_quant="qk8")
     lt, lh, lw = (FORWARD_FRAMES - 1) // 4 + 1, SLICE_H // 8, SLICE_W // 8
@@ -1806,20 +1869,20 @@ def phase_quantized_81f(state: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode(), count_int_mm() as int_mm:
         zero_counts()
-        t0 = time.perf_counter()
-        out = pipe.dit(*args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        run = timed_forward(lambda: pipe.dit(*args))
+        profile = device_time_breakdown(run)
+        out, seconds = run.out, run.seconds
         peak = torch.cuda.max_memory_allocated() / 2**30
         check_quant_path("the 81-frame W4A8 + qk8 forward", read_counts(), int_mm,
                          state["n_q4"], forwards=1)
         if out.shape != args[0].shape or not torch.isfinite(out).all():
             raise RuntimeError(f"the 81-frame quantized forward gave {tuple(out.shape)}, or "
                                "non-finite values")
-        del out
+        del out, run
         log(f"[forward-81f-quant] 14B W4A8 + qk8 DiT, one forward at {SLICE_H}x{SLICE_W}x"
-            f"{FORWARD_FRAMES} (B2 S{tokens}): {seconds:.3f}s, peak memory {peak:.2f} GiB")
-        log(f"[forward-81f-quant] profile: {device_time_breakdown(lambda: pipe.dit(*args))}")
+            f"{FORWARD_FRAMES} (B2 S{tokens}, under the profiler): {seconds:.3f}s, peak memory "
+            f"{peak:.2f} GiB")
+        log(f"[forward-81f-quant] profile: {profile}")
     del args
     torch.cuda.empty_cache()
 
@@ -4095,8 +4158,9 @@ def phase_parallel(card: str) -> dict:
     process on the one card: (a) the tiny DiT on 4 gloo ranks (forward_sp
     padded with all-gather and ring on (2, 2) and (1, 4), forward_tp on
     (2, 2), forward_tpsp on (1, 2, 2), sharded bf16 LoRA gradients on
-    (1, 4)), each against the card's single-device run and the CPU's, then
-    the same on a one-rank NCCL group; (b) the 14B at full width cut to
+    (1, 4)), each against the card's single-device run and the CPU's, and
+    at the same time the same on a one-rank NCCL group; (b) the 14B at full
+    width cut to
     PARALLEL_DEPTH blocks on 2 gloo ranks (`_par_14b`). Fails unless every
     result is within its bound, every sharded self-attention backward took
     K4 or K5 and every ring step K2's sm90 route. Returns the launches of
@@ -4109,15 +4173,22 @@ def phase_parallel(card: str) -> dict:
     total: dict = {}
     meshes4 = {"sp": [(2, 2), (1, 4)], "tp": (2, 2), "tpsp": (1, 2, 2), "grads": (1, 4)}
     meshes1 = {"sp": [(1, 1)], "tp": (1, 1), "tpsp": (1, 1, 1), "grads": (1, 1)}
-    for world, backend, meshes in ((4, "gloo", meshes4), (1, "nccl", meshes1)):
-        t0 = time.perf_counter()
-        per_rank = run_ranks(_par_tiny, world, backend, meshes)
+    groups = ((4, "gloo", meshes4), (1, "nccl", meshes1))
+    # the two groups are independent processes on the card, each with a
+    # tiny model: they run at once, and each is checked as on its own
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(groups)) as pool:
+        runs = [pool.submit(run_ranks, _par_tiny, world, backend, meshes)
+                for world, backend, meshes in groups]
+        group_results = [run.result() for run in runs]
+    seconds = time.perf_counter() - t0
+    for (world, backend, _), per_rank in zip(groups, group_results):
         for res in per_rank:
             _add_counts(total, res["counts"])
         worst_err = {name: max(max(r["errors"][name]) for r in per_rank)
                      for name in per_rank[0]["errors"]}
-        log(f"[parallel a] tiny DiT on {world} {backend} rank(s) in "
-            f"{time.perf_counter() - t0:.1f}s: max relative error (card single-device, CPU) "
+        log(f"[parallel a] tiny DiT on {world} {backend} rank(s) ({seconds:.1f}s for both "
+            f"groups at once): max relative error (card single-device, CPU) "
             f"per case {json.dumps({n: r['errors'][n] for r in per_rank[:1] for n in r['errors']})}"
             f"; worst over ranks {worst_err}; forward routes {per_rank[0]['routes']['forward']}; "
             f"backward routes {per_rank[0]['routes']['backward']}; {card}")

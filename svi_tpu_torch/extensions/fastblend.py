@@ -243,33 +243,6 @@ def pairwise_patch_error(source_a_pad, nnf_a, source_b_pad, nnf_b, patch_size: i
 # ---------------------------------------------------------------------------
 
 
-def uniform_steps(rng: np.random.Generator, r: int, shape, device) -> torch.Tensor:
-    """`rng.integers(-r, r + 1, size=shape)` as int32 on `device`, the same
-    values, leaving `rng` where that call leaves it, without numpy's
-    per-value loop: numpy draws each value by Lemire's method from the bit
-    generator's 32-bit stream (its buffered half first, then each raw 64-bit
-    output low half first), so the values are computed on the device from
-    the raw outputs. A draw that Lemire's method would reject (a chance of
-    4 in 2^32 a value for r = 4) sends the call to numpy itself."""
-    span, n = 2 * r + 1, int(np.prod(shape))
-    bitgen = rng.bit_generator
-    before = bitgen.state
-    pre = [before["uinteger"]] if before["has_uint32"] else []
-    k = n - len(pre)
-    raw = torch.from_numpy(bitgen.random_raw((k + 1) // 2).view(np.int64)).to(device)
-    u = torch.stack([raw & 0xFFFFFFFF, (raw >> 32) & 0xFFFFFFFF], -1).reshape(-1)[:k]
-    u = torch.cat([torch.tensor(pre, dtype=torch.int64, device=device), u])
-    m = u * span
-    if bool(((m & 0xFFFFFFFF) < (2 ** 32 - span) % span).any()):
-        bitgen.state = before
-        return torch.from_numpy(rng.integers(-r, r + 1, size=shape).astype(np.int32)).to(device)
-    after = bitgen.state
-    after["has_uint32"] = k % 2  # the last raw output's high half, buffered or spent
-    after["uinteger"] = int(raw[-1].item()) >> 32 & 0xFFFFFFFF if k > 0 else before["uinteger"]
-    bitgen.state = after
-    return ((m >> 32) - r).to(torch.int32).reshape(shape)
-
-
 class PatchMatcher:
     def __init__(self, height, width, channel, minimum_patch_size, num_iter=5,
                  guide_weight=10.0, random_search_steps=3, random_search_range=4,
@@ -331,7 +304,8 @@ class PatchMatcher:
                             nnf[..., 1].clamp(0, self.width - 1)], dim=-1)
 
     def random_step(self, nnf, r):
-        return self.clamp_bound(nnf + uniform_steps(self.rng, r, tuple(nnf.shape), nnf.device))
+        step = self.rng.integers(-r, r + 1, size=tuple(nnf.shape)).astype(np.int32)
+        return self.clamp_bound(nnf + torch.from_numpy(step).to(nnf.device))
 
     def neighboor_step(self, nnf, d):
         """The neighbour's NNF, shifted by one."""

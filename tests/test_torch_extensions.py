@@ -238,20 +238,26 @@ def test_pyramid_nnf_exact_on_integer_frames():
                                   np.asarray(j.update_nnf(jnp.asarray(nnf), 1)))
 
 
-@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5, 2), (2, 64, 96, 2)])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 2), (1, 3, 7, 2), (3, 5, 2, 2), (2, 64, 96, 2)])
 def test_random_steps_are_numpys(shape):
-    """The random search's steps: numpy's `integers(-r, r + 1)` values from
-    the raw stream, the generator left in numpy's state (its 32-bit buffer
-    full or spent) for the draws that follow."""
+    """The random search's step: svi_tpu's clamped NNF, drawn from the same
+    numpy generator, which both leave in the same state for the draws that
+    follow."""
+    b, h, w, _ = shape
     for seed in range(3):
-        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        a, c = np.random.default_rng(seed), np.random.default_rng(seed)
         a.integers(0, 3, size=seed)
-        b.integers(0, 3, size=seed)
+        c.integers(0, 3, size=seed)
+        j = jfb.PatchMatcher(h, w, 3, 5, rng=a)
+        t = tfb.PatchMatcher(h, w, 3, 5, rng=c)
+        d = np.random.default_rng(seed + 10)
+        nnf = np.stack([d.integers(0, h, shape[:3]), d.integers(0, w, shape[:3])],
+                       -1).astype(np.int32)
         for r in (4, 1):
-            want = a.integers(-r, r + 1, size=shape).astype(np.int32)
-            np.testing.assert_array_equal(tfb.uniform_steps(b, r, shape, "cpu").numpy(), want)
-            assert a.bit_generator.state == b.bit_generator.state
-        np.testing.assert_array_equal(a.permutation(4), b.permutation(4))
+            np.testing.assert_array_equal(t.random_step(torch.from_numpy(nnf), r).numpy(),
+                                          np.asarray(j.random_step(jnp.asarray(nnf), r)))
+            assert a.bit_generator.state == c.bit_generator.state
+        np.testing.assert_array_equal(a.permutation(4), c.permutation(4))
 
 
 def test_table_manager_matches_jax():
