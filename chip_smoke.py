@@ -20,7 +20,12 @@ non-zero exit and no result line:
      batches) and the SDXL stack's at 1024x1024 (heads of 64 over 4096 and
      1024 tokens, AnimateDiff-SDXL's temporal attention at head dims 40, 80
      and 160 over 16384, 4096 and 1024 batches, the VAE's mid-block over
-     16384 tokens); K6 beside K1 at the same shape
+     16384 tokens), and phase 10's at 1024x1024 (FLUX.1-dev's joint and
+     single blocks' attention, B1 S4608, 24 heads of 128, bf16; its
+     IP-Adapter's attention of 4096 and 4608 queries onto 128 image tokens;
+     SD3-medium's joint attention, B2 S4250, 24 heads of 64, f32; the Kolors
+     UNet's cross-attention over ChatGLM's 256 tokens at both levels); K6
+     beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
      GEMM of a W4A8 linear (torch._int_mm) against the bf16 one;
@@ -132,8 +137,8 @@ non-zero exit and no result line:
      CLIP ViT-L/14's text tower, the VAE encoder and decoder, AnimateDiff
      v2's 21 motion modules, one ControlNet); (c) one UNet + ControlNet +
      motion forward on them at 4 frames of 128x128, card against CPU; (d)
-     SDVideoPipelineRunner.run on a seeded 24-frame 512x512 video (two
-     16-frame windows), 3 steps at strength 0.9, the tile ControlNet at
+     SDVideoPipelineRunner.run on a seeded 16-frame 512x512 video (one
+     16-frame window; 8a runs several), 3 steps at strength 0.9, the tile ControlNet at
      scale 0.5, a Contrast smoother, with per-model seconds, peak memory
      and the f32 attention launches per head dim, which must be the plans'
      count; the smoother chain is FastBlend (its default ebsynth config, as
@@ -147,15 +152,30 @@ non-zero exit and no result line:
      encoder, RRDBNet x4, IFNet, CLIP ViT-L/14 with the aesthetic MLP,
      open_clip ViT-H/14); (c) one UNet + ControlNet + motion forward on them
      at 2 frames of 128x128, card against CPU; (d) SDXLVideoPipeline at
-     1024x1024, 16 frames, 3 steps with ControlNet and IP-Adapter, then RIFE
+     1024x1024, 16 frames, 2 steps with ControlNet and IP-Adapter, then RIFE
      over its frames, FastBlend over its first 3, ESRGAN on 2 and the two
      scores on 2, with per-part seconds, peak memory and the f32 attention
      launches per head dim, which must be the plans' count;
- 10. a JSON line of the kernels (K3's launches from 5b's quantized run;
+ 10. Kolors, SD3 and FLUX: (a) the CPU tests' tiny models (one head a
+     block) through Kolors' SDXLImagePipeline and SDXLVideoPipeline with
+     AnimateDiff-SDXL, SD3ImagePipeline with CFG and T5, FluxImagePipeline
+     with a ControlNet unit, an IP-Adapter embedding, TeaCache and one EliGen
+     entity, card against CPU; then one family at a time, its files freed
+     before the next: (b) seeded files at the published widths (ChatGLM3-6B,
+     the Kolors UNet, SDXL's VAE; SD3-medium's MMDiT, CLIP-L, OpenCLIP bigG,
+     its VAE; FLUX.1-dev's DiT, CLIP-L, its VAE; T5-XXL at 2 of 24 layers),
+     (c) one forward at a cut depth card against CPU (FLUX in f32 and in
+     bf16), (d) the pipeline at 1024x1024, 2 steps (Kolors: the 256-token
+     prompt, CFG 7.5; SD3: batched CFG 7.5, T5 on; FLUX: embedded guidance
+     3.5), with per-part seconds, peak memory and the attention launches,
+     which must be the models' count;
+ 11. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
      `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`,
      on phase 8's runner as `launches_sd`, on phase 9's SDXL video pipeline
-     as `launches_sdxl`), the nvidia-smi line, and the result line.
+     as `launches_sdxl`, on phase 10's pipelines as `launches_kolors`,
+     `launches_sd3` and `launches_flux`), the nvidia-smi line, and the
+     result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -838,6 +858,21 @@ def kernel_cases():
     yield f32_case("sdxl_motion_attn_d80", 4096, 16, 16, 8, 80)
     yield f32_case("sdxl_motion_attn_d160", 1024, 16, 16, 8, 160)
     yield f32_case("sdxl_vae_mid_attn_d512", 1, 16384, 16384, 1, 512)
+    # phase 10's shapes at 1024x1024: FLUX.1-dev's joint and single blocks
+    # (B1 at the default cfg_scale 1: 512 T5 + 4096 image tokens, 24 heads of
+    # 128, bf16; RoPE applied before the kernel, as svi_tpu does) and its
+    # IP-Adapter's attention onto 128 image tokens (the joint blocks' image
+    # queries, the single blocks' whole sequence); SD3-medium's joint
+    # attention (batched CFG B2: 4096 image + 77 CLIP + 77 T5 tokens, 24
+    # heads of 64, f32, K2); the Kolors UNet's cross-attention over ChatGLM's
+    # 256 tokens at its two levels (CFG as one batch of two); the SD3 and
+    # FLUX VAEs' mid-block is sdxl_vae_mid_attn_d512's shape
+    yield fwd_case("flux_joint_attn", 1, 4608, 4608, 24, 128)
+    yield fwd_case("flux_ipadapter_joint_cross_attn", 1, 4096, 128, 24, 128)
+    yield fwd_case("flux_ipadapter_single_cross_attn", 1, 4608, 128, 24, 128)
+    yield f32_case("sd3_joint_attn_d64", 2, 4250, 4250, 24, 64)
+    yield f32_case("kolors_unet_cross_attn_d64", 2, 4096, 256, 10, 64)
+    yield f32_case("kolors_unet_cross_attn_d64_n20", 2, 1024, 256, 20, 64)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -2389,10 +2424,10 @@ def phase_wav2vec2_card(root: Path, card: str) -> None:
     embs, secs = {}, {}
     for where, dev in (("card", "cuda"), ("host", "cpu")):
         model = wav2vec2.load_params(str(root / "chinese-wav2vec2-base"), device=dev)
-        audio.wav2vec_embedding(speech[:16000], model)  # warm-up
+        audio.wav2vec_embedding(speech[:16000], None, model)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        embs[where] = audio.wav2vec_embedding(speech, model)
+        embs[where] = audio.wav2vec_embedding(speech, None, model)
         secs[where] = time.perf_counter() - t0
         del model
     err = float(np.abs(embs["card"] - embs["host"]).max())
@@ -2572,7 +2607,8 @@ def phase_variants(root: Path, card: str) -> dict:
         f"{[c['audio_start'] for c in record['clips']]}")
     del record
     real_embedding = audio.wav2vec_embedding
-    audio.wav2vec_embedding = lambda speech, model: np.zeros_like(real_embedding(speech, model))
+    audio.wav2vec_embedding = lambda speech, extractor, model: np.zeros_like(
+        real_embedding(speech, extractor, model))
     try:
         record, _, _ = run_variant_driver(
             test_svi_talk, [*talk, "--num_clips", "1", "--output", str(root / "videos_talk0")],
@@ -4294,7 +4330,7 @@ def phase_parallel_drivers(root: Path, common: list, data: dict, card: str) -> N
 # text) and SDVideoPipelineRunner
 # ---------------------------------------------------------------------------
 
-SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 24, 3, 0.9
+SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 16, 3, 0.9
 SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 16, 8, 0.5, 1.3, 1
 SD_PROMPT = "a watercolor painting of a city street at dusk, soft light"
 SD_FILES = {"sd_unet": "sd15_unet.safetensors", "sd_text_encoder": "sd15_text_encoder.safetensors",
@@ -4558,9 +4594,10 @@ def phase_sd_full_forward(paths: dict, card: str) -> None:
 
 def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
     """(d) SDVideoPipelineRunner.run, the way users start a Diffutoon-style
-    render: a seeded 24-frame 512x512 .npy video (two 16-frame windows at
-    stride 8), the tile ControlNet on the same frames at scale 0.5, 3 steps
-    at strength 0.9, CFG 7.5, a Contrast smoother after step 1; frames,
+    render: a seeded 16-frame 512x512 .npy video (one 16-frame window;
+    8a blends windows of 2), the tile ControlNet on the same frames at
+    scale 0.5, 3 steps at strength 0.9, CFG 7.5, a Contrast smoother after
+    step 1; frames,
     video.npy and config.json written. Returns the launches per entry."""
     from svi_tpu_torch.extensions import FastBlendSmoother
     from svi_tpu_torch.models import controlnets as cn
@@ -4675,7 +4712,7 @@ def phase_sd(card: str) -> dict:
 # phase 9: the extensions and the SDXL family
 # ---------------------------------------------------------------------------
 
-XL_H, XL_W, XL_FRAMES, XL_STEPS = 1024, 1024, 16, 3  # AnimateDiff-SDXL's setting, 3 steps
+XL_H, XL_W, XL_FRAMES, XL_STEPS = 1024, 1024, 16, 2  # AnimateDiff-SDXL's setting, 2 steps
 XL_CN_SCALE, XL_IP_SCALE, XL_CFG = 0.5, 0.6, 7.5
 XL_FASTBLEND_FRAMES, XL_ESRGAN_FRAMES, XL_SCORE_FRAMES = 3, 2, 2
 XL_UNET_PARAMS = 2_567_463_684  # SDXL base 1.0's UNet
@@ -5030,7 +5067,7 @@ def fastblend_op_times(card: str) -> None:
 
 def phase_xl_video(paths: dict, card: str) -> dict:
     """(d) SDXLVideoPipeline.from_model_manager on (b)'s files at 1024x1024,
-    16 frames (AnimateDiff-SDXL's published setting), 3 steps, CFG 7.5, a
+    16 frames (AnimateDiff-SDXL's published setting), 2 steps, CFG 7.5, a
     tile ControlNet Union unit at 0.5 on a seeded video, an IP-Adapter image
     at 0.6; then RIFE over its frames, FastBlend (its default ebsynth
     config) over its first frames guided by the control video, ESRGAN on 2
@@ -5169,6 +5206,440 @@ def phase_xl(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Kolors, SD3 and FLUX
+# ---------------------------------------------------------------------------
+
+FAM_H, FAM_W, FAM_STEPS = 1024, 1024, 2
+KOLORS_CFG, SD3_CFG, FLUX_GUIDANCE = 7.5, 7.5, 3.5
+# long enough that ChatGLM's 256-token window is full (the prompter cuts it)
+KOLORS_PROMPT = ("一位穿着红色汉服的少女站在盛开的樱花树下，微风吹起粉色的花瓣，阳光透过树枝洒在她的脸上，"
+                 "远处是古老的寺庙和连绵的青山，水墨画风格与电影感光影结合，细节丰富，8K 超高清，"
+                 "a girl in a red hanfu under blooming cherry trees, petals in the wind, ") * 4
+SD3_PROMPT = "a glass sculpture of a fox in a snowy forest at golden hour, highly detailed"
+FLUX_PROMPT = "a lighthouse on a cliff above a stormy sea at dusk, cinematic, photorealistic"
+FAM_FILES = {
+    "kolors": {"chatglm": "kolors_text_encoder.safetensors", "unet": "kolors_unet.safetensors",
+               "vae_decoder": "sdxl_vae_decoder.safetensors"},
+    "sd3": {"dit": "sd3_medium_mmdit.safetensors", "te1": "sd3_clip_l.safetensors",
+            "te2": "sd3_clip_g.safetensors", "t5": "t5xxl_2_layers.safetensors",
+            "vae_decoder": "sd3_vae_decoder.safetensors"},
+    "flux": {"dit": "flux1_dev_dit.safetensors", "te1": "flux_clip_l.safetensors",
+             "t5": "t5xxl_2_layers.safetensors", "vae_decoder": "flux_vae_decoder.safetensors"},
+}
+# the published parameter counts each seeded file must hold (ChatGLM3-6B with
+# its output layer; SD3-medium's MMDiT with its 192 x 192 position table;
+# FLUX.1-dev's DiT)
+FAM_PARAMS = {("kolors", "chatglm"): 6_243_584_000, ("sd3", "dit"): 2_084_951_104,
+              ("flux", "dit"): 11_901_408_320}
+# Card against CPU (written before the first card run): the tiny f32
+# pipelines at 1e-4 of the decoded image's scale and frames within one level,
+# as phase 9a holds SDXL's; the full-width f32 forwards at 1e-3 of the
+# output's scale, as phase 9c; the full-width FLUX forward in bf16 on the
+# card against the CPU's f32 one at 5e-2 (bf16 weights and activations: 2^-8
+# a rounding, over two blocks' sums)
+FAM_SMALL_REL, FAM_FULL_REL, FLUX_BF16_REL, FAM_LEVELS = 1e-4, 1e-3, 5e-2, 1
+FAM_CUT = {"kolors": "ChatGLM3 at 2 of 28 layers, the UNet whole", "sd3": "2 of 24 blocks",
+           "flux": "1 of 19 joint and 1 of 38 single blocks"}  # (c)'s depths
+
+
+def _capture(pipe, store: list, attr="vae_output_to_image"):
+    """The decoded image (before its uint8 cast) of each call, on the host."""
+    fn = getattr(pipe, attr)
+    setattr(pipe, attr, lambda out, *a, **kw: (store.append(out.float().cpu()),
+                                               fn(out, *a, **kw))[1])
+
+
+def phase_families_small(card: str) -> None:
+    """(a) The CPU tests' tiny models (tests/torch_sd_fixtures.py; the narrow
+    SDXL plans with one head a block and the motion modules at one head, so
+    that every head dim has a route) through Kolors' SDXLImagePipeline (64x64,
+    2 steps, CFG 5) and SDXLVideoPipeline with AnimateDiff-SDXL (2 frames),
+    SD3ImagePipeline (CFG 7.5, T5 on) and FluxImagePipeline (a union
+    ControlNet unit, an IP-Adapter embedding, TeaCache and one EliGen entity;
+    f32), each on the card against the CPU."""
+    from svi_tpu_torch.models import flux, kolors, sd, sd3, sdxl, t5
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.pipelines.flux_image import FluxImagePipeline
+    from svi_tpu_torch.pipelines.sd3_image import SD3ImagePipeline
+    from svi_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    from svi_tpu_torch.pipelines.sdxl_video import SDXLVideoPipeline
+
+    fx = _sd_fixtures()
+    unet_plan, _ = fx.xl_plans(heads=1)
+    enc_plan, dec_plan = fx.sd3_vae_plans()
+    sets = [(sdxl, "SDXL_UNET_PLAN", unet_plan), (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN),
+            (mo, "NUM_HEADS", 1),
+            (kolors, "kolors_encode_prompt",
+             functools.partial(kolors.kolors_encode_prompt, **fx.GLM)),
+            (flux, "flux_ipadapter_forward",
+             functools.partial(flux.flux_ipadapter_forward, num_heads=1))]
+    for mod in (sd3, flux):
+        sets += [(mod, "SD3_VAE_ENCODER_PLAN", enc_plan), (mod, "SD3_VAE_DECODER_PLAN", dec_plan)]
+    image = sd_frames(1, 64, 64, seed=51)[0]
+    mask = np.zeros((64, 64, 3), np.uint8)
+    mask[8:40, 16:56] = 255
+    emb = np.random.default_rng(52).standard_normal((1, 1152)).astype(np.float32) * 0.3
+    out = {}
+    with patched(sets):
+        ks, s3, fl = fx.kolors_state_dicts(61), fx.sd3_state_dicts(62), fx.flux_state_dicts(63)
+        for device in ("cuda", "cpu"):
+            got = {}
+            glm = kolors.chatglm_params_from_torch(ks["chatglm"], device=device)
+            unet = sdxl.sdxl_unet_params_from_torch(ks["unet"], device=device)
+            dec = sd.sd_vae_decoder_params_from_torch(ks["vae"], device=device)
+            motion = mo.motion_params_from_torch(ks["motion"], device=device)
+            kimg = SDXLImagePipeline(unet, vae_decoder=dec, chatglm_params=glm)
+            kvid = SDXLVideoPipeline(unet, motion, vae_decoder=dec, chatglm_params=glm)
+            _capture(kimg, got.setdefault("kolors_image", []))
+            _capture(kvid, got.setdefault("kolors_video", []), "decode_video")
+            s3m = {k: f(s3[k], device=device) for k, f in (
+                ("dit", lambda s, device: sd3.sd3_dit_params_from_torch(s, 1, device=device)),
+                ("te1", sd.sd_text_encoder_params_from_torch),
+                ("te2", sdxl.sdxl_text_encoder_2_params_from_torch),
+                ("vae_encoder", sd3.sd3_vae_encoder_params_from_torch),
+                ("vae_decoder", sd3.sd3_vae_decoder_params_from_torch))}
+            s3t5 = t5.params_from_torch_state_dict(s3["t5"], s3["t5_cfg"], device=device)
+            s3p = SD3ImagePipeline(s3m["dit"], s3m["te1"], s3m["te2"], (s3t5, s3t5.cfg, None),
+                                   s3m["vae_encoder"], s3m["vae_decoder"])
+            _capture(s3p, got.setdefault("sd3", []))
+            f32 = dict(device=device, dtype=torch.float32)
+            flm = {"dit": flux.flux_dit_params_from_torch(fl["dit"], **f32),
+                   "cnet": flux.flux_controlnet_params_from_torch(fl["cnet"], **f32),
+                   "ip": flux.flux_ipadapter_params_from_torch(fl["ip"], **f32),
+                   "te1": sd.sd_text_encoder_params_from_torch(fl["te1"], device=device),
+                   "enc": flux.flux_vae_encoder_params_from_torch(fl["vae_encoder"], device=device),
+                   "dec": flux.flux_vae_decoder_params_from_torch(fl["vae_decoder"], device=device)}
+            flt5 = t5.params_from_torch_state_dict(fl["t5"], fl["t5_cfg"], device=device)
+            flp = FluxImagePipeline(flm["dit"], flm["te1"], (flt5, flt5.cfg, None), flm["enc"],
+                                    flm["dec"], dtype=torch.float32)
+            _capture(flp, got.setdefault("flux", []))
+            zero_counts()
+            t0 = time.perf_counter()
+            frames = {
+                "kolors_image": [kimg(KOLORS_PROMPT, negative_prompt="模糊", cfg_scale=5.0,
+                                      height=64, width=64, num_inference_steps=2, seed=1)],
+                "kolors_video": kvid(KOLORS_PROMPT, cfg_scale=5.0, num_frames=2, height=64,
+                                     width=64, num_inference_steps=2, seed=2),
+                "sd3": [s3p(SD3_PROMPT, negative_prompt="blurry", cfg_scale=SD3_CFG, height=64,
+                            width=64, num_inference_steps=2, t5_sequence_length=64, seed=3)],
+                "flux": [flp(FLUX_PROMPT, height=64, width=64, num_inference_steps=3,
+                             t5_sequence_length=16, seed=4, input_image=image,
+                             denoising_strength=0.9,
+                             controlnet_units=[(flm["cnet"], image, 0.6, 0)],
+                             ipadapter_params=flm["ip"], ipadapter_image_emb=emb,
+                             eligen_entity_prompts=["a red door"], eligen_entity_masks=[mask],
+                             tea_cache_l1_thresh=0.3)]}
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+            out[device] = (got, frames, time.perf_counter() - t0)
+            del kimg, kvid, s3p, flp, glm, unet, dec, motion, s3m, s3t5, flm, flt5
+    (gc_, fc, t_card), (gh, fh, t_cpu) = out["cuda"], out["cpu"]
+    rels = {k: max(_rel(a, b) for a, b in zip(gc_[k], gh[k])) for k in gc_}
+    levels = {k: _levels(fc[k], fh[k]) for k in fc}
+    routes = {k for entry in launches.values() for k in entry}
+    log(f"[families-small] card vs CPU, decoded images (the video's final latents) "
+        f"{ {k: f'{v:.3e}' for k, v in rels.items()} } (bound {FAM_SMALL_REL}); frames {levels} "
+        f"levels (bound {FAM_LEVELS}); seconds card {t_card:.2f}, CPU {t_cpu:.2f}; launches "
+        f"{launches}; {card}")
+    if max(rels.values()) > FAM_SMALL_REL or max(levels.values()) > FAM_LEVELS:
+        raise RuntimeError("the small Kolors / SD3 / FLUX pipelines on the card disagree with "
+                           "the CPU")
+    if not routes or any(not k.startswith("f32/") for k in routes):
+        raise RuntimeError(f"the small Kolors / SD3 / FLUX pipelines launched {launches}")
+
+
+def write_family_checkpoints(family: str, root: Path, card: str) -> dict:
+    """(b) One family's seeded files at the published widths in the
+    reference's names: Kolors (ChatGLM3-6B f16, the Kolors UNet f16, SDXL's
+    VAE decoder f16), SD3-medium (the MMDiT, CLIP-L, OpenCLIP bigG, the
+    16-channel VAE decoder, f16) or FLUX.1-dev (the DiT with its guidance
+    embedder, CLIP-L, the VAE decoder, bf16); SD3 and FLUX each with T5-XXL
+    at 2 of its 24 layers (bf16)."""
+    from svi_tpu_torch.models import flux, kolors, sd, sd3, sdxl, t5
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def t5_xxl(seed, device, dtype):
+        cfg = t5.T5Config(vocab=32128, num_layers=2, dtype=dtype)
+        return t5.torch_state_dict_from_params(t5.init_params(cfg, seed, device=device))
+
+    makers = {
+        "kolors": {"chatglm": (kolors.chatglm_state_dict, f16),
+                   "unet": (functools.partial(sdxl.sdxl_unet_state_dict, pooled_dim=4096,
+                                              text_proj_dim=4096), f16),
+                   "vae_decoder": (sd.sd_vae_decoder_state_dict, f16)},
+        "sd3": {"dit": (sd3.sd3_dit_state_dict, f16), "te1": (sd.sd_text_encoder_state_dict, f16),
+                "te2": (sdxl.sdxl_text_encoder_2_state_dict, f16), "t5": (t5_xxl, bf16),
+                "vae_decoder": (sd3.sd3_vae_decoder_state_dict, f16)},
+        "flux": {"dit": (flux.flux_dit_state_dict, bf16),
+                 "te1": (sd.sd_text_encoder_state_dict, bf16), "t5": (t5_xxl, bf16),
+                 "vae_decoder": (flux.flux_vae_decoder_state_dict, bf16)},
+    }[family]
+    t0 = time.perf_counter()
+    paths, sizes, params = {}, {}, {}
+    for i, (kind, (make, dtype)) in enumerate(makers.items()):
+        state = make(seed=101 + i, device="cuda", dtype=dtype)
+        params[kind] = sum(t.numel() for t in state.values())
+        paths[kind] = str(root / FAM_FILES[family][kind])
+        sizes[kind] = save_file(state, paths[kind])
+        del state
+        torch.cuda.empty_cache()
+    log(f"[{family}-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} "
+        f"parameters; {sum(sizes.values()) / 1e9:.3f} GB written in "
+        f"{time.perf_counter() - t0:.2f}s; {card}")
+    for (fam, kind), n in FAM_PARAMS.items():
+        if fam == family and params[kind] != n:
+            raise RuntimeError(f"{family} {kind} has {params[kind]} parameters, not {n}")
+    return paths
+
+
+def _cut(sd: dict, keep) -> dict:
+    """The state dict's tensors whose block index (the number after one of
+    keep's prefixes) is kept, renumbered from 0; every other tensor as is.
+    keep: {prefix: [block indices]}."""
+    out = {}
+    for k, v in sd.items():
+        for prefix, idx in keep.items():
+            if k.startswith(prefix):
+                i, rest = k[len(prefix):].split(".", 1)
+                if int(i) in idx:
+                    out[f"{prefix}{idx.index(int(i))}.{rest}"] = v
+                break
+        else:
+            out[k] = v
+    return out
+
+
+def phase_family_forward(family: str, paths: dict, card: str) -> None:
+    """(c) One forward of the family's full-width model at a cut depth, card
+    against CPU: ChatGLM3 at 2 of 28 layers on the 256-token Kolors prompt
+    (its pooled and prompt embeddings) and the Kolors UNet whole on 2 x 4 x 16
+    x 16 latents over those 256 tokens and that pooled embedding; the MMDiT at its first and last block
+    on 2 x 16 x 32 x 32 latents and 154 tokens; FLUX at one joint and one
+    single block on 1 x 16 x 32 x 32 latents and 64 tokens, in f32 and, on
+    the card, in bf16."""
+    from svi_tpu_torch.models import flux, kolors, sd3, sdxl
+    from svi_tpu_torch.models.model_io import load_state_dict
+    from svi_tpu_torch.prompters.sp_tokenizer import default_chatglm_tokenizer
+
+    g = torch.Generator().manual_seed(7)
+    if family == "kolors":
+        glm_sd = _cut(load_state_dict(paths["chatglm"]), {"encoder.layers.": [0, 1]})
+        unet_sd = load_state_dict(paths["unet"])
+        ids, mask, pos = (torch.from_numpy(a) for a in kolors.kolors_tokenize(
+            KOLORS_PROMPT, default_chatglm_tokenizer(), 256))
+        lat = torch.randn((2, 4, 16, 16), generator=g)
+        tids = torch.tensor([[128, 128, 0, 0, 128, 128]] * 2, dtype=torch.float32)
+
+        def run(device, dtype):
+            glm = kolors.chatglm_params_from_torch(glm_sd, device=device)
+            p, e = kolors.kolors_encode_prompt(glm, ids, mask, pos)
+            unet = sdxl.sdxl_unet_params_from_torch(unet_sd, device=device)
+            y = sdxl.sdxl_unet_forward(unet, lat.to(device), torch.tensor([701.0]).to(device),
+                                       e.repeat(2, 1, 1), tids.to(device), p.repeat(2, 1))
+            return {"pooled": p, "prompt_emb": e, "unet": y}
+    elif family == "sd3":
+        dit_sd = _cut(load_state_dict(paths["dit"]), {"blocks.": [0, 23]})
+        lat = torch.randn((2, 16, 32, 32), generator=g)
+        ctx = torch.randn((2, 154, 4096), generator=g)
+        pooled = torch.randn((2, 2048), generator=g)
+
+        def run(device, dtype):
+            dit = sd3.sd3_dit_params_from_torch(dit_sd, device=device)
+            return {"mmdit": sd3.sd3_dit_forward(dit, *(x.to(device) for x in (
+                lat, torch.tensor([801.0, 801.0]), ctx, pooled)))}
+    else:
+        dit_sd = _cut(load_state_dict(paths["dit"]), {"blocks.": [0], "single_blocks.": [0]})
+        lat = torch.randn((1, 16, 32, 32), generator=g)
+        ctx = torch.randn((1, 64, 4096), generator=g)
+        pooled = torch.randn((1, 768), generator=g)
+
+        def run(device, dtype):
+            # the timestep and the guidance (x 1000, scaled in their dtype as
+            # svi_tpu does) exact in bf16, so that bf16 and f32 embed the same
+            dit = flux.flux_dit_params_from_torch(dit_sd, device=device, dtype=dtype)
+            return {"dit": flux.flux_dit_forward(dit, *(x.to(device, dtype) for x in (
+                lat, torch.tensor([896.0]), ctx, pooled)),
+                guidance=torch.tensor([4.0], device=device, dtype=dtype))}
+    outs, secs = {}, {}
+    runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+    if family == "flux":
+        runs.insert(1, ("cuda", torch.bfloat16))
+    for device, dtype in runs:
+        with torch.inference_mode():
+            if device == "cuda":
+                zero_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = {k: v.float().cpu() for k, v in run(device, dtype).items()}
+            secs[(device, str(dtype)[6:])] = time.perf_counter() - t0
+            if device == "cuda":
+                launches = sd_launches()
+        outs[(device, dtype)] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = outs[("cpu", torch.float32)]
+    rel = {k: _rel(outs[("cuda", torch.float32)][k], ref[k]) for k in ref}
+    bf16 = {k: _rel(outs[("cuda", torch.bfloat16)][k], ref[k]) for k in ref} \
+        if family == "flux" else {}
+    log(f"[{family}-forward] full width, {FAM_CUT[family]}: "
+        f"card f32 vs CPU f32 { {k: f'{v:.3e}' for k, v in rel.items()} } (bound "
+        f"{FAM_FULL_REL})" + (f", card bf16 vs CPU f32 { {k: f'{v:.3e}' for k, v in bf16.items()} }"
+                              f" (bound {FLUX_BF16_REL})" if bf16 else "")
+        + f"; seconds (loads included) {secs}; launches of the last card run {launches}; {card}")
+    if max(rel.values()) > FAM_FULL_REL or (bf16 and max(bf16.values()) > FLUX_BF16_REL):
+        raise RuntimeError(f"the full-width {family} forward on the card disagrees with the CPU")
+
+
+def family_expected_launches(family: str) -> dict:
+    """Phase 10d's attention launches per (route, dtype, head dim), from the
+    models: Kolors' UNet plan once a step (CFG as one batch of two), the
+    MMDiT's 24 joint attentions a step (B2, 24 heads of 64: K2), FLUX's 19 +
+    38 blocks a step (B1, 24 heads of 128, bf16: K1 sm90); the VAE decode's
+    mid-block once (K1, f32 D512). ChatGLM, CLIP and T5 run the plain
+    softmax."""
+    from svi_tpu_torch.models import sd
+
+    vae = {f"f32/float32/{sd.SD_VAE_DECODER_PLAN[1][1]}": 1}
+    if family == "kolors":
+        return xl_expected_launches(passes=FAM_STEPS, vae_calls=1, with_controlnet=False,
+                                    with_motion=False)
+    if family == "sd3":
+        return {"flash_fwd_bnsd": {"f32/float32/64": 24 * FAM_STEPS}, "flash_fwd_flat": vae}
+    return {"flash_fwd_bnsd": {}, "flash_fwd_flat": {"sm90/bfloat16/128": 57 * FAM_STEPS, **vae}}
+
+
+def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
+    """(d) The family's pipeline at 1024x1024, 2 steps, on (b)'s files
+    through the port's converters: Kolors through SDXLImagePipeline (the
+    256-token prompt, CFG 7.5), SD3ImagePipeline (batched CFG 7.5, T5 on),
+    FluxImagePipeline (embedded guidance 3.5, B1). Per-part seconds, peak
+    memory, and the attention launches against the models' count. Returns
+    the launches per KERNELS entry."""
+    from svi_tpu_torch.models import flux, kolors, sd, sd3, sdxl, t5
+    from svi_tpu_torch.models.model_io import load_state_dict
+    from svi_tpu_torch.pipelines.flux_image import FluxImagePipeline
+    from svi_tpu_torch.pipelines.sd3_image import SD3ImagePipeline
+    from svi_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    from svi_tpu_torch.schedulers import ddim, flow_match
+
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    ld = {k: load_state_dict(p) for k, p in paths.items()}
+    if "t5" in ld:
+        t5_sd = ld.pop("t5")
+        t5m = t5.params_from_torch_state_dict(t5_sd, t5.config_from_state_dict(t5_sd),
+                                              device="cuda")
+    if family == "kolors":
+        pipe = SDXLImagePipeline(
+            sdxl.sdxl_unet_params_from_torch(ld["unet"], device="cuda"),
+            vae_decoder=sd.sd_vae_decoder_params_from_torch(ld["vae_decoder"], device="cuda"),
+            chatglm_params=kolors.chatglm_params_from_torch(ld["chatglm"], device="cuda"))
+        sets = [(sdxl, "sdxl_unet_forward", timer.wrap("unet", sdxl.sdxl_unet_forward)),
+                (sdxl, "sdxl_vae_decode", timer.wrap("vae_decode", sdxl.sdxl_vae_decode)),
+                (kolors, "kolors_encode_prompt",
+                 timer.wrap("chatglm", kolors.kolors_encode_prompt))]
+        kw = dict(prompt=KOLORS_PROMPT, negative_prompt="模糊，低质量", cfg_scale=KOLORS_CFG)
+        step_cls = ddim.EnhancedDDIMScheduler
+    elif family == "sd3":
+        pipe = SD3ImagePipeline(
+            sd3.sd3_dit_params_from_torch(ld["dit"], device="cuda"),
+            sd.sd_text_encoder_params_from_torch(ld["te1"], device="cuda"),
+            sdxl.sdxl_text_encoder_2_params_from_torch(ld["te2"], device="cuda"), (t5m, t5m.cfg, None),
+            vae_decoder_params=sd3.sd3_vae_decoder_params_from_torch(ld["vae_decoder"], device="cuda"))
+        sets = [(sd3, "sd3_dit_forward", timer.wrap("mmdit", sd3.sd3_dit_forward)),
+                (sd3, "sd3_vae_decode", timer.wrap("vae_decode", sd3.sd3_vae_decode)),
+                (SD3ImagePipeline, "encode_prompt",
+                 timer.wrap("text_encoders", SD3ImagePipeline.encode_prompt))]
+        kw = dict(prompt=SD3_PROMPT, negative_prompt="blurry, low quality", cfg_scale=SD3_CFG)
+        step_cls = flow_match.FlowMatchScheduler
+    else:
+        pipe = FluxImagePipeline(
+            flux.flux_dit_params_from_torch(ld["dit"], device="cuda"),
+            sd.sd_text_encoder_params_from_torch(ld["te1"], device="cuda"), (t5m, t5m.cfg, None),
+            vae_decoder_params=flux.flux_vae_decoder_params_from_torch(ld["vae_decoder"], device="cuda"))
+        sets = [(flux, "flux_dit_forward", timer.wrap("dit", flux.flux_dit_forward)),
+                (flux, "flux_vae_decode", timer.wrap("vae_decode", flux.flux_vae_decode)),
+                (FluxImagePipeline, "encode_prompt",
+                 timer.wrap("text_encoders", FluxImagePipeline.encode_prompt))]
+        kw = dict(prompt=FLUX_PROMPT, embedded_guidance=FLUX_GUIDANCE)
+        step_cls = flow_match.FlowMatchScheduler
+    del ld
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step_marks = []
+    step = step_cls.step
+
+    def timed_step(self, *a, **k):
+        out = step(self, *a, **k)
+        torch.cuda.synchronize()
+        step_marks.append(time.perf_counter())
+        return out
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(sets + [(step_cls, "step", timed_step)]):
+        image = pipe(height=FAM_H, width=FAM_W, num_inference_steps=FAM_STEPS, seed=0, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = {k: sum(v) for k, v in timer.seconds.items()}
+    calls = {k: len(v) for k, v in timer.seconds.items()}
+    log(f"[{family}-pipeline] {FAM_H}x{FAM_W}, {FAM_STEPS} steps: load {load_s:.2f}s, "
+        f"{total:.2f}s in all; seconds at the steps' ends "
+        f"{[round(x - t0, 3) for x in step_marks]}; seconds (calls): "
+        + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
+        + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
+    want = family_expected_launches(family)
+    if launches != want:
+        raise RuntimeError(f"the {family} pipeline launched {launches}, expected {want}")
+    if image.shape != (FAM_H, FAM_W, 3) or image.dtype != np.uint8 or image.std() == 0:
+        raise RuntimeError(f"the {family} image is {image.shape} {image.dtype}, or flat")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for entry in ("flash_fwd_flat", "flash_fwd_bnsd"):
+        for key, n in launches[entry].items():
+            name = f"{entry}/{key.split('/')[0]}"
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def phase_families(card: str) -> dict:
+    """Phase 10: (a) the tiny Kolors, SD3 and FLUX pipelines card vs CPU;
+    then, one family at a time (its files and weights freed before the
+    next), (b) seeded files at the published widths, (c) one forward at a
+    cut depth card vs CPU, (d) its pipeline at 1024x1024, 2 steps. Returns
+    {family: launches per KERNELS entry}."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_families_small(card)
+    log(f"[time] phase 10a: {time.perf_counter() - t0:.1f}s")
+    launches = {}
+    for family in ("kolors", "sd3", "flux"):
+        t1 = time.perf_counter()
+        root = Path(tempfile.mkdtemp(prefix=f"_{family}_ckpt_", dir=REPO))
+        try:
+            paths = write_family_checkpoints(family, root, card)
+            phase_family_forward(family, paths, card)
+            launches[family] = phase_family_pipeline(family, paths, card)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"[time] phase 10 {family} (b-d): {time.perf_counter() - t1:.1f}s")
+    log(f"[families] phase 10 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
+
+
 def main() -> int:
     if not (REPO / "svi_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository "
@@ -5263,11 +5734,16 @@ def main() -> int:
     xl_launches = phase_xl(card)
     mark("phase 9")
 
+    # 10. Kolors, SD3 and FLUX
+    fam_launches = phase_families(card)
+    mark("phase 10")
+
     # 9. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
     # forward), K3's the quantized training driver's; launches_sd: phase 8's
-    # runner; launches_sdxl: phase 9's SDXL video pipeline
+    # runner; launches_sdxl: phase 9's SDXL video pipeline; launches_kolors,
+    # _sd3, _flux: phase 10's pipelines at 1024x1024
     kernels = []
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
@@ -5283,6 +5759,8 @@ def main() -> int:
                         "launches_pose": pose_launches.get(entry, 0),
                         "launches_sd": sd_launches.get(entry, 0),
                         "launches_sdxl": xl_launches.get(entry, 0),
+                        **{f"launches_{fam}": fam_launches[fam].get(entry, 0)
+                           for fam in ("kolors", "sd3", "flux")},
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

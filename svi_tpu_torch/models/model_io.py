@@ -25,8 +25,8 @@
   file to the device one at a time. With `quantize_dit`, the DiT stays on
   the host in its float dtype until the first fetch (LoRA is fused there),
   then moves to the device block by block, each block quantized as it
-  arrives, so the device never holds the float tree. Downloading
-  (`model_id_list`) is not ported: there is no network.
+  arrives, so the device never holds the float tree. Downloading is not
+  ported (it needs the network): a non-empty `model_id_list` raises.
 """
 
 from __future__ import annotations
@@ -271,7 +271,17 @@ class ModelManager:
     """Loads checkpoints, identifies the models, fuses LoRA; the pipeline
     fetches each model (an nn.Module with its cfg) by name."""
 
-    def __init__(self, torch_dtype=torch.bfloat16, device="cuda", quantize_dit=None):
+    def __init__(self, torch_dtype=torch.bfloat16, device="cuda", model_id_list=None,
+                 downloading_priority=None, file_path_list=None, train_architecture=None,
+                 quantize_dit=None):
+        """file_path_list: checkpoints loaded at once (`load_models`).
+        train_architecture is kept and read nowhere, as in the JAX package.
+        model_id_list names preset downloads, which need the network: the
+        port does not download and raises for a non-empty list."""
+        if model_id_list:
+            raise NotImplementedError(
+                "ModelManager(model_id_list=...) downloads checkpoints; the port loads local "
+                "files only (file_path_list, load_model)")
         if quantize_dit is not None and quantize_dit not in wan_dit.QUANTIZE_MODES:
             raise ValueError(
                 f"quantize_dit={quantize_dit!r}; choose from {wan_dit.QUANTIZE_MODES}")
@@ -283,15 +293,19 @@ class ModelManager:
         self.model_paths: dict = {}
         self.state_dict_new_module: dict[str, torch.Tensor] = {}
         self.lora_log: list = []
+        self.train_architecture = train_architecture
+        if file_path_list:
+            self.load_models(file_path_list)
 
     # -- loading ----------------------------------------------------------------
 
-    def load_model(self, paths, model_names=None) -> str:
+    def load_model(self, paths, model_names=None, torch_dtype=None) -> str:
         """Load one model (a file, a shard list or a directory): detect its
         kind (or take it from model_names, a kind or a one-kind list),
-        convert it, and keep it under that kind. The DiT and umT5 take the
-        manager's dtype; the VAE, CLIP, the SD families and the extensions
-        stay f32."""
+        convert it, and keep it under that kind. The DiT and umT5 take
+        torch_dtype (default the manager's dtype); the VAE, CLIP, the SD
+        families and the extensions stay f32."""
+        dtype = torch_dtype or self.dtype
         sd = load_state_dicts(paths)
         if isinstance(model_names, (list, tuple)):
             model_names = model_names[0] if model_names else None
@@ -302,13 +316,13 @@ class ModelManager:
         if kind == "lora":
             raise ValueError(f"load_model cannot load a '{kind}' file; use load_lora_v2")
         if kind == "wan_video_dit":
-            cfg = dataclasses.replace(wan_dit.config_from_state_dict(sd), dtype=self.dtype)
+            cfg = dataclasses.replace(wan_dit.config_from_state_dict(sd), dtype=dtype)
             # with quantize_dit the float DiT waits on the host for the first fetch
             device = "cpu" if self.quantize_dit else self.device
             model = wan_dit.params_from_torch_state_dict(sd, cfg, device=device)
             self._dit_quantized = False
         elif kind == "wan_video_text_encoder":
-            cfg = t5.config_from_state_dict(sd, dtype=self.dtype)
+            cfg = t5.config_from_state_dict(sd, dtype=dtype)
             model = t5.params_from_torch_state_dict(sd, cfg, device=self.device)
         elif kind in _SD_FAMILY:
             model = _sd_family_loader(kind)(sd, device=self.device)
@@ -322,19 +336,21 @@ class ModelManager:
         self.model_paths[kind] = paths
         return kind
 
-    def load_models(self, path_list):
+    def load_models(self, path_list, model_names=None, torch_dtype=None):
+        """`load_model` on each entry, every kind detected: model_names is
+        accepted and unused, as in the JAX package."""
         for paths in path_list:
-            self.load_model(paths)
+            self.load_model(paths, torch_dtype=torch_dtype)
 
-    def load_lora_v2(self, file_path, lora_alpha=1.0):
-        """Fuse LoRA file(s) into the loaded DiT, where it lies (on the host
-        while it waits to be quantized); the extra modules a file carries go
-        to state_dict_new_module."""
+    def load_lora_v2(self, file_path="", state_dict=None, lora_alpha=1.0):
+        """Fuse LoRA file(s), or a state dict already loaded, into the loaded
+        DiT, where it lies (on the host while it waits to be quantized); the
+        extra modules a file carries go to state_dict_new_module."""
         if isinstance(file_path, (list, tuple)):
             for p in file_path:
                 self.load_lora_v2(p, lora_alpha=lora_alpha)
             return
-        sd = load_state_dict(file_path)
+        sd = state_dict if state_dict else load_state_dict(file_path)
         self.state_dict_new_module.update(extract_side_modules(sd))
         if "wan_video_dit" not in self.models:
             raise RuntimeError("load the DiT before LoRA")

@@ -194,10 +194,12 @@ def sdxl_text_encoder_2_params_from_torch(sd: dict, device="cuda",
 
 
 def sdxl_unet_state_dict(seed=0, device="cpu", dtype=torch.float32, text_dim=SDXL_TEXT_DIM,
-                         pooled_dim=SDXL_POOLED_DIM, depth=None) -> dict:
+                         pooled_dim=SDXL_POOLED_DIM, depth=None, text_proj_dim=None) -> dict:
     """Seeded random SDXL UNet weights at `SDXL_UNET_PLAN`'s widths
     (2.567B parameters at the published plan); depth: transformer layers
-    per attention block (`SDXL_TRANSFORMER_DEPTH`)."""
+    per attention block (`SDXL_TRANSFORMER_DEPTH`). Kolors' UNet:
+    text_proj_dim=4096 adds `text_intermediate_proj` (4096 -> text_dim) and
+    pooled_dim=4096 widens the add embedding to 5632."""
     plan, m = SDXL_UNET_PLAN, StateDictMaker(seed, device, dtype)
     c0 = plan[0][1]
     temb = 4 * c0
@@ -205,6 +207,8 @@ def sdxl_unet_state_dict(seed=0, device="cpu", dtype=torch.float32, text_dim=SDX
     m.lin("time_embedding.2", temb, temb)
     m.lin("add_time_embedding.0", temb, pooled_dim + 6 * 256)
     m.lin("add_time_embedding.2", temb, temb)
+    if text_proj_dim:
+        m.lin("text_intermediate_proj", text_dim, text_proj_dim)
     m.conv("conv_in", c0, 4)
     m.plan_blocks(plan, temb, text_dim, SDXL_TRANSFORMER_DEPTH if depth is None else depth)
     m.norm("conv_norm_out", c0)

@@ -79,11 +79,12 @@ def apply_augmentation(image, rng=None):
     return image
 
 
-def generate_noise(shape, seed=None) -> torch.Tensor:
+def generate_noise(shape, seed=None, dtype=torch.float32) -> torch.Tensor:
     """Seeded gaussian noise from torch.randn on a CPU generator: bit-identical
-    to the JAX package's noise and to the reference's."""
+    to the JAX package's noise and to the reference's; drawn in f32, then
+    cast to dtype."""
     gen = None if seed is None else torch.Generator("cpu").manual_seed(int(seed))
-    return torch.randn(shape, generator=gen, dtype=torch.float32)
+    return torch.randn(shape, generator=gen, dtype=torch.float32).to(dtype)
 
 
 def frames_from_uint8(video_u8: np.ndarray) -> list[np.ndarray]:

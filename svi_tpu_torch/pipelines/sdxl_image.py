@@ -5,8 +5,11 @@ svi_tpu/pipelines/sdxl_image.py: the two text encoders' prompt embedding
 prompts merged by feathered masks, tiled VAE and UNet transformers.
 
 Models are the port's `ParamTree`s in the pipeline's dtype (f32 by default)
-on the device they lie on; images are (H, W, 3) uint8 arrays. Kolors
-(`chatglm_params`) is not ported yet and raises.
+on the device they lie on; images are (H, W, 3) uint8 arrays. Passing
+`chatglm_params` (a `models.kolors` ChatGLM3) switches to Kolors: the
+prompter becomes `KolorsPrompter` and the scheduler
+`EnhancedDDIMScheduler(beta_end=0.014, num_train_timesteps=1100)`; the UNet's
+weights carry Kolors' `text_intermediate_proj` and 5632-wide add embedding.
 """
 
 from __future__ import annotations
@@ -14,18 +17,12 @@ from __future__ import annotations
 import torch
 
 from ..models import sdxl
+from ..prompters.kolors_prompter import KolorsPrompter
 from ..prompters.sdxl_prompter import SDXLPrompter
 from ..schedulers.ddim import EnhancedDDIMScheduler
 from .base import (check_resize_height_width, control_noise_via_local_prompts, extend_prompt,
                    generate_noise, preprocess_image)
 from .sd_image import cast_model, model_device, vae_output_to_frames
-
-
-def no_kolors(chatglm_params) -> None:
-    if chatglm_params is not None:
-        raise NotImplementedError(
-            "Kolors (the ChatGLM3 text encoder and its prompter) is not ported yet "
-            "(ROADMAP.md, Queue 1: Kolors)")
 
 
 def add_time_ids(height: int, width: int, device) -> torch.Tensor:
@@ -38,9 +35,13 @@ class SDXLImagePipeline:
     def __init__(self, unet, text_encoder=None, text_encoder_2=None, vae_encoder=None,
                  vae_decoder=None, tokenizer=None, tokenizer_2=None, chatglm_params=None,
                  dtype=torch.float32):
-        no_kolors(chatglm_params)
-        self.scheduler = EnhancedDDIMScheduler()
-        self.prompter = SDXLPrompter(tokenizer, tokenizer_2)
+        if chatglm_params is not None:
+            self.scheduler = EnhancedDDIMScheduler(beta_end=0.014, num_train_timesteps=1100)
+            self.prompter = KolorsPrompter(tokenizer)
+            text_encoder = chatglm_params
+        else:
+            self.scheduler = EnhancedDDIMScheduler()
+            self.prompter = SDXLPrompter(tokenizer, tokenizer_2)
         self.unet = cast_model(unet, dtype)
         self.text_encoder = cast_model(text_encoder, dtype)
         self.text_encoder_2 = cast_model(text_encoder_2, dtype)

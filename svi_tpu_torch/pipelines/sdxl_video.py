@@ -12,8 +12,10 @@ the frames a step would end at, smooth them, and turn them back into a noise
 prediction. The VAE runs one frame a call.
 
 Models are `ParamTree`s in the pipeline's dtype (f32 by default); frames are
-(H, W, 3) uint8 arrays. Kolors (`chatglm_params`, or a Kolors text encoder in
-the model manager) is not ported yet and raises.
+(H, W, 3) uint8 arrays. Passing `chatglm_params` (or a Kolors text encoder
+in the model manager) switches the prompter to Kolors; without motion
+modules the scheduler is then Kolors' own (beta_end 0.014, 1100 training
+timesteps), with them AnimateDiff's betas as above.
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ import torch
 from ..models import ipadapter as ip
 from ..models import motion as mo
 from ..models import sdxl
+from ..prompters.kolors_prompter import KolorsPrompter
 from ..prompters.sdxl_prompter import SDXLPrompter
 from ..schedulers.ddim import EnhancedDDIMScheduler
 from ..utils.image_process import resize_uint8
 from .base import check_resize_height_width, generate_noise, preprocess_image
 from .sd_image import cast_model, model_device, vae_output_to_frames
-from .sdxl_image import add_time_ids, no_kolors
+from .sdxl_image import add_time_ids
 
 
 class SDXLVideoPipeline:
@@ -37,11 +40,18 @@ class SDXLVideoPipeline:
                  vae_encoder=None, vae_decoder=None, tokenizer=None, tokenizer_2=None,
                  chatglm_params=None, ipadapter=None, ipadapter_image_encoder=None,
                  controlnet=None, dtype=torch.float32, use_original_animatediff=True):
-        no_kolors(chatglm_params)
-        self.prompter = SDXLPrompter(tokenizer, tokenizer_2)
         beta = "linear" if (motion is not None and use_original_animatediff) \
             else "scaled_linear"
-        self.scheduler = EnhancedDDIMScheduler(beta_schedule=beta)
+        if chatglm_params is not None:
+            self.prompter = KolorsPrompter(tokenizer)
+            text_encoder = chatglm_params
+            if motion is None:  # Kolors alone keeps its own schedule
+                self.scheduler = EnhancedDDIMScheduler(beta_end=0.014, num_train_timesteps=1100)
+            else:  # AnimateDiff's betas (the JAX package's choice with motion)
+                self.scheduler = EnhancedDDIMScheduler(beta_schedule=beta)
+        else:
+            self.prompter = SDXLPrompter(tokenizer, tokenizer_2)
+            self.scheduler = EnhancedDDIMScheduler(beta_schedule=beta)
         self.unet = cast_model(unet, dtype)
         self.motion = cast_model(motion, dtype)
         self.text_encoder = cast_model(text_encoder, dtype)

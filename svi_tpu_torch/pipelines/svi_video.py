@@ -112,8 +112,9 @@ class SVIVideoPipeline:
     ModelManager with `from_model_manager`."""
 
     def __init__(self, device="cuda", torch_dtype=torch.bfloat16, tokenizer_path=None,
-                 num_train_timesteps=1000):
+                 is_test=False, num_train_timesteps=1000):
         self.device = torch.device(device)
+        self.is_test = is_test  # stored and read nowhere, as in the JAX package
         self.dtype = torch_dtype
         self.scheduler = FlowMatchScheduler(
             shift=5, sigma_min=0.0, extra_one_step=True, num_train_timesteps=num_train_timesteps,
@@ -149,11 +150,11 @@ class SVIVideoPipeline:
 
     @staticmethod
     def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
-                           num_train_timesteps=1000):
+                           is_test=False, num_train_timesteps=1000):
         """use_usp: every rank of the process group runs the pipeline, and the
         DiT forward runs sequence-parallel over all of them (`enable_usp`)."""
         pipe = SVIVideoPipeline(device=device, torch_dtype=torch_dtype or model_manager.dtype,
-                                num_train_timesteps=num_train_timesteps)
+                                is_test=is_test, num_train_timesteps=num_train_timesteps)
         return pipe.fetch_models(model_manager).enable_usp(use_usp)
 
     def enable_usp(self, use_usp: bool = True):
@@ -350,6 +351,7 @@ class SVIVideoPipeline:
         input_video=None,
         denoising_strength=1.0,
         seed=None,
+        rand_device="cpu",
         height=480,
         width=832,
         num_frames=81,
@@ -363,6 +365,7 @@ class SVIVideoPipeline:
         tea_cache_model_id="",
         progress_bar_cmd=None,
         random_ref_frame=None,
+        use_controlnet=False,
         args=None,
         last_latent=None,
         prompt_emb_posi=None,
@@ -381,7 +384,9 @@ class SVIVideoPipeline:
         `prompt_emb_posi` / `prompt_emb_nega` are given. tile_size /
         tile_stride in latent units, for the encode of `input_video` and the
         decode. add_condition: tokens (1, S, dim) for the cond branch, or a
-        (cond, uncond) pair (`_sample`)."""
+        (cond, uncond) pair (`_sample`). rand_device and use_controlnet are
+        accepted and read nowhere, as in the JAX package (the noise is drawn
+        on the CPU generator either way)."""
         height, width = base.check_resize_height_width(height, width)
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1

@@ -33,10 +33,10 @@ class SVIDanceVideoPipeline(SVIVideoPipeline):
 
     @staticmethod
     def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
-                           num_train_timesteps=1000):
+                           is_test=False, num_train_timesteps=1000):
         pipe = SVIDanceVideoPipeline(device=device,
                                      torch_dtype=torch_dtype or model_manager.dtype,
-                                     num_train_timesteps=num_train_timesteps)
+                                     is_test=is_test, num_train_timesteps=num_train_timesteps)
         return pipe.fetch_models(model_manager).enable_usp(use_usp)
 
     @torch.inference_mode()

@@ -29,11 +29,11 @@ class SVITalkVideoPipeline(SVIVideoPipeline):
 
     @staticmethod
     def from_model_manager(model_manager, torch_dtype=None, device="cuda", use_usp=False,
-                           num_train_timesteps=1000, wav2vec_path=None):
+                           is_test=False, num_train_timesteps=1000, wav2vec_path=None):
         """use_usp is accepted and ignored, as in the JAX package (its talk
         pipeline has no sequence-parallel forward)."""
         pipe = SVITalkVideoPipeline(device=device, torch_dtype=torch_dtype or model_manager.dtype,
-                                    num_train_timesteps=num_train_timesteps,
+                                    is_test=is_test, num_train_timesteps=num_train_timesteps,
                                     wav2vec_path=wav2vec_path)
         return pipe.fetch_models(model_manager)
 
@@ -47,14 +47,16 @@ class SVITalkVideoPipeline(SVIVideoPipeline):
         if emb is None:
             if self.wav2vec is None:
                 raise RuntimeError("pass wav2vec_path, or a precomputed audio_embed")
-            emb = audio_utils.wav2vec_embedding(audio_utils.load_audio(audio_path), self.wav2vec)
+            emb = audio_utils.wav2vec_embedding(audio_utils.load_audio(audio_path), None,
+                                                  self.wav2vec)
             self._audio_emb_cache[audio_path] = emb
         return audio_utils.slice_audio_windows(emb, num_frames, audio_start_idx)
 
-    def preprocess_audio(self, audio_embed):
-        """Windows (1, F, 5, 12, 768) -> (first, later) groups on the device,
-        in the pipeline's dtype (`audio_utils.regroup_audio_windows`)."""
-        first, latter = audio_utils.regroup_audio_windows(np.asarray(audio_embed, np.float32))
+    def preprocess_audio(self, audio_embed, audio_window=5, vae_scale=4):
+        """Windows (1, F, audio_window, 12, 768) -> (first, later) groups on
+        the device, in the pipeline's dtype (`audio_utils.regroup_audio_windows`)."""
+        first, latter = audio_utils.regroup_audio_windows(np.asarray(audio_embed, np.float32),
+                                                          audio_window, vae_scale)
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device, self.dtype)
                      for a in (first, latter))
 

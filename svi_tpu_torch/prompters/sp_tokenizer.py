@@ -1,25 +1,52 @@
-"""SentencePiece unigram tokenizer for umT5 prompts, in numpy and the standard library.
+"""SentencePiece tokenizers in numpy and the standard library, port of
+svi_tpu/prompters/sp_tokenizer.py.
 
-Port of the part of svi_tpu/prompters/sp_tokenizer.py that Wan's prompts use:
-the `spiece.model` ModelProto parser (protobuf wire format, `utils.proto`),
-sentencepiece's normalizer (the precompiled charsmap, a darts_clone
-double-array trie over UTF-8 prefixes, and the whitespace rules), unigram
-Viterbi segmentation (`SpModel`), and `T5SpTokenizer` in the slow
-(sentencepiece) pipeline, which is what the reference's AutoTokenizer load of
-google/umt5-xxl does. The BPE model, the HF fast pipeline, ChatGLM and
-WordPiece serve other models and are not ported here.
+The `spiece.model` / `tokenizer.model` ModelProto parser (protobuf wire
+format, `utils.proto`), sentencepiece's normalizer (the precompiled charsmap,
+a darts_clone double-array trie over UTF-8 prefixes, and the whitespace
+rules) and both segmentations of `SpModel`: unigram Viterbi (T5 / umT5) and
+BPE, the highest-score pair merged first, ties to the leftmost, with byte
+fallback (ChatGLM / Kolors).
+
+Front-ends: `T5SpTokenizer`, transformers-compatible batches in the HF fast
+pipeline (`fast_pipeline=True`: Precompiled -> Strip-right -> collapse
+spaces -> Metaspace, what SD3's and FLUX's T5 prompters use) or
+sentencepiece's own Normalize() (`fast_pipeline=False`, the reference's
+AutoTokenizer load of google/umt5-xxl, Wan's prompter); and
+`ChatGLMSpTokenizer`, the Kolors SPTokenizer interface (raw `encode`, the
+special tokens appended after the vocabulary, pad = unk). The vendored
+models are under `svi_tpu_torch/tokenizer_configs/` (`t5`, `kolors`). The
+BERT WordPiece tokenizer serves Hunyuan DiT and is not ported here.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 import struct
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from ..utils.proto import _iter_fields
+
+
+class Batch(dict):
+    """Tokenizer output dict with attribute access (mirrors transformers'
+    BatchEncoding enough for `enc.input_ids` / `enc["input_ids"]`)."""
+
+    __getattr__ = dict.__getitem__
+
+
+def _to_tensors(ids: np.ndarray, mask: np.ndarray, return_tensors: str) -> Batch:
+    if return_tensors == "pt":
+        import torch
+
+        return Batch(input_ids=torch.from_numpy(ids),
+                     attention_mask=torch.from_numpy(mask))
+    return Batch(input_ids=ids, attention_mask=mask)
+
 
 _SPACE = "▁"  # LOWER ONE EIGHTH BLOCK, sentencepiece's escaped space
 _UNK_PENALTY = 10.0  # unigram_model.cc kUnkPenalty
@@ -241,10 +268,6 @@ class SpModel:
                 trainer = _parse_trainer_spec(val)
             elif fno == 3:
                 norm_spec = _parse_normalizer_spec(val)
-        if trainer.model_type != 1:
-            raise NotImplementedError(
-                f"{model_path}: sentencepiece model type {trainer.model_type}; only unigram "
-                "(type 1, T5 / umT5) is ported (BPE serves ChatGLM, Slice F)")
         self.trainer = trainer
         self.normalizer = _Normalizer(norm_spec)
         self.piece_to_id = {p.piece: i for i, p in enumerate(self.pieces)}
@@ -330,13 +353,110 @@ class SpModel:
                 prev_unk = False
         return ids
 
+    def _encode_bpe(self, data: bytes) -> List[int]:
+        """bpe_model.cc Model::Encode: repeatedly merge the adjacent symbol
+        pair forming the highest-score vocab piece (ties: leftmost)."""
+        # initial symbols: utf-8 chars
+        syms: List[bytes] = []
+        pos = 0
+        while pos < len(data):
+            ln = min(_utf8_char_len(data[pos]), len(data) - pos)
+            syms.append(data[pos:pos + ln])
+            pos += ln
+        nxt = list(range(1, len(syms))) + [-1]
+        prv = [-1] + list(range(len(syms) - 1))
+        alive = [True] * len(syms)
+
+        heap = []  # (-score, left_index, serial, merged_bytes)
+        serial = 0
+
+        def push(i):
+            nonlocal serial
+            j = nxt[i]
+            if j == -1:
+                return
+            merged = syms[i] + syms[j]
+            hit = self._vocab.get(merged)
+            if hit is not None:
+                heapq.heappush(heap, (-hit[1], i, serial, merged))
+                serial += 1
+
+        for i in range(len(syms) - 1):
+            push(i)
+        while heap:
+            _negs, i, _ser, merged = heapq.heappop(heap)
+            j = nxt[i] if i < len(nxt) else -1
+            if not (i < len(alive) and alive[i] and j != -1 and alive[j]
+                    and syms[i] + syms[j] == merged):
+                continue  # stale entry
+            syms[i] = merged
+            alive[j] = False
+            nxt[i] = nxt[j]
+            if nxt[j] != -1:
+                prv[nxt[j]] = i
+            push(i)
+            if prv[i] != -1:
+                push(prv[i])
+        ids: List[int] = []
+        i = 0
+        while i != -1:
+            if alive[i]:
+                hit = self._vocab.get(syms[i])
+                if hit is not None:
+                    ids.append(hit[0])
+                elif self._byte_id is not None:
+                    ids.extend(self._byte_id[b] for b in syms[i])
+                else:
+                    ids.append(self.unk_id)
+            i = nxt[i]
+        return ids
+
     def encode(self, text: str) -> List[int]:
         data = self.normalizer.normalize(text)
-        return self._encode_unigram(data) if data else []
+        if not data:
+            return []
+        if self.trainer.model_type == 2:
+            return self._encode_bpe(data)
+        return self._encode_unigram(data)
+
+    def encode_normalized(self, data: bytes) -> List[int]:
+        """Segment pre-normalized bytes (used by the HF-fast pipeline)."""
+        if not data:
+            return []
+        if self.trainer.model_type == 2:
+            return self._encode_bpe(data)
+        return self._encode_unigram(data)
+
+    # -- decoding ----------------------------------------------------------
+
+    def id_to_piece(self, i: int) -> str:
+        return self.pieces[i].piece
+
+    def vocab_size(self) -> int:
+        return len(self.pieces)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        out = bytearray()
+        pending_bytes = bytearray()
+        for i in ids:
+            p = self.pieces[i]
+            if p.type == _BYTE:
+                pending_bytes.append(int(p.piece[1:-1], 16))
+                continue
+            if pending_bytes:
+                out += bytes(pending_bytes)
+                pending_bytes.clear()
+            if p.type in (_CONTROL, _UNKNOWN):
+                continue
+            out += p.piece.encode("utf-8")
+        if pending_bytes:
+            out += bytes(pending_bytes)
+        text = out.decode("utf-8", errors="replace").replace(_SPACE, " ")
+        return text[1:] if text.startswith(" ") else text
 
 
 # ---------------------------------------------------------------------------
-# T5 / umT5 front-end (transformers-compatible batches)
+# T5 / umT5 front-end (transformers-compatible)
 # ---------------------------------------------------------------------------
 
 def _resolve_spiece(path: str) -> str:
@@ -350,12 +470,18 @@ def _resolve_spiece(path: str) -> str:
 
 
 class T5SpTokenizer:
-    """transformers' slow T5Tokenizer batches (padding="max_length",
-    truncation, special tokens): sentencepiece's own Normalize() then unigram
-    segmentation."""
+    """Drop-in for transformers T5Tokenizer(Fast) batches.
 
-    def __init__(self, model_path: str):
-        self.sp = SpModel(_resolve_spiece(model_path))
+    fast_pipeline=True replays the HF fast chain (tokenizer.json:
+    Precompiled -> Strip(right) -> Replace(' {2,}' -> U+2581) ->
+    Metaspace(prepend always, split)); False replays sentencepiece's own
+    Normalize() (slow-tokenizer semantics — what Wan's AutoTokenizer load of
+    umt5-xxl produces, ref wan_video.py prompter path)."""
+
+    def __init__(self, model_path: str, fast_pipeline: bool = True):
+        model_file = _resolve_spiece(model_path)
+        self.sp = SpModel(model_file)
+        self.fast_pipeline = fast_pipeline
         self.eos_id = self.sp.trainer.eos_id
         self.pad_id = max(self.sp.trainer.pad_id, 0)
         self.unk_id = self.sp.unk_id
@@ -368,9 +494,46 @@ class T5SpTokenizer:
                     for tok, idx in json.load(f).items():
                         self.added[tok] = idx
 
+    def _segment(self, text: str) -> List[int]:
+        sp = self.sp
+        if not self.fast_pipeline:
+            return sp.encode(text)
+        norm = sp.normalizer
+        data = text.encode("utf-8")
+        out = bytearray()
+        pos = 0
+        while pos < len(data):  # Precompiled only (no whitespace rules)
+            rep, n = norm._normalize_prefix(data, pos)
+            out += rep
+            pos += n
+        buf = bytes(out).rstrip(b" ")  # Strip right
+        # Replace ' {2,}' -> one U+2581, then Metaspace: ' ' -> U+2581 with
+        # a prepended U+2581; segmentation never crosses a U+2581 boundary
+        # (split=true), which the Viterbi reproduces by itself because no T5
+        # piece contains an interior U+2581.
+        sp_bytes = _SPACE.encode("utf-8")
+        chunks = []
+        i = 0
+        while i < len(buf):
+            if buf[i] == 0x20:
+                j = i
+                while j < len(buf) and buf[j] == 0x20:
+                    j += 1
+                chunks.append(sp_bytes)
+                i = j
+            else:
+                chunks.append(buf[i:i + 1])
+                i += 1
+        body = b"".join(chunks)
+        if not body:
+            return []
+        if not body.startswith(sp_bytes):  # Metaspace prepends only when the
+            body = sp_bytes + body         # segment doesn't already lead with it
+        return sp.encode_normalized(body)
+
     def _encode_one(self, text: str) -> List[int]:
         if not self.added:
-            return self.sp.encode(text)
+            return self._segment(text)
         # split on added tokens (longest first), tokenize the gaps
         ids: List[int] = []
         rest = text
@@ -382,31 +545,108 @@ class T5SpTokenizer:
                                  or (at == best[0] and len(tok) > len(best[1]))):
                     best = (at, tok, idx)
             if best is None:
-                ids.extend(self.sp.encode(rest))
+                ids.extend(self._segment(rest))
                 break
             at, tok, idx = best
             if at:
-                ids.extend(self.sp.encode(rest[:at]))
+                ids.extend(self._segment(rest[:at]))
             ids.append(idx)
             rest = rest[at + len(tok):]
         return ids
 
-    def __call__(self, text, max_length: Optional[int] = None) -> dict:
-        """Text(s) -> ids with eos appended, truncated to max_length (eos kept
-        last) and padded to it (to the longest without one), and the attention
-        mask; int64 numpy, one row per text."""
+    def __call__(self, text, max_length: Optional[int] = None,
+                 padding: str = "max_length", truncation: bool = True,
+                 add_special_tokens: bool = True, return_tensors: str = "np"):
         texts = [text] if isinstance(text, str) else list(text)
         seqs = []
         for t in texts:
-            ids = self._encode_one(t) + [self.eos_id]
-            if max_length is not None and len(ids) > max_length:
+            ids = self._encode_one(t)
+            if add_special_tokens:
+                ids = ids + [self.eos_id]
+            if truncation and max_length is not None and len(ids) > max_length:
                 ids = ids[:max_length]
-                ids[-1] = self.eos_id
+                if add_special_tokens:
+                    ids[-1] = self.eos_id
             seqs.append(ids)
-        width = max_length or max((len(s) for s in seqs), default=0)
+        width = max_length if (padding == "max_length" and max_length) else \
+            max(len(s) for s in seqs) if seqs else 0
         input_ids = np.full((len(seqs), width), self.pad_id, np.int64)
         mask = np.zeros((len(seqs), width), np.int64)
         for r, s in enumerate(seqs):
             input_ids[r, :len(s)] = s
             mask[r, :len(s)] = 1
-        return {"input_ids": input_ids, "attention_mask": mask}
+        return _to_tensors(input_ids, mask, return_tensors)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        core = [int(i) for i in ids if int(i) < self.sp.vocab_size()]
+        return self.sp.decode(core)
+
+
+# ---------------------------------------------------------------------------
+# ChatGLM / Kolors front-end
+# ---------------------------------------------------------------------------
+
+class ChatGLMSpTokenizer:
+    """Kolors SPTokenizer interface (reference kolors_prompter.py:12-91):
+    BPE encode, special tokens appended after the sp vocab in fixed order,
+    pad = unk. Consumed by models.kolors.kolors_tokenize."""
+
+    SPECIAL = ["[MASK]", "[gMASK]", "[sMASK]", "sop", "eop",
+               "<|system|>", "<|user|>", "<|assistant|>", "<|observation|>"]
+
+    def __init__(self, model_path: str):
+        self.sp = SpModel(_resolve_spiece(model_path))
+        self.n_words = self.sp.vocab_size()
+        self.bos_id = self.sp.trainer.bos_id
+        self.eos_id = self.sp.trainer.eos_id
+        self.pad_id = self.sp.unk_id
+        self.special_tokens = {}
+        self.index_special_tokens = {}
+        for tok in self.SPECIAL:
+            self.special_tokens[tok] = self.n_words
+            self.index_special_tokens[self.n_words] = tok
+            self.n_words += 1
+
+    def encode(self, s: str, bos: bool = False, eos: bool = False) -> List[int]:
+        ids = self.sp.encode(s)
+        if bos:
+            ids = [self.bos_id] + ids
+        if eos:
+            ids = ids + [self.eos_id]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        text, buf = "", []
+        for i in ids:
+            if i in self.index_special_tokens:
+                if buf:
+                    text += self.sp.decode(buf)
+                    buf = []
+                text += self.index_special_tokens[i]
+            else:
+                buf.append(i)
+        if buf:
+            text += self.sp.decode(buf)
+        return text
+
+
+# ---------------------------------------------------------------------------
+# Vendored assets
+# ---------------------------------------------------------------------------
+
+_ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tokenizer_configs")
+
+
+def asset_path(name: str) -> str:
+    """Path to a vendored tokenizer asset dir of the port: 't5', 'kolors'."""
+    return os.path.join(_ASSET_DIR, name)
+
+
+def default_t5_tokenizer(fast_pipeline: bool = True) -> T5SpTokenizer:
+    return T5SpTokenizer(asset_path("t5"), fast_pipeline=fast_pipeline)
+
+
+def default_chatglm_tokenizer() -> ChatGLMSpTokenizer:
+    return ChatGLMSpTokenizer(asset_path("kolors"))
+

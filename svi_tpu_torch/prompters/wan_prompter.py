@@ -51,7 +51,7 @@ class WanPrompter:
             raise FileNotFoundError(
                 f"no spiece.model in {tokenizer_path}: the port loads umT5's sentencepiece "
                 "model only (the transformers tokenizer branch is not ported)")
-        self.tokenizer = T5SpTokenizer(tokenizer_path)
+        self.tokenizer = T5SpTokenizer(tokenizer_path, fast_pipeline=False)
 
     def fetch_models(self, text_encoder):
         self.text_encoder = text_encoder

@@ -90,7 +90,7 @@ def main(argv=None, device=None) -> dict:
             print(f"[{stem}] no audio found -- skipped embedding")
             done[stem] = None
             continue
-        emb = audio_utils.wav2vec_embedding(audio_utils.load_audio(wav_path), model)
+        emb = audio_utils.wav2vec_embedding(audio_utils.load_audio(wav_path), None, model)
         emb_stored = np.transpose(emb, (1, 0, 2))  # (12, s, 768), the pickle's layout
         with open(os.path.join(out, "audio_embedding.pkl"), "wb") as f:
             pickle.dump(emb_stored, f)

@@ -101,9 +101,12 @@ def to_peft_state_dict(lora: ParamTree, prefix: str = "") -> dict:
     return out
 
 
-def from_peft_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> ParamTree:
+def from_peft_state_dict(sd: dict, cfg: WanDiTConfig, rank=None, dtype=torch.float32,
+                         device="cuda") -> ParamTree:
     """A peft LoRA state dict (keys may carry a 'pipe.dit.' or
-    'diffusion_model.' prefix, train_svi.py:968-981) -> adapters."""
+    'diffusion_model.' prefix, train_svi.py:968-981) -> adapters in `dtype`.
+    rank is read from the tensors' shapes; the argument is accepted and
+    unused, as in the JAX package."""
     clean = {}
     for k, v in sd.items():
         if "pipe.dit." in k:
@@ -120,9 +123,9 @@ def from_peft_state_dict(sd: dict, cfg: WanDiTConfig, device="cuda") -> ParamTre
         for name in parts[2:-4]:
             node = node.setdefault(name, {})
         node[parts[-4]] = {
-            "a": torch.tensor(np.asarray(a, np.float32).T, device=device),
+            "a": torch.tensor(np.asarray(a, np.float32).T, dtype=dtype, device=device),
             "b": torch.tensor(np.asarray(clean[k.replace(".lora_A.", ".lora_B.")],
-                                         np.float32).T, device=device),
+                                         np.float32).T, dtype=dtype, device=device),
         }
     return _tree(blocks)
 

@@ -96,18 +96,21 @@ def _model_device(model) -> torch.device:
 
 
 @torch.inference_mode()
-def wav2vec_embedding(speech: np.ndarray, model, sr: int = AUDIO_SR) -> np.ndarray:
+def wav2vec_embedding(speech: np.ndarray, feature_extractor, model,
+                      sr: int = AUDIO_SR) -> np.ndarray:
     """speech -> (video_frames, 12, 768): the 12 encoder hidden states of the
     normalized waveform, its conv features interpolated to 25 frames a
     second, on the tower's device. `model` is the native tower or the
-    TransformersWav2Vec2 pair of `load_wav2vec(engine="torch")`."""
+    TransformersWav2Vec2 pair of `load_wav2vec(engine="torch")`;
+    feature_extractor is the transformers engine's input processor (None:
+    the pair's own), unused by the native tower, as in the JAX package."""
     video_length = int(len(speech) / sr * AUDIO_FPS)
     if isinstance(model, TransformersWav2Vec2):
         import torch.nn.functional as F
 
         tower = model.model
-        inputs = model.feature_extractor(speech, sampling_rate=sr,
-                                         return_tensors="pt").input_values
+        extract = feature_extractor or model.feature_extractor
+        inputs = extract(speech, sampling_rate=sr, return_tensors="pt").input_values
         feats = tower.feature_extractor(inputs.to(_model_device(tower)))  # (1, c, s')
         feats = F.interpolate(feats, size=video_length, align_corners=True, mode="linear")
         hidden, _ = tower.feature_projection(feats.transpose(1, 2))

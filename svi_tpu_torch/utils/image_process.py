@@ -145,3 +145,15 @@ def resize_uint8(image, width: int, height: int) -> np.ndarray:
     if arr.shape[0] != height:
         arr = _resample_axis(arr, height, 0)
     return np.array(arr)
+
+
+def resize_nearest_uint8(image, width: int, height: int) -> np.ndarray:
+    """An (H, W, C) uint8 frame (or a PIL image) resized to (height, width) as
+    Pillow's `Image.resize(..., resample=NEAREST)`: each output pixel takes
+    the source pixel under its centre, floor((x + 0.5) * in / out)."""
+    arr = np.asarray(image)
+    rows = np.minimum(((np.arange(height) + 0.5) * arr.shape[0] / height).astype(np.int64),
+                      arr.shape[0] - 1)
+    cols = np.minimum(((np.arange(width) + 0.5) * arr.shape[1] / width).astype(np.int64),
+                      arr.shape[1] - 1)
+    return np.ascontiguousarray(arr[rows][:, cols])

@@ -198,8 +198,8 @@ def test_transformers_engine_matches_the_native_tower(tmp_path, monkeypatch):
     speech = _rng(10).standard_normal(6400).astype(np.float32)
     engine = taudio.load_wav2vec(path, device="cpu", engine="torch")
     assert isinstance(engine, taudio.TransformersWav2Vec2)
-    got = taudio.wav2vec_embedding(speech, engine)
-    want = taudio.wav2vec_embedding(speech, taudio.load_wav2vec(path, device="cpu"))
+    got = taudio.wav2vec_embedding(speech, None, engine)
+    want = taudio.wav2vec_embedding(speech, None, taudio.load_wav2vec(path, device="cpu"))
     assert got.shape == (10, 12, 768)
     _close(got, want)
 

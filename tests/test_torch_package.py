@@ -56,6 +56,13 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.models.sdxl, svi_tpu_torch.models.ipadapter\n"
         "import svi_tpu_torch.prompters.sdxl_prompter, svi_tpu_torch.pipelines.sdxl_image\n"
         "import svi_tpu_torch.pipelines.sdxl_video\n"
+        "import svi_tpu_torch.models.kolors, svi_tpu_torch.prompters.kolors_prompter\n"
+        "import svi_tpu_torch.models.sd3, svi_tpu_torch.prompters.sd3_prompter\n"
+        "import svi_tpu_torch.pipelines.sd3_image, svi_tpu_torch.schedulers.flow_match\n"
+        "import svi_tpu_torch.models.flux, svi_tpu_torch.prompters.flux_prompter\n"
+        "import svi_tpu_torch.pipelines.flux_image\n"
+        "from svi_tpu_torch.prompters import sp_tokenizer\n"
+        "sp_tokenizer.default_chatglm_tokenizer().encode('一只猫')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"

@@ -33,7 +33,8 @@ F32_TOL = 1e-4
 
 @pytest.fixture(scope="module")
 def tokenizers():
-    return JaxTokenizer(asset_path("t5"), fast_pipeline=False), T5SpTokenizer(PORT_T5)
+    return (JaxTokenizer(asset_path("t5"), fast_pipeline=False),
+            T5SpTokenizer(PORT_T5, fast_pipeline=False))
 
 
 def test_the_vendored_model_is_the_same_file():

@@ -15,7 +15,6 @@ within one level; where a uint8 frame feeds the next step (the smoother)
 latents within 1e-3.
 """
 
-import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -311,12 +310,23 @@ def test_video_pipeline_without_motion_shares_noise(sds, narrow):
                for g, w in zip(got, want)) <= LEVELS
 
 
-def test_kolors_raises_and_is_not_imported(sds):
-    """Both SDXL pipelines raise NotImplementedError for a ChatGLM text
-    encoder (Kolors is not ported) and import no Kolors module."""
+def test_kolors_switch_of_both_pipelines(sds):
+    """A ChatGLM text encoder switches both SDXL pipelines to Kolors, as
+    svi_tpu's: the Kolors prompter holding it, and DDIM at beta_end 0.014
+    over 1100 training timesteps (the video pipeline with motion modules
+    keeps AnimateDiff's linear betas); without it, the SDXL prompter. The
+    pipelines' runs against svi_tpu are tests/test_torch_kolors.py's."""
+    from svi_tpu_torch.prompters.kolors_prompter import KolorsPrompter
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+
+    kolors_ddim = EnhancedDDIMScheduler(beta_end=0.014, num_train_timesteps=1100)
     unet = SimpleNamespace(parameters=lambda: iter([torch.zeros(1)]))
-    for make in (lambda: timage.SDXLImagePipeline(unet, chatglm_params=object()),
-                 lambda: tvideo.SDXLVideoPipeline(unet, chatglm_params=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
-    assert not [m for m in sys.modules if m.startswith("svi_tpu_torch") and "kolors" in m]
+    glm = torch.nn.Linear(1, 1)
+    for pipe in (timage.SDXLImagePipeline(unet, chatglm_params=glm),
+                 tvideo.SDXLVideoPipeline(unet, chatglm_params=glm)):
+        assert isinstance(pipe.prompter, KolorsPrompter) and pipe.text_encoder is glm
+        np.testing.assert_array_equal(pipe.scheduler.alphas_cumprod, kolors_ddim.alphas_cumprod)
+    motion = tvideo.SDXLVideoPipeline(unet, motion=glm, chatglm_params=glm)
+    assert motion.scheduler.beta_schedule == "linear"
+    assert motion.scheduler.num_train_timesteps == 1000
+    assert isinstance(timage.SDXLImagePipeline(unet).prompter, TPrompter)

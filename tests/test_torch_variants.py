@@ -441,7 +441,8 @@ def test_talk_embeds_each_audio_file_once(monkeypatch):
     emb = np.zeros((40, 12, 8), np.float32)
     emb[:, 0, 0] = np.arange(40)
     monkeypatch.setattr(taudio, "load_audio", lambda path: np.zeros(16000, np.float32))
-    monkeypatch.setattr(taudio, "wav2vec_embedding", lambda speech, model: calls.append(1) or emb)
+    monkeypatch.setattr(taudio, "wav2vec_embedding",
+                        lambda speech, feature_extractor, model: calls.append(1) or emb)
     a = pipe.get_audio_embedding("x.wav", num_frames=9, audio_start_idx=0)
     b = pipe.get_audio_embedding("x.wav", num_frames=9, audio_start_idx=5)
     assert len(calls) == 1 and a.shape == (1, 9, 5, 12, 8)

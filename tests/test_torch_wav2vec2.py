@@ -46,7 +46,7 @@ def test_hidden_states_match_svi_tpu(tower):
     assert got.shape == want.shape == (12, 1, 10, 768)
     assert np.abs(got - want).max() <= STATE_REL * np.abs(want).max()
     # the embedding helper: (frames, 12, 768), as svi_tpu's native engine
-    emb_t = taudio.wav2vec_embedding(speech, model)
+    emb_t = taudio.wav2vec_embedding(speech, None, model)
     emb_j = jaudio.wav2vec_embedding(speech, None, ("jax", params))
     assert emb_t.shape == emb_j.shape == (10, 12, 768)
     assert np.abs(emb_t - emb_j).max() <= STATE_REL * np.abs(emb_j).max()

@@ -208,3 +208,87 @@ def xl_state_dicts(seed=0) -> dict:
         "sdxl_ipadapter_clip_image_encoder": tip.clip_image_encoder_state_dict(
             seed + 8, dim=XL_IMAGE_DIM, num_layers=1, projection=XL_IMAGE_PROJ),
     }
+
+
+# ---------------------------------------------------------------------------
+# Kolors, SD3 and FLUX: ChatGLM 64 wide (4 heads of 16 over 2 key / value
+# groups; a vocabulary that holds the vendored tokenizer's special ids), the
+# MMDiT 64 wide (one head of 64; a dual block with RMS q / k norms, a middle
+# and the final block), the FLUX DiT 128 wide (one head of 128, the width its
+# RoPE needs) with a 32-wide text input, the 16-channel VAE at a quarter of
+# its channels, CLIP-L's text tower at its 768 width (2 layers), bigG's at
+# 1280 (1 layer), one-layer T5s as wide as each DiT's text input
+# ---------------------------------------------------------------------------
+
+GLM = dict(num_heads=4, num_groups=2, kv_channels=16)
+GLM_HIDDEN, GLM_VOCAB = 64, 65040
+SD3_DIT = dict(dim=64, num_layers=3, num_dual_blocks=1, qk_norm=True, pos_embed_max=16)
+FLUX_DIM, FLUX_TEXT = 128, 32
+
+
+def sd3_vae_plans():
+    from svi_tpu_torch.models import sd3 as tsd3
+
+    return (narrow_plan(tsd3.SD3_VAE_ENCODER_PLAN, 4), narrow_plan(tsd3.SD3_VAE_DECODER_PLAN, 4))
+
+
+def tiny_t5_config(dim, dtype=torch.float32):
+    from svi_tpu_torch.models import t5 as tt5
+
+    return tt5.T5Config(vocab=32128, dim=dim, dim_attn=dim, dim_ffn=2 * dim, num_heads=2,
+                        num_layers=1, dtype=dtype)
+
+
+def kolors_state_dicts(seed=0) -> dict:
+    """ChatGLM and the Kolors UNet (text projection 64 -> TEXT_DIM, add
+    embedding 64 + 1536 wide) at the narrow SDXL plans patched in by the
+    caller, AnimateDiff-SDXL and the VAE decoder."""
+    from svi_tpu_torch.models import kolors as tkolors
+
+    return {"chatglm": tkolors.chatglm_state_dict(seed, num_layers=2, hidden=GLM_HIDDEN,
+                                                  ffn=48, vocab=GLM_VOCAB, **GLM),
+            "unet": tsdxl.sdxl_unet_state_dict(seed + 1, text_dim=TEXT_DIM, pooled_dim=GLM_HIDDEN,
+                                               depth=XL_DEPTH, text_proj_dim=GLM_HIDDEN),
+            "motion": tmo.sdxl_motion_state_dict(seed + 2),
+            "vae": tsd.sd_vae_decoder_state_dict(seed + 3)}
+
+
+def sd3_state_dicts(seed=0) -> dict:
+    """The MMDiT, the VAE halves (at the SD3 plans patched in by the
+    caller), both CLIP towers and a T5 64 wide (and its config)."""
+    from svi_tpu_torch.models import sd3 as tsd3
+    from svi_tpu_torch.models import t5 as tt5
+
+    t5_cfg = tiny_t5_config(64)
+    return {"dit": tsd3.sd3_dit_state_dict(seed, **SD3_DIT),
+            "vae_encoder": tsd3.sd3_vae_encoder_state_dict(seed + 1),
+            "vae_decoder": tsd3.sd3_vae_decoder_state_dict(seed + 2),
+            "te1": tsd.sd_text_encoder_state_dict(seed + 3, num_layers=2),
+            "te2": tsdxl.sdxl_text_encoder_2_state_dict(seed + 4, num_layers=1),
+            "t5": tt5.torch_state_dict_from_params(tt5.init_params(t5_cfg, seed + 5,
+                                                                   device="cpu")),
+            "t5_cfg": t5_cfg}
+
+
+def flux_state_dicts(seed=0) -> dict:
+    """The FLUX DiT with and without its guidance embedder, a union
+    ControlNet, an IP-Adapter of 4 tokens, the VAE halves (at the SD3 plans
+    patched in by the caller), CLIP-L and a T5 32 wide (and its config)."""
+    from svi_tpu_torch.models import flux as tflux
+    from svi_tpu_torch.models import t5 as tt5
+
+    t5_cfg = tiny_t5_config(FLUX_TEXT)
+    kw = dict(dtype=torch.float32, dim=FLUX_DIM, text_dim=FLUX_TEXT)
+    return {"dit": tflux.flux_dit_state_dict(seed, num_joint=2, num_single=2, **kw),
+            "dit_noguide": tflux.flux_dit_state_dict(seed + 1, num_joint=1, num_single=1,
+                                                     guidance=False, **kw),
+            "cnet": tflux.flux_controlnet_state_dict(seed + 2, num_joint=1, num_single=1,
+                                                     num_modes=2, **kw),
+            "ip": tflux.flux_ipadapter_state_dict(seed + 3, dtype=torch.float32, num_tokens=4,
+                                                  cross_dim=64, dim=FLUX_DIM, num_blocks=4),
+            "vae_encoder": tflux.flux_vae_encoder_state_dict(seed + 4),
+            "vae_decoder": tflux.flux_vae_decoder_state_dict(seed + 5),
+            "te1": tsd.sd_text_encoder_state_dict(seed + 6, num_layers=2),
+            "t5": tt5.torch_state_dict_from_params(tt5.init_params(t5_cfg, seed + 7,
+                                                                   device="cpu")),
+            "t5_cfg": t5_cfg}
