@@ -20,7 +20,10 @@ non-zero exit and no result line:
      batches) and the SDXL stack's at 1024x1024 (heads of 64 over 4096 and
      1024 tokens, AnimateDiff-SDXL's temporal attention at head dims 40, 80
      and 160 over 16384, 4096 and 1024 batches, the VAE's mid-block over
-     16384 tokens), and phase 10's at 1024x1024 (FLUX.1-dev's joint and
+     16384 tokens), phase 11's (Hunyuan-DiT's 16 heads of 88 in f32, B2
+     S4096 self and Sk333 cross; CogVideoX-5B's 48 heads of 64 in bf16, B2
+     S17776, route "mma"; HunyuanVideo's two attention groups at 720x1280x129,
+     bf16 D128), and phase 10's at 1024x1024 (FLUX.1-dev's joint and
      single blocks' attention, B1 S4608, 24 heads of 128, bf16; its
      IP-Adapter's attention of 4096 and 4608 queries onto 128 image tokens;
      SD3-medium's joint attention, B2 S4250, 24 heads of 64, f32; the Kolors
@@ -137,8 +140,8 @@ non-zero exit and no result line:
      CLIP ViT-L/14's text tower, the VAE encoder and decoder, AnimateDiff
      v2's 21 motion modules, one ControlNet); (c) one UNet + ControlNet +
      motion forward on them at 4 frames of 128x128, card against CPU; (d)
-     SDVideoPipelineRunner.run on a seeded 16-frame 512x512 video (one
-     16-frame window; 8a runs several), 3 steps at strength 0.9, the tile ControlNet at
+     SDVideoPipelineRunner.run on a seeded 8-frame 512x512 video (one
+     8-frame window; 8a runs several), 3 steps at strength 0.9, the tile ControlNet at
      scale 0.5, a Contrast smoother, with per-model seconds, peak memory
      and the f32 attention launches per head dim, which must be the plans'
      count; the smoother chain is FastBlend (its default ebsynth config, as
@@ -152,7 +155,7 @@ non-zero exit and no result line:
      encoder, RRDBNet x4, IFNet, CLIP ViT-L/14 with the aesthetic MLP,
      open_clip ViT-H/14); (c) one UNet + ControlNet + motion forward on them
      at 2 frames of 128x128, card against CPU; (d) SDXLVideoPipeline at
-     1024x1024, 16 frames, 2 steps with ControlNet and IP-Adapter, then RIFE
+     1024x1024, 8 frames, 2 steps with ControlNet and IP-Adapter, then RIFE
      over its frames, FastBlend over its first 3, ESRGAN on 2 and the two
      scores on 2, with per-part seconds, peak memory and the f32 attention
      launches per head dim, which must be the plans' count;
@@ -169,13 +172,32 @@ non-zero exit and no result line:
      prompt, CFG 7.5; SD3: batched CFG 7.5, T5 on; FLUX: embedded guidance
      3.5), with per-part seconds, peak memory and the attention launches,
      which must be the models' count;
- 11. a JSON line of the kernels (K3's launches from 5b's quantized run;
+ 11. SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX: (a) the narrow models of
+     tests/torch_video_fixtures.py through SVDVideoPipeline (a mask frame),
+     HunyuanDiTImagePipeline (2 heads of 88: the D88 route), HunyuanVideoPipeline
+     (true CFG, the prompter with a seeded LLM table) and CogVideoPipeline
+     (video-to-video, batched CFG), f32, card against CPU; then one family
+     at a time, its files freed before the next: (b) seeded files at the
+     published widths (SVD-XT's UNet, its temporal VAE decoder, SD's VAE
+     encoder, CLIP ViT-H's image tower; Hunyuan-DiT with the SDXL VAE
+     decoder; HunyuanVideo's 13B DiT, its causal VAE decoder, CLIP-L;
+     CogVideoX-5B's DiT and VAE decoder with T5-XXL at 2 of 24 layers), (c)
+     one forward at a cut depth card against CPU (HunyuanVideo and CogVideoX
+     also in bf16), (d) the pipeline at full width, 2 steps (SVD 576x1024x25,
+     Hunyuan-DiT 1024x1024, HunyuanVideo 544x960x33, CogVideoX 480x720x49),
+     with per-part seconds, peak memory and the attention launches, which
+     must be the models' count (K2 f32 D88, K2 bf16 "mma" among them);
+     phase 3's rows at their shapes include HunyuanVideo's attention groups
+     at its default 720x1280x129 (B1 S118871 and S185);
+ 12. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
      `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`,
      on phase 8's runner as `launches_sd`, on phase 9's SDXL video pipeline
      as `launches_sdxl`, on phase 10's pipelines as `launches_kolors`,
-     `launches_sd3` and `launches_flux`), the nvidia-smi line, and the
-     result line.
+     `launches_sd3` and `launches_flux`, on phase 11's as `launches_svd`,
+     `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`;
+     K2's D88 and "mma" entries count phase 11's), the nvidia-smi line, and
+     the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -322,6 +344,12 @@ KERNELS = {
     # one-forward check
     "flash_fwd_flat_q8/sm90_f32": ("svi_tpu_torch/csrc/flash_fwd_q8_sm90.cu",
                                    "svi_tpu/ops/attention.py:289"),
+    # K2 f32 at Hunyuan-DiT's D = 88 (a name of its own for the route's
+    # head dim, counted from flash_fwd_bnsd.routes) and K2 bf16 at D = 64
+    # (route "mma": CogVideoX's joint attention)
+    "flash_fwd_bnsd/f32/88": ("svi_tpu_torch/csrc/flash_fwd_f32.cu",
+                              "svi_tpu/ops/attention.py:465"),
+    "flash_fwd_bnsd/mma": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:465"),
     # K3 standalone: the straight-through backward of every W4A8 linear that
     # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -332,6 +360,7 @@ QUANT_TRAIN = ("unpack_requant_int4",)  # launched only by training on a quantiz
 QUANT_F32 = ("flash_fwd_flat_q8/sm90_f32",)  # launched only by an f32 DiT's qk8 attention
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
 PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90",)  # launched only by the ring (phase 6)
+ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/mma")  # launched by phase 11's pipelines
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
@@ -343,7 +372,8 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "quantize_rows_int8": "w4a8_prepass_ffn_0", "w4a8_linear": "w4a8_ffn_0",
               "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8",
               "flash_fwd_flat_q8/sm90_f32": "slice_self_attn_q8_qk8_f32",
-              "unpack_requant_int4": "ffn_0"}
+              "unpack_requant_int4": "ffn_0", "flash_fwd_bnsd/f32/88": "hunyuan_dit_self_attn_d88",
+              "flash_fwd_bnsd/mma": "cogvideox_joint_attn_d64"}
 
 
 def log(msg: str) -> None:
@@ -432,21 +462,24 @@ def bound(flops: float, nbytes: float, peak) -> tuple[float, str, str]:
 
 
 def launch_counters():
-    """KERNELS name -> (the wrapper that counts its launches, its route or '')."""
+    """KERNELS name -> (the wrapper that counts its launches, its route or '',
+    the head dim or None)."""
     from svi_tpu_torch.ops import attention as A
     from svi_tpu_torch.ops import quant_matmul as Q
 
     out = {}
     for name in KERNELS:
         entry, _, route = name.partition("/")
-        out[name] = (getattr(Q if entry in QUANT_MODULE_ENTRIES else A, entry), route)
+        route, _, dim = route.partition("/")
+        out[name] = (getattr(Q if entry in QUANT_MODULE_ENTRIES else A, entry), route,
+                     int(dim) if dim else None)
     return out
 
 
 def zero_counts() -> None:
     """Every KERNELS counter to 0 (K3's too: the quantized inference paths
     check that it stays at 0)."""
-    for fn, _ in launch_counters().values():
+    for fn, _, _ in launch_counters().values():
         if hasattr(fn, "launches"):
             fn.launches = 0
         if hasattr(fn, "routes"):
@@ -454,8 +487,9 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {name: sum(n for key, n in fn.routes.items() if key[0] == route) if route
-            else fn.launches for name, (fn, route) in launch_counters().items()}
+    return {name: sum(n for key, n in fn.routes.items()
+                      if key[0] == route and dim in (None, key[2])) if route
+            else fn.launches for name, (fn, route, dim) in launch_counters().items()}
 
 
 def check_fwd_routes(path: str, need_f32: bool = False) -> dict:
@@ -582,15 +616,16 @@ def kernel_cases():
                                                   _nbytes(q, k, v, q) + 4 * b * n * sq,
                                                   PEAK_BF16)})
 
-    def f32_case(name, b, sq, sk, n, d):
+    def f32_case(name, b, sq, sk, n, d, entry=None):
         """An f32 forward as the SD stack runs it: q, k, v from their own
         projections, (B, S, N*D); N = 1 through K1's flat entry, else K2's
-        (B, N, S, D) entry on transposed views."""
+        (B, N, S, D) entry on transposed views. entry: the KERNELS name the
+        row stands for (default the entry's f32 route)."""
         q = randn((b, sq, n * d), torch.float32)
         k = randn((b, sk, n * d), torch.float32)
         v = randn((b, sk, n * d), torch.float32)
         qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
-        entry = "flash_fwd_flat/f32" if n == 1 else "flash_fwd_bnsd/f32"
+        entry = entry or ("flash_fwd_flat/f32" if n == 1 else "flash_fwd_bnsd/f32")
 
         def kernel():
             if n == 1:
@@ -613,6 +648,40 @@ def kernel_cases():
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
                     work={entry: (4 * b * n * sq * sk * d, _nbytes(q, k, v, q) + 4 * b * n * sq,
                                   F32_ACCURATE)})
+
+    def bnsd_bf16_case(name, b, s, n, d):
+        """K2 in bf16 at D = 64 (route "mma", csrc/flash_fwd.cu): q, k, v as
+        (B, N, S, D) views of (B, S, N*D) projections, as CogVideoX's joint
+        attention hands them over."""
+        q, k, v = (randn((b, s, n * d), torch.bfloat16) for _ in range(3))
+        qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
+        entry = "flash_fwd_bnsd/mma"
+
+        def kernel():
+            out, lse = A.flash_fwd_bnsd(qh, kh, vh)
+            return out.transpose(1, 2).flatten(2), lse
+
+        @timed_calls
+        def plain():
+            out, lse = A._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
+                                              None, None, s, d ** -0.5)
+            return out.flatten(2), lse
+
+        def run():
+            (out, lse), (ref_out, ref_lse) = kernel(), plain()
+            out_max = ref_out.float().abs().max().item()
+            out_err = err(out, ref_out)
+            out_bound = min(BF16_OUT_BOUND, BF16_OUT_REL * out_max)
+            log(f"[fwd] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} (the "
+                f"smaller of {BF16_OUT_BOUND} and {BF16_OUT_REL} of the largest |out| "
+                f"{out_max:.3e})")
+            return {entry: worst((out_err, out_bound), (err(lse, ref_lse), BF16_LSE_BOUND))}
+
+        return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
+                    kernels={entry: kernel}, plain=plain,
+                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                    work={entry: (4 * b * n * s * s * d, _nbytes(q, k, v, q) + 4 * b * n * s,
+                                  PEAK_BF16)})
 
     def bwd_case(name, b, sq, sk, n, d, grid=None, kv_len=None):
         """One backward at the route the autograd function picks for it. With
@@ -873,6 +942,20 @@ def kernel_cases():
     yield f32_case("sd3_joint_attn_d64", 2, 4250, 4250, 24, 64)
     yield f32_case("kolors_unet_cross_attn_d64", 2, 4096, 256, 10, 64)
     yield f32_case("kolors_unet_cross_attn_d64_n20", 2, 1024, 256, 20, 64)
+    # phase 11's shapes: Hunyuan-DiT at 1024 x 1024 (16 heads of 88, f32,
+    # K2's entry, route f32 at D = 88: self-attention over 64 x 64 tokens and
+    # cross-attention over 77 + 256 text tokens, B2); CogVideoX-5B at 480 x
+    # 720 x 49 (226 text + 13 x 30 x 45 video tokens, 48 heads of 64, bf16,
+    # batched CFG B2: K2's route "mma"); HunyuanVideo's two attention groups
+    # at its default 720 x 1280 x 129 (33 x 45 x 80 image tokens + 71 text,
+    # and the last 185 text tokens; 24 heads of 128, bf16, K1 sm90)
+    yield f32_case("hunyuan_dit_self_attn_d88", 2, 4096, 4096, 16, 88,
+                   entry="flash_fwd_bnsd/f32/88")
+    yield f32_case("hunyuan_dit_cross_attn_d88", 2, 4096, 333, 16, 88,
+                   entry="flash_fwd_bnsd/f32/88")
+    yield bnsd_bf16_case("cogvideox_joint_attn_d64", 2, 17776, 48, 64)
+    yield fwd_case("hunyuan_video_group_a", 1, 118871, 118871, 24, 128)
+    yield fwd_case("hunyuan_video_group_b", 1, 185, 185, 24, 128)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -1088,6 +1171,10 @@ def kernel_cases():
 
 
 PLAIN_ONE_CALL_MS = 1000.0
+# a comparison call this long is its own time: what a first call costs more
+# (allocations, library setup; up to 13x a short call's time) is a few
+# milliseconds against seconds (HunyuanVideo's group A at S118871, ~9 s)
+PLAIN_TIMED_ONCE_MS = 5000.0
 
 
 def phase_kernels(card: str):
@@ -1100,10 +1187,13 @@ def phase_kernels(card: str):
             raise RuntimeError(f"{case['case']}: the comparison ran the plain version "
                                f"{len(plain.times)} times, not once")
         # after that warm-up call, the median of 2 calls, or one call where
-        # the warm-up took over PLAIN_ONE_CALL_MS (the 81-frame shapes)
-        for _ in range(1 if plain.times[0] > PLAIN_ONE_CALL_MS else 2):
+        # the warm-up took over PLAIN_ONE_CALL_MS (the 81-frame shapes), or
+        # the comparison's own call where it took over PLAIN_TIMED_ONCE_MS
+        first = plain.times[0]
+        extra = 0 if first > PLAIN_TIMED_ONCE_MS else 1 if first > PLAIN_ONE_CALL_MS else 2
+        for _ in range(extra):
             plain()
-        plain_ms = statistics.median(plain.times[1:])
+        plain_ms = statistics.median(plain.times[1:] if extra else plain.times)
         library_ms = None if case["library"] is None else median_ms(case["library"], 5)
         # the backward cases' library call is SDPA's backward alone; its
         # forward + backward is printed beside it, as earlier runs timed it
@@ -3306,7 +3396,8 @@ def phase_training():
     if not (totals[-1] > 0 and all(b >= a for a, b in zip(totals, totals[1:]))):
         raise RuntimeError(f"the error buffers did not grow: {totals}")
     if min(n for k, n in launches.items()
-           if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32 + PARALLEL_KERNELS) <= 0:
+           if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32 + PARALLEL_KERNELS
+           + ZOO_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -4330,8 +4421,8 @@ def phase_parallel_drivers(root: Path, common: list, data: dict, card: str) -> N
 # text) and SDVideoPipelineRunner
 # ---------------------------------------------------------------------------
 
-SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 16, 3, 0.9
-SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 16, 8, 0.5, 1.3, 1
+SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 8, 3, 0.9
+SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 8, 8, 0.5, 1.3, 1
 SD_PROMPT = "a watercolor painting of a city street at dusk, soft light"
 SD_FILES = {"sd_unet": "sd15_unet.safetensors", "sd_text_encoder": "sd15_text_encoder.safetensors",
             "sd_vae_encoder": "sd15_vae_encoder.safetensors",
@@ -4594,8 +4685,8 @@ def phase_sd_full_forward(paths: dict, card: str) -> None:
 
 def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
     """(d) SDVideoPipelineRunner.run, the way users start a Diffutoon-style
-    render: a seeded 16-frame 512x512 .npy video (one 16-frame window;
-    8a blends windows of 2), the tile ControlNet on the same frames at
+    render: a seeded 8-frame 512x512 .npy video (one 8-frame window, cut
+    from 16 to make room for phase 11; 8a blends windows of 2), the tile ControlNet on the same frames at
     scale 0.5, 3 steps at strength 0.9, CFG 7.5, a Contrast smoother after
     step 1; frames,
     video.npy and config.json written. Returns the launches per entry."""
@@ -4712,7 +4803,7 @@ def phase_sd(card: str) -> dict:
 # phase 9: the extensions and the SDXL family
 # ---------------------------------------------------------------------------
 
-XL_H, XL_W, XL_FRAMES, XL_STEPS = 1024, 1024, 16, 2  # AnimateDiff-SDXL's setting, 2 steps
+XL_H, XL_W, XL_FRAMES, XL_STEPS = 1024, 1024, 8, 2  # AnimateDiff-SDXL's setting cut to 8 frames, 2 steps
 XL_CN_SCALE, XL_IP_SCALE, XL_CFG = 0.5, 0.6, 7.5
 XL_FASTBLEND_FRAMES, XL_ESRGAN_FRAMES, XL_SCORE_FRAMES = 3, 2, 2
 XL_UNET_PARAMS = 2_567_463_684  # SDXL base 1.0's UNet
@@ -5067,7 +5158,8 @@ def fastblend_op_times(card: str) -> None:
 
 def phase_xl_video(paths: dict, card: str) -> dict:
     """(d) SDXLVideoPipeline.from_model_manager on (b)'s files at 1024x1024,
-    16 frames (AnimateDiff-SDXL's published setting), 2 steps, CFG 7.5, a
+    8 frames (AnimateDiff-SDXL's published setting is 16: cut to make room
+    for phase 11), 2 steps, CFG 7.5, a
     tile ControlNet Union unit at 0.5 on a seeded video, an IP-Adapter image
     at 0.6; then RIFE over its frames, FastBlend (its default ebsynth
     config) over its first frames guided by the control video, ESRGAN on 2
@@ -5184,7 +5276,7 @@ def phase_xl_video(paths: dict, card: str) -> dict:
 def phase_xl(card: str) -> dict:
     """Phase 9: (a) the small SDXL pipelines and extensions card vs CPU, (b)
     full-width files, (c) one full-width UNet + ControlNet + motion forward
-    card vs CPU, (d) the SDXL video pipeline at 1024x1024x16 with the
+    card vs CPU, (d) the SDXL video pipeline at 1024x1024x8 with the
     extensions after it. Returns (d)'s launches per KERNELS entry."""
     import shutil
     import tempfile
@@ -5640,6 +5732,531 @@ def phase_families(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX
+# ---------------------------------------------------------------------------
+
+ZOO_FAMILIES = ("svd", "hunyuan_dit", "hunyuan_video", "cog")
+ZOO_STEPS = 2
+# (d)'s sizes: SVD-XT's 25 frames at 576 x 1024, Hunyuan-DiT at 1024 x 1024,
+# HunyuanVideo at 544 x 960 x 33 frames (its default is 720 x 1280 x 129:
+# phase 3 times one attention at that size), CogVideoX-5B at 480 x 720 x 49
+ZOO_SIZES = {"svd": dict(height=576, width=1024, num_frames=25),
+             "hunyuan_dit": dict(height=1024, width=1024),
+             "hunyuan_video": dict(height=544, width=960, num_frames=33),
+             "cog": dict(height=480, width=720, num_frames=49)}
+ZOO_FILES = {
+    "svd": {"unet": "svd_xt_unet.safetensors", "vae_decoder": "svd_vae_decoder.safetensors",
+            "vae_encoder": "sd_vae_encoder.safetensors",
+            "image_encoder": "clip_vit_h_image_encoder.safetensors"},
+    "hunyuan_dit": {"dit": "hunyuan_dit.safetensors",
+                    "vae_decoder": "sdxl_vae_decoder.safetensors"},
+    "hunyuan_video": {"dit": "hunyuan_video_dit.safetensors",
+                      "vae_decoder": "hunyuan_video_vae_decoder.safetensors",
+                      "clip": "clip_l.safetensors"},
+    "cog": {"dit": "cogvideox_5b_dit.safetensors",
+            "vae_decoder": "cogvideox_vae_decoder.safetensors",
+            "t5": "t5xxl_2_layers.safetensors"},
+}
+ZOO_DTYPE = {"svd": torch.float32, "hunyuan_dit": torch.float32,
+             "hunyuan_video": torch.bfloat16, "cog": torch.bfloat16}
+ZOO_PROMPT = "a red fox running through fresh snow in a birch forest at sunrise, cinematic"
+ZOO_PROMPT_ZH = "一只红狐狸在日出时的白桦林雪地里奔跑，电影感，细节丰富"
+# Card against CPU (written before the first card run): the tiny f32
+# pipelines at 1e-4 of the decoded video's scale and frames within one level
+# (as phase 10a); the full-width forwards at a cut depth in f32 at 1e-3 of
+# the output's scale (as phase 10c); HunyuanVideo's and CogVideoX's in bf16
+# on the card against the CPU's f32 at 5e-2 (bf16 weights and activations,
+# 2^-8 a rounding, over two blocks' sums, as FLUX's in phase 10c)
+ZOO_SMALL_REL, ZOO_FULL_REL, ZOO_BF16_REL, ZOO_LEVELS = 1e-4, 1e-3, 5e-2, 1
+ZOO_CUT = {"svd": "the UNet whole", "hunyuan_dit": "3 of 21 down blocks and the last of 19 up",
+           "hunyuan_video": "1 of 20 double and 1 of 40 single blocks",
+           "cog": "2 of 42 blocks"}  # (c)'s depths
+
+
+def _video_fixtures():
+    """tests/torch_video_fixtures.py (narrow configurations; no JAX)."""
+    _sd_fixtures()
+    import torch_video_fixtures
+
+    return torch_video_fixtures
+
+
+class TableEncoder:
+    """A seeded embedding table standing in for a text encoder the
+    repository does not hold (Hunyuan-DiT's BERT and mT5, HunyuanVideo's
+    LLM): ids -> states, zero where the mask is 0, on the table's device."""
+
+    def __init__(self, vocab, dim, seed, device="cpu", dtype=torch.float32):
+        g = torch.Generator(device=device).manual_seed(seed)
+        self.table = torch.randn((vocab, dim), generator=g, device=device).to(dtype) * 0.3
+
+    def __call__(self, ids, mask, clip_skip=1, pixel_values=None):
+        ids = torch.as_tensor(np.asarray(ids)).to(self.table.device).long()
+        mask = torch.as_tensor(np.asarray(mask)).to(self.table.device)
+        return self.table[ids % self.table.shape[0]] * mask[..., None].to(self.table.dtype)
+
+
+def _hyv_text_encoder(prompter):
+    """The pipeline's callable: prompt -> (prompt_emb, text_mask, pooled)."""
+    def encode(prompt):
+        emb, pooled, mask = prompter.encode_prompt(prompt)
+        return emb, mask, pooled
+    return encode
+
+
+def zoo_small_pipelines(device, vfx, fx):
+    """The four tiny pipelines on `device`, f32, each with its decoded
+    output captured: {family: (pipeline, kwargs, captured list)}."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, ipadapter, sd, svd, t5
+    from svi_tpu_torch.pipelines import cog_video, hunyuan_image, svd_video
+    from svi_tpu_torch.pipelines import hunyuan_video as hyv_pipe
+    from svi_tpu_torch.prompters.hunyuan_dit_prompter import HunyuanDiTPrompter
+    from svi_tpu_torch.prompters.hunyuan_video_prompter import HunyuanVideoPrompter
+    from svi_tpu_torch.prompters.sp_tokenizer import default_t5_tokenizer
+
+    out, kw = {}, dict(device=device)
+    s = vfx.svd_state_dicts(81)
+    pipe = svd_video.SVDVideoPipeline(
+        svd.svd_unet_params_from_torch(s["unet"], **kw),
+        ipadapter.clip_image_encoder_params_from_torch(s["image_encoder"], **kw),
+        sd.sd_vae_encoder_params_from_torch(s["vae_encoder"], **kw),
+        svd.svd_vae_decoder_params_from_torch(s["vae_decoder"], **kw))
+    image = vfx.frames(2, 64, 64, seed=82)
+    out["svd"] = (pipe, dict(input_image=image[0], mask_frames=[image[1]], mask_frame_ids=[2],
+                             num_frames=3, height=64, width=64, num_inference_steps=2, seed=3),
+                  "svd_vae_decode", svd)
+    s = vfx.hunyuan_dit_state_dicts(83) | {"dit": hunyuan_dit.hunyuan_dit_state_dict(
+        84, **(vfx.HY_DIT | dict(dim=2 * 88)))}
+    d = vfx.HY_DIT
+    prompter = HunyuanDiTPrompter(TableEncoder(50000, d["text_dim"], 1), None,
+                                  TableEncoder(32128, d["t5_dim"], 2), default_t5_tokenizer())
+    pipe = hunyuan_image.HunyuanDiTImagePipeline(
+        hunyuan_dit.hunyuan_dit_params_from_torch(s["dit"], **kw), prompter,
+        vae_decoder_params=sd.sd_vae_decoder_params_from_torch(s["vae_decoder"], **kw),
+        num_layers_down=vfx.HY_DOWN)
+    out["hunyuan_dit"] = (pipe, dict(prompt=ZOO_PROMPT_ZH, negative_prompt="模糊", cfg_scale=5.0,
+                                     height=64, width=64, num_inference_steps=2, seed=5),
+                          "sdxl_vae_decode", hunyuan_image.sdxl)
+    s = vfx.hunyuan_video_state_dicts(85)
+    s["dit"] = hunyuan_video.hunyuan_video_dit_state_dict(
+        86, dtype=torch.float32, **(vfx.HYV_DIT | dict(dim=128)))
+    prompter = HunyuanVideoPrompter(None, default_t5_tokenizer(),
+                                    sd.sd_text_encoder_params_from_torch(s["clip"], **kw),
+                                    TableEncoder(32128, vfx.HYV_DIT["text_dim"], 3))
+    pipe = hyv_pipe.HunyuanVideoPipeline(
+        hunyuan_video.hunyuan_video_dit_params_from_torch(s["dit"], dtype=torch.float32, **kw),
+        _hyv_text_encoder(prompter), vae_decoder_params=hunyuan_video.
+        hunyuan_video_vae_decoder_params_from_torch(s["vae_decoder"], **kw), dtype=torch.float32)
+    out["hunyuan_video"] = (pipe, dict(prompt=ZOO_PROMPT, negative_prompt="blurry", cfg_scale=2.0,
+                                       height=64, width=96, num_frames=9, num_inference_steps=2,
+                                       seed=7), "hunyuan_video_vae_decode", hunyuan_video)
+    s = vfx.cog_state_dicts(87)
+    cfg = fx.tiny_t5_config(vfx.COG_DIT["text_dim"])
+    t5m = t5.params_from_torch_state_dict(
+        t5.torch_state_dict_from_params(t5.init_params(cfg, 88, device="cpu")), cfg, **kw)
+    pipe = cog_video.CogVideoPipeline(
+        cog.cog_dit_params_from_torch(s["dit"], dtype=torch.float32, **kw), (t5m, cfg, None),
+        cog.cog_vae_encoder_params_from_torch(s["vae_encoder"], **kw),
+        cog.cog_vae_decoder_params_from_torch(s["vae_decoder"], **kw), dtype=torch.float32)
+    out["cog"] = (pipe, dict(prompt=ZOO_PROMPT, negative_prompt="blurry", cfg_scale=6.0,
+                             num_frames=9, height=64, width=96, num_inference_steps=2, seed=9,
+                             input_video=list(vfx.frames(9, 64, 96, seed=89)),
+                             denoising_strength=0.8), "cog_vae_decode_video", cog)
+    return out
+
+
+def phase_zoo_small(card: str) -> None:
+    """(a) The tiny pipelines (tests/torch_video_fixtures.py's narrow
+    configurations, f32) card against CPU: SVD (3 frames at 64 x 64, a mask
+    frame), Hunyuan-DiT (2 heads of 88, so the card runs its D = 88 route;
+    CFG 5 over the vendored BERT and T5 tokenizers with seeded encoder
+    tables), HunyuanVideo (one head of 128; true CFG 2, 9 frames at 64 x 96,
+    the prompter with a seeded LLM table), CogVideoX (2 heads of 64;
+    video-to-video at strength 0.8, batched CFG 6, 9 frames at 64 x 96)."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd
+
+    vfx, fx = _video_fixtures(), _sd_fixtures()
+    sets = [(sd, "SD_VAE_ENCODER_PLAN", fx.VAE_ENCODER_PLAN),
+            (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN),
+            (hunyuan_dit, "NUM_HEADS", 2), (hunyuan_video, "NUM_HEADS", 1),
+            (cog, "_cog_block", functools.partial(cog._cog_block, num_heads=vfx.COG_HEADS)),
+            (cog, "COG_VAE_ENCODER_PLAN", vfx.COG_VAE_ENCODER_PLAN),
+            (cog, "COG_VAE_DECODER_PLAN", vfx.COG_VAE_DECODER_PLAN)]
+    from svi_tpu_torch.models import svd
+    sets += [(svd, "SVD_UNET_PLAN", vfx.SVD_UNET_PLAN),
+             (svd, "SVD_VAE_DECODER_PLAN", vfx.SVD_VAE_DECODER_PLAN)]
+    res = {}
+    with patched(sets):
+        for device in ("cuda", "cpu"):
+            got, frames, secs, launches = {}, {}, {}, {}
+            for fam, (pipe, kw, attr, mod) in zoo_small_pipelines(device, vfx, fx).items():
+                store = got.setdefault(fam, [])
+                fn = getattr(mod, attr)
+                zero_counts()
+                t0 = time.perf_counter()
+                with patched([(mod, attr, lambda *a, _fn=fn, _s=store, **k: (
+                        lambda y: (_s.append(y.float().cpu()), y)[1])(_fn(*a, **k)))]):
+                    res_frames = pipe(**kw)
+                frames[fam] = res_frames if isinstance(res_frames, list) else [res_frames]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    launches[fam] = sd_launches()
+                secs[fam] = time.perf_counter() - t0
+            res[device] = (got, frames, secs, launches)
+    (gc_, fc, sc, lc), (gh, fh, sh, _) = res["cuda"], res["cpu"]
+    rels = {k: max(_rel(a, b) for a, b in zip(gc_[k], gh[k])) for k in gc_}
+    levels = {k: _levels(fc[k], fh[k]) for k in fc}
+    log(f"[zoo-small] card vs CPU, decoded videos { {k: f'{v:.3e}' for k, v in rels.items()} } "
+        f"(bound {ZOO_SMALL_REL}); frames {levels} levels (bound {ZOO_LEVELS}); seconds card "
+        f"{ {k: round(v, 2) for k, v in sc.items()} }, CPU "
+        f"{ {k: round(v, 2) for k, v in sh.items()} }; "
+        f"launches {lc}; {card}")
+    if max(rels.values()) > ZOO_SMALL_REL or max(levels.values()) > ZOO_LEVELS:
+        raise RuntimeError("the small SVD / Hunyuan-DiT / HunyuanVideo / CogVideoX pipelines on "
+                           "the card disagree with the CPU")
+    for fam, launch in lc.items():
+        routes = {k for entry in launch.values() for k in entry}
+        if not routes or any(not k.startswith("f32/") for k in routes):
+            raise RuntimeError(f"the small {fam} pipeline launched {launch}")
+    if "f32/float32/88" not in lc["hunyuan_dit"]["flash_fwd_bnsd"]:
+        raise RuntimeError(f"the small Hunyuan-DiT pipeline did not run the D88 route: {lc}")
+
+
+def write_zoo_checkpoints(family: str, root: Path, card: str) -> dict:
+    """(b) One family's seeded files at the published widths in the
+    reference's names: SVD-XT's UNet, its temporal VAE decoder, SD's VAE
+    encoder and CLIP ViT-H's image tower (f16); Hunyuan-DiT's DiT and the
+    SDXL VAE decoder (f16); HunyuanVideo's 13B DiT (bf16), its causal VAE
+    decoder and CLIP-L (f16); CogVideoX-5B's DiT and VAE decoder (bf16) with
+    T5-XXL at 2 of its 24 layers (bf16)."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, ipadapter, sd, svd, t5
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def t5_xxl(seed, device, dtype):
+        cfg = t5.T5Config(vocab=32128, num_layers=2, dtype=dtype)
+        return t5.torch_state_dict_from_params(t5.init_params(cfg, seed, device=device))
+
+    makers = {
+        "svd": {"unet": (svd.svd_unet_state_dict, f16),
+                "vae_decoder": (svd.svd_vae_decoder_state_dict, f16),
+                "vae_encoder": (sd.sd_vae_encoder_state_dict, f16),
+                "image_encoder": (ipadapter.clip_image_encoder_state_dict, f16)},
+        "hunyuan_dit": {"dit": (hunyuan_dit.hunyuan_dit_state_dict, f16),
+                        "vae_decoder": (sd.sd_vae_decoder_state_dict, f16)},
+        "hunyuan_video": {"dit": (hunyuan_video.hunyuan_video_dit_state_dict, bf16),
+                          "vae_decoder": (hunyuan_video.hunyuan_video_vae_decoder_state_dict, f16),
+                          "clip": (sd.sd_text_encoder_state_dict, f16)},
+        "cog": {"dit": (cog.cog_dit_state_dict, bf16),
+                "vae_decoder": (cog.cog_vae_decoder_state_dict, bf16), "t5": (t5_xxl, bf16)},
+    }[family]
+    t0 = time.perf_counter()
+    paths, sizes, params = {}, {}, {}
+    for i, (kind, (make, dtype)) in enumerate(makers.items()):
+        state = make(seed=201 + i, device="cuda", dtype=dtype)
+        params[kind] = sum(t.numel() for t in state.values())
+        paths[kind] = str(root / ZOO_FILES[family][kind])
+        sizes[kind] = save_file(state, paths[kind])
+        del state
+        torch.cuda.empty_cache()
+    log(f"[{family}-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} "
+        f"parameters; {sum(sizes.values()) / 1e9:.3f} GB written in "
+        f"{time.perf_counter() - t0:.2f}s; {card}")
+    return paths
+
+
+def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
+    """(c) One forward of the family's full-width model at a cut depth, card
+    against CPU (f32), and for the bf16 families also in bf16 on the card:
+    the SVD UNet whole on 2 frames of 8 x 8 latents; Hunyuan-DiT's first 3
+    down blocks and last up block on 2 x 32 x 32 latents; HunyuanVideo's
+    first double and single block on 2 x 8 x 8 latents; CogVideoX's first and
+    last block on B2 x 2 x 8 x 8 latents over 226 tokens. The timesteps and
+    the guidance (x 1000, scaled in its dtype as svi_tpu does) are exact in
+    bf16, so that bf16 and f32 embed the same values."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, svd
+
+    g = torch.Generator().manual_seed(17)
+    if family == "svd":
+        sd_ = ld["unet"]
+        args = (torch.randn((2, 8, 8, 8), generator=g) * 0.5, torch.tensor([0.6]),
+                torch.randn((1, 1, 1024), generator=g) * 0.3, torch.tensor([6.0, 127.0, 0.02]))
+
+        def run(device, dtype):
+            m = svd.svd_unet_params_from_torch(sd_, device=device, dtype=dtype)
+            return {"unet": svd.svd_unet_forward(m, *(a.to(device, dtype) for a in args))}
+    elif family == "hunyuan_dit":
+        sd_ = _cut(ld["dit"], {"blocks.": [0, 1, 2, 39]})
+        mask = torch.ones((2, 77), dtype=torch.long)
+        mask[:, 30:] = 0
+        mask_t5 = torch.ones((2, 256), dtype=torch.long)
+        mask_t5[:, 90:] = 0
+        args = (torch.randn((2, 4, 32, 32), generator=g), torch.randn((2, 77, 1024), generator=g)
+                * 0.3, torch.randn((2, 256, 2048), generator=g) * 0.3)
+        freqs = hunyuan_dit.calc_rope(256, 256)
+
+        def run(device, dtype):
+            m = hunyuan_dit.hunyuan_dit_params_from_torch(sd_, device=device, dtype=dtype)
+            return {"dit": hunyuan_dit.hunyuan_dit_forward(
+                m, *(a.to(device, dtype) for a in args), mask.to(device), mask_t5.to(device),
+                torch.tensor([391.0], device=device), torch.tensor(
+                    [[256.0, 256, 256, 256, 0, 0]] * 2, device=device), freqs,
+                num_layers_down=3)}
+    elif family == "hunyuan_video":
+        sd_ = _cut(ld["dit"], {"double_blocks.": [0], "single_blocks.": [0]})
+        mask = torch.ones((1, 256), dtype=torch.long)
+        mask[:, 60:] = 0
+        args = (torch.randn((1, 16, 2, 8, 8), generator=g) * 0.5,
+                torch.randn((1, 256, 4096), generator=g) * 0.1,
+                torch.randn((1, 768), generator=g) * 0.1)
+
+        def run(device, dtype):
+            m = hunyuan_video.hunyuan_video_dit_params_from_torch(sd_, device=device, dtype=dtype)
+            x, emb, pooled = (a.to(device, dtype) for a in args)
+            return {"dit": hunyuan_video.hunyuan_video_dit_forward(
+                m, x, torch.tensor([896.0], device=device, dtype=dtype), emb, mask.to(device),
+                pooled, guidance=torch.tensor([4.0], device=device, dtype=dtype))}
+    else:
+        sd_ = _cut(ld["dit"], {"blocks.": [0, 41]})
+        args = (torch.randn((2, 16, 2, 8, 8), generator=g) * 0.5,
+                torch.randn((2, 226, 4096), generator=g) * 0.1)
+
+        def run(device, dtype):
+            m = cog.cog_dit_params_from_torch(sd_, device=device, dtype=dtype)
+            x, emb = (a.to(device, dtype) for a in args)
+            return {"dit": cog.cog_dit_forward(m, x, torch.tensor([496.0, 496.0], device=device,
+                                                                  dtype=dtype), emb)}
+    outs, secs = {}, {}
+    runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+    if ZOO_DTYPE[family] == torch.bfloat16:
+        runs.insert(1, ("cuda", torch.bfloat16))
+    for device, dtype in runs:
+        with torch.inference_mode():
+            if device == "cuda":
+                zero_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[(device, dtype)] = {k: v.float().cpu() for k, v in run(device, dtype).items()}
+            secs[(device, str(dtype)[6:])] = time.perf_counter() - t0
+            if device == "cuda":
+                launches = sd_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = outs[("cpu", torch.float32)]
+    rel = {k: _rel(outs[("cuda", torch.float32)][k], ref[k]) for k in ref}
+    bf16 = ({k: _rel(outs[("cuda", torch.bfloat16)][k], ref[k]) for k in ref}
+            if ("cuda", torch.bfloat16) in outs else {})
+    log(f"[{family}-forward] full width, {ZOO_CUT[family]}: card f32 vs CPU f32 "
+        f"{ {k: f'{v:.3e}' for k, v in rel.items()} } (bound {ZOO_FULL_REL})"
+        + (f", card bf16 vs CPU f32 { {k: f'{v:.3e}' for k, v in bf16.items()} } (bound "
+           f"{ZOO_BF16_REL})" if bf16 else "")
+        + f"; seconds (loads included) {secs}; launches of the last card run {launches}; {card}")
+    if max(rel.values()) > ZOO_FULL_REL or (bf16 and max(bf16.values()) > ZOO_BF16_REL):
+        raise RuntimeError(f"the full-width {family} forward on the card disagrees with the CPU")
+
+
+def zoo_expected_launches(family: str, pipe) -> dict:
+    """Phase 11d's attention launches per (route, dtype, head dim), from the
+    pipeline's models: the SVD UNet's spatial transformers (self and image
+    cross-attention, 5 / 10 / 20 heads of 64: K2 f32) on each of the two CFG
+    passes a step, the SD VAE encoder's and the temporal decoder's
+    mid-blocks once (K1 f32 D512; the temporal attention and CLIP's are
+    plain); Hunyuan-DiT's 40 blocks x 2 attentions on each of the two CFG
+    passes (K2 f32 D88), the SDXL VAE's mid-block (K1 f32 D512);
+    HunyuanVideo's 20 + 40 blocks x 2 groups a step (K1 sm90; the VAE's
+    frame-causal attention and the token refiner are plain); CogVideoX's 42
+    blocks a step (batched CFG, K2 "mma"). Keys as `flash_attention` routes
+    them: the flat entry for one head or D % 128 == 0, else (B, N, S, D)."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd, svd
+    from svi_tpu_torch.ops import attention as A
+
+    want = {"flash_fwd_bnsd": {}, "flash_fwd_flat": {}}
+
+    def add(n, d, dtype, count):
+        entry = "flash_fwd_flat" if A._flat_ok(n, d) else "flash_fwd_bnsd"
+        key = f"{A._fwd_route(dtype, d)}/{str(dtype).removeprefix('torch.')}/{d}"
+        want[entry][key] = want[entry].get(key, 0) + count
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    if family == "svd":
+        for desc in svd.SVD_UNET_PLAN:
+            if desc[0] == "attn":
+                add(desc[1], desc[2], f32, 2 * 2 * ZOO_STEPS)
+        for plan in (sd.SD_VAE_ENCODER_PLAN, svd.SVD_VAE_DECODER_PLAN):
+            for desc in plan:
+                if desc[0] == "vae_attn":
+                    add(1, desc[1], f32, 1)
+    elif family == "hunyuan_dit":
+        blocks = pipe.dit_params["blocks"]
+        n = hunyuan_dit.NUM_HEADS
+        add(n, blocks[0]["attn1"]["to_q"]["w"].shape[0] // n, f32, len(blocks) * 2 * 2 * ZOO_STEPS)
+        add(1, next(d[1] for d in sd.SD_VAE_DECODER_PLAN if d[0] == "vae_attn"), f32, 1)
+    elif family == "hunyuan_video":
+        m = pipe.dit_params
+        n = hunyuan_video.NUM_HEADS
+        add(n, m["final_layer"]["linear"]["w"].shape[1] // n, bf16,
+            (len(m["double_blocks"]) + len(m["single_blocks"])) * 2 * ZOO_STEPS)
+    else:
+        m = pipe.dit_params
+        dim = m["blocks"][0]["attn1"]["to_q"]["w"].shape[0]
+        add(dim // cog.HEAD_DIM, cog.HEAD_DIM, bf16, len(m["blocks"]) * ZOO_STEPS)
+    return want
+
+
+def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
+    """(d) The family's pipeline at full width, ZOO_SIZES, 2 steps, on (b)'s
+    files through the port's converters: SVDVideoPipeline (CFG 1 -> 3 per
+    frame), HunyuanDiTImagePipeline (CFG 6, seeded BERT / mT5 tables over the
+    vendored tokenizers), HunyuanVideoPipeline (embedded guidance 6, the
+    prompter with CLIP-L and a seeded LLM table), CogVideoPipeline (batched
+    CFG 6, T5-XXL at 2 layers). Seconds per step, peak memory, and the
+    attention launches against the models' count. Returns the launches per
+    KERNELS entry."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, ipadapter, sd, svd, t5
+    from svi_tpu_torch.pipelines import cog_video, hunyuan_image, svd_video
+    from svi_tpu_torch.pipelines import hunyuan_video as hyv_pipe
+    from svi_tpu_torch.prompters.hunyuan_dit_prompter import HunyuanDiTPrompter
+    from svi_tpu_torch.prompters.hunyuan_video_prompter import HunyuanVideoPrompter
+    from svi_tpu_torch.prompters.sp_tokenizer import default_t5_tokenizer
+    from svi_tpu_torch.schedulers import continuous_ode, ddim, flow_match
+
+    timer = PhaseTimer()
+    dev, dt = "cuda", ZOO_DTYPE[family]
+    t0 = time.perf_counter()
+    if family == "svd":
+        pipe = svd_video.SVDVideoPipeline(
+            svd.svd_unet_params_from_torch(ld["unet"], device=dev),
+            ipadapter.clip_image_encoder_params_from_torch(ld["image_encoder"], device=dev),
+            sd.sd_vae_encoder_params_from_torch(ld["vae_encoder"], device=dev),
+            svd.svd_vae_decoder_params_from_torch(ld["vae_decoder"], device=dev))
+        sets = [(svd, "svd_unet_forward", timer.wrap("unet", svd.svd_unet_forward)),
+                (svd, "svd_vae_decode", timer.wrap("vae_decode", svd.svd_vae_decode))]
+        image = sd_frames(1, ZOO_SIZES["svd"]["height"], ZOO_SIZES["svd"]["width"], seed=91)[0]
+        kw = dict(input_image=image, max_cfg_scale=3.0)
+        step_cls = continuous_ode.ContinuousODEScheduler
+    elif family == "hunyuan_dit":
+        prompter = HunyuanDiTPrompter(TableEncoder(47020, 1024, 11), None,
+                                      TableEncoder(32128, 2048, 12), default_t5_tokenizer())
+        pipe = hunyuan_image.HunyuanDiTImagePipeline(
+            hunyuan_dit.hunyuan_dit_params_from_torch(ld["dit"], device=dev), prompter,
+            vae_decoder_params=sd.sd_vae_decoder_params_from_torch(ld["vae_decoder"], device=dev))
+        sets = [(hunyuan_dit, "hunyuan_dit_forward",
+                 timer.wrap("dit", hunyuan_dit.hunyuan_dit_forward)),
+                (hunyuan_image.sdxl, "sdxl_vae_decode",
+                 timer.wrap("vae_decode", hunyuan_image.sdxl.sdxl_vae_decode))]
+        kw = dict(prompt=ZOO_PROMPT_ZH, negative_prompt="模糊，低质量", cfg_scale=6.0)
+        step_cls = ddim.EnhancedDDIMScheduler
+    elif family == "hunyuan_video":
+        prompter = HunyuanVideoPrompter(
+            None, default_t5_tokenizer(), sd.sd_text_encoder_params_from_torch(ld["clip"],
+                                                                              device=dev),
+            TableEncoder(32128, 4096, 13, device=dev, dtype=torch.bfloat16))
+        pipe = hyv_pipe.HunyuanVideoPipeline(
+            hunyuan_video.hunyuan_video_dit_params_from_torch(ld["dit"], device=dev),
+            _hyv_text_encoder(prompter), vae_decoder_params=hunyuan_video.
+            hunyuan_video_vae_decoder_params_from_torch(ld["vae_decoder"], device=dev))
+        sets = [(hunyuan_video, "hunyuan_video_dit_forward",
+                 timer.wrap("dit", hunyuan_video.hunyuan_video_dit_forward)),
+                (hunyuan_video, "hunyuan_video_vae_decode",
+                 timer.wrap("vae_decode", hunyuan_video.hunyuan_video_vae_decode))]
+        kw = dict(prompt=ZOO_PROMPT, embedded_guidance=6.0)
+        step_cls = flow_match.FlowMatchScheduler
+    else:
+        t5_sd = ld.pop("t5")
+        t5m = t5.params_from_torch_state_dict(t5_sd, t5.config_from_state_dict(t5_sd), device=dev)
+        pipe = cog_video.CogVideoPipeline(
+            cog.cog_dit_params_from_torch(ld["dit"], device=dev), (t5m, t5m.cfg, None),
+            vae_decoder_params=cog.cog_vae_decoder_params_from_torch(ld["vae_decoder"],
+                                                                     device=dev, dtype=dt))
+        sets = [(cog, "cog_dit_forward", timer.wrap("dit", cog.cog_dit_forward)),
+                (cog, "cog_vae_decode_video", timer.wrap("vae_decode", cog.cog_vae_decode_video))]
+        kw = dict(prompt=ZOO_PROMPT, negative_prompt="blurry, low quality", cfg_scale=6.0)
+        step_cls = ddim.EnhancedDDIMScheduler
+    ld.clear()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step_marks = []
+    step = step_cls.step
+
+    def timed_step(self, *a, **k):
+        out = step(self, *a, **k)
+        torch.cuda.synchronize()
+        step_marks.append(time.perf_counter())
+        return out
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(sets + [(step_cls, "step", timed_step)]):
+        frames = pipe(num_inference_steps=ZOO_STEPS, seed=0, **ZOO_SIZES[family], **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frames = frames if isinstance(frames, list) else [frames]
+    secs = {k: sum(v) for k, v in timer.seconds.items()}
+    calls = {k: len(v) for k, v in timer.seconds.items()}
+    size = ZOO_SIZES[family]
+    log(f"[{family}-pipeline] {size}, {ZOO_STEPS} steps, {dt}: load {load_s:.2f}s, {total:.2f}s "
+        f"in all; seconds at the steps' ends {[round(x - t0, 3) for x in step_marks]}; seconds "
+        f"(calls): " + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
+        + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
+    want = zoo_expected_launches(family, pipe)
+    if launches != want:
+        raise RuntimeError(f"the {family} pipeline launched {launches}, expected {want}")
+    shape = (size["height"], size["width"], 3)
+    if (len(frames) != size.get("num_frames", 1) or frames[0].shape != shape
+            or frames[0].dtype != np.uint8 or float(np.std(frames[0])) == 0):
+        raise RuntimeError(f"the {family} output is {len(frames)} x {frames[0].shape} "
+                           f"{frames[0].dtype}, or flat")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {}
+    for name, (_, route, dim) in launch_counters().items():
+        entry = name.partition("/")[0]
+        if entry in launches and route:
+            counts[name] = sum(n for key, n in launches[entry].items()
+                               if key.split("/")[0] == route
+                               and dim in (None, int(key.split("/")[2])))
+    return counts
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 11: (a) the tiny SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX
+    pipelines card vs CPU; then, one family at a time (its files and weights
+    freed before the next), (b) seeded files at the published widths, (c)
+    one forward at a cut depth card vs CPU, (d) its pipeline at full width,
+    2 steps. Returns {family: launches per KERNELS entry}."""
+    import shutil
+    import tempfile
+
+    from svi_tpu_torch.models.model_io import load_state_dict
+
+    t0 = time.perf_counter()
+    phase_zoo_small(card)
+    log(f"[time] phase 11a: {time.perf_counter() - t0:.1f}s")
+    launches = {}
+    for family in ZOO_FAMILIES:
+        t1 = time.perf_counter()
+        root = Path(tempfile.mkdtemp(prefix=f"_{family}_ckpt_", dir=REPO))
+        try:
+            paths = write_zoo_checkpoints(family, root, card)
+            ld = {k: load_state_dict(p) for k, p in paths.items()}
+            phase_zoo_forward(family, ld, card)
+            launches[family] = phase_zoo_pipeline(family, ld, card)
+            del ld
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"[time] phase 11 {family} (b-d): {time.perf_counter() - t1:.1f}s")
+    log(f"[zoo] phase 11 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
+
+
 def main() -> int:
     if not (REPO / "svi_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository "
@@ -5738,17 +6355,25 @@ def main() -> int:
     fam_launches = phase_families(card)
     mark("phase 10")
 
+    # 11. SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX
+    zoo_launches = phase_zoo(card)
+    mark("phase 11")
+
     # 9. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
     # forward), K3's the quantized training driver's; launches_sd: phase 8's
     # runner; launches_sdxl: phase 9's SDXL video pipeline; launches_kolors,
-    # _sd3, _flux: phase 10's pipelines at 1024x1024
+    # _sd3, _flux: phase 10's pipelines at 1024x1024; launches_svd,
+    # _hunyuan_dit, _hunyuan_video, _cog: phase 11's pipelines at full width
+    # (the D = 88 and "mma" routes' launches are theirs)
     kernels = []
+    zoo_total = {e: sum(z.get(e, 0) for z in zoo_launches.values()) for e in ZOO_KERNELS}
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (par_launches if entry in PARALLEL_KERNELS
+        launches = (zoo_total if entry in ZOO_KERNELS
+                    else par_launches if entry in PARALLEL_KERNELS
                     else f32_q8_launches if entry in QUANT_F32
                     else train_q_launches if entry in QUANT_TRAIN else quant_launches
                     if entry in QUANT_KERNELS else infer_launches
@@ -5761,6 +6386,8 @@ def main() -> int:
                         "launches_sdxl": xl_launches.get(entry, 0),
                         **{f"launches_{fam}": fam_launches[fam].get(entry, 0)
                            for fam in ("kolors", "sd3", "flux")},
+                        **{f"launches_{fam}": zoo_launches[fam].get(entry, 0)
+                           for fam in ZOO_FAMILIES},
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

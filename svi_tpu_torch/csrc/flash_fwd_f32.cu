@@ -7,12 +7,13 @@
 // and svi_tpu/ops/attention.py::_fwd_kernel (K2, launched by
 // _flash_fwd_pallas: CLIP ViT-H/14, 16 heads of 80; the SD 1.5 UNet's,
 // ControlNet's and AnimateDiff's attention, 8 heads of 40, 80 or 160; the SD
-// VAE's mid-block, one head of 512, through K1). The contract is K1's and
+// VAE's mid-block, one head of 512, through K1; Hunyuan-DiT's self- and
+// cross-attention, 16 heads of 88). The contract is K1's and
 // K2's: q, k, v and out as (B, S, N, D) element strides (the last dim
 // contiguous), optional interleaved-pair RoPE from (S, D/2) f32 tables applied
 // on load, keys at or beyond min(kv_len, Sk) masked, base-e lse (B, N, Sq) f32;
 // a row whose keys are all masked gets out = 0 and lse = -1e30 + log(1e-30).
-// D is one of 32, 40, 64, 80, 128, 160, 384, 512.
+// D is one of 32, 40, 64, 80, 88, 128, 160, 384, 512.
 //
 // What bounds it on this card: the two products, 4 * Sq * Sk * D FLOP per
 // head. f32 stays f32 (TF32 is off for the VAE and CLIP), so the kernel does
@@ -41,9 +42,10 @@
 // over a k-step does not depend on the order of its terms' indices. K and V
 // tiles arrive by cp.async in a double-buffered ring, so tile j + 1 loads
 // while tile j is multiplied; rows past Sk are zero-filled by cp.async's
-// source size and masked with kv_len. K's and V's row strides (D + 8, or
-// D + 16 where D + 8 is 16 mod 32 as at D = 40, and D + 4 floats) put each
-// warp's fragment loads on distinct banks. Q is staged through shared memory
+// source size and masked with kv_len. K's and V's row strides (the first of
+// D + 8, D + 16, D + 24 that is 8 or 24 mod 32: D + 16 at D = 40 and D = 88,
+// D + 8 elsewhere; and D + 4 floats) put each warp's fragment loads on
+// distinct banks. Q is staged through shared memory
 // on its way to the registers: in the second K/V stage while tile 0 loads
 // into the first, or, where BM rows of Q outgrow one stage (D = 512), in both
 // stages before tile 0 is issued.
@@ -79,7 +81,7 @@ struct Cfg {
   static constexpr int NT = BN / 8;           // 8-key groups of a tile
   static constexpr int OT = DW / 8;           // 8-column groups of the warp's O
   // K rows: 64-bit fragment loads, no conflicts (a row stride of 8 or 24 mod 32)
-  static constexpr int LDK = D + ((D + 8) % 32 == 16 ? 16 : 8);
+  static constexpr int LDK = (D + 8) % 16 == 8 ? D + 8 : (D + 16) % 16 == 8 ? D + 16 : D + 24;
   static constexpr int LDV = D + 4;           // V rows: 32-bit fragment loads, no conflicts
   static constexpr int STAGE = BN * (LDK + LDV);  // floats of one K + V stage
   static constexpr int PART = WC > 1 ? WC * WR * NT * 128 : 0;  // partial scores
@@ -357,8 +359,9 @@ cudaError_t launch(const Params& p, long long batch, cudaStream_t st) {
 // rows x 4 slices of 128 and 16-key tiles (141 KB; Q, 32 rows of 520 floats,
 // outgrows one stage of 16 keys and is staged in both). D = 160 (the SD
 // UNet's deepest levels): 64 rows x 2 slices of 80, as D = 80 runs one (198
-// KB). D = 80 (CLIP, S257 N16): 32 rows, 144 CTAs in one wave. D = 32 / 40 /
-// 64 / 128: 64 rows. Queries of at most 16 rows (AnimateDiff's temporal
+// KB). D = 80 (CLIP, S257 N16): 32 rows, 144 CTAs in one wave. D = 88
+// (Hunyuan-DiT, B2 S4096 N16, 11 k-steps of 8): 64 rows and 64-key tiles
+// (100 KB, two CTAs an SM; 2048 CTAs). D = 32 / 40 / 64 / 128: 64 rows. Queries of at most 16 rows (AnimateDiff's temporal
 // attention: 16 frames over thousands of (pixel, head) batches) take one row
 // group and 16-key tiles at the SD head dims, so no CTA runs three empty row
 // groups beside its one.
@@ -377,6 +380,7 @@ cudaError_t dispatch(int head_dim, const Params& p, long long batch, cudaStream_
     case 40: return launch<Cfg<40, 4, 1, 64>, ROPE>(p, batch, st);
     case 64: return launch<Cfg<64, 4, 1, 64>, ROPE>(p, batch, st);
     case 80: return launch<Cfg<80, 2, 1, 64>, ROPE>(p, batch, st);
+    case 88: return launch<Cfg<88, 4, 1, 64>, ROPE>(p, batch, st);
     case 128: return launch<Cfg<128, 4, 2, 64>, ROPE>(p, batch, st);
     case 160: return launch<Cfg<160, 4, 2, 64>, ROPE>(p, batch, st);
     case 384: return launch<Cfg<384, 2, 4, 32>, ROPE>(p, batch, st);

@@ -500,7 +500,9 @@ def sd_text_encoder_params_from_torch(sd: dict, device="cuda", dtype=torch.float
 
 def jax_leaf(path: tuple, arr: np.ndarray) -> np.ndarray:
     """A JAX leaf in PyTorch's layout: conv weights HWIO -> (out, in, kh, kw),
-    linear weights (in, out) -> (out, in)."""
+    DHWIO -> (out, in, kd, kh, kw), linear weights (in, out) -> (out, in)."""
+    if path and path[-1] == "w" and arr.ndim == 5:
+        return arr.transpose(4, 3, 0, 1, 2)
     if path and path[-1] == "w" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
     if path and path[-1] == "w" and arr.ndim == 2:
@@ -548,6 +550,12 @@ class StateDictMaker:
 
     def conv(self, name, cout, cin, k=3):
         self.sd[f"{name}.weight"] = self.randn((cout, cin, k, k), (cin * k * k) ** -0.5)
+        self.sd[f"{name}.bias"] = self.randn((cout,), 0.02)
+
+    def conv3d(self, name, cout, cin, k=3):
+        """A Conv3d weight (out, in, kt, kh, kw); k an int (a cube) or a triple."""
+        k = (k,) * 3 if isinstance(k, int) else tuple(k)
+        self.sd[f"{name}.weight"] = self.randn((cout, cin) + k, (cin * k[0] * k[1] * k[2]) ** -0.5)
         self.sd[f"{name}.bias"] = self.randn((cout,), 0.02)
 
     def norm(self, name, c):

@@ -25,10 +25,10 @@ The forward entries (a layout is only strides) take the route `_fwd_route`
 names for the dtype and head dim: bf16 D = 128 (every DiT attention) runs
 csrc/flash_fwd_sm90.cu (TMA + wgmma, warp-specialised), after its RoPE
 pre-pass `rope_rotate_flat` when tables are given; f32 (the VAEs, CLIP,
-the SD 1.5 UNet, ControlNet and motion modules) runs csrc/flash_fwd_f32.cu
-(3xTF32 on the tensor cores); bf16 D = 64 runs
-csrc/flash_fwd.cu. Each entry counts its launches per (route, dtype,
-head_dim) in `.routes`. The one-pass backward (K4) launches
+the SD 1.5 UNet, ControlNet and motion modules, Hunyuan-DiT's D = 88) runs
+csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores); bf16 D = 64
+(CogVideoX's 48 heads) runs csrc/flash_fwd.cu. Each entry counts its
+launches per (route, dtype, head_dim) in `.routes`. The one-pass backward (K4) launches
 csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass;
 the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
 bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
@@ -66,7 +66,7 @@ _LOG2E = 1.4426950408889634
 # is csrc/flash_fwd_sm90.cu (TMA + wgmma, every DiT attention), 'f32'
 # csrc/flash_fwd_f32.cu (3xTF32 mma.sync), 'mma' csrc/flash_fwd.cu (mma.sync)
 _FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
-               **{(torch.float32, d): "f32" for d in (32, 40, 64, 80, 128, 160, 384, 512)}}
+               **{(torch.float32, d): "f32" for d in (32, 40, 64, 80, 88, 128, 160, 384, 512)}}
 _KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
                      for dt in (torch.bfloat16, torch.float32)}
 _REFERENCE_TILE_BYTES = 1 << 30  # bound on one f32 score tile of the plain version
@@ -186,7 +186,7 @@ def _strides12(*views) -> ctypes.Array:
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel a CUDA call at (dtype, head_dim) takes: 'sm90'
     (bf16, D = 128), 'mma' (bf16, D = 64) or 'f32' (f32, D in 32, 40, 64,
-    80, 128, 160, 384, 512; 3xTF32). Raises for any other pair: nothing
+    80, 88, 128, 160, 384, 512; 3xTF32). Raises for any other pair: nothing
     falls back."""
     if dtype not in _KERNEL_HEAD_DIMS:
         raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")

@@ -87,6 +87,14 @@ def generate_noise(shape, seed=None, dtype=torch.float32) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32).to(dtype)
 
 
+def tensor_to_frames(video) -> list[np.ndarray]:
+    """(3, T, H, W) in about [-1, 1] (a tensor on any device, or an array) ->
+    T (H, W, 3) uint8 frames (svi_tpu's returns PIL images)."""
+    arr = video.float().cpu().numpy() if isinstance(video, torch.Tensor) else np.asarray(video)
+    frames = ((np.transpose(arr, (1, 2, 3, 0)) + 1) * 127.5).clip(0, 255).astype(np.uint8)
+    return list(frames)
+
+
 def frames_from_uint8(video_u8: np.ndarray) -> list[np.ndarray]:
     """(3, T, H, W) uint8 -> list of T (H, W, 3) uint8 frames."""
     return list(np.ascontiguousarray(np.transpose(video_u8, (1, 2, 3, 0))))

@@ -14,9 +14,10 @@ spaces -> Metaspace, what SD3's and FLUX's T5 prompters use) or
 sentencepiece's own Normalize() (`fast_pipeline=False`, the reference's
 AutoTokenizer load of google/umt5-xxl, Wan's prompter); and
 `ChatGLMSpTokenizer`, the Kolors SPTokenizer interface (raw `encode`, the
-special tokens appended after the vocabulary, pad = unk). The vendored
-models are under `svi_tpu_torch/tokenizer_configs/` (`t5`, `kolors`). The
-BERT WordPiece tokenizer serves Hunyuan DiT and is not ported here.
+special tokens appended after the vocabulary, pad = unk); and
+`BertWordPieceTokenizer` (basic + WordPiece splitting on a vocab.txt, as
+transformers' BertTokenizer), Hunyuan DiT's. The vendored models are under
+`svi_tpu_torch/tokenizer_configs/` (`t5`, `kolors`, `hunyuan_dit`).
 """
 
 from __future__ import annotations
@@ -631,6 +632,116 @@ class ChatGLMSpTokenizer:
 
 
 # ---------------------------------------------------------------------------
+# BERT WordPiece (HunyuanDiT's Chinese CLIP-BERT)
+# ---------------------------------------------------------------------------
+
+class BertWordPieceTokenizer:
+    """Minimal BertTokenizer (vocab.txt + basic + WordPiece), matching
+    transformers' pure-python BertTokenizer on the Hunyuan DiT vocab
+    (tokenizer_configs/hunyuan_dit)."""
+
+    def __init__(self, vocab_path: str, do_lower_case: bool = True):
+        if os.path.isdir(vocab_path):
+            vocab_path = os.path.join(vocab_path, "vocab.txt")
+        self.vocab = {}
+        with open(vocab_path, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                self.vocab[line.rstrip("\n")] = i
+        self.do_lower_case = do_lower_case
+        for name in ("[PAD]", "[UNK]", "[CLS]", "[SEP]"):
+            setattr(self, name[1:-1].lower() + "_id", self.vocab[name])
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        cp = ord(ch)
+        if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+            return True
+        import unicodedata
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_chinese(ch: str) -> bool:
+        cp = ord(ch)
+        return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+                or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+                or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+                or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F)
+
+    def _basic(self, text: str) -> List[str]:
+        import unicodedata
+        out = []
+        for ch in text:
+            if self._is_chinese(ch):
+                out.append(f" {ch} ")
+            elif ch in ("\t", "\n", "\r") or unicodedata.category(ch) == "Zs":
+                out.append(" ")
+            elif unicodedata.category(ch) in ("Cc", "Cf") or ch == "\0" or ch == "�":
+                continue
+            else:
+                out.append(ch)
+        tokens = []
+        for tok in "".join(out).split():
+            if self.do_lower_case:
+                tok = tok.lower()
+                tok = "".join(c for c in unicodedata.normalize("NFD", tok)
+                              if unicodedata.category(c) != "Mn")
+            cur = []
+            for ch in tok:
+                if self._is_punct(ch):
+                    if cur:
+                        tokens.append("".join(cur))
+                        cur = []
+                    tokens.append(ch)
+                else:
+                    cur.append(ch)
+            if cur:
+                tokens.append("".join(cur))
+        return tokens
+
+    def _wordpiece(self, token: str) -> List[str]:
+        if len(token) > 100:
+            return ["[UNK]"]
+        out, start = [], 0
+        while start < len(token):
+            end = len(token)
+            piece = None
+            while start < end:
+                sub = token[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    piece = sub
+                    break
+                end -= 1
+            if piece is None:
+                return ["[UNK]"]
+            out.append(piece)
+            start = end
+        return out
+
+    def __call__(self, text, max_length: int = 77, padding: str = "max_length",
+                 truncation: bool = True, return_tensors: str = "np"):
+        texts = [text] if isinstance(text, str) else list(text)
+        seqs = []
+        for t in texts:
+            toks = []
+            for w in self._basic(t):
+                toks.extend(self._wordpiece(w))
+            ids = [self.cls_id] + [self.vocab.get(p, self.unk_id) for p in toks]
+            if truncation and len(ids) > max_length - 1:
+                ids = ids[:max_length - 1]
+            ids.append(self.sep_id)
+            seqs.append(ids)
+        width = max_length if padding == "max_length" else max(len(s) for s in seqs)
+        input_ids = np.full((len(seqs), width), self.pad_id, np.int64)
+        mask = np.zeros((len(seqs), width), np.int64)
+        for r, s in enumerate(seqs):
+            input_ids[r, :len(s)] = s
+            mask[r, :len(s)] = 1
+        return _to_tensors(input_ids, mask, return_tensors)
+
+
+# ---------------------------------------------------------------------------
 # Vendored assets
 # ---------------------------------------------------------------------------
 
@@ -639,7 +750,8 @@ _ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def asset_path(name: str) -> str:
-    """Path to a vendored tokenizer asset dir of the port: 't5', 'kolors'."""
+    """Path to a vendored tokenizer asset dir of the port: 't5', 'kolors',
+    'hunyuan_dit'."""
     return os.path.join(_ASSET_DIR, name)
 
 
@@ -650,3 +762,6 @@ def default_t5_tokenizer(fast_pipeline: bool = True) -> T5SpTokenizer:
 def default_chatglm_tokenizer() -> ChatGLMSpTokenizer:
     return ChatGLMSpTokenizer(asset_path("kolors"))
 
+
+def default_bert_tokenizer() -> BertWordPieceTokenizer:
+    return BertWordPieceTokenizer(asset_path("hunyuan_dit"))

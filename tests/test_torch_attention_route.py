@@ -30,6 +30,8 @@ F32_TOL = 1e-5
     # the SD 1.5 family's f32 head dims; a pair with no kernel still raises
     *((torch.float32, d, "f32") for d in (40, 160, 512)),
     (torch.float32, 96, None), (torch.bfloat16, 40, None),
+    # Hunyuan-DiT's 16 heads of 88
+    (torch.float32, 88, "f32"), (torch.bfloat16, 88, None),
 ])
 def test_fwd_route(dtype, head_dim, route):
     if route is None:

@@ -1,6 +1,7 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
 bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, 3xTF32 for f32 --,
-the K4 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
+at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
+backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
 D=64 --, the K3 int4 unpack, the W4A8 linear -- its activation pre-pass and
 its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
@@ -170,7 +171,7 @@ def test_sm90_misaligned_view_raises():
         tattn.flash_fwd_flat(q, q, q, d)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512, 88])
 def test_f32_bnsd_kernel_matches_plain(d):
     b, n, sq, sk = 2, 2, 70, 45
     q, k, v = (_rand((b, n, s, d), torch.float32, i) for i, s in enumerate((sq, sk, sk)))
@@ -190,7 +191,7 @@ def _f32_launches():
 
 @pytest.mark.parametrize("kv_len", [None, 211, 0])
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 384, 40, 160, 512, 88])
 def test_f32_tc_kernel_matches_plain(d, rope, kv_len):
     """The 3xTF32 route at every head dim: Sq = 70 ragged against the 32- and
     64-row tiles, Sk = 300 (5 key tiles of 64, 10 of 32: the 2-stage K/V ring
@@ -283,6 +284,45 @@ def test_f32_sdxl_unet_attention(sq, n, sk):
     o_ref, _ = tattn._flash_fwd_reference(*(t.unflatten(-1, (n, 64)) for t in (q, k, v)),
                                           None, None, sk, 64 ** -0.5)
     assert (got - o_ref).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("sk", [4096, 333])
+def test_f32_d88_hunyuan_dit_attention(sk):
+    """Hunyuan-DiT at 1024 x 1024: 16 heads of 88 (11 k-steps of 8) over
+    64 x 64 = 4096 image tokens, self-attention and the cross-attention over
+    77 + 256 text tokens, B2 (CFG's two passes batch one each; the kernel
+    sees B2 here), q, k, v (B, N, S, D) views of (B, S, 16 * 88) tensors
+    (rows 1408 floats apart) through the (B, N, S, D) entry, counted as
+    route f32 at D = 88."""
+    d, n = 88, 16
+    q = _rand((2, 4096, n * d), torch.float32, 110)
+    k, v = (_rand((2, sk, n * d), torch.float32, 111 + i) for i in range(2))
+    before = tattn.flash_fwd_bnsd.routes[("f32", "float32", d)]
+    got = tattn.flash_attention(*(t.unflatten(-1, (n, d)) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_bnsd.routes[("f32", "float32", d)] == before + 1
+    o_ref, _ = tattn._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
+                                          None, None, sk, d ** -0.5)
+    assert (got - o_ref).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("s,kv_len", [(17776, None), (514, 500)])
+def test_bf16_d64_mma_cogvideox_attention(s, kv_len):
+    """CogVideoX-5B's joint attention: 48 heads of 64 over 226 text + 13 x 30
+    x 45 video tokens (17776) at B2 (batched CFG), bf16, as (B, N, S, D)
+    views of (B, S, 48 * 64) tensors through the (B, N, S, D) entry, route
+    "mma"; and a short ragged sequence with masked keys."""
+    d, n = 64, 48
+    q, k, v = (_rand((2, s, n * d), torch.bfloat16, 120 + i) for i in range(3))
+    before = tattn.flash_fwd_bnsd.routes[("mma", "bfloat16", d)]
+    got = tattn.flash_fwd_bnsd(*(t.unflatten(-1, (n, d)).transpose(1, 2) for t in (q, k, v)),
+                               kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_bnsd.routes[("mma", "bfloat16", d)] == before + 1
+    kv = s if kv_len is None else kv_len
+    o_ref, lse_ref = tattn._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
+                                                None, None, kv, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
 
 
 def test_f32_sdxl_vae_mid_block_s16384():

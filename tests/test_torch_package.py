@@ -61,8 +61,16 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.pipelines.sd3_image, svi_tpu_torch.schedulers.flow_match\n"
         "import svi_tpu_torch.models.flux, svi_tpu_torch.prompters.flux_prompter\n"
         "import svi_tpu_torch.pipelines.flux_image\n"
+        "import svi_tpu_torch.schedulers.continuous_ode, svi_tpu_torch.models.svd\n"
+        "import svi_tpu_torch.pipelines.svd_video, svi_tpu_torch.models.hunyuan_dit\n"
+        "import svi_tpu_torch.prompters.hunyuan_dit_prompter\n"
+        "import svi_tpu_torch.pipelines.hunyuan_image, svi_tpu_torch.models.hunyuan_video\n"
+        "import svi_tpu_torch.prompters.hunyuan_video_prompter\n"
+        "import svi_tpu_torch.pipelines.hunyuan_video, svi_tpu_torch.models.cog\n"
+        "import svi_tpu_torch.prompters.cog_prompter, svi_tpu_torch.pipelines.cog_video\n"
         "from svi_tpu_torch.prompters import sp_tokenizer\n"
         "sp_tokenizer.default_chatglm_tokenizer().encode('一只猫')\n"
+        "sp_tokenizer.default_bert_tokenizer()('一只猫')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'svi_tpu'))\n"
         "assert not bad, bad\n"
@@ -169,11 +177,14 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                                    "trainer", "model_manager", "from_model_manager", "driver",
                                    "dit_from_checkpoint", "t5_from_checkpoint",
                                    "vae_from_checkpoint", "clip_from_checkpoint",
-                                   "dit_quantized_from_checkpoint", "dit_int4", "wav2vec2"])
+                                   "dit_quantized_from_checkpoint", "dit_int4", "wav2vec2",
+                                   "svd_unet_from_checkpoint", "hunyuan_dit_from_checkpoint",
+                                   "hunyuan_video_dit_from_checkpoint", "cog_dit_from_checkpoint"])
 def test_entry_points_default_to_the_card(entry):
     import inspect
 
-    from svi_tpu_torch.models import clip_vision, t5, wan_dit, wan_vae
+    from svi_tpu_torch.models import (clip_vision, cog, hunyuan_dit, hunyuan_video, svd, t5,
+                                      wan_dit, wan_vae)
     from svi_tpu_torch.models.model_io import ModelManager
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
     from svi_tpu_torch.scripts import test_svi
@@ -189,7 +200,11 @@ def test_entry_points_default_to_the_card(entry):
           "t5_from_checkpoint": t5.params_from_torch_state_dict,
           "vae_from_checkpoint": wan_vae.params_from_torch_state_dict,
           "clip_from_checkpoint": clip_vision.params_from_torch_state_dict,
-          "dit_quantized_from_checkpoint": wan_dit.quantized_params_from_torch_state_dict}[entry]
+          "dit_quantized_from_checkpoint": wan_dit.quantized_params_from_torch_state_dict,
+          "svd_unet_from_checkpoint": svd.svd_unet_params_from_torch,
+          "hunyuan_dit_from_checkpoint": hunyuan_dit.hunyuan_dit_params_from_torch,
+          "hunyuan_video_dit_from_checkpoint": hunyuan_video.hunyuan_video_dit_params_from_torch,
+          "cog_dit_from_checkpoint": cog.cog_dit_params_from_torch}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

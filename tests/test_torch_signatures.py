@@ -38,7 +38,6 @@ CONSUME = ("recorded divergence: `consume` frees the float weights as their quan
            "are made, so the 14B fits the card")
 BF16_AS = ("JAX-only: `bf16_as`, the numpy dtype svi_tpu stages bf16 tensors in; the port reads "
            "bf16 as torch bf16")
-HUNYUAN = "not ported yet: serves Hunyuan DiT (ROADMAP Queue 1)"
 UNIANIMATE = ("recorded divergence: the three UniAnimate side stacks are `ConvStack` modules made "
               "by `init_params(kind, ...)` / `params_from_jax(kind, ...)`, run by calling them")
 
@@ -63,6 +62,9 @@ ALLOWED = {
     "models/clip_vision.py:encode_image": METHOD,
     "models/clip_vision.py:init_params": KEY,
     "models/clip_vision.py:params_from_torch_state_dict": DEVICE,
+    "models/cog.py:cog_dit_params_from_torch": DEVICE,
+    "models/cog.py:cog_vae_encoder_params_from_torch": DEVICE,
+    "models/cog.py:cog_vae_decoder_params_from_torch": DEVICE,
     "models/controlnets.py:sd_controlnet_params_from_torch": DEVICE,
     "models/controlnets.py:sdxl_controlnet_params_from_torch": DEVICE,
     "models/flux.py:flux_dit_params_from_torch": DEVICE,
@@ -70,6 +72,10 @@ ALLOWED = {
     "models/flux.py:flux_vae_decoder_params_from_torch": DEVICE,
     "models/flux.py:flux_controlnet_params_from_torch": DEVICE,
     "models/flux.py:flux_ipadapter_params_from_torch": DEVICE,
+    "models/hunyuan_dit.py:hunyuan_dit_params_from_torch": DEVICE,
+    "models/hunyuan_video.py:hunyuan_video_dit_params_from_torch": DEVICE,
+    "models/hunyuan_video.py:hunyuan_video_vae_decoder_params_from_torch": DEVICE,
+    "models/hunyuan_video.py:hunyuan_video_vae_encoder_params_from_torch": DEVICE,
     "models/ipadapter.py:ipadapter_kv": (
         "recorded divergence: the IP-Adapter's token count is a constant argument "
         "(`n_tokens`), not a leaf of its params"),
@@ -100,6 +106,8 @@ ALLOWED = {
     "models/sdxl.py:sdxl_unet_params_from_torch": DEVICE,
     "models/sdxl.py:sdxl_text_encoder_params_from_torch": DEVICE,
     "models/sdxl.py:sdxl_text_encoder_2_params_from_torch": DEVICE,
+    "models/svd.py:svd_unet_params_from_torch": DEVICE,
+    "models/svd.py:svd_vae_decoder_params_from_torch": DEVICE,
     "models/t5.py:forward": METHOD,
     "models/t5.py:encode_prompt_states": METHOD,
     "models/t5.py:init_params": KEY,
@@ -174,9 +182,6 @@ ALLOWED = {
     "parallel/tp_sp.py:make_mesh3": JAX_DEVICES,
     "parallel/tp_sp.py:shard_dit_params_tpsp": MODULE,
     "parallel/tp_sp.py:forward_tpsp": MODULE,
-    "pipelines/base.py:tensor_to_frames": (
-        "not ported: svi_tpu's returns PIL images and no pipeline of the port calls it; "
-        "the port's pipelines return uint8 frames (`frames_from_uint8`)"),
     "pipelines/pipeline_runner.py:SDVideoPipelineRunner.__init__": DEVICE,
     "pipelines/pipeline_runner.py:SDVideoPipelineRunner.save_output": (
         "recorded divergence: `save_format` writes `.npy` where the card has no mp4 writer"),
@@ -192,8 +197,6 @@ ALLOWED = {
         "recorded divergence: a classmethod, so the subclasses build themselves"),
     "prompters/sd_prompter.py:SDPrompter.encode_prompt": MODULE,
     "prompters/sdxl_prompter.py:SDXLPrompter.encode_prompt": MODULE,
-    "prompters/sp_tokenizer.py:BertWordPieceTokenizer": HUNYUAN,
-    "prompters/sp_tokenizer.py:default_bert_tokenizer": HUNYUAN,
     "schedulers/flow_match.py:tree_flatten": JAX_ONLY,
     "schedulers/flow_match.py:tree_unflatten": JAX_ONLY,
     "training/lora.py:init_lora_params": KEY,
@@ -211,6 +214,15 @@ ALLOWED = {
     "utils/clip_bpe.py:SimpleTokenizer.bpe": (
         "recorded divergence: the BPE step is the shared `ClipBpeTokenizer._bpe`"),
 }
+
+
+# the modules of the video zoo's first four families: each is compared
+PORTED_VIDEO_ZOO = (
+    "schedulers/continuous_ode.py", "models/svd.py", "pipelines/svd_video.py",
+    "prompters/sp_tokenizer.py", "models/hunyuan_dit.py", "prompters/hunyuan_dit_prompter.py",
+    "pipelines/hunyuan_image.py", "models/hunyuan_video.py",
+    "prompters/hunyuan_video_prompter.py", "pipelines/hunyuan_video.py", "models/cog.py",
+    "prompters/cog_prompter.py", "pipelines/cog_video.py")
 
 
 def _pairs():
@@ -321,3 +333,14 @@ def test_repaired_arguments_bind_like_svi_tpus(qualname, argument):
     got = _sig(_members(_module("svi_tpu_torch", rel))[name])
     names = [p[0] for p in want]
     assert [p[0] for p in got][:names.index(argument) + 1] == names[:names.index(argument) + 1]
+
+
+@pytest.mark.parametrize("rel", PORTED_VIDEO_ZOO)
+def test_video_zoo_module_is_compared(rel, differences):
+    """Each module of SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX has its
+    svi_tpu counterpart at the same path, defines every public name svi_tpu's
+    does, and every signature left differing is on ALLOWED."""
+    assert rel in _pairs()
+    assert _members(_module("svi_tpu_torch", rel))
+    ours = {k: v for k, v in differences.items() if k.startswith(rel + ":")}
+    assert all(k in ALLOWED and v != "missing in the port" for k, v in ours.items()), ours
