@@ -22,7 +22,8 @@ non-zero exit and no result line:
      and 160 over 16384, 4096 and 1024 batches, the VAE's mid-block over
      16384 tokens), phase 11's (Hunyuan-DiT's 16 heads of 88 in f32, B2
      S4096 self and Sk333 cross; CogVideoX-5B's 48 heads of 64 in bf16, B2
-     S17776, route "mma"; HunyuanVideo's two attention groups at 720x1280x129,
+     S17776, route sm90 at D = 64, with a ragged S514 kv_len 500 row and
+     the exp2 floor; HunyuanVideo's two attention groups at 720x1280x129,
      bf16 D128), and phase 10's at 1024x1024 (FLUX.1-dev's joint and
      single blocks' attention, B1 S4608, 24 heads of 128, bf16; its
      IP-Adapter's attention of 4096 and 4608 queries onto 128 image tokens;
@@ -186,7 +187,7 @@ non-zero exit and no result line:
      also in bf16), (d) the pipeline at full width, 2 steps (SVD 576x1024x25,
      Hunyuan-DiT 1024x1024, HunyuanVideo 544x960x33, CogVideoX 480x720x49),
      with per-part seconds, peak memory and the attention launches, which
-     must be the models' count (K2 f32 D88, K2 bf16 "mma" among them);
+     must be the models' count (K2 f32 D88, K2 bf16 sm90 D64 among them);
      phase 3's rows at their shapes include HunyuanVideo's attention groups
      at its default 720x1280x129 (B1 S118871 and S185);
  12. a JSON line of the kernels (K3's launches from 5b's quantized run;
@@ -196,7 +197,7 @@ non-zero exit and no result line:
      as `launches_sdxl`, on phase 10's pipelines as `launches_kolors`,
      `launches_sd3` and `launches_flux`, on phase 11's as `launches_svd`,
      `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`;
-     K2's D88 and "mma" entries count phase 11's), the nvidia-smi line, and
+     K2's D88 and bf16 D64 entries count phase 11's), the nvidia-smi line, and
      the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -313,7 +314,9 @@ TRAIN_FRAMES, TRAIN_STEPS = 21, 4
 # whose routes launch different kernels has one name per route, counted from
 # its per-route counter
 KERNELS = {
-    "flash_fwd_flat/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+    # the sm90 kernel's entries name their head dim, so that the D = 64
+    # launches (phase 11's CogVideoX) and the D = 128 ones count apart
+    "flash_fwd_flat/sm90/128": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                             "svi_tpu/ops/attention.py:75"),
     "flash_fwd_flat/f32": ("svi_tpu_torch/csrc/flash_fwd_f32.cu",
                            "svi_tpu/ops/attention.py:75"),
@@ -323,7 +326,7 @@ KERNELS = {
                            "svi_tpu/ops/attention.py:465"),
     # K2 at bf16 D=128: the ring's steps (phase 6), the sm90 kernel on
     # (B, N, S, D) views
-    "flash_fwd_bnsd/sm90": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+    "flash_fwd_bnsd/sm90/128": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                             "svi_tpu/ops/attention.py:465"),
     "flash_bwd_onepass": ("svi_tpu_torch/csrc/flash_bwd_sm90.cu",
                           "svi_tpu/ops/attention.py:721"),
@@ -346,10 +349,11 @@ KERNELS = {
                                    "svi_tpu/ops/attention.py:289"),
     # K2 f32 at Hunyuan-DiT's D = 88 (a name of its own for the route's
     # head dim, counted from flash_fwd_bnsd.routes) and K2 bf16 at D = 64
-    # (route "mma": CogVideoX's joint attention)
+    # (route sm90: CogVideoX's joint attention)
     "flash_fwd_bnsd/f32/88": ("svi_tpu_torch/csrc/flash_fwd_f32.cu",
                               "svi_tpu/ops/attention.py:465"),
-    "flash_fwd_bnsd/mma": ("svi_tpu_torch/csrc/flash_fwd.cu", "svi_tpu/ops/attention.py:465"),
+    "flash_fwd_bnsd/sm90/64": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                               "svi_tpu/ops/attention.py:465"),
     # K3 standalone: the straight-through backward of every W4A8 linear that
     # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -359,13 +363,13 @@ QUANT_KERNELS = ("quantize_rows_int8", "w4a8_linear", "flash_fwd_flat_q8/sm90")
 QUANT_TRAIN = ("unpack_requant_int4",)  # launched only by training on a quantized base
 QUANT_F32 = ("flash_fwd_flat_q8/sm90_f32",)  # launched only by an f32 DiT's qk8 attention
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
-PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90",)  # launched only by the ring (phase 6)
-ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/mma")  # launched by phase 11's pipelines
+PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90/128",)  # launched only by the ring (phase 6)
+ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/sm90/64")  # launched by phase 11's pipelines
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
-TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
+TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
               "rope_rotate_flat": "rope_prepass",
-              "flash_fwd_bnsd/f32": "clip_vit_h", "flash_fwd_bnsd/sm90": "ring_block",
+              "flash_fwd_bnsd/f32": "clip_vit_h", "flash_fwd_bnsd/sm90/128": "ring_block",
               "flash_bwd_onepass": "dit_self_attn_bwd_onepass",
               "flash_bwd_dq/sm90": "dit_text_cross_attn_bwd",
               "flash_bwd_dkv/sm90": "dit_text_cross_attn_bwd",
@@ -373,7 +377,7 @@ TIMED_CASE = {"flash_fwd_flat/sm90": "dit_self_attn_rope", "flash_fwd_flat/f32":
               "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8",
               "flash_fwd_flat_q8/sm90_f32": "slice_self_attn_q8_qk8_f32",
               "unpack_requant_int4": "ffn_0", "flash_fwd_bnsd/f32/88": "hunyuan_dit_self_attn_d88",
-              "flash_fwd_bnsd/mma": "cogvideox_joint_attn_d64"}
+              "flash_fwd_bnsd/sm90/64": "cogvideox_joint_attn_d64"}
 
 
 def log(msg: str) -> None:
@@ -492,21 +496,24 @@ def read_counts() -> dict:
             else fn.launches for name, (fn, route, dim) in launch_counters().items()}
 
 
-def check_fwd_routes(path: str, need_f32: bool = False) -> dict:
+def check_fwd_routes(path: str, need_f32: bool = False, need_d128: bool = True,
+                     need_d64: bool = False) -> dict:
     """The forward launches per (route, dtype, head_dim) since the counts were
-    zeroed; fails unless every bf16 D=128 launch took the sm90 route and at
-    least one did, and every f32 launch the 3xTF32 kernel (route f32; with
-    need_f32, at least one)."""
+    zeroed; fails unless every bf16 launch (D = 128 and D = 64) took the sm90
+    route (with need_d128 / need_d64, at least one at that head dim), and
+    every f32 launch the 3xTF32 kernel (route f32; with need_f32, at least
+    one)."""
     from svi_tpu_torch.ops import attention as A
 
     routes = {}
     for entry in (A.flash_fwd_flat, A.flash_fwd_bnsd):
         for key, n in entry.routes.items():
             routes["/".join(map(str, key))] = routes.get("/".join(map(str, key)), 0) + n
-    bf16_128 = {k: n for k, n in routes.items() if k.endswith("/bfloat16/128")}
-    if set(bf16_128) != {"sm90/bfloat16/128"} or bf16_128["sm90/bfloat16/128"] <= 0:
-        raise RuntimeError(f"{path}: a bf16 D=128 forward took a route other than sm90, or "
-                           f"none ran: {routes}")
+    for d, need in ((128, need_d128), (64, need_d64)):
+        bf16 = {k: n for k, n in routes.items() if k.endswith(f"/bfloat16/{d}")}
+        if set(bf16) - {f"sm90/bfloat16/{d}"} or (need and not bf16):
+            raise RuntimeError(f"{path}: a bf16 D={d} forward took a route other than sm90, or "
+                               f"none ran: {routes}")
     f32 = {k: n for k, n in routes.items() if "/float32/" in k}
     if any(not k.startswith("f32/") for k in f32) or (need_f32 and not f32):
         raise RuntimeError(f"{path}: an f32 forward took a route other than f32, or none ran: "
@@ -606,13 +613,13 @@ def kernel_cases():
             log(f"[fwd] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} (the "
                 f"smaller of {BF16_OUT_BOUND} and {BF16_OUT_REL} of the largest |out| "
                 f"{out_max:.3e}; mean |out| {out_mean:.3e})")
-            return {"flash_fwd_flat/sm90": worst((out_err, out_bound),
+            return {"flash_fwd_flat/sm90/128": worst((out_err, out_bound),
                                                  (err(lse, ref_lse), BF16_LSE_BOUND))}
 
         return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
-                    kernels={"flash_fwd_flat/sm90": kernel}, plain=plain,
+                    kernels={"flash_fwd_flat/sm90/128": kernel}, plain=plain,
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                    work={"flash_fwd_flat/sm90": (4 * b * n * sq * kv * d,
+                    work={"flash_fwd_flat/sm90/128": (4 * b * n * sq * kv * d,
                                                   _nbytes(q, k, v, q) + 4 * b * n * sq,
                                                   PEAK_BF16)})
 
@@ -649,22 +656,25 @@ def kernel_cases():
                     work={entry: (4 * b * n * sq * sk * d, _nbytes(q, k, v, q) + 4 * b * n * sq,
                                   F32_ACCURATE)})
 
-    def bnsd_bf16_case(name, b, s, n, d):
-        """K2 in bf16 at D = 64 (route "mma", csrc/flash_fwd.cu): q, k, v as
-        (B, N, S, D) views of (B, S, N*D) projections, as CogVideoX's joint
-        attention hands them over."""
+    def bnsd_bf16_case(name, b, s, n, d, kv_len=None):
+        """K2 in bf16 at D = 64 (route sm90, csrc/flash_fwd_sm90.cu): q, k, v
+        as (B, N, S, D) views of (B, S, N*D) projections, as CogVideoX's joint
+        attention hands them over; keys at or past kv_len masked. The exp2
+        floor (one exp2 a score) is printed beside the tensor-core bound."""
         q, k, v = (randn((b, s, n * d), torch.bfloat16) for _ in range(3))
         qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
-        entry = "flash_fwd_bnsd/mma"
+        entry = "flash_fwd_bnsd/sm90/64"
+        kv = s if kv_len is None else kv_len
+        mask = None if kv == s else (torch.arange(s, device="cuda") < kv)[None, None, None]
 
         def kernel():
-            out, lse = A.flash_fwd_bnsd(qh, kh, vh)
+            out, lse = A.flash_fwd_bnsd(qh, kh, vh, kv_len=kv)
             return out.transpose(1, 2).flatten(2), lse
 
         @timed_calls
         def plain():
             out, lse = A._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
-                                              None, None, s, d ** -0.5)
+                                              None, None, kv, d ** -0.5)
             return out.flatten(2), lse
 
         def run():
@@ -679,9 +689,10 @@ def kernel_cases():
 
         return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
                     kernels={entry: kernel}, plain=plain,
-                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                    work={entry: (4 * b * n * s * s * d, _nbytes(q, k, v, q) + 4 * b * n * s,
-                                  PEAK_BF16)})
+                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                    work={entry: (4 * b * n * s * kv * d, _nbytes(q, k, v, q) + 4 * b * n * s,
+                                  PEAK_BF16)},
+                    exp2_floor_ms=1e3 * b * n * s * kv / EXP2_PER_S)
 
     def bwd_case(name, b, sq, sk, n, d, grid=None, kv_len=None):
         """One backward at the route the autograd function picks for it. With
@@ -793,16 +804,16 @@ def kernel_cases():
             (out, lse), (ref_out, ref_lse) = kernel(), plain()
             if kv_len == 0:
                 ok = bool((out == 0).all() and (lse <= -1e30).all() and torch.isfinite(lse).all())
-                return {"flash_fwd_bnsd/sm90": (0.0 if ok else float("inf"), 0.0)}
+                return {"flash_fwd_bnsd/sm90/128": (0.0 if ok else float("inf"), 0.0)}
             out_bound = min(BF16_OUT_BOUND, BF16_OUT_REL * ref_out.float().abs().max().item())
-            return {"flash_fwd_bnsd/sm90": worst((err(out, ref_out), out_bound),
+            return {"flash_fwd_bnsd/sm90/128": worst((err(out, ref_out), out_bound),
                                                  (err(lse, ref_lse), BF16_LSE_BOUND))}
 
         library = None if kv_len == 0 else (
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
-                    kernels={"flash_fwd_bnsd/sm90": kernel}, plain=plain, library=library,
-                    work={"flash_fwd_bnsd/sm90": (4 * b * n * s * kv_len * d,
+                    kernels={"flash_fwd_bnsd/sm90/128": kernel}, plain=plain, library=library,
+                    work={"flash_fwd_bnsd/sm90/128": (4 * b * n * s * kv_len * d,
                                                   4 * b * s * n * d * 2 + 4 * b * n * s,
                                                   PEAK_BF16)})
 
@@ -946,7 +957,8 @@ def kernel_cases():
     # K2's entry, route f32 at D = 88: self-attention over 64 x 64 tokens and
     # cross-attention over 77 + 256 text tokens, B2); CogVideoX-5B at 480 x
     # 720 x 49 (226 text + 13 x 30 x 45 video tokens, 48 heads of 64, bf16,
-    # batched CFG B2: K2's route "mma"); HunyuanVideo's two attention groups
+    # batched CFG B2: K2's route sm90 at D = 64; and a ragged sequence of 514
+    # with masked keys past 500, a last tile of 2 live keys); HunyuanVideo's two attention groups
     # at its default 720 x 1280 x 129 (33 x 45 x 80 image tokens + 71 text,
     # and the last 185 text tokens; 24 heads of 128, bf16, K1 sm90)
     yield f32_case("hunyuan_dit_self_attn_d88", 2, 4096, 4096, 16, 88,
@@ -954,6 +966,7 @@ def kernel_cases():
     yield f32_case("hunyuan_dit_cross_attn_d88", 2, 4096, 333, 16, 88,
                    entry="flash_fwd_bnsd/f32/88")
     yield bnsd_bf16_case("cogvideox_joint_attn_d64", 2, 17776, 48, 64)
+    yield bnsd_bf16_case("cogvideox_ragged_d64_kv500", 2, 514, 48, 64, kv_len=500)
     yield fwd_case("hunyuan_video_group_a", 1, 118871, 118871, 24, 128)
     yield fwd_case("hunyuan_video_group_b", 1, 185, 185, 24, 128)
 
@@ -1212,7 +1225,7 @@ def phase_kernels(card: str):
                        library_ms=library_ms,
                        library_fwd_bwd_ms=fwd_bwd_ms, flops=flops, bytes=nbytes,
                        bound_ms=bound_ms, bound_by=bound_by, bound_rate=bound_rate,
-                       tflops=flops / ms / 1e9,
+                       exp2_floor_ms=case.get("exp2_floor_ms"), tflops=flops / ms / 1e9,
                        card=card, ok=max_err <= err_bound)
             log(f"[kernel] {json.dumps(row)}")
             if not row["ok"]:
@@ -1645,7 +1658,7 @@ def phase_slice():
     launches = read_counts()
     routes = check_fwd_routes("the bf16 inference path", need_f32=True)
     std = float(video.astype(np.float32).std())
-    if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32", "rope_rotate_flat",
+    if min(launches[k] for k in ("flash_fwd_flat/sm90/128", "flash_fwd_flat/f32", "rope_rotate_flat",
                                  "flash_fwd_bnsd/f32")) <= 0:
         raise RuntimeError(f"a kernel was not launched on the main path: {launches}")
     secs = timer.seconds
@@ -1784,7 +1797,7 @@ def device_time_breakdown(fn) -> str:
             group = "W4A8 pre-pass"
         elif "flash_fwd_q8" in name:
             group = "K6"
-        elif "flash_fwd" in name:  # flash_fwd.cu and flash_fwd_sm90.cu with its RoPE pre-pass
+        elif "flash_fwd" in name:  # flash_fwd_sm90.cu with its RoPE pre-pass, flash_fwd_f32.cu
             group = "K1/K2"
         elif "flash_bwd" in name or "finalize_grad" in name:
             group = "K4/K5"
@@ -2286,7 +2299,7 @@ def phase_driver(card: str) -> dict:
         # (b) two clips, untiled
         record, launches, _ = run_driver(root, "b", ["--num_clips", "2"], card)
         routes = check_fwd_routes("the driver", need_f32=True)
-        if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+        if min(launches[k] for k in ("flash_fwd_flat/sm90/128", "flash_fwd_flat/f32",
                                      "rope_rotate_flat", "flash_fwd_bnsd/f32")) <= 0:
             raise RuntimeError(f"a kernel was not launched on the driver's path: {launches}")
         log(f"[driver b] forward routes {routes}")
@@ -2686,7 +2699,7 @@ def phase_variants(root: Path, card: str) -> dict:
     routes = check_fwd_routes("the talk driver", need_f32=True)
     if not record["pipe"].dit.cfg.enable_multitalk:
         raise RuntimeError("the talk driver's DiT did not load as multitalk")
-    if min(launches["talk"][k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+    if min(launches["talk"][k] for k in ("flash_fwd_flat/sm90/128", "flash_fwd_flat/f32",
                                          "rope_rotate_flat", "flash_fwd_bnsd/f32")) <= 0:
         raise RuntimeError(f"a kernel was not launched on the talk driver's path: "
                            f"{launches['talk']}")
@@ -2736,7 +2749,7 @@ def phase_variants(root: Path, card: str) -> dict:
         test_svi_dance, [*dance, "--num_clips", str(VARIANT_CLIPS), "--output",
                          str(root / "videos_dance")], "dance", card)
     routes = check_fwd_routes("the dance driver", need_f32=True)
-    if record["pipe"].dwpose_embedding is None or launches["dance"]["flash_fwd_flat/sm90"] <= 0:
+    if record["pipe"].dwpose_embedding is None or launches["dance"]["flash_fwd_flat/sm90/128"] <= 0:
         raise RuntimeError("the dance driver ran without its pose embedding or K1")
     frames = np.load(record["path"])
     check_variant_video("dance", frames, (VARIANT_CLIPS * SLICE_FRAMES - (VARIANT_CLIPS - 1)
@@ -3207,7 +3220,7 @@ def phase_unianimate(root: Path, scripts: dict, gap: int, card: str) -> dict:
             f"{ {k: v for k, v in launches.items() if v} }; forward routes {routes}; {card}")
         if frames.shape != (n_frames, SLICE_H, SLICE_W, 3) or not finite:
             raise RuntimeError(f"UniAnimate {tag}: frames {frames.shape}, finite {finite}")
-        if min(launches[k] for k in ("flash_fwd_flat/sm90", "flash_fwd_flat/f32",
+        if min(launches[k] for k in ("flash_fwd_flat/sm90/128", "flash_fwd_flat/f32",
                                      "flash_fwd_bnsd/f32")) <= 0:
             raise RuntimeError(f"a kernel was not launched on UniAnimate {tag}: {launches}")
         clips[tag] = frames
@@ -3302,7 +3315,7 @@ def phase_small_trainer():
     # components whose gradient is within that noise of zero
     ok = (loss_err <= 2e-2 and norm_err <= 5e-2 and min_cos >= 0.9
           and runs["cuda"][2] == runs["cpu"][2]
-          and min(counts[k] for k in ("flash_fwd_flat/sm90", "flash_bwd_onepass",
+          and min(counts[k] for k in ("flash_fwd_flat/sm90/128", "flash_bwd_onepass",
                                       "flash_bwd_dq/sm90", "flash_bwd_dkv/sm90")) > 0)
     log(f"[train-small] card vs CPU, 3 steps: loss rel err {loss_err:.2e} (bound 2e-2), "
         f"grad_norm rel err {norm_err:.2e} (bound 5e-2), min cosine {min_cos:.5f} "
@@ -3431,7 +3444,7 @@ def one_train_step(trainer, batch: dict, tag: str) -> dict:
                launches=read_counts(), loss=m["loss"], grad_norm=m["grad_norm"])
     log(f"[train-14b {tag}] step {out['seconds']:.3f}s, peak {out['peak']:.2f} GiB, loss "
         f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, K1 sm90 "
-        f"{out['launches']['flash_fwd_flat/sm90']}, K4 {out['launches']['flash_bwd_onepass']}, "
+        f"{out['launches']['flash_fwd_flat/sm90/128']}, K4 {out['launches']['flash_bwd_onepass']}, "
         f"K3 {out['launches']['unpack_requant_int4']}, w4a8_linear "
         f"{out['launches']['w4a8_linear']}")
     if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
@@ -3467,7 +3480,7 @@ def phase_full_depth_variants(held: dict, batch: dict) -> None:
             runs[name].append(one_train_step(trainer, batch, f"{name} round {rnd + 1}"))
             for key in flags:
                 setattr(trainer.cfg, key, False)
-    k1 = {name: {r["launches"]["flash_fwd_flat/sm90"] for r in rs} for name, rs in runs.items()}
+    k1 = {name: {r["launches"]["flash_fwd_flat/sm90/128"] for r in rs} for name, rs in runs.items()}
     log("[train-14b] " + ", ".join(
         f"{name} {[round(r['seconds'], 3) for r in rs]}s / {max(r['peak'] for r in rs):.2f} GiB"
         for name, rs in runs.items()) + f"; K1 launches a step {k1}")
@@ -3668,7 +3681,7 @@ def phase_small_variant_trainers(card: str) -> dict:
         if not (draws_equal and runs["card"][2] == runs["cpu"][2]
                 and worst["loss"] <= SMALL_TRAIN_LOSS_REL
                 and worst["norm"] <= SMALL_TRAIN_NORM_REL and worst["cos"] >= SMALL_TRAIN_MIN_COS
-                and got == expect and counts["flash_fwd_flat/sm90"] > 0):
+                and got == expect and counts["flash_fwd_flat/sm90/128"] > 0):
             raise RuntimeError(f"the tiny {variant} trainer on the card disagrees with the CPU")
         out[variant] = counts
         del cpu, card_t, base
@@ -6067,7 +6080,7 @@ def zoo_expected_launches(family: str, pipe) -> dict:
     passes (K2 f32 D88), the SDXL VAE's mid-block (K1 f32 D512);
     HunyuanVideo's 20 + 40 blocks x 2 groups a step (K1 sm90; the VAE's
     frame-causal attention and the token refiner are plain); CogVideoX's 42
-    blocks a step (batched CFG, K2 "mma"). Keys as `flash_attention` routes
+    blocks a step (batched CFG, K2 sm90 at D = 64). Keys as `flash_attention` routes
     them: the flat entry for one head or D % 128 == 0, else (B, N, S, D)."""
     from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd, svd
     from svi_tpu_torch.ops import attention as A
@@ -6204,6 +6217,8 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
         f"(calls): " + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
         + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
     want = zoo_expected_launches(family, pipe)
+    if family == "cog":
+        check_fwd_routes("the CogVideoX pipeline", need_d128=False, need_d64=True)
     if launches != want:
         raise RuntimeError(f"the {family} pipeline launched {launches}, expected {want}")
     shape = (size["height"], size["width"], 3)
@@ -6285,7 +6300,6 @@ def main() -> int:
         ptxas = [line for line in res.log.splitlines() if "registers" in line or "spill" in line]
         log(f"[build] {name} -> {res.path.name} in {res.seconds:.2f}s; ptxas: "
             + " | ".join(ptxas))
-    build.load_flash_fwd()
     build.load_flash_fwd_sm90()
     build.load_flash_fwd_f32()
     build.load_flash_bwd()
@@ -6366,7 +6380,7 @@ def main() -> int:
     # runner; launches_sdxl: phase 9's SDXL video pipeline; launches_kolors,
     # _sd3, _flux: phase 10's pipelines at 1024x1024; launches_svd,
     # _hunyuan_dit, _hunyuan_video, _cog: phase 11's pipelines at full width
-    # (the D = 88 and "mma" routes' launches are theirs)
+    # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs)
     kernels = []
     zoo_total = {e: sum(z.get(e, 0) for z in zoo_launches.values()) for e in ZOO_KERNELS}
     for entry, (src, replaces) in KERNELS.items():

@@ -1,8 +1,9 @@
-// Device helpers shared by the flash-attention forward (flash_fwd.cu,
-// flash_fwd_f32.cu) and backward (flash_bwd.cu) kernels: warp reductions,
-// bf16 packing, the mma.sync m16n8k16 bf16 product, the 3xTF32 m16n8k8
-// product (also in flash_fwd_q8_sm90.cu's f32 P.V), and the tile loader that
-// applies interleaved-pair RoPE as it fills shared memory.
+// Device helpers shared by the mma.sync flash-attention kernels: the f32
+// forward (flash_fwd_f32.cu), the int8 forward at D = 64 (flash_fwd_q8.cu)
+// and the split backward at D = 64 (flash_bwd.cu): warp reductions, bf16
+// packing, the mma.sync m16n8k16 bf16 product, the 3xTF32 m16n8k8 product
+// (also in flash_fwd_q8_sm90.cu's f32 P.V), and the tile loader that applies
+// interleaved-pair RoPE as it fills shared memory.
 #pragma once
 
 #include <cuda_bf16.h>

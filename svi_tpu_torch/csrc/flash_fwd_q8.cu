@@ -31,7 +31,8 @@
 // to kv_len, because the TPU kernel's row max sees its padded keys; the plain
 // version (`_flash_fwd_q8_reference`, block 64) mirrors exactly this.
 //
-// Structure from the bf16 forward (flash_fwd.cu): one CTA of 4 warps per
+// Structure of the package's first bf16 forward (mma.sync, since replaced
+// by flash_fwd_sm90.cu): one CTA of 4 warps per
 // (64-query tile, head, batch), each warp 16 query rows, a loop over 64-key
 // tiles inside the CTA, ragged rows zero-filled in shared memory and masked,
 // nothing padded in device memory. Two layout problems of the int8 P.V

@@ -1,41 +1,58 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, head dim 128: TMA-fed
-// wgmma with warp specialisation. Plain C interface.
+// Flash-attention forward for Hopper (sm_90a), bf16, head dims 128 and 64:
+// TMA-fed wgmma with warp specialisation. Plain C interface.
 //
-// Replaces, for bf16 and D = 128, the Pallas TPU kernel
+// Replaces, for bf16, the Pallas TPU kernels
 // svi_tpu/ops/attention.py::_fwd_kernel_flat (K1, launched by
-// _flash_fwd_pallas_flat, pallas_call at :179) and the RoPE it applies inside
-// the kernel (_rope_in_kernel, :60). The contract is K1's: q, k, v as
-// (B, S, N, D) element strides (the last dim contiguous), optional
+// _flash_fwd_pallas_flat, pallas_call at :179) with the RoPE it applies inside
+// the kernel (_rope_in_kernel, :60), at D = 128 (every DiT attention) and at
+// D = 64 for one head; and ::_fwd_kernel (K2, launched by _flash_fwd_pallas,
+// pallas_call at :531) on (B, N, S, D) views, at D = 128 (the ring's steps)
+// and D = 64 (CogVideoX's joint attention, 48 heads). The contract is K1's:
+// q, k, v as (B, S, N, D) element strides (the last dim contiguous), optional
 // interleaved-pair RoPE from (S, D/2) f32 tables, keys at or beyond
-// min(kv_len, Sk) masked, out in bf16 and base-e lse (B, N, Sq) f32; a row
-// whose keys are all masked gets out = 0 and lse = -1e30 + log(1e-30).
+// min(kv_len, Sk) masked, out in bf16 rounded once from f32 (P rounded to
+// bf16 for P V), base-e lse (B, N, Sq) f32; a row whose keys are all masked
+// gets out = 0 and lse = -1e30 + log(1e-30).
 //
 // What bounds it on this card: at the 14B DiT's self-attention (S = 32760,
-// 40 heads) the two products, 4 * S^2 * D FLOP per head, at the bf16
+// 40 heads, D = 128) the two products, 4 * S^2 * D FLOP per head, at the bf16
 // tensor-core rate (22.2 ms at 989 TFLOP/s); at the cross-attention shapes
-// (Sk = 512 / 257) the bytes of q and out. The mma.sync kernel it replaces
-// (csrc/flash_fwd.cu) ran at ~10% of that bound. What this design does about
-// each of that kernel's limits:
-//   1. tensor cores: wgmma m64n128k16, S = Q K^T with both operands read from
-//      shared memory (K-major), O += P V with P in registers (the f32
-//      accumulator layout of S, packed to bf16, is wgmma's A-fragment layout)
-//      and V read as an MN-major operand (the transpose bit set);
+// (Sk = 512 / 257) the bytes of q and out. At D = 64 the products halve per
+// score but each score still costs one exp2 on the special-function units
+// (16 a clock an SM): at CogVideoX's B2 S17776 N48 the tensor-core bound is
+// 7.85 ms and the exp2 floor 7.25 ms, nearly equal, so the softmax has to
+// run almost wholly under the products. What this design does:
+//   1. tensor cores: wgmma, S = Q K^T as m64n128k16 with both operands read
+//      from shared memory (K-major; D / 16 k-steps), O += P V with P in
+//      registers (the f32 accumulator layout of S, packed to bf16, is wgmma's
+//      A-fragment layout) and V read as an MN-major operand (the transpose
+//      bit set): m64n128k16 at D = 128, m64n64k16 at D = 64;
 //   2. no fragment loads: wgmma reads Q, K and V from shared memory through
-//      descriptors of the 128-byte swizzled layout TMA writes;
+//      descriptors of the 128-byte swizzled layout TMA writes (a 64-column
+//      box is one 128-byte row: two boxes a row at D = 128, one at D = 64);
 //   3. loads overlap compute: one producer thread issues TMA loads into a
-//      ring of three K/V stages guarded by mbarriers (K and V on separate
+//      ring of K/V stages guarded by mbarriers (K and V on separate
 //      barriers); no __syncthreads in the loop. FA3's two schedules keep
 //      the tensor cores busy through the softmax: inside each consumer
 //      warpgroup, tile j's Q K^T and tile j-1's P V are issued together and
 //      tile j's softmax runs while that P V completes (intra-warpgroup
-//      overlap), and the two warpgroups take turns issuing on named barriers
-//      (ping-pong), so one's softmax runs under the other's products;
+//      overlap), and the consumer warpgroups take turns issuing on named
+//      barriers (a ring), so one's softmax runs under the others' products;
 //   4. RoPE is a pre-pass (flash_fwd_sm90_rope_kernel) that rotates q and k
-//      once into contiguous bf16 buffers, with the arithmetic of the earlier
-//      in-loop rotation (f32 products and sums rounded to nearest, one
-//      rounding to bf16), so the rotated values are bit-identical to it;
-//   5. 128 query rows per CTA (two consumer warpgroups of 64 rows, each with
-//      240 registers through setmaxnreg) and 128-key tiles.
+//      once into contiguous bf16 buffers, with the arithmetic of an in-loop
+//      rotation (f32 products and sums rounded to nearest, one rounding to
+//      bf16), so the rotated values are bit-identical to it;
+//   5. D = 128: 128 query rows per CTA (two consumer warpgroups of 64 rows,
+//      each with 240 registers through setmaxnreg), 128-key tiles, 3 stages.
+//      D = 64 spends what the narrower rows free (an O accumulator of 32
+//      registers, 16 KB tiles) on a third consumer warpgroup: 192 query rows
+//      per CTA, so each K/V tile read from L2 feeds 1.5 times the rows, and
+//      each warpgroup's softmax runs under two others' products (160
+//      registers each through setmaxnreg, no spills); 4 K/V stages (152 KB);
+//      the softmax scale is folded into the exp2's FMA. On an H100 SXM at
+//      700 W at CogVideoX's shape this ran 14.4 ms against 17.0-17.2 ms
+//      with two warpgroups; 5 or 6 stages moved it by under 2%, 2 stages
+//      cost 7% (kernels/compare_fwd_sm90.py --variant builds and times them).
 // Rows past S are zero-filled by TMA; only the last key tile is masked, and
 // only when kv_end % 128 != 0. The epilogue stages bf16 out in the Q tile's
 // shared memory and writes it with a TMA store, which clips rows past Sq.
@@ -47,18 +64,37 @@ namespace {
 using namespace sm90;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kD = 128;
-constexpr int kBM = 128;       // query rows per CTA: two consumer warpgroups of 64
-constexpr int kBN = 128;       // keys per tile
-constexpr int kStages = 3;     // K/V ring depth (224 KB of shared memory in all)
-constexpr int kThreads = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
-constexpr int kConsumers = 256;
-constexpr int kBoxCols = 64;   // one 128-byte swizzled row holds 64 bf16
+constexpr int kBoxCols = 64;  // one 128-byte swizzled row holds 64 bf16
 constexpr uint32_t kRowBytes = 128;
-constexpr uint32_t kBoxBytes = kBN * kRowBytes;  // 16 KB: 128 rows x 64 columns
-constexpr uint32_t kTileBytes = 2 * kBoxBytes;   // 32 KB: 128 rows x 128 columns
-constexpr uint32_t kBarBytes = 8 * (3 * kStages + 1);
-constexpr size_t kSmemBytes = kTileBytes * (1 + 2 * kStages) + kBarBytes + 1024;
+
+// D: head dim (a multiple of 64); WG: consumer warpgroups of 64 query rows;
+// STAGES: K/V ring depth; FUSED: the softmax scale folded into the exp2's FMA
+template <int D, int WG, int STAGES, bool FUSED>
+struct FwdCfg {
+  static constexpr int kD = D;
+  static constexpr int kWG = WG;
+  static constexpr int kBM = 64 * WG;  // query rows per CTA
+  static constexpr int kBN = 128;      // keys per tile
+  static constexpr int kStages = STAGES;
+  static constexpr bool kFused = FUSED;
+  static constexpr int kThreads = 128 * (WG + 1);  // the last warpgroup produces
+  static constexpr int kConsumers = 128 * WG;
+  static constexpr int kBoxes = D / kBoxCols;  // 64-column boxes in a row
+  static constexpr uint32_t kQBox = kBM * kRowBytes;
+  static constexpr uint32_t kKBox = kBN * kRowBytes;  // 16 KB: 128 rows x 64 columns
+  static constexpr uint32_t kQBytes = kQBox * kBoxes;
+  static constexpr uint32_t kTileBytes = kKBox * kBoxes;
+  static constexpr uint32_t kBarBytes = 8 * (3 * kStages + 1);
+  static constexpr size_t kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kBarBytes + 1024;
+  // registers a thread: setmaxnreg moves them from the producer (24) to the
+  // consumers, out of the 64K an SM holds
+  static constexpr int kConsumerRegs = WG == 2 ? 240 : 160;
+  static_assert(D % kBoxCols == 0 && (WG == 2 || WG == 3), "unsupported configuration");
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
+
+using FwdCfg128 = FwdCfg<128, 2, 3, false>;  // 224 KB of shared memory in all
+using FwdCfg64 = FwdCfg<64, 3, 4, true>;     // 152 KB
 
 struct Params {
   float* lse;  // (B, N, Sq) contiguous
@@ -70,26 +106,35 @@ struct Params {
 
 // shared-memory map, offsets from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes, and wgmma descriptors assume
-// atoms that start on that boundary)
+// atoms that start on that boundary): Q, the K stages, the V stages, the
+// mbarriers
+template <class C>
 __device__ __forceinline__ uint32_t k_tile(uint32_t base, int st) {
-  return base + kTileBytes * (1 + st);
+  return base + C::kQBytes + C::kTileBytes * st;
 }
+template <class C>
 __device__ __forceinline__ uint32_t v_tile(uint32_t base, int st) {
-  return base + kTileBytes * (1 + kStages + st);
+  return base + C::kQBytes + C::kTileBytes * (C::kStages + st);
 }
+template <class C>
 __device__ __forceinline__ uint32_t bar_full_k(uint32_t base, int st) {
-  return base + kTileBytes * (1 + 2 * kStages) + 8 * st;
+  return base + C::kQBytes + C::kTileBytes * 2 * C::kStages + 8 * st;
 }
+template <class C>
 __device__ __forceinline__ uint32_t bar_full_v(uint32_t base, int st) {
-  return bar_full_k(base, kStages + st);
+  return bar_full_k<C>(base, C::kStages + st);
 }
+template <class C>
 __device__ __forceinline__ uint32_t bar_empty(uint32_t base, int st) {
-  return bar_full_k(base, 2 * kStages + st);
+  return bar_full_k<C>(base, 2 * C::kStages + st);
 }
-__device__ __forceinline__ uint32_t bar_q(uint32_t base) { return bar_full_k(base, 3 * kStages); }
+template <class C>
+__device__ __forceinline__ uint32_t bar_q(uint32_t base) {
+  return bar_full_k<C>(base, 3 * C::kStages);
+}
 
 // ---------------------------------------------------------------------------
-// wgmma m64n128k16 in inline PTX
+// wgmma m64n128k16 and m64n64k16 in inline PTX
 // ---------------------------------------------------------------------------
 
 // d (64 x 128 f32) (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
@@ -116,6 +161,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // a row of the accumulator lives in 4 neighbouring lanes
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -132,37 +193,50 @@ __device__ __forceinline__ float lse_of(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// consumer pieces. Accumulator layout of m64n128 (per thread, warp w of the
+// consumer pieces. Accumulator layout of m64nN (per thread, warp w of the
 // warpgroup, lane = 4g + t): d[4j + i] is row 16w + g + 8 * (i >> 1), column
 // 8j + 2t + (i & 1).
 // ---------------------------------------------------------------------------
 
 // S = Q K^T: this warpgroup's 64 query rows against a 128-key tile
+template <class C>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows, uint32_t k_base) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss(s, gmma_desc(q_rows + off, 16, 1024), gmma_desc(k_base + off, 16, 1024), kk > 0);
+  for (int kk = 0; kk < C::kD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(s, gmma_desc(q_rows + (kk / 4) * C::kQBox + col, 16, 1024),
+             gmma_desc(k_base + (kk / 4) * C::kKBox + col, 16, 1024), kk > 0);
   }
 }
 
 // O += P V over a 128-key tile; P's 16-key slice kk is pf[4kk .. 4kk + 3]
-__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pf)[32],
+template <class C>
+__device__ __forceinline__ void issue_pv(float (&o)[C::kD / 2], const uint32_t (&pf)[32],
                                          uint32_t v_base) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int kk = 0; kk < C::kBN / 16; ++kk) {
     const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3]};
-    wgmma_rs(o, a, gmma_desc(v_base + kk * 16 * kRowBytes, kBoxBytes, 1024));
+    const uint64_t db = gmma_desc(v_base + kk * 16 * kRowBytes, C::kKBox, 1024);
+    if constexpr (C::kD == 128)
+      wgmma_rs(o, a, db);
+    else
+      wgmma_rs64(o, a, db);
   }
 }
 
 // online softmax in base 2 on one tile's scores, in place: s becomes
-// exp2(x - m_new); returns the factor that moves the running O to m_new.
+// exp2(x - m_new), m is kept in scaled units; returns the factor that moves
+// the running O to m_new. FUSED: the max is taken over the raw scores and
+// the scale goes into the exp2's FMA (one rounding, one instruction less a
+// score); else each score is scaled first.
+template <bool FUSED>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float scale_log2, bool mask,
                                              long long k0, long long kv_end, int t4) {
+  if constexpr (!FUSED) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+  }
   if (mask) {
 #pragma unroll
     for (int i = 0; i < 64; ++i)
@@ -174,7 +248,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   float mu[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    float mn = quad_max(mx[r]);
+    if constexpr (FUSED) mn *= scale_log2;  // the scale is positive: the max commutes
+    mn = fmaxf(m[r], mn);
     mu[r] = (mn == -INFINITY) ? 0.f : mn;  // keeps exp2 of masked keys at 0, never NaN
     alpha[r] = ex2(m[r] - mu[r]);
     m[r] = mn;
@@ -182,7 +258,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   float rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    const float e = ex2(s[i] - mu[(i >> 1) & 1]);
+    const float x = FUSED ? fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]) : s[i] - mu[(i >> 1) & 1];
+    const float e = ex2(x);
     s[i] = e;
     rs[(i >> 1) & 1] += e;
   }
@@ -202,31 +279,37 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[32], const float (&s)[64])
   }
 }
 
-// ping-pong: the consumer warpgroups take turns issuing their products, so
-// one's softmax runs while the other's wgmmas do. Warpgroup wg waits for its
-// turn on named barrier 3 + wg (its 128 threads and the other warpgroup's
-// arrival) and hands the turn over when its products are issued.
+// The consumer warpgroups take turns issuing their products, so one's
+// softmax runs while the others' wgmmas do. Warpgroup wg waits for its turn
+// on named barrier 1 + WG + wg (its 128 threads and the previous
+// warpgroup's arrival) and hands the turn to the next when its products are
+// issued (barriers 1 .. WG are the epilogue's).
+template <class C>
 __device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + C::kWG + wg) : "memory");
 }
+template <class C>
 __device__ __forceinline__ void turn_pass(int to_wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + to_wg) : "memory");
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + C::kWG + to_wg) : "memory");
 }
 
-__device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int kStages = C::kStages, kBN = C::kBN, kD = C::kD;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
-  const int q0 = blockIdx.x * kBM;
+  const int q0 = blockIdx.x * C::kBM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int n_tiles = (int)((p.kv_end + kBN - 1) / kBN);
@@ -234,85 +317,92 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(bar_full_k(base, st), 1);
-      mbar_init(bar_full_v(base, st), 1);
-      mbar_init(bar_empty(base, st), kConsumers);
+      mbar_init(bar_full_k<C>(base, st), 1);
+      mbar_init(bar_full_v<C>(base, st), 1);
+      mbar_init(bar_empty<C>(base, st), C::kConsumers);
     }
-    mbar_init(bar_q(base), 1);
+    mbar_init(bar_q<C>(base), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == C::kWG) {
     // producer: one thread keeps the K/V ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(bar_q(base), kTileBytes);
-      tma_load(base, &tq, bar_q(base), 0, h, q0, b);
-      tma_load(base + kBoxBytes, &tq, bar_q(base), kBoxCols, h, q0, b);
+    if (threadIdx.x == C::kConsumers) {
+      mbar_expect_tx(bar_q<C>(base), C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load(base + c * C::kQBox, &tq, bar_q<C>(base), c * kBoxCols, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
-        if (j >= kStages) mbar_wait(bar_empty(base, st), ((j / kStages) - 1) & 1);
-        const uint32_t fk = bar_full_k(base, st), fv = bar_full_v(base, st);
-        mbar_expect_tx(fk, kTileBytes);
-        tma_load(k_tile(base, st), &tk, fk, 0, h, j * kBN, b);
-        tma_load(k_tile(base, st) + kBoxBytes, &tk, fk, kBoxCols, h, j * kBN, b);
-        mbar_expect_tx(fv, kTileBytes);
-        tma_load(v_tile(base, st), &tv, fv, 0, h, j * kBN, b);
-        tma_load(v_tile(base, st) + kBoxBytes, &tv, fv, kBoxCols, h, j * kBN, b);
+        if (j >= kStages) mbar_wait(bar_empty<C>(base, st), ((j / kStages) - 1) & 1);
+        const uint32_t fk = bar_full_k<C>(base, st), fv = bar_full_v<C>(base, st);
+        mbar_expect_tx(fk, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(k_tile<C>(base, st) + c * C::kKBox, &tk, fk, c * kBoxCols, h, j * kBN, b);
+        mbar_expect_tx(fv, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(v_tile<C>(base, st) + c * C::kKBox, &tv, fv, c * kBoxCols, h, j * kBN, b);
       }
     }
   } else {
     // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
     const uint32_t q_rows = base + wg * 64 * kRowBytes;
     const bool ragged = (p.kv_end % kBN) != 0;
+    const int next = C::kWG == 2 ? 1 - wg : (wg + 1) % C::kWG;
 
-    float o[64], s[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float o[kD / 2], s[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t pf[32];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
 
-    mbar_wait(bar_q(base), 0);
+    mbar_wait(bar_q<C>(base), 0);
     if (n_tiles > 0) {
-      if (wg == 0) turn_pass(0);  // warpgroup 0 takes the first turn
-      mbar_wait(bar_full_k(base, 0), 0);
-      turn_wait(wg);
+      if (wg == 0) turn_pass<C>(0);  // warpgroup 0 takes the first turn
+      mbar_wait(bar_full_k<C>(base, 0), 0);
+      turn_wait<C>(wg);
       wgmma_fence();
-      issue_qk(s, q_rows, k_tile(base, 0));
+      issue_qk<C>(s, q_rows, k_tile<C>(base, 0));
       wgmma_commit();
-      turn_pass(1 - wg);
+      turn_pass<C>(next);
       wgmma_wait<0>();
       fence_regs(s);
-      softmax_tile(s, m, l, alpha, p.scale_log2, ragged && n_tiles == 1, 0, p.kv_end, t4);
+      softmax_tile<C::kFused>(s, m, l, alpha, p.scale_log2, ragged && n_tiles == 1, 0,
+                              p.kv_end, t4);
       pack_p(pf, s);
       for (int j = 1; j < n_tiles; ++j) {
         const int st = j % kStages, sp = (j - 1) % kStages;
-        mbar_wait(bar_full_k(base, st), (j / kStages) & 1);
-        mbar_wait(bar_full_v(base, sp), ((j - 1) / kStages) & 1);
-        turn_wait(wg);
+        mbar_wait(bar_full_k<C>(base, st), (j / kStages) & 1);
+        mbar_wait(bar_full_v<C>(base, sp), ((j - 1) / kStages) & 1);
+        turn_wait<C>(wg);
         wgmma_fence();
-        issue_qk(s, q_rows, k_tile(base, st));  // tile j's scores
+        issue_qk<C>(s, q_rows, k_tile<C>(base, st));  // tile j's scores
         wgmma_commit();
-        issue_pv(o, pf, v_tile(base, sp));  // tile j-1's values
+        issue_pv<C>(o, pf, v_tile<C>(base, sp));  // tile j-1's values
         wgmma_commit();
-        turn_pass(1 - wg);
+        turn_pass<C>(next);
         wgmma_wait<1>();
         fence_regs(s);
-        softmax_tile(s, m, l, alpha, p.scale_log2, ragged && j == n_tiles - 1,
-                     (long long)j * kBN, p.kv_end, t4);
+        softmax_tile<C::kFused>(s, m, l, alpha, p.scale_log2, ragged && j == n_tiles - 1,
+                                (long long)j * kBN, p.kv_end, t4);
         wgmma_wait<0>();
         fence_regs(o);
-        mbar_arrive(bar_empty(base, sp));
+        mbar_arrive(bar_empty<C>(base, sp));
         rescale(o, alpha);
         pack_p(pf, s);
       }
       const int sl = (n_tiles - 1) % kStages;
-      mbar_wait(bar_full_v(base, sl), ((n_tiles - 1) / kStages) & 1);
+      mbar_wait(bar_full_v<C>(base, sl), ((n_tiles - 1) / kStages) & 1);
       wgmma_fence();
-      issue_pv(o, pf, v_tile(base, sl));
+      issue_pv<C>(o, pf, v_tile<C>(base, sl));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -332,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = r0 + 8 * half;
-        const uint32_t addr = q_rows + (jn / 8) * kBoxBytes + row * kRowBytes +
+        const uint32_t addr = q_rows + (jn / 8) * C::kQBox + row * kRowBytes +
                               (((jn % 8) ^ (row & 7)) << 4) + t4 * 4;
         const uint32_t val = pack_bf16(o[4 * jn + 2 * half] * inv[half],
                                        o[4 * jn + 2 * half + 1] * inv[half]);
@@ -343,8 +433,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     const int row0 = q0 + wg * 64;
     if (tid == 0 && row0 < p.sq) {
-      tma_store(&to, q_rows, 0, h, row0, b);
-      tma_store(&to, q_rows + kBoxBytes, kBoxCols, h, row0, b);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_store(&to, q_rows + c * C::kQBox, c * kBoxCols, h, row0, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -396,29 +487,21 @@ __global__ void __launch_bounds__(kRopeThreads) flash_fwd_sm90_rope_kernel(
   }
 }
 
-}  // namespace
-
-// q, k, v, out: bf16 (B, S, N, 128) views; strides: 12 element strides, (b, s,
-// n) for q, k, v, out in that order. Returns 0 when the kernel was launched, a
-// cudaError_t value, kNoEncodeEntry, or kEncodeFailed + the CUresult of the
-// tensor-map encode that failed.
-extern "C" int svi_flash_fwd_sm90(const void* q, const void* k, const void* v, void* out,
-                                  float* lse, long long batch, long long n_heads, long long sq,
-                                  long long sk, long long kv_len, float scale,
-                                  const long long* strides, void* stream) {
-  if (batch == 0 || n_heads == 0 || sq == 0) return (int)cudaSuccess;
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return kNoEncodeEntry;
+template <class C>
+int launch(EncodeTiledFn fn, const void* q, const void* k, const void* v, void* out, float* lse,
+           long long batch, long long n_heads, long long sq, long long sk, long long kv_len,
+           float scale, const long long* strides, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   CUresult r;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if ((r = encode_map(fn, &tq, bf, 2, q, kD, n_heads, sq, batch, strides + 0, kBoxCols, kBM)) !=
-          CUDA_SUCCESS ||
-      (r = encode_map(fn, &tk, bf, 2, k, kD, n_heads, sk, batch, strides + 3, kBoxCols, kBN)) !=
-          CUDA_SUCCESS ||
-      (r = encode_map(fn, &tv, bf, 2, v, kD, n_heads, sk, batch, strides + 6, kBoxCols, kBN)) !=
-          CUDA_SUCCESS ||
-      (r = encode_map(fn, &to, bf, 2, out, kD, n_heads, sq, batch, strides + 9, kBoxCols, 64)) !=
+  const int d = C::kD;
+  if ((r = encode_map(fn, &tq, bf, 2, q, d, n_heads, sq, batch, strides + 0, kBoxCols,
+                      C::kBM)) != CUDA_SUCCESS ||
+      (r = encode_map(fn, &tk, bf, 2, k, d, n_heads, sk, batch, strides + 3, kBoxCols,
+                      C::kBN)) != CUDA_SUCCESS ||
+      (r = encode_map(fn, &tv, bf, 2, v, d, n_heads, sk, batch, strides + 6, kBoxCols,
+                      C::kBN)) != CUDA_SUCCESS ||
+      (r = encode_map(fn, &to, bf, 2, out, d, n_heads, sq, batch, strides + 9, kBoxCols, 64)) !=
           CUDA_SUCCESS)
     return kEncodeFailed + (int)r;
   Params p;
@@ -429,12 +512,33 @@ extern "C" int svi_flash_fwd_sm90(const void* q, const void* k, const void* v, v
   p.n_heads = (int)n_heads;
   p.scale_log2 = scale * kLog2e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      flash_fwd_sm90_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((sq + kBM - 1) / kBM), (unsigned)n_heads, (unsigned)batch);
-  flash_fwd_sm90_kernel<<<grid, kThreads, kSmemBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, to, p);
+  const dim3 grid((unsigned)((sq + C::kBM - 1) / C::kBM), (unsigned)n_heads, (unsigned)batch);
+  flash_fwd_sm90_kernel<C><<<grid, C::kThreads, C::kSmemBytes, stream>>>(tq, tk, tv, to, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, out: bf16 (B, S, N, head_dim) views, head_dim 128 or 64; strides:
+// 12 element strides, (b, s, n) for q, k, v, out in that order. Returns 0
+// when the kernel was launched, a cudaError_t value, kNoEncodeEntry, or
+// kEncodeFailed + the CUresult of the tensor-map encode that failed.
+extern "C" int svi_flash_fwd_sm90(int head_dim, const void* q, const void* k, const void* v,
+                                  void* out, float* lse, long long batch, long long n_heads,
+                                  long long sq, long long sk, long long kv_len, float scale,
+                                  const long long* strides, void* stream) {
+  if (head_dim != 128 && head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || n_heads == 0 || sq == 0) return (int)cudaSuccess;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoEncodeEntry;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (head_dim == 128)
+    return launch<FwdCfg128>(fn, q, k, v, out, lse, batch, n_heads, sq, sk, kv_len, scale,
+                             strides, st);
+  return launch<FwdCfg64>(fn, q, k, v, out, lse, batch, n_heads, sq, sk, kv_len, scale, strides,
+                          st);
 }
 
 // x: bf16 (B, S, N, D) view with element strides (sb, ss, sn), D % 8 == 0,

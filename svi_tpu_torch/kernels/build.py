@@ -22,7 +22,6 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-SOURCE = CSRC / "flash_fwd.cu"
 SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
 F32_SOURCE = CSRC / "flash_fwd_f32.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
@@ -68,14 +67,14 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
     ]
 
 
-def library_path(source: Path = SOURCE) -> Path:
+def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(source: Path = SOURCE) -> BuildResult:
+def build(source: Path) -> BuildResult:
     """Compile `source` unless the library for its hash exists. The output is
     written to a temporary name and renamed, so a concurrent build never
     loads a half-written library."""
@@ -108,23 +107,6 @@ _STRIDES = ctypes.POINTER(_i64)
 
 
 @functools.lru_cache(maxsize=None)
-def load_flash_fwd() -> ctypes.CDLL:
-    """Build (if needed) and load the bf16 D=64 forward (route "mma") once per
-    process."""
-    lib = ctypes.CDLL(str(build(SOURCE).path))
-    lib.svi_flash_fwd.argtypes = [
-        ctypes.c_int, ctypes.c_int,  # head_dim, rope
-        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse, cos, sin
-        _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
-        ctypes.c_float,  # scale
-        _STRIDES,  # 12 strides
-        _ptr,  # cudaStream_t
-    ]
-    lib.svi_flash_fwd.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def load_flash_fwd_f32() -> ctypes.CDLL:
     """Build (if needed) and load the f32 forward (3xTF32 tensor cores) once
     per process."""
@@ -143,10 +125,16 @@ def load_flash_fwd_f32() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_flash_fwd_sm90() -> ctypes.CDLL:
-    """Build (if needed) and load the Hopper bf16 D=128 forward (TMA + wgmma)
-    and its RoPE pre-pass once per process."""
-    lib = ctypes.CDLL(str(build(SM90_SOURCE).path))
+    """Build (if needed) and load the Hopper bf16 forward at D=128 and D=64
+    (TMA + wgmma) and its RoPE pre-pass once per process."""
+    return bind_flash_fwd_sm90(build(SM90_SOURCE).path)
+
+
+def bind_flash_fwd_sm90(path: Path) -> ctypes.CDLL:
+    """Load a library built from flash_fwd_sm90.cu and declare its entries."""
+    lib = ctypes.CDLL(str(path))
     lib.svi_flash_fwd_sm90.argtypes = [
+        ctypes.c_int,  # head_dim
         _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse
         _i64, _i64, _i64, _i64, _i64,  # batch, heads, sq, sk, kv_len
         ctypes.c_float,  # scale

@@ -8,8 +8,8 @@ streams (shift, scale and gate each), q and k take LayerNorms, and 3-D RoPE
 rotates the video tokens only (`prepare_rope_tables`, aspect-cropped
 against 480 x 720). The attention is `ops.attention.flash_attention` at 48
 heads of 64: in bf16 on the card that is K2's (B, N, S, D) entry,
-`flash_fwd_bnsd`, route "mma" (csrc/flash_fwd.cu, mma.sync m16n8k16). The
-DiT tiles spatially when asked (the RoPE tables made per tile).
+`flash_fwd_bnsd`, route "sm90" at D = 64 (csrc/flash_fwd_sm90.cu, TMA +
+wgmma). The DiT tiles spatially when asked (the RoPE tables made per tile).
 
 The VAE streams its convolutions' time context as an explicit cache dict
 (`_cached_conv3d`: the last two frames of each convolution's input), so a

@@ -22,13 +22,13 @@ instead):
     f32 in 3xTF32 at D = 128) and qk8pv8 (int8 P.V too).
 
 The forward entries (a layout is only strides) take the route `_fwd_route`
-names for the dtype and head dim: bf16 D = 128 (every DiT attention) runs
-csrc/flash_fwd_sm90.cu (TMA + wgmma, warp-specialised), after its RoPE
-pre-pass `rope_rotate_flat` when tables are given; f32 (the VAEs, CLIP,
-the SD 1.5 UNet, ControlNet and motion modules, Hunyuan-DiT's D = 88) runs
-csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores); bf16 D = 64
-(CogVideoX's 48 heads) runs csrc/flash_fwd.cu. Each entry counts its
-launches per (route, dtype, head_dim) in `.routes`. The one-pass backward (K4) launches
+names for the dtype and head dim: bf16 D = 128 (every DiT attention) and
+D = 64 (CogVideoX's 48 heads) run csrc/flash_fwd_sm90.cu (TMA + wgmma,
+warp-specialised), after its RoPE pre-pass `rope_rotate_flat` when tables
+are given; f32 (the VAEs, CLIP, the SD 1.5 UNet, ControlNet and motion
+modules, Hunyuan-DiT's D = 88) runs csrc/flash_fwd_f32.cu (3xTF32 on the
+tensor cores). Each entry counts its launches per (route, dtype, head_dim)
+in `.routes`. The one-pass backward (K4) launches
 csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass;
 the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
 bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
@@ -62,11 +62,13 @@ import torch
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-# the forward kernel that serves each (dtype, head_dim) on the card: 'sm90'
-# is csrc/flash_fwd_sm90.cu (TMA + wgmma, every DiT attention), 'f32'
-# csrc/flash_fwd_f32.cu (3xTF32 mma.sync), 'mma' csrc/flash_fwd.cu (mma.sync)
-_FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
+# the forward kernel that serves each (dtype, head_dim) on the card, and the
+# `kernels.build` loader of each route's library: 'sm90' is
+# csrc/flash_fwd_sm90.cu (TMA + wgmma: every DiT attention, CogVideoX's
+# D = 64), 'f32' csrc/flash_fwd_f32.cu (3xTF32 mma.sync)
+_FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "sm90",
                **{(torch.float32, d): "f32" for d in (32, 40, 64, 80, 88, 128, 160, 384, 512)}}
+_FWD_LOADERS = {"sm90": "load_flash_fwd_sm90", "f32": "load_flash_fwd_f32"}
 _KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
                      for dt in (torch.bfloat16, torch.float32)}
 _REFERENCE_TILE_BYTES = 1 << 30  # bound on one f32 score tile of the plain version
@@ -185,9 +187,8 @@ def _strides12(*views) -> ctypes.Array:
 
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel a CUDA call at (dtype, head_dim) takes: 'sm90'
-    (bf16, D = 128), 'mma' (bf16, D = 64) or 'f32' (f32, D in 32, 40, 64,
-    80, 88, 128, 160, 384, 512; 3xTF32). Raises for any other pair: nothing
-    falls back."""
+    (bf16, D = 128 or 64) or 'f32' (f32, D in 32, 40, 64, 80, 88, 128, 160,
+    384, 512; 3xTF32). Raises for any other pair: nothing falls back."""
     if dtype not in _KERNEL_HEAD_DIMS:
         raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
     route = _FWD_ROUTES.get((dtype, head_dim))
@@ -253,13 +254,14 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
     route = _fwd_route(dtype, d)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q4.device)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
-    if route == "sm90":
-        from ..kernels.build import load_flash_fwd_sm90
+    from ..kernels import build
 
+    lib = getattr(build, _FWD_LOADERS[route])()
+    if route == "sm90":
         if cos is not None:
             q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
-        err = load_flash_fwd_sm90().svi_flash_fwd_sm90(
-            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
+        err = lib.svi_flash_fwd_sm90(
+            d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
             b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
         if err != 0:
             raise RuntimeError(
@@ -267,19 +269,13 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
                 "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
                 "CUresult r)")
     else:
-        from ..kernels.build import load_flash_fwd, load_flash_fwd_f32
-
-        tables = (cos.data_ptr() if cos is not None else None,
-                  sin.data_ptr() if sin is not None else None)
-        tail = (b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4),
-                stream)
-        ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr())
-        if route == "f32":
-            err = load_flash_fwd_f32().svi_flash_fwd_f32(d, *ptrs, *tables, *tail)
-        else:
-            err = load_flash_fwd().svi_flash_fwd(d, int(cos is not None), *ptrs, *tables, *tail)
+        err = lib.svi_flash_fwd_f32(
+            d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
+            cos.data_ptr() if cos is not None else None,
+            sin.data_ptr() if sin is not None else None,
+            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
         if err != 0:
-            raise RuntimeError(f"flash forward ({route}) launch failed: cudaError {err}")
+            raise RuntimeError(f"flash forward (f32) launch failed: cudaError {err}")
     return lse, (route, str(dtype).removeprefix("torch."), d)
 
 

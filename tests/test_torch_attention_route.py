@@ -24,7 +24,7 @@ F32_TOL = 1e-5
 
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
-    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
     *((torch.float32, d, "f32") for d in (32, 64, 80, 128, 384)),
     (torch.bfloat16, 80, None),
     # the SD 1.5 family's f32 head dims; a pair with no kernel still raises
@@ -39,6 +39,27 @@ def test_fwd_route(dtype, head_dim, route):
             tattn._fwd_route(dtype, head_dim)
     else:
         assert tattn._fwd_route(dtype, head_dim) == route
+
+
+def test_every_fwd_route_loads_a_source_that_exists(monkeypatch):
+    """Each route of `_FWD_ROUTES` names a `kernels.build` loader (the one
+    `_launch` calls), and that loader builds a source under csrc/ that
+    exists; nvcc and the library load are stubbed (no card here)."""
+    import ctypes
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from svi_tpu_torch.kernels import build
+
+    built = []
+    monkeypatch.setattr(build, "build", lambda src: built.append(src) or SimpleNamespace(
+        path=src))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: mock.MagicMock())
+    routes = set(tattn._FWD_ROUTES.values())
+    assert routes == set(tattn._FWD_LOADERS)
+    for route in sorted(routes):
+        getattr(build, tattn._FWD_LOADERS[route]).__wrapped__()
+        assert built[-1].is_file() and built[-1].parent == build.CSRC, (route, built[-1])
 
 
 def _rope_inputs(dtype):

@@ -1,5 +1,5 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
-bf16 D=128 with its RoPE pre-pass, mma.sync for bf16 D=64, 3xTF32 for f32 --,
+bf16 D=128 and D=64 with its RoPE pre-pass, 3xTF32 for f32 --,
 at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
@@ -311,18 +311,101 @@ def test_bf16_d64_mma_cogvideox_attention(s, kv_len):
     """CogVideoX-5B's joint attention: 48 heads of 64 over 226 text + 13 x 30
     x 45 video tokens (17776) at B2 (batched CFG), bf16, as (B, N, S, D)
     views of (B, S, 48 * 64) tensors through the (B, N, S, D) entry, route
-    "mma"; and a short ragged sequence with masked keys."""
+    "sm90" at D = 64; and a short ragged sequence with masked keys."""
     d, n = 64, 48
     q, k, v = (_rand((2, s, n * d), torch.bfloat16, 120 + i) for i in range(3))
-    before = tattn.flash_fwd_bnsd.routes[("mma", "bfloat16", d)]
+    before = tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", d)]
     got = tattn.flash_fwd_bnsd(*(t.unflatten(-1, (n, d)).transpose(1, 2) for t in (q, k, v)),
                                kv_len=kv_len)
     torch.cuda.synchronize()
-    assert tattn.flash_fwd_bnsd.routes[("mma", "bfloat16", d)] == before + 1
+    assert tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", d)] == before + 1
     kv = s if kv_len is None else kv_len
     o_ref, lse_ref = tattn._flash_fwd_reference(*(t.unflatten(-1, (n, d)) for t in (q, k, v)),
                                                 None, None, kv, d ** -0.5)
     _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+# the sm90 D = 64 kernel's tile edges: 64-row warpgroups, CTAs of 2 or 3 of
+# them (128 or 192 query rows), 128-key tiles
+D64_EDGES = (1, 63, 64, 65, 127, 128, 129, 191, 192, 193)
+
+
+def _sm90_d64_launches():
+    return (tattn.flash_fwd_flat.routes[("sm90", "bfloat16", 64)]
+            + tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", 64)])
+
+
+def _bnsd_d64(b, sq, sk, n, seed):
+    """q, k, v as (B, N, S, D) views of (B, S, N * 64) rows, and their
+    (B, S, N, D) views for the plain version."""
+    q = _rand((b, sq, n * 64), torch.bfloat16, seed)
+    k, v = (_rand((b, sk, n * 64), torch.bfloat16, seed + 1 + i) for i in range(2))
+    views = [t.unflatten(-1, (n, 64)) for t in (q, k, v)]
+    return [t.transpose(1, 2) for t in views], views
+
+
+@pytest.mark.parametrize("sk", D64_EDGES)
+@pytest.mark.parametrize("sq", D64_EDGES)
+def test_sm90_d64_tile_edges(sq, sk):
+    """bf16 D = 64 through the (B, N, S, D) entry on strided views, Sq and Sk
+    on each side of the kernel's row and key tile edges."""
+    n, b = 3, 2
+    heads, views = _bnsd_d64(b, sq, sk, n, 130)
+    before = _sm90_d64_launches()
+    got = tattn.flash_fwd_bnsd(*heads)
+    torch.cuda.synchronize()
+    assert _sm90_d64_launches() == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, sk, 64 ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 129, 700, 999])
+def test_sm90_d64_kv_len(kv_len):
+    """kv_len < Sk at D = 64: Sk 1000 (8 key tiles, so the K/V ring wraps),
+    kv_len one key, one past a tile, mid-way and one short; 0 masks every
+    key (out 0, lse -1e30 + log(1e-30), finite)."""
+    n, b, sq, sk = 2, 2, 193, 1000
+    heads, views = _bnsd_d64(b, sq, sk, n, 140)
+    before = _sm90_d64_launches()
+    got = tattn.flash_fwd_bnsd(*heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _sm90_d64_launches() == before + 1
+    if kv_len == 0:  # the plain version's -1e30 mask averages v instead
+        assert (got[0] == 0).all() and torch.isfinite(got[1]).all()
+        assert (got[1] <= -1e30).all()
+        return
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, kv_len, 64 ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+def test_sm90_d64_single_head_flat_rope():
+    """One head of 64 through the flat entry (the JAX routing's flat case
+    for N = 1) with RoPE tables: q and k through the pre-pass, then the
+    kernel; q, k, v column slices of one (B, S, 3 * 64) tensor."""
+    b, s, d = 2, 300, 64
+    qkv = _rand((b, s, 3 * d), torch.bfloat16, 150)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    cos, sin = _tables(s, d)
+    before, rope_before = _sm90_d64_launches(), tattn.rope_rotate_flat.launches
+    got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    assert _sm90_d64_launches() == before + 1
+    assert tattn.rope_rotate_flat.launches == rope_before + 2
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (1, d)) for t in (q, k, v)), cos, sin, s, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+def test_sm90_d64_misaligned_view_raises():
+    """A D = 64 view whose data_ptr is off 16-byte alignment cannot feed TMA:
+    the wrapper raises before any launch."""
+    b, s, n, d = 1, 64, 2, 64
+    flat = _rand((b * s * n * d + 4,), torch.bfloat16, 160)
+    q = flat[4:].view(b, s, n, d).transpose(1, 2)  # 8 bytes past an aligned start
+    before = _sm90_d64_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_fwd_bnsd(q, q, q)
+    assert _sm90_d64_launches() == before
 
 
 def test_f32_sdxl_vae_mid_block_s16384():

@@ -190,6 +190,31 @@ def test_plain_attention_matches_pallas_bnsd_kernel_d80():
     np.testing.assert_allclose(_np(lse_t), _np(lse_j[:, :, :s]), atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
+def test_plain_bf16_d64_attention_matches_pallas_bnsd_kernel():
+    """K2 itself (interpret mode) in bf16 at CogVideoX's head dim 64, the
+    (B, N, S, D) contract the sm90 route serves at D = 64 on the card: 2
+    heads, 200 tokens padded to 256 for the kernel, keys past 180 masked.
+    Tolerances: out within one bf16 ulp of the largest |out| (both round
+    out to bf16 once, from f32 sums in another order, and the TPU kernel
+    rounds P to bf16 for P.V where the plain version keeps f32); lse is f32
+    from the same bf16 scores in both (ATTN_TOL)."""
+    rng = np.random.default_rng(9)
+    b, n, s, d, kv_len = 1, 2, 200, 64, 180
+    q, k, v = (rng.standard_normal((b, n, s, d)).astype(np.float32) for _ in range(3))
+    qj, kj, vj = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    qt, kt, vt = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    pad = ((0, 0), (0, 0), (0, 256 - s), (0, 0))
+    with pltpu.force_tpu_interpret_mode():
+        out_j, lse_j = jattn._flash_fwd_pallas(
+            jnp.pad(qj, pad), jnp.pad(kj, pad), jnp.pad(vj, pad), kv_len, d ** -0.5, 128, 128)
+    out_t, lse_t = tattn.flash_fwd_bnsd(qt, kt, vt, kv_len=kv_len)
+    assert out_t.dtype == torch.bfloat16 and out_t.shape == (b, n, s, d)
+    want = _np(out_j[:, :, :s].astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(_np(out_t.float()), want, atol=ulp, rtol=0)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j[:, :, :s]), atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
 def test_plain_attention_row_chunking_is_exact(monkeypatch):
     """The plain version chunks query rows to bound its score tile; chunking
     must not change the result."""

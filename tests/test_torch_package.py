@@ -149,16 +149,16 @@ def test_pose_path_imports_no_cv2():
 
 
 def test_build_command_targets_sm90a_into_an_ignored_dir():
-    out = build.library_path()
-    cmd = build.nvcc_command("nvcc", build.SOURCE, out)
+    out = build.library_path(build.SM90_SOURCE)
+    cmd = build.nvcc_command("nvcc", build.SM90_SOURCE, out)
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[-1] == str(build.SOURCE) and cmd[cmd.index("-o") + 1] == str(out)
+    assert cmd[-1] == str(build.SM90_SOURCE) and cmd[cmd.index("-o") + 1] == str(out)
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     rel = out.parent.relative_to(REPO).as_posix()
     ignored = [line.strip().rstrip("/") for line in (REPO / ".gitignore").read_text().splitlines()]
     assert rel in ignored, f"{rel} is not listed in .gitignore"
     # the library name follows the source: an edited kernel rebuilds
-    assert out.name.startswith("libflash_fwd_") and out.suffix == ".so"
+    assert out.name.startswith("libflash_fwd_sm90_") and out.suffix == ".so"
     # each source under csrc/ builds into a library of its own
     assert build.library_path(build.BWD_SOURCE).name.startswith("libflash_bwd_")
     assert build.BWD_SOURCE in build.CSRC.glob("*.cu")
