@@ -165,14 +165,17 @@ non-zero exit and no result line:
      AnimateDiff-SDXL, SD3ImagePipeline with CFG and T5, FluxImagePipeline
      with a ControlNet unit, an IP-Adapter embedding, TeaCache and one EliGen
      entity, card against CPU; then one family at a time, its files freed
-     before the next: (b) seeded files at the published widths (ChatGLM3-6B,
-     the Kolors UNet, SDXL's VAE; SD3-medium's MMDiT, CLIP-L, OpenCLIP bigG,
-     its VAE; FLUX.1-dev's DiT, CLIP-L, its VAE; T5-XXL at 2 of 24 layers),
-     (c) one forward at a cut depth card against CPU (FLUX in f32 and in
-     bf16), (d) the pipeline at 1024x1024, 2 steps (Kolors: the 256-token
-     prompt, CFG 7.5; SD3: batched CFG 7.5, T5 on; FLUX: embedded guidance
-     3.5), with per-part seconds, peak memory and the attention launches,
-     which must be the models' count;
+     before the next: (b) seeded files at the published widths (ChatGLM3-6B
+     at 2 of 28 layers, the Kolors UNet, SDXL's VAE; SD3-medium's MMDiT,
+     CLIP-L, OpenCLIP bigG, its VAE; FLUX.1-dev's DiT at 2 + 2 of 19 + 38
+     blocks, CLIP-L, its VAE; T5-XXL at 2 of 24 layers; a cut file's
+     parameter count at the published depth is computed from its blocks and
+     held to the published count), (c) one forward at a cut depth card
+     against CPU (FLUX in f32 and in bf16), (d) the pipeline on those files
+     at 1024x1024, 2 steps (Kolors: the 256-token prompt, CFG 7.5; SD3:
+     batched CFG 7.5, T5 on; FLUX: embedded guidance 3.5), with per-part
+     seconds, peak memory and the attention launches, which must be the
+     loaded models' count;
  11. SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX: (a) the narrow models of
      tests/torch_video_fixtures.py through SVDVideoPipeline (a mask frame),
      HunyuanDiTImagePipeline (2 heads of 88: the D88 route), HunyuanVideoPipeline
@@ -181,24 +184,38 @@ non-zero exit and no result line:
      at a time, its files freed before the next: (b) seeded files at the
      published widths (SVD-XT's UNet, its temporal VAE decoder, SD's VAE
      encoder, CLIP ViT-H's image tower; Hunyuan-DiT with the SDXL VAE
-     decoder; HunyuanVideo's 13B DiT, its causal VAE decoder, CLIP-L;
-     CogVideoX-5B's DiT and VAE decoder with T5-XXL at 2 of 24 layers), (c)
-     one forward at a cut depth card against CPU (HunyuanVideo and CogVideoX
-     also in bf16), (d) the pipeline at full width, 2 steps (SVD 576x1024x25,
+     decoder; HunyuanVideo's 13B DiT at 2 + 2 of 20 + 40 blocks, its causal
+     VAE decoder, CLIP-L; CogVideoX-5B's DiT at 2 of 42 blocks and VAE
+     decoder with T5-XXL at 2 of 24 layers), (c) one forward at a cut depth
+     card against CPU (HunyuanVideo and CogVideoX also in bf16), (d) the
+     pipeline on those files at full width, 2 steps (SVD 576x1024x25,
      Hunyuan-DiT 1024x1024, HunyuanVideo 544x960x33, CogVideoX 480x720x49),
      with per-part seconds, peak memory and the attention launches, which
-     must be the models' count (K2 f32 D88, K2 bf16 sm90 D64 among them);
-     phase 3's rows at their shapes include HunyuanVideo's attention groups
-     at its default 720x1280x129 (B1 S118871 and S185);
- 12. a JSON line of the kernels (K3's launches from 5b's quantized run;
+     must be the loaded models' count (K2 f32 D88, K2 bf16 sm90 D64 among
+     them); phase 3's rows at their shapes include HunyuanVideo's attention
+     groups at its default 720x1280x129 (B1 S118871 and S185);
+ 12. StepVideo, OmniGen and the flow-matching solvers: (a) the narrow
+     StepVideo (2 heads of 128, its chunked decode) and OmniGen (text only;
+     a reference image: 3 branches and the KV cache) pipelines in f32, card
+     against CPU, and UniPC / DPM-Solver++ card against CPU; then through
+     phase 11's tables, (b) seeded files (StepVideo's DiT at 2 of 48 blocks
+     and its VAE; OmniGen's Phi-3 transformer and the SDXL VAE), (c)
+     forwards at a cut depth card against CPU (Step1 at 2 of 48 layers and
+     StepVideo also in bf16), (d) StepVideoPipeline at 544x992x51 in bf16
+     with all 48 blocks seeded on the card (K1 sm90 twice a block a step)
+     and OmnigenImagePipeline at 1024x1024 with a reference image (K1 f32
+     D512 in its SDXL VAE), launches against the models' count; phase 3's
+     row at StepVideo's default 544x992x204 (B1 S75888 N48 D128);
+ 13. a JSON line of the kernels (K3's launches from 5b's quantized run;
      each entry's launches on phase 6's sharded runs as
      `launches_parallel`, on phase 7's UniAnimate runs as `launches_pose`,
      on phase 8's runner as `launches_sd`, on phase 9's SDXL video pipeline
      as `launches_sdxl`, on phase 10's pipelines as `launches_kolors`,
      `launches_sd3` and `launches_flux`, on phase 11's as `launches_svd`,
-     `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`;
-     K2's D88 and bf16 D64 entries count phase 11's), the nvidia-smi line, and
-     the result line.
+     `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`,
+     on phase 12's as `launches_stepvideo` and `launches_omnigen`; K2's D88
+     and bf16 D64 entries count phase 11's), the nvidia-smi line, and the
+     result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -209,6 +226,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -969,6 +987,11 @@ def kernel_cases():
     yield bnsd_bf16_case("cogvideox_ragged_d64_kv500", 2, 514, 48, 64, kv_len=500)
     yield fwd_case("hunyuan_video_group_a", 1, 118871, 118871, 24, 128)
     yield fwd_case("hunyuan_video_group_b", 1, 185, 185, 24, 128)
+    # phase 12's shape: StepVideo's self-attention at its default 544 x 992 x
+    # 204 (36 latent frames x 34 x 62 = 75888 tokens; 48 heads of 128, bf16,
+    # K1 sm90; q and k are rotated in torch before the kernel, so the kernel,
+    # SDPA and the plain version take the same rotated q and k)
+    yield fwd_case("stepvideo_self_attn_s75888", 1, 75888, 75888, 48, 128)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -5332,9 +5355,11 @@ FAM_FILES = {
     "flux": {"dit": "flux1_dev_dit.safetensors", "te1": "flux_clip_l.safetensors",
              "t5": "t5xxl_2_layers.safetensors", "vae_decoder": "flux_vae_decoder.safetensors"},
 }
-# the published parameter counts each seeded file must hold (ChatGLM3-6B with
-# its output layer; SD3-medium's MMDiT with its 192 x 192 position table;
-# FLUX.1-dev's DiT)
+# the published parameter counts each seeded file must hold at the published
+# depth (ChatGLM3-6B with its output layer; SD3-medium's MMDiT with its 192 x
+# 192 position table; FLUX.1-dev's DiT): a file written at a cut depth
+# (WRITTEN_DEPTH) is counted at the full depth from its blocks
+
 FAM_PARAMS = {("kolors", "chatglm"): 6_243_584_000, ("sd3", "dit"): 2_084_951_104,
               ("flux", "dit"): 11_901_408_320}
 # Card against CPU (written before the first card run): the tiny f32
@@ -5346,6 +5371,8 @@ FAM_PARAMS = {("kolors", "chatglm"): 6_243_584_000, ("sd3", "dit"): 2_084_951_10
 FAM_SMALL_REL, FAM_FULL_REL, FLUX_BF16_REL, FAM_LEVELS = 1e-4, 1e-3, 5e-2, 1
 FAM_CUT = {"kolors": "ChatGLM3 at 2 of 28 layers, the UNet whole", "sd3": "2 of 24 blocks",
            "flux": "1 of 19 joint and 1 of 38 single blocks"}  # (c)'s depths
+# (d)'s depths are the files' (WRITTEN_DEPTH): ChatGLM3 2 of 28 layers, FLUX
+# 2 + 2 of 19 + 38 blocks
 
 
 def _capture(pipe, store: list, attr="vae_output_to_image"):
@@ -5455,15 +5482,73 @@ def phase_families_small(card: str) -> None:
         raise RuntimeError(f"the small Kolors / SD3 / FLUX pipelines launched {launches}")
 
 
+# The written models cut in depth (at full width), and so the (d) pipelines
+# that load them: (family, kind) -> (the writer's depth keywords, {block key
+# prefix: the published depth}). Each file's full-depth parameter count is
+# computed from it: the blocks written times the published depth.
+WRITTEN_DEPTH = {
+    ("kolors", "chatglm"): (dict(num_layers=2), {"encoder.layers.": 28}),
+    ("flux", "dit"): (dict(num_joint=2, num_single=2), {"blocks.": 19, "single_blocks.": 38}),
+    ("hunyuan_video", "dit"): (dict(num_double=2, num_single=2),
+                               {"double_blocks.": 20, "single_blocks.": 40}),
+    ("cog", "dit"): (dict(num_layers=2), {"blocks.": 42}),
+    ("stepvideo", "dit"): (dict(num_layers=2), {"transformer_blocks.": 48}),
+}
+
+
+def full_depth_params(state: dict, depths: dict) -> int:
+    """A cut-depth state dict's parameter count at the published depth: each
+    block family's count per block (from its block 0) times the blocks it
+    lacks, added."""
+    n = sum(t.numel() for t in state.values())
+    for prefix, full in depths.items():
+        written = len({k[len(prefix):].split(".", 1)[0] for k in state if k.startswith(prefix)})
+        per_block = sum(t.numel() for k, t in state.items() if k.startswith(f"{prefix}0."))
+        n += (full - written) * per_block
+    return n
+
+
+def write_checkpoints(family: str, makers: dict, files: dict, root: Path, seed: int,
+                      card: str) -> dict:
+    """Each kind's seeded state dict (made on the card by its writer, at
+    WRITTEN_DEPTH's depth where it names one) saved under `root`; prints the
+    parameter counts (and the full-depth count of a cut file) and holds them
+    to FAM_PARAMS' published counts. Returns {kind: path}."""
+    from svi_tpu_torch.utils.safetensors_io import save_file
+
+    t0 = time.perf_counter()
+    paths, sizes, params, full = {}, {}, {}, {}
+    for i, (kind, (make, dtype)) in enumerate(makers.items()):
+        depth, published = WRITTEN_DEPTH.get((family, kind), ({}, {}))
+        state = make(seed=seed + i, device="cuda", dtype=dtype, **depth)
+        params[kind] = sum(t.numel() for t in state.values())
+        full[kind] = full_depth_params(state, published)
+        paths[kind] = str(root / files[kind])
+        sizes[kind] = save_file(state, paths[kind])
+        del state
+        torch.cuda.empty_cache()
+    log(f"[{family}-files] " + ", ".join(
+        f"{k} {params[k] / 1e6:.1f}M" + (f" cut in depth ({full[k] / 1e6:.1f}M at the "
+                                        f"published depth)" if (family, k) in WRITTEN_DEPTH
+                                        else "") for k in makers)
+        + f" parameters; {sum(sizes.values()) / 1e9:.3f} GB written in "
+        f"{time.perf_counter() - t0:.2f}s; {card}")
+    for (fam, kind), n in FAM_PARAMS.items():
+        if fam == family and full[kind] != n:
+            raise RuntimeError(f"{family} {kind} has {full[kind]} parameters at the published "
+                               f"depth, not {n}")
+    return paths
+
+
 def write_family_checkpoints(family: str, root: Path, card: str) -> dict:
     """(b) One family's seeded files at the published widths in the
-    reference's names: Kolors (ChatGLM3-6B f16, the Kolors UNet f16, SDXL's
-    VAE decoder f16), SD3-medium (the MMDiT, CLIP-L, OpenCLIP bigG, the
-    16-channel VAE decoder, f16) or FLUX.1-dev (the DiT with its guidance
-    embedder, CLIP-L, the VAE decoder, bf16); SD3 and FLUX each with T5-XXL
-    at 2 of its 24 layers (bf16)."""
+    reference's names: Kolors (ChatGLM3-6B f16 at 2 of 28 layers, the Kolors
+    UNet f16, SDXL's VAE decoder f16), SD3-medium (the MMDiT, CLIP-L,
+    OpenCLIP bigG, the 16-channel VAE decoder, f16) or FLUX.1-dev (the DiT
+    with its guidance embedder at 2 + 2 of 19 + 38 blocks, CLIP-L, the VAE
+    decoder, bf16); SD3 and FLUX each with T5-XXL at 2 of its 24 layers
+    (bf16)."""
     from svi_tpu_torch.models import flux, kolors, sd, sd3, sdxl, t5
-    from svi_tpu_torch.utils.safetensors_io import save_file
 
     f16, bf16 = torch.float16, torch.bfloat16
 
@@ -5483,22 +5568,7 @@ def write_family_checkpoints(family: str, root: Path, card: str) -> dict:
                  "te1": (sd.sd_text_encoder_state_dict, bf16), "t5": (t5_xxl, bf16),
                  "vae_decoder": (flux.flux_vae_decoder_state_dict, bf16)},
     }[family]
-    t0 = time.perf_counter()
-    paths, sizes, params = {}, {}, {}
-    for i, (kind, (make, dtype)) in enumerate(makers.items()):
-        state = make(seed=101 + i, device="cuda", dtype=dtype)
-        params[kind] = sum(t.numel() for t in state.values())
-        paths[kind] = str(root / FAM_FILES[family][kind])
-        sizes[kind] = save_file(state, paths[kind])
-        del state
-        torch.cuda.empty_cache()
-    log(f"[{family}-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} "
-        f"parameters; {sum(sizes.values()) / 1e9:.3f} GB written in "
-        f"{time.perf_counter() - t0:.2f}s; {card}")
-    for (fam, kind), n in FAM_PARAMS.items():
-        if fam == family and params[kind] != n:
-            raise RuntimeError(f"{family} {kind} has {params[kind]} parameters, not {n}")
-    return paths
+    return write_checkpoints(family, makers, FAM_FILES[family], root, 101, card)
 
 
 def _cut(sd: dict, keep) -> dict:
@@ -5599,13 +5669,13 @@ def phase_family_forward(family: str, paths: dict, card: str) -> None:
         raise RuntimeError(f"the full-width {family} forward on the card disagrees with the CPU")
 
 
-def family_expected_launches(family: str) -> dict:
+def family_expected_launches(family: str, pipe) -> dict:
     """Phase 10d's attention launches per (route, dtype, head dim), from the
     models: Kolors' UNet plan once a step (CFG as one batch of two), the
-    MMDiT's 24 joint attentions a step (B2, 24 heads of 64: K2), FLUX's 19 +
-    38 blocks a step (B1, 24 heads of 128, bf16: K1 sm90); the VAE decode's
-    mid-block once (K1, f32 D512). ChatGLM, CLIP and T5 run the plain
-    softmax."""
+    MMDiT's 24 joint attentions a step (B2, 24 heads of 64: K2), FLUX's joint
+    and single blocks a step (the loaded DiT's; B1, 24 heads of 128, bf16:
+    K1 sm90); the VAE decode's mid-block once (K1, f32 D512). ChatGLM, CLIP
+    and T5 run the plain softmax."""
     from svi_tpu_torch.models import sd
 
     vae = {f"f32/float32/{sd.SD_VAE_DECODER_PLAN[1][1]}": 1}
@@ -5614,7 +5684,9 @@ def family_expected_launches(family: str) -> dict:
                                     with_motion=False)
     if family == "sd3":
         return {"flash_fwd_bnsd": {"f32/float32/64": 24 * FAM_STEPS}, "flash_fwd_flat": vae}
-    return {"flash_fwd_bnsd": {}, "flash_fwd_flat": {"sm90/bfloat16/128": 57 * FAM_STEPS, **vae}}
+    blocks = len(pipe.dit_params["blocks"]) + len(pipe.dit_params["single_blocks"])
+    return {"flash_fwd_bnsd": {}, "flash_fwd_flat": {"sm90/bfloat16/128": blocks * FAM_STEPS,
+                                                     **vae}}
 
 
 def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
@@ -5700,7 +5772,7 @@ def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
         f"{[round(x - t0, 3) for x in step_marks]}; seconds (calls): "
         + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
         + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
-    want = family_expected_launches(family)
+    want = family_expected_launches(family, pipe)
     if launches != want:
         raise RuntimeError(f"the {family} pipeline launched {launches}, expected {want}")
     if image.shape != (FAM_H, FAM_W, 3) or image.dtype != np.uint8 or image.std() == 0:
@@ -5750,6 +5822,7 @@ def phase_families(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ZOO_FAMILIES = ("svd", "hunyuan_dit", "hunyuan_video", "cog")
+STEP_OMNI_FAMILIES = ("stepvideo", "omnigen")  # phase 12's, through the same tables
 ZOO_STEPS = 2
 # (d)'s sizes: SVD-XT's 25 frames at 576 x 1024, Hunyuan-DiT at 1024 x 1024,
 # HunyuanVideo at 544 x 960 x 33 frames (its default is 720 x 1280 x 129:
@@ -5757,7 +5830,12 @@ ZOO_STEPS = 2
 ZOO_SIZES = {"svd": dict(height=576, width=1024, num_frames=25),
              "hunyuan_dit": dict(height=1024, width=1024),
              "hunyuan_video": dict(height=544, width=960, num_frames=33),
-             "cog": dict(height=480, width=720, num_frames=49)}
+             "cog": dict(height=480, width=720, num_frames=49),
+             # StepVideo at 544 x 992 x 51 (9 latent frames, 18972 tokens; its
+             # default 204 frames: phase 3 times one attention at S75888),
+             # OmniGen at 1024 x 1024 with one 512 x 512 reference image
+             "stepvideo": dict(height=544, width=992, num_frames=51),
+             "omnigen": dict(height=1024, width=1024)}
 ZOO_FILES = {
     "svd": {"unet": "svd_xt_unet.safetensors", "vae_decoder": "svd_vae_decoder.safetensors",
             "vae_encoder": "sd_vae_encoder.safetensors",
@@ -5770,9 +5848,14 @@ ZOO_FILES = {
     "cog": {"dit": "cogvideox_5b_dit.safetensors",
             "vae_decoder": "cogvideox_vae_decoder.safetensors",
             "t5": "t5xxl_2_layers.safetensors"},
+    "stepvideo": {"dit": "stepvideo_t2v_dit.safetensors", "vae": "stepvideo_vae.safetensors"},
+    "omnigen": {"transformer": "omnigen_v1.safetensors",
+                "vae_encoder": "sdxl_vae_encoder.safetensors",
+                "vae_decoder": "sdxl_vae_decoder.safetensors"},
 }
 ZOO_DTYPE = {"svd": torch.float32, "hunyuan_dit": torch.float32,
-             "hunyuan_video": torch.bfloat16, "cog": torch.bfloat16}
+             "hunyuan_video": torch.bfloat16, "cog": torch.bfloat16,
+             "stepvideo": torch.bfloat16, "omnigen": torch.float32}
 ZOO_PROMPT = "a red fox running through fresh snow in a birch forest at sunrise, cinematic"
 ZOO_PROMPT_ZH = "一只红狐狸在日出时的白桦林雪地里奔跑，电影感，细节丰富"
 # Card against CPU (written before the first card run): the tiny f32
@@ -5780,11 +5863,25 @@ ZOO_PROMPT_ZH = "一只红狐狸在日出时的白桦林雪地里奔跑，电影
 # (as phase 10a); the full-width forwards at a cut depth in f32 at 1e-3 of
 # the output's scale (as phase 10c); HunyuanVideo's and CogVideoX's in bf16
 # on the card against the CPU's f32 at 5e-2 (bf16 weights and activations,
-# 2^-8 a rounding, over two blocks' sums, as FLUX's in phase 10c)
+# 2^-8 a rounding, over two blocks' sums, as FLUX's in phase 10c). Phase 12
+# (written before its first card run) holds StepVideo and OmniGen to the
+# same bounds: its tiny pipelines at ZOO_SMALL_REL and ZOO_LEVELS, the
+# forwards at a cut depth at ZOO_FULL_REL in f32 and StepVideo's and Step1's
+# bf16 at ZOO_BF16_REL.
 ZOO_SMALL_REL, ZOO_FULL_REL, ZOO_BF16_REL, ZOO_LEVELS = 1e-4, 1e-3, 5e-2, 1
 ZOO_CUT = {"svd": "the UNet whole", "hunyuan_dit": "3 of 21 down blocks and the last of 19 up",
            "hunyuan_video": "1 of 20 double and 1 of 40 single blocks",
-           "cog": "2 of 42 blocks"}  # (c)'s depths
+           "cog": "2 of 42 blocks", "stepvideo": "2 of 48 blocks, Step1 at 2 of 48 layers",
+           "omnigen": "the first and last of 32 layers"}  # (c)'s depths
+# (d)'s depths: the files' (WRITTEN_DEPTH: HunyuanVideo 2 + 2 of 20 + 40
+# blocks, CogVideoX 2 of 42), but StepVideo's DiT runs all 48 blocks, seeded
+# on the card (STEP_DEPTH); OmniGen runs its file whole
+STEP_DEPTH = 48
+STEP_PROMPT_NEG = "blurry, low quality, distorted"
+OMNIGEN_PROMPT = ("a fox made of origami paper beside <img><|image_1|></img> in a snowy "
+                  "birch forest at sunrise")
+OMNIGEN_REFS = 1  # reference images in (d): each is VAE-encoded in the cond and img_cond branches
+OMNIGEN_REF_HW = 512  # their size: 1024 of the sequence's tokens each
 
 
 def _video_fixtures():
@@ -5808,6 +5905,41 @@ class TableEncoder:
         ids = torch.as_tensor(np.asarray(ids)).to(self.table.device).long()
         mask = torch.as_tensor(np.asarray(mask)).to(self.table.device)
         return self.table[ids % self.table.shape[0]] * mask[..., None].to(self.table.dtype)
+
+
+def utf8_ids(text) -> list:
+    """A stand-in tokenizer (the repository holds neither Step1's
+    sentencepiece model nor Phi-3's tokenizer): the text's UTF-8 bytes."""
+    return list(text.encode("utf-8"))
+
+
+def byte_tokenizer(text) -> list:
+    """Phi-3's framing around `utf8_ids`: BOS 1 first."""
+    return [1] + utf8_ids(text)
+
+
+def step_text_encoder(device, dtype=torch.bfloat16, clip_dim=1024, llm_dim=6144,
+                      llm_vocab=65536):
+    """StepVideo's two caption branches on seeded tables (the repository
+    holds neither the CLIP-BERT's nor Step1's weights): the vendored BERT
+    WordPiece ids (77) into a CLIP table, `step1_tokenize`'s framing of
+    `utf8_ids` (320) into an LLM table. Returns prompt -> (clip, llm, mask),
+    the prompter's output, the mask left-padded with ones over the CLIP
+    tokens."""
+    from svi_tpu_torch.models.stepvideo import step1_tokenize
+    from svi_tpu_torch.prompters.sp_tokenizer import default_bert_tokenizer
+
+    bert = default_bert_tokenizer()
+    clip_t = TableEncoder(47020, clip_dim, 14, device=device, dtype=dtype)
+    llm_t = TableEncoder(llm_vocab, llm_dim, 15, device=device, dtype=dtype)
+
+    def encode(prompt):
+        ti = bert(prompt, padding="max_length", max_length=77, truncation=True,
+                  return_tensors="pt")
+        ids, mask = step1_tokenize([prompt], utf8_ids)
+        return (clip_t(ti.input_ids, ti.attention_mask), llm_t(ids, mask),
+                np.concatenate([np.ones((1, 77), mask.dtype), mask], axis=1))
+    return encode
 
 
 def _hyv_text_encoder(prompter):
@@ -5879,31 +6011,19 @@ def zoo_small_pipelines(device, vfx, fx):
     return out
 
 
-def phase_zoo_small(card: str) -> None:
-    """(a) The tiny pipelines (tests/torch_video_fixtures.py's narrow
-    configurations, f32) card against CPU: SVD (3 frames at 64 x 64, a mask
-    frame), Hunyuan-DiT (2 heads of 88, so the card runs its D = 88 route;
-    CFG 5 over the vendored BERT and T5 tokenizers with seeded encoder
-    tables), HunyuanVideo (one head of 128; true CFG 2, 9 frames at 64 x 96,
-    the prompter with a seeded LLM table), CogVideoX (2 heads of 64;
-    video-to-video at strength 0.8, batched CFG 6, 9 frames at 64 x 96)."""
-    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd
-
+def small_card_vs_cpu(make, sets, tag: str, card: str) -> dict:
+    """Each tiny pipeline of make(device, vfx, fx) ({name: (pipeline, kwargs,
+    the decode function's name, its module)}) on the card and on the CPU
+    under the patches `sets`, its decoded output captured: fails unless every
+    decoded output agrees within ZOO_SMALL_REL of its scale, the frames within
+    ZOO_LEVELS, and every card launch took the f32 route. Returns the card's
+    launches per pipeline."""
     vfx, fx = _video_fixtures(), _sd_fixtures()
-    sets = [(sd, "SD_VAE_ENCODER_PLAN", fx.VAE_ENCODER_PLAN),
-            (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN),
-            (hunyuan_dit, "NUM_HEADS", 2), (hunyuan_video, "NUM_HEADS", 1),
-            (cog, "_cog_block", functools.partial(cog._cog_block, num_heads=vfx.COG_HEADS)),
-            (cog, "COG_VAE_ENCODER_PLAN", vfx.COG_VAE_ENCODER_PLAN),
-            (cog, "COG_VAE_DECODER_PLAN", vfx.COG_VAE_DECODER_PLAN)]
-    from svi_tpu_torch.models import svd
-    sets += [(svd, "SVD_UNET_PLAN", vfx.SVD_UNET_PLAN),
-             (svd, "SVD_VAE_DECODER_PLAN", vfx.SVD_VAE_DECODER_PLAN)]
     res = {}
     with patched(sets):
         for device in ("cuda", "cpu"):
             got, frames, secs, launches = {}, {}, {}, {}
-            for fam, (pipe, kw, attr, mod) in zoo_small_pipelines(device, vfx, fx).items():
+            for fam, (pipe, kw, attr, mod) in make(device, vfx, fx).items():
                 store = got.setdefault(fam, [])
                 fn = getattr(mod, attr)
                 zero_counts()
@@ -5920,31 +6040,103 @@ def phase_zoo_small(card: str) -> None:
     (gc_, fc, sc, lc), (gh, fh, sh, _) = res["cuda"], res["cpu"]
     rels = {k: max(_rel(a, b) for a, b in zip(gc_[k], gh[k])) for k in gc_}
     levels = {k: _levels(fc[k], fh[k]) for k in fc}
-    log(f"[zoo-small] card vs CPU, decoded videos { {k: f'{v:.3e}' for k, v in rels.items()} } "
+    log(f"[{tag}] card vs CPU, decoded outputs { {k: f'{v:.3e}' for k, v in rels.items()} } "
         f"(bound {ZOO_SMALL_REL}); frames {levels} levels (bound {ZOO_LEVELS}); seconds card "
         f"{ {k: round(v, 2) for k, v in sc.items()} }, CPU "
         f"{ {k: round(v, 2) for k, v in sh.items()} }; "
         f"launches {lc}; {card}")
     if max(rels.values()) > ZOO_SMALL_REL or max(levels.values()) > ZOO_LEVELS:
-        raise RuntimeError("the small SVD / Hunyuan-DiT / HunyuanVideo / CogVideoX pipelines on "
-                           "the card disagree with the CPU")
+        raise RuntimeError(f"the small {', '.join(rels)} pipelines on the card disagree with "
+                           f"the CPU")
     for fam, launch in lc.items():
         routes = {k for entry in launch.values() for k in entry}
         if not routes or any(not k.startswith("f32/") for k in routes):
             raise RuntimeError(f"the small {fam} pipeline launched {launch}")
+    return lc
+
+
+def phase_zoo_small(card: str) -> None:
+    """(a) The tiny pipelines (tests/torch_video_fixtures.py's narrow
+    configurations, f32) card against CPU: SVD (3 frames at 64 x 64, a mask
+    frame), Hunyuan-DiT (2 heads of 88, so the card runs its D = 88 route;
+    CFG 5 over the vendored BERT and T5 tokenizers with seeded encoder
+    tables), HunyuanVideo (one head of 128; true CFG 2, 9 frames at 64 x 96,
+    the prompter with a seeded LLM table), CogVideoX (2 heads of 64;
+    video-to-video at strength 0.8, batched CFG 6, 9 frames at 64 x 96)."""
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd, svd
+
+    vfx, fx = _video_fixtures(), _sd_fixtures()
+    sets = [(sd, "SD_VAE_ENCODER_PLAN", fx.VAE_ENCODER_PLAN),
+            (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN),
+            (hunyuan_dit, "NUM_HEADS", 2), (hunyuan_video, "NUM_HEADS", 1),
+            (cog, "_cog_block", functools.partial(cog._cog_block, num_heads=vfx.COG_HEADS)),
+            (cog, "COG_VAE_ENCODER_PLAN", vfx.COG_VAE_ENCODER_PLAN),
+            (cog, "COG_VAE_DECODER_PLAN", vfx.COG_VAE_DECODER_PLAN),
+            (svd, "SVD_UNET_PLAN", vfx.SVD_UNET_PLAN),
+            (svd, "SVD_VAE_DECODER_PLAN", vfx.SVD_VAE_DECODER_PLAN)]
+    lc = small_card_vs_cpu(zoo_small_pipelines, sets, "zoo-small", card)
     if "f32/float32/88" not in lc["hunyuan_dit"]["flash_fwd_bnsd"]:
         raise RuntimeError(f"the small Hunyuan-DiT pipeline did not run the D88 route: {lc}")
+
+
+def step_omni_small_pipelines(device, vfx, fx):
+    """Phase 12a's tiny pipelines on `device`, f32: StepVideo (2 heads of
+    128, 2 blocks; 17 frames at 64 x 96, three latent frames through the
+    chunked decode, CFG 9, 2 steps; the prompter with a seeded CLIP table, the
+    tiny Step1 and `utf8_ids`), OmniGen text only (2 branches) and with one
+    32 x 48 reference image (3 branches, image_cfg_scale), both with the KV
+    cache, 2 steps at 64 x 64."""
+    from svi_tpu_torch.models import omnigen, sd, stepvideo, stepvideo_vae
+    from svi_tpu_torch.pipelines import omnigen_image, step_video
+    from svi_tpu_torch.prompters.omnigen_prompter import OmniGenPrompter
+    from svi_tpu_torch.prompters.stepvideo_prompter import StepVideoPrompter
+
+    kw, f32 = dict(device=device), torch.float32
+    s = vfx.stepvideo_state_dicts(101)
+    table = TableEncoder(256, vfx.STEP_DIT["clip_channels"], 16)  # on the CPU: the same draws
+    prompter = StepVideoPrompter(
+        lambda prompts: table(np.asarray([(utf8_ids(p) + [32] * 4)[:4] for p in prompts]),
+                              np.ones((len(prompts), 4))),
+        stepvideo.step1_params_from_torch(s["step1"], dtype=f32, **kw), lambda t: [
+            i % vfx.STEP1["vocab"] for i in utf8_ids(t)],
+        num_heads=vfx.STEP1["num_heads"], num_groups=vfx.STEP1["num_groups"], dtype=f32)
+    out = {"stepvideo": (step_video.StepVideoPipeline(
+        stepvideo.stepvideo_dit_params_from_torch(s["dit"], dtype=f32, **kw),
+        vae_params=stepvideo_vae.stepvideo_vae_params_from_torch(s["vae"], **kw),
+        prompter=prompter, dtype=f32), dict(
+            prompt=ZOO_PROMPT, negative_prompt=STEP_PROMPT_NEG, height=64, width=96,
+            num_frames=17, num_inference_steps=2, seed=13, tiled=False),
+        "stepvideo_vae_decode", stepvideo_vae)}
+    s = vfx.omnigen_state_dicts(103)
+    ref = vfx.frames(1, 32, 48, seed=104)[0]
+    for name, refs, prompt in (("omnigen", [], "a red fox in the snow"),
+                               ("omnigen_ref", [ref], "a fox beside <img><|image_1|></img>")):
+        pipe = omnigen_image.OmnigenImagePipeline(
+            omnigen.omnigen_params_from_torch(s["transformer"], **kw),
+            sd.sd_vae_encoder_params_from_torch(s["vae_encoder"], **kw),
+            sd.sd_vae_decoder_params_from_torch(s["vae_decoder"], **kw),
+            prompter=OmniGenPrompter(lambda t: [i % vfx.OMNIGEN["vocab"]
+                                                for i in byte_tokenizer(t)]),
+            rope_cfg=vfx.OMNIGEN_ROPE, num_heads=vfx.OMNIGEN["num_heads"],
+            num_kv_heads=vfx.OMNIGEN["num_kv_heads"])
+        out[name] = (pipe, dict(prompt=prompt, reference_images=refs, height=64, width=64,
+                                num_inference_steps=2, seed=15, cfg_scale=2.5,
+                                image_cfg_scale=1.6), "sdxl_vae_decode", omnigen_image.sdxl)
+    return out
 
 
 def write_zoo_checkpoints(family: str, root: Path, card: str) -> dict:
     """(b) One family's seeded files at the published widths in the
     reference's names: SVD-XT's UNet, its temporal VAE decoder, SD's VAE
     encoder and CLIP ViT-H's image tower (f16); Hunyuan-DiT's DiT and the
-    SDXL VAE decoder (f16); HunyuanVideo's 13B DiT (bf16), its causal VAE
-    decoder and CLIP-L (f16); CogVideoX-5B's DiT and VAE decoder (bf16) with
-    T5-XXL at 2 of its 24 layers (bf16)."""
-    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, ipadapter, sd, svd, t5
-    from svi_tpu_torch.utils.safetensors_io import save_file
+    SDXL VAE decoder (f16); HunyuanVideo's 13B DiT at 2 + 2 of 20 + 40 blocks
+    (bf16), its causal VAE decoder and CLIP-L (f16); CogVideoX-5B's DiT at 2
+    of 42 blocks and VAE decoder (bf16) with T5-XXL at 2 of its 24 layers
+    (bf16); StepVideo's DiT at 2 of 48 blocks (bf16) and its whole VAE (f32);
+    OmniGen's Phi-3 transformer (bf16, loaded as f32) and the SDXL VAE's
+    halves (f16)."""
+    from svi_tpu_torch.models import (cog, hunyuan_dit, hunyuan_video, ipadapter, omnigen, sd,
+                                      stepvideo, stepvideo_vae, svd, t5)
 
     f16, bf16 = torch.float16, torch.bfloat16
 
@@ -5964,20 +6156,13 @@ def write_zoo_checkpoints(family: str, root: Path, card: str) -> dict:
                           "clip": (sd.sd_text_encoder_state_dict, f16)},
         "cog": {"dit": (cog.cog_dit_state_dict, bf16),
                 "vae_decoder": (cog.cog_vae_decoder_state_dict, bf16), "t5": (t5_xxl, bf16)},
+        "stepvideo": {"dit": (stepvideo.stepvideo_dit_state_dict, bf16),
+                      "vae": (stepvideo_vae.stepvideo_vae_state_dict, torch.float32)},
+        "omnigen": {"transformer": (omnigen.omnigen_state_dict, bf16),
+                    "vae_encoder": (sd.sd_vae_encoder_state_dict, f16),
+                    "vae_decoder": (sd.sd_vae_decoder_state_dict, f16)},
     }[family]
-    t0 = time.perf_counter()
-    paths, sizes, params = {}, {}, {}
-    for i, (kind, (make, dtype)) in enumerate(makers.items()):
-        state = make(seed=201 + i, device="cuda", dtype=dtype)
-        params[kind] = sum(t.numel() for t in state.values())
-        paths[kind] = str(root / ZOO_FILES[family][kind])
-        sizes[kind] = save_file(state, paths[kind])
-        del state
-        torch.cuda.empty_cache()
-    log(f"[{family}-files] {', '.join(f'{k} {params[k] / 1e6:.1f}M' for k in makers)} "
-        f"parameters; {sum(sizes.values()) / 1e9:.3f} GB written in "
-        f"{time.perf_counter() - t0:.2f}s; {card}")
-    return paths
+    return write_checkpoints(family, makers, ZOO_FILES[family], root, 201, card)
 
 
 def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
@@ -5985,11 +6170,13 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
     against CPU (f32), and for the bf16 families also in bf16 on the card:
     the SVD UNet whole on 2 frames of 8 x 8 latents; Hunyuan-DiT's first 3
     down blocks and last up block on 2 x 32 x 32 latents; HunyuanVideo's
-    first double and single block on 2 x 8 x 8 latents; CogVideoX's first and
-    last block on B2 x 2 x 8 x 8 latents over 226 tokens. The timesteps and
+    first double and single block on 2 x 8 x 8 latents; CogVideoX's file's 2
+    blocks on B2 x 2 x 8 x 8 latents over 226 tokens; Step1 at 2 layers and
+    StepVideo's file's 2 blocks on 1 x 2 x 4 x 4 latents; OmniGen's first and
+    last layer on 16 x 16 latents with a reference image. The timesteps and
     the guidance (x 1000, scaled in its dtype as svi_tpu does) are exact in
     bf16, so that bf16 and f32 embed the same values."""
-    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, svd
+    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, omnigen, stepvideo, svd
 
     g = torch.Generator().manual_seed(17)
     if family == "svd":
@@ -6031,8 +6218,8 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
             return {"dit": hunyuan_video.hunyuan_video_dit_forward(
                 m, x, torch.tensor([896.0], device=device, dtype=dtype), emb, mask.to(device),
                 pooled, guidance=torch.tensor([4.0], device=device, dtype=dtype))}
-    else:
-        sd_ = _cut(ld["dit"], {"blocks.": [0, 41]})
+    elif family == "cog":
+        sd_ = ld["dit"]  # the file's 2 blocks
         args = (torch.randn((2, 16, 2, 8, 8), generator=g) * 0.5,
                 torch.randn((2, 226, 4096), generator=g) * 0.1)
 
@@ -6041,6 +6228,47 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
             x, emb = (a.to(device, dtype) for a in args)
             return {"dit": cog.cog_dit_forward(m, x, torch.tensor([496.0, 496.0], device=device,
                                                                   dtype=dtype), emb)}
+    elif family == "stepvideo":
+        # Step1 at 2 of its 48 layers (6144 wide, 64 heads in 8 groups) on 24
+        # ids, its states as the DiT's captions beside 77 CLIP states, into
+        # the file's 2 blocks on 2 x 4 x 4 latents; the timestep is f32 in
+        # both dtypes, as the pipeline passes it
+        sd_ = ld["dit"]
+        s1 = stepvideo.step1_state_dict(seed=221, dtype=torch.bfloat16, num_layers=2)
+        ids = torch.randint(3, 65536, (1, 24), generator=g)
+        args = (torch.randn((1, 2, 64, 4, 4), generator=g) * 0.5,
+                torch.randn((1, 77, 1024), generator=g) * 0.3)
+        mask = torch.ones((1, 77 + 24), dtype=torch.long)
+        mask[:, 77 + 20:] = 0
+
+        def run(device, dtype):
+            p1 = stepvideo.step1_params_from_torch(s1, device=device, dtype=dtype)
+            llm = stepvideo.step1_encode(p1, ids, 64, 8, dtype=dtype)
+            m = stepvideo.stepvideo_dit_params_from_torch(sd_, device=device, dtype=dtype)
+            x, clip = (a.to(device, dtype) for a in args)
+            return {"step1": llm, "dit": stepvideo.stepvideo_dit_forward(
+                m, x, llm, mask.to(device), torch.tensor([0.875], device=device),
+                encoder_hidden_states_2=clip)}
+    else:
+        # the first and last of Phi-3's 32 layers on a collated prompt with a
+        # 64 x 64 reference image's latent spliced in and 128 x 128 noise
+        # latents (f32, OmniGen's default)
+        from svi_tpu_torch.prompters import omnigen_prompter
+
+        sd_ = _cut(ld["transformer"], {"llm.layers.": [0, 31]})
+        ids = list(range(1, 9)) + [0] * 16 + list(range(40, 48))
+        padded, pos, amask, _, _, sizes = omnigen_prompter.process_mllm_input(
+            [{"input_ids": ids, "pixel_values": [0], "image_sizes": [[8, 24]]}], [[128, 128]])
+        args = (torch.randn((1, 4, 16, 16), generator=g), torch.randn((1, 4, 8, 8), generator=g))
+
+        def run(device, dtype):
+            m = omnigen.omnigen_params_from_torch(sd_, device=device, dtype=dtype)
+            x, lat = (a.to(device, dtype) for a in args)
+            out, _ = omnigen.omnigen_forward(
+                m, x, torch.tensor([0.625], device=device, dtype=dtype), torch.from_numpy(padded),
+                [lat], sizes, torch.from_numpy(amask).float().to(device),
+                torch.from_numpy(pos).to(device))
+            return {"transformer": out}
     outs, secs = {}, {}
     runs = [("cuda", torch.float32), ("cpu", torch.float32)]
     if ZOO_DTYPE[family] == torch.bfloat16:
@@ -6071,17 +6299,22 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
 
 
 def zoo_expected_launches(family: str, pipe) -> dict:
-    """Phase 11d's attention launches per (route, dtype, head dim), from the
-    pipeline's models: the SVD UNet's spatial transformers (self and image
+    """Phase 11d's and 12d's attention launches per (route, dtype, head dim),
+    from the pipeline's models: the SVD UNet's spatial transformers (self and image
     cross-attention, 5 / 10 / 20 heads of 64: K2 f32) on each of the two CFG
     passes a step, the SD VAE encoder's and the temporal decoder's
     mid-blocks once (K1 f32 D512; the temporal attention and CLIP's are
     plain); Hunyuan-DiT's 40 blocks x 2 attentions on each of the two CFG
     passes (K2 f32 D88), the SDXL VAE's mid-block (K1 f32 D512);
-    HunyuanVideo's 20 + 40 blocks x 2 groups a step (K1 sm90; the VAE's
-    frame-causal attention and the token refiner are plain); CogVideoX's 42
-    blocks a step (batched CFG, K2 sm90 at D = 64). Keys as `flash_attention` routes
-    them: the flat entry for one head or D % 128 == 0, else (B, N, S, D)."""
+    HunyuanVideo's double and single blocks x 2 groups a step (K1 sm90; the VAE's
+    frame-causal attention and the token refiner are plain); CogVideoX's
+    blocks a step (batched CFG, K2 sm90 at D = 64); StepVideo's blocks twice a
+    step (CFG as two B=1 calls; K1 sm90; the cross-attention and the VAE's
+    causal attention are plain); OmniGen's SDXL VAE mid-block once for the
+    decode and once for each reference image in the cond and img_cond
+    branches (K1 f32 D512; Phi-3's attention is plain). Keys as
+    `flash_attention` routes them: the flat entry for one head or D % 128 ==
+    0, else (B, N, S, D)."""
     from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, sd, svd
     from svi_tpu_torch.ops import attention as A
 
@@ -6111,10 +6344,15 @@ def zoo_expected_launches(family: str, pipe) -> dict:
         n = hunyuan_video.NUM_HEADS
         add(n, m["final_layer"]["linear"]["w"].shape[1] // n, bf16,
             (len(m["double_blocks"]) + len(m["single_blocks"])) * 2 * ZOO_STEPS)
-    else:
+    elif family == "cog":
         m = pipe.dit_params
         dim = m["blocks"][0]["attn1"]["to_q"]["w"].shape[0]
         add(dim // cog.HEAD_DIM, cog.HEAD_DIM, bf16, len(m["blocks"]) * ZOO_STEPS)
+    elif family == "stepvideo":
+        add(pipe.num_heads, pipe.head_dim, bf16, len(pipe.dit_params["blocks"]) * 2 * ZOO_STEPS)
+    else:
+        vae_d = next(d[1] for d in sd.SD_VAE_DECODER_PLAN if d[0] == "vae_attn")
+        add(1, vae_d, f32, 1 + 2 * OMNIGEN_REFS)
     return want
 
 
@@ -6124,14 +6362,20 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
     frame), HunyuanDiTImagePipeline (CFG 6, seeded BERT / mT5 tables over the
     vendored tokenizers), HunyuanVideoPipeline (embedded guidance 6, the
     prompter with CLIP-L and a seeded LLM table), CogVideoPipeline (batched
-    CFG 6, T5-XXL at 2 layers). Seconds per step, peak memory, and the
-    attention launches against the models' count. Returns the launches per
-    KERNELS entry."""
-    from svi_tpu_torch.models import cog, hunyuan_dit, hunyuan_video, ipadapter, sd, svd, t5
-    from svi_tpu_torch.pipelines import cog_video, hunyuan_image, svd_video
+    CFG 6, T5-XXL at 2 layers), StepVideoPipeline (bf16, all 48 blocks seeded
+    on the card, CFG 9 as two calls a step, seeded CLIP / Step1 tables, the
+    tiled f32 decode), OmnigenImagePipeline (f32, one reference image: three
+    branches and the condition KV cache, a byte-level stand-in tokenizer).
+    Seconds per step, peak memory, and the attention launches against the
+    models' count. Returns the launches per KERNELS entry."""
+    from svi_tpu_torch.models import (cog, hunyuan_dit, hunyuan_video, ipadapter, omnigen, sd,
+                                      stepvideo, stepvideo_vae, svd, t5)
+    from svi_tpu_torch.pipelines import cog_video, hunyuan_image, omnigen_image, step_video
+    from svi_tpu_torch.pipelines import svd_video
     from svi_tpu_torch.pipelines import hunyuan_video as hyv_pipe
     from svi_tpu_torch.prompters.hunyuan_dit_prompter import HunyuanDiTPrompter
     from svi_tpu_torch.prompters.hunyuan_video_prompter import HunyuanVideoPrompter
+    from svi_tpu_torch.prompters.omnigen_prompter import OmniGenPrompter
     from svi_tpu_torch.prompters.sp_tokenizer import default_t5_tokenizer
     from svi_tpu_torch.schedulers import continuous_ode, ddim, flow_match
 
@@ -6176,7 +6420,7 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
                  timer.wrap("vae_decode", hunyuan_video.hunyuan_video_vae_decode))]
         kw = dict(prompt=ZOO_PROMPT, embedded_guidance=6.0)
         step_cls = flow_match.FlowMatchScheduler
-    else:
+    elif family == "cog":
         t5_sd = ld.pop("t5")
         t5m = t5.params_from_torch_state_dict(t5_sd, t5.config_from_state_dict(t5_sd), device=dev)
         pipe = cog_video.CogVideoPipeline(
@@ -6187,6 +6431,40 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
                 (cog, "cog_vae_decode_video", timer.wrap("vae_decode", cog.cog_vae_decode_video))]
         kw = dict(prompt=ZOO_PROMPT, negative_prompt="blurry, low quality", cfg_scale=6.0)
         step_cls = ddim.EnhancedDDIMScheduler
+    elif family == "stepvideo":
+        # the DiT at all 48 blocks, seeded on the card tensor by tensor and
+        # taken by the converter as it lies (no host copy, no second card
+        # copy); the VAE from (b)'s file; the captions from seeded tables
+        state = stepvideo.stepvideo_dit_state_dict(seed=231, device=dev, dtype=dt,
+                                                   num_layers=STEP_DEPTH)
+        dit = stepvideo.stepvideo_dit_params_from_torch(state, device=dev, dtype=dt)
+        del state
+        pipe = step_video.StepVideoPipeline(
+            dit, vae_params=stepvideo_vae.stepvideo_vae_params_from_torch(ld["vae"], device=dev))
+        sets = [(stepvideo, "stepvideo_dit_forward",
+                 timer.wrap("dit", stepvideo.stepvideo_dit_forward)),
+                (stepvideo_vae, "stepvideo_vae_decode_chunk",
+                 timer.wrap("vae_decode_chunk", stepvideo_vae.stepvideo_vae_decode_chunk))]
+        text = step_text_encoder(dev)
+        kw = dict(prompt=ZOO_PROMPT, negative_prompt=STEP_PROMPT_NEG,
+                  prompt_emb_posi=text(ZOO_PROMPT), prompt_emb_nega=text(STEP_PROMPT_NEG))
+        step_cls = flow_match.FlowMatchScheduler
+    else:
+        pipe = omnigen_image.OmnigenImagePipeline(
+            omnigen.omnigen_params_from_torch(ld["transformer"], device=dev),
+            sd.sd_vae_encoder_params_from_torch(ld["vae_encoder"], device=dev),
+            sd.sd_vae_decoder_params_from_torch(ld["vae_decoder"], device=dev),
+            prompter=OmniGenPrompter(byte_tokenizer))
+        sets = [(omnigen, "omnigen_forward", timer.wrap("transformer", omnigen.omnigen_forward)),
+                (omnigen_image.sdxl, "sdxl_vae_encode",
+                 timer.wrap("vae_encode", omnigen_image.sdxl.sdxl_vae_encode)),
+                (omnigen_image.sdxl, "sdxl_vae_decode",
+                 timer.wrap("vae_decode", omnigen_image.sdxl.sdxl_vae_decode))]
+        refs = [sd_frames(1, OMNIGEN_REF_HW, OMNIGEN_REF_HW, seed=95 + i)[0]
+                for i in range(OMNIGEN_REFS)]
+        kw = dict(prompt=OMNIGEN_PROMPT, reference_images=refs, cfg_scale=2.5,
+                  image_cfg_scale=1.6)
+        step_cls = flow_match.FlowMatchScheduler
     ld.clear()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -6219,6 +6497,10 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
     want = zoo_expected_launches(family, pipe)
     if family == "cog":
         check_fwd_routes("the CogVideoX pipeline", need_d128=False, need_d64=True)
+    elif family == "stepvideo":
+        check_fwd_routes("the StepVideo pipeline")
+    elif family == "omnigen":
+        check_fwd_routes("the OmniGen pipeline", need_f32=True, need_d128=False)
     if launches != want:
         raise RuntimeError(f"the {family} pipeline launched {launches}, expected {want}")
     shape = (size["height"], size["width"], 3)
@@ -6239,36 +6521,118 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
     return counts
 
 
-def phase_zoo(card: str) -> dict:
-    """Phase 11: (a) the tiny SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX
-    pipelines card vs CPU; then, one family at a time (its files and weights
-    freed before the next), (b) seeded files at the published widths, (c)
-    one forward at a cut depth card vs CPU, (d) its pipeline at full width,
-    2 steps. Returns {family: launches per KERNELS entry}."""
+def run_zoo_family(family: str, card: str) -> dict:
+    """One family of phases 11 and 12, its files and weights freed before the
+    next: (b) seeded files at the published widths, (c) one forward at a cut
+    depth card vs CPU, (d) its pipeline at full width, 2 steps. Returns the
+    launches per KERNELS entry."""
     import shutil
     import tempfile
 
     from svi_tpu_torch.models.model_io import load_state_dict
 
+    t1 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix=f"_{family}_ckpt_", dir=REPO))
+    try:
+        paths = write_zoo_checkpoints(family, root, card)
+        ld = {k: load_state_dict(p) for k, p in paths.items()}
+        phase_zoo_forward(family, ld, card)
+        launches = phase_zoo_pipeline(family, ld, card)
+        del ld
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] {family} (b-d): {time.perf_counter() - t1:.1f}s")
+    return launches
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 11: (a) the tiny SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX
+    pipelines card vs CPU; then (b)-(d) one family at a time. Returns
+    {family: launches per KERNELS entry}."""
     t0 = time.perf_counter()
     phase_zoo_small(card)
     log(f"[time] phase 11a: {time.perf_counter() - t0:.1f}s")
-    launches = {}
-    for family in ZOO_FAMILIES:
-        t1 = time.perf_counter()
-        root = Path(tempfile.mkdtemp(prefix=f"_{family}_ckpt_", dir=REPO))
-        try:
-            paths = write_zoo_checkpoints(family, root, card)
-            ld = {k: load_state_dict(p) for k, p in paths.items()}
-            phase_zoo_forward(family, ld, card)
-            launches[family] = phase_zoo_pipeline(family, ld, card)
-            del ld
-        finally:
-            gc.collect()
-            torch.cuda.empty_cache()
-            shutil.rmtree(root, ignore_errors=True)
-        log(f"[time] phase 11 {family} (b-d): {time.perf_counter() - t1:.1f}s")
+    launches = {family: run_zoo_family(family, card) for family in ZOO_FAMILIES}
     log(f"[zoo] phase 11 passed in {time.perf_counter() - t0:.1f}s; {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: StepVideo, OmniGen and the flow-matching solvers
+# ---------------------------------------------------------------------------
+
+# The solvers on card tensors against the same on CPU tensors: the same
+# host coefficients and float32 products in the same order, so only a
+# differing rounding of an elementwise op could move them (written before the
+# first card run)
+FM_CARD_REL = 1e-6
+
+
+def fm_solvers_card_vs_cpu(card: str) -> None:
+    """UniPC (bh2 order 2, bh1 order 3), DPM-Solver++ (midpoint order 2, order
+    3) and sde-dpmsolver++ (heun, the same per-step noise), 8 steps at shift
+    5 on a (1, 16, 3, 8, 8) sample with a stand-in model, card against CPU:
+    one [fm-solvers] line of the largest step's difference over the
+    trajectory's scale."""
+    from svi_tpu_torch.schedulers import fm_solvers as fm
+
+    cases = {
+        "unipc_bh2_o2": lambda: fm.FlowUniPCMultistepScheduler(solver_order=2),
+        "unipc_bh1_o3": lambda: fm.FlowUniPCMultistepScheduler(solver_order=3,
+                                                               solver_type="bh1"),
+        "dpm_midpoint_o2": lambda: fm.FlowDPMSolverMultistepScheduler(solver_order=2),
+        "dpm_o3": lambda: fm.FlowDPMSolverMultistepScheduler(solver_order=3),
+        "sde_dpm_heun_o2": lambda: fm.FlowDPMSolverMultistepScheduler(
+            solver_order=2, solver_type="heun", algorithm_type="sde-dpmsolver++"),
+    }
+    g = torch.Generator().manual_seed(19)
+    x0 = torch.randn((1, 16, 3, 8, 8), generator=g)
+    noises = [torch.randn(x0.shape, generator=g) for _ in range(8)]
+    rels = {}
+    for name, make in cases.items():
+        traj = {}
+        for device in ("cuda", "cpu"):
+            sched, x = make(), x0.to(device)
+            sched.set_timesteps(8, shift=5.0)
+            out = []
+            for i, t in enumerate(sched.timesteps):
+                kw = {"variance_noise": noises[i].to(device)} if name.startswith("sde") else {}
+                x = sched.step(0.3 * x + math.sin(i + 1) * 0.1, t, x, **kw)
+                out.append(x.cpu())
+            traj[device] = torch.stack(out)
+        finite = torch.isfinite(traj["cpu"])
+        if not torch.equal(finite, torch.isfinite(traj["cuda"])):
+            raise RuntimeError(f"fm-solvers {name}: the card's trajectory is finite elsewhere")
+        rels[name] = ((traj["cuda"] - traj["cpu"])[finite].abs().max()
+                      / traj["cpu"][finite].abs().max()).item()
+    log(f"[fm-solvers] card vs CPU, 8 steps, the largest difference over the trajectory's "
+        f"scale { {k: f'{v:.3e}' for k, v in rels.items()} } (bound {FM_CARD_REL}); {card}")
+    if max(rels.values()) > FM_CARD_REL:
+        raise RuntimeError("a flow-matching solver on the card disagrees with the CPU")
+
+
+def phase_step_omni(card: str) -> dict:
+    """Phase 12: (a) the tiny StepVideo and OmniGen pipelines card vs CPU
+    (tests/torch_video_fixtures.py's narrow configurations, f32) and the
+    flow-matching solvers card vs CPU; then, one family at a time through
+    phase 11's tables and functions, (b) seeded files at the published
+    widths, (c) forwards at a cut depth card vs CPU, (d) the pipelines at
+    full width, 2 steps: StepVideo at 544 x 992 x 51 with all 48 blocks,
+    OmniGen at 1024 x 1024 with a reference image. Returns {family: launches
+    per KERNELS entry}."""
+    from svi_tpu_torch.models import sd
+
+    t0 = time.perf_counter()
+    fx = _sd_fixtures()
+    small_card_vs_cpu(step_omni_small_pipelines,
+                      [(sd, "SD_VAE_ENCODER_PLAN", fx.VAE_ENCODER_PLAN),
+                       (sd, "SD_VAE_DECODER_PLAN", fx.VAE_DECODER_PLAN)], "step-omni-small", card)
+    fm_solvers_card_vs_cpu(card)
+    log(f"[time] phase 12a: {time.perf_counter() - t0:.1f}s")
+    launches = {family: run_zoo_family(family, card) for family in STEP_OMNI_FAMILIES}
+    log(f"[step-omni] phase 12 passed in {time.perf_counter() - t0:.1f}s; {card}")
     return launches
 
 
@@ -6373,6 +6737,10 @@ def main() -> int:
     zoo_launches = phase_zoo(card)
     mark("phase 11")
 
+    # 12. StepVideo, OmniGen and the flow-matching solvers
+    zoo_launches.update(phase_step_omni(card))
+    mark("phase 12")
+
     # 9. results: the forward kernels' launches are the bf16 inference path's,
     # the backward kernels' the training path's, the W4A8 linear's and K6's
     # the quantized inference path's (K6's f32 route the fidelity gate's f32
@@ -6380,9 +6748,10 @@ def main() -> int:
     # runner; launches_sdxl: phase 9's SDXL video pipeline; launches_kolors,
     # _sd3, _flux: phase 10's pipelines at 1024x1024; launches_svd,
     # _hunyuan_dit, _hunyuan_video, _cog: phase 11's pipelines at full width
-    # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs)
+    # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs);
+    # launches_stepvideo, _omnigen: phase 12's
     kernels = []
-    zoo_total = {e: sum(z.get(e, 0) for z in zoo_launches.values()) for e in ZOO_KERNELS}
+    zoo_total = {e: sum(zoo_launches[f].get(e, 0) for f in ZOO_FAMILIES) for e in ZOO_KERNELS}
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
@@ -6401,7 +6770,7 @@ def main() -> int:
                         **{f"launches_{fam}": fam_launches[fam].get(entry, 0)
                            for fam in ("kolors", "sd3", "flux")},
                         **{f"launches_{fam}": zoo_launches[fam].get(entry, 0)
-                           for fam in ZOO_FAMILIES},
+                           for fam in ZOO_FAMILIES + STEP_OMNI_FAMILIES},
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

@@ -98,13 +98,23 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _resample_coeffs(in_size: int, out_size: int):
+def _box(x: np.ndarray) -> np.ndarray:
+    """Pillow's box filter: 1 on (-0.5, 0.5]."""
+    return np.where((x > -0.5) & (x <= 0.5), 1.0, 0.0)
+
+
+# Pillow's filters and their supports
+_FILTERS = {"bicubic": (_bicubic, 2.0), "box": (_box, 0.5)}
+
+
+def _resample_coeffs(in_size: int, out_size: int, resample: str = "bicubic"):
     """Pillow's `precompute_coeffs` + `normalize_coeffs_8bpc` for one axis:
     (out_size, taps) source indices and fixed-point weights (0 past a
     window's end)."""
+    kernel, support = _FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     taps = int(np.ceil(support)) * 2 + 1
     idx = np.zeros((out_size, taps), np.int64)
     kk = np.zeros((out_size, taps), np.int64)
@@ -112,7 +122,7 @@ def _resample_coeffs(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        w = kernel((np.arange(xmax) + xmin - center + 0.5) / filterscale)
         ww = w.sum()
         if ww != 0:
             w = w / ww
@@ -123,9 +133,10 @@ def _resample_coeffs(in_size: int, out_size: int):
     return idx, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: str = "bicubic") -> np.ndarray:
     """One 8-bit pass: fixed-point sums, rounded, clipped to uint8."""
-    idx, kk = _resample_coeffs(img.shape[axis], out_size)
+    idx, kk = _resample_coeffs(img.shape[axis], out_size, resample)
     x = np.moveaxis(img, axis, -1).astype(np.int64)
     acc = np.full(x.shape[:-1] + (out_size,), 1 << (_PRECISION_BITS - 1), np.int64)
     for t in range(idx.shape[1]):
@@ -134,16 +145,17 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, -1, axis)
 
 
-def resize_uint8(image, width: int, height: int) -> np.ndarray:
+def resize_uint8(image, width: int, height: int, resample: str = "bicubic") -> np.ndarray:
     """An (H, W, 3) uint8 frame (or a PIL image) resized to (height, width, 3)
-    as Pillow's default `Image.resize` does, byte for byte: bicubic (a =
-    -0.5) with the support widened by the shrink factor, the horizontal pass
-    first, each pass in Pillow's 22-bit fixed point rounded to uint8."""
+    as Pillow's `Image.resize` does, byte for byte: bicubic (a = -0.5, its
+    default) or box, the support widened by the shrink factor, the
+    horizontal pass first, each pass in Pillow's 22-bit fixed point rounded
+    to uint8."""
     arr = np.asarray(image)
     if arr.shape[1] != width:
-        arr = _resample_axis(arr, width, 1)
+        arr = _resample_axis(arr, width, 1, resample)
     if arr.shape[0] != height:
-        arr = _resample_axis(arr, height, 0)
+        arr = _resample_axis(arr, height, 0, resample)
     return np.array(arr)
 
 

@@ -306,6 +306,31 @@ def test_f32_d88_hunyuan_dit_attention(sk):
     assert (got - o_ref).abs().max().item() <= F32_TOL
 
 
+def test_bf16_d128_stepvideo_self_attention():
+    """StepVideo's self-attention at one latent frame of 544 x 992 (1 x 34 x
+    62 = 2108 tokens, ragged against the 128-row tiles), 48 heads of 128,
+    bf16, as its block hands it over: q and k rotated in torch by the
+    half-rotation RoPE of the (64, 32, 32) split, v a strided slice of the
+    packed qkv; through `flash_attention`, counted as K1's flat entry on
+    route "sm90" at D = 128."""
+    from svi_tpu_torch.models import stepvideo as sv
+
+    d, n, s = 128, 48, 2108
+    q, k, v = _rand((1, s, n, 3 * d), torch.bfloat16, 130).split(d, dim=-1)
+    cos, sin = (torch.from_numpy(t).cuda() for t in sv.prepare_stepvideo_rope(1, 34, 62))
+    q, k = sv._rope_apply(q, cos, sin), sv._rope_apply(k, cos, sin)
+    before = tattn.flash_fwd_flat.routes[("sm90", "bfloat16", d)]
+    with torch.no_grad():
+        got = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_flat.routes[("sm90", "bfloat16", d)] == before + 1
+    o_ref, _ = tattn._flash_fwd_reference(q, k, v.contiguous(), None, None, s, d ** -0.5)
+    assert got.dtype == o_ref.dtype and got.shape == o_ref.shape == (1, s, n, d)
+    assert torch.isfinite(got).all()
+    tol = min(BF16_OUT_TOL, BF16_OUT_REL * o_ref.float().abs().max().item())
+    assert (got.float() - o_ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("s,kv_len", [(17776, None), (514, 500)])
 def test_bf16_d64_mma_cogvideox_attention(s, kv_len):
     """CogVideoX-5B's joint attention: 48 heads of 64 over 226 text + 13 x 30

@@ -68,6 +68,10 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.prompters.hunyuan_video_prompter\n"
         "import svi_tpu_torch.pipelines.hunyuan_video, svi_tpu_torch.models.cog\n"
         "import svi_tpu_torch.prompters.cog_prompter, svi_tpu_torch.pipelines.cog_video\n"
+        "import svi_tpu_torch.models.stepvideo, svi_tpu_torch.models.stepvideo_vae\n"
+        "import svi_tpu_torch.prompters.stepvideo_prompter, svi_tpu_torch.pipelines.step_video\n"
+        "import svi_tpu_torch.models.omnigen, svi_tpu_torch.prompters.omnigen_prompter\n"
+        "import svi_tpu_torch.pipelines.omnigen_image, svi_tpu_torch.schedulers.fm_solvers\n"
         "from svi_tpu_torch.prompters import sp_tokenizer\n"
         "sp_tokenizer.default_chatglm_tokenizer().encode('一只猫')\n"
         "sp_tokenizer.default_bert_tokenizer()('一只猫')\n"
@@ -108,6 +112,32 @@ def test_sd_path_imports_no_pillow_or_cv2():
         "video.save_frames(f, os.path.join(d, 'frames'))\n"
         "video.save_frames_npy(f, os.path.join(d, 'v.npy'))\n"
         "assert len(video.VideoData(video_file=os.path.join(d, 'v.npy'), height=8, width=8)[2]) == 8\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('PIL', 'cv2', 'imageio', 'safetensors'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_step_omnigen_paths_import_no_pillow_or_cv2():
+    """In a fresh interpreter, importing StepVideo, OmniGen and the
+    flow-matching solvers and running OmniGen's image crop and collator
+    (Pillow's BOX and BICUBIC resizes, in numpy) loads no PIL, cv2, imageio or
+    safetensors: the card has none of them."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import svi_tpu_torch.pipelines.step_video, svi_tpu_torch.pipelines.omnigen_image\n"
+        "import svi_tpu_torch.prompters.stepvideo_prompter, svi_tpu_torch.schedulers.fm_solvers\n"
+        "from svi_tpu_torch.prompters.omnigen_prompter import OmniGenPrompter\n"
+        "img = np.random.default_rng(0).integers(0, 255, (700, 300, 3), np.uint8)\n"
+        "out = OmniGenPrompter(lambda s: [1, 5, 6], max_image_size=128)(\n"
+        "    'a <img><|image_1|></img>', [img], height=64, width=64)\n"
+        "assert out['input_pixel_values'][0][0].shape == (1, 3, 128, 48)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('PIL', 'cv2', 'imageio', 'safetensors'))\n"
         "assert not bad, bad\n"
@@ -179,12 +209,14 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                                    "vae_from_checkpoint", "clip_from_checkpoint",
                                    "dit_quantized_from_checkpoint", "dit_int4", "wav2vec2",
                                    "svd_unet_from_checkpoint", "hunyuan_dit_from_checkpoint",
-                                   "hunyuan_video_dit_from_checkpoint", "cog_dit_from_checkpoint"])
+                                   "hunyuan_video_dit_from_checkpoint", "cog_dit_from_checkpoint",
+                                   "stepvideo_dit_from_checkpoint", "step1_from_checkpoint",
+                                   "stepvideo_vae_from_checkpoint", "omnigen_from_checkpoint"])
 def test_entry_points_default_to_the_card(entry):
     import inspect
 
-    from svi_tpu_torch.models import (clip_vision, cog, hunyuan_dit, hunyuan_video, svd, t5,
-                                      wan_dit, wan_vae)
+    from svi_tpu_torch.models import (clip_vision, cog, hunyuan_dit, hunyuan_video, omnigen,
+                                      stepvideo, stepvideo_vae, svd, t5, wan_dit, wan_vae)
     from svi_tpu_torch.models.model_io import ModelManager
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
     from svi_tpu_torch.scripts import test_svi
@@ -204,7 +236,11 @@ def test_entry_points_default_to_the_card(entry):
           "svd_unet_from_checkpoint": svd.svd_unet_params_from_torch,
           "hunyuan_dit_from_checkpoint": hunyuan_dit.hunyuan_dit_params_from_torch,
           "hunyuan_video_dit_from_checkpoint": hunyuan_video.hunyuan_video_dit_params_from_torch,
-          "cog_dit_from_checkpoint": cog.cog_dit_params_from_torch}[entry]
+          "cog_dit_from_checkpoint": cog.cog_dit_params_from_torch,
+          "stepvideo_dit_from_checkpoint": stepvideo.stepvideo_dit_params_from_torch,
+          "step1_from_checkpoint": stepvideo.step1_params_from_torch,
+          "stepvideo_vae_from_checkpoint": stepvideo_vae.stepvideo_vae_params_from_torch,
+          "omnigen_from_checkpoint": omnigen.omnigen_params_from_torch}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

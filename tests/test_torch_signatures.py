@@ -90,6 +90,7 @@ ALLOWED = {
         "recorded divergence: the port fuses LoRA into the DiT module in place "
         "(`fuse_lora_into_dit`)"),
     "models/motion.py:motion_params_from_torch": DEVICE,
+    "models/omnigen.py:omnigen_params_from_torch": DEVICE,
     "models/pose_embedding.py:init_params": KEY,
     "models/pose_embedding.py:params_from_torch_state_dict": DEVICE_BEFORE,
     "models/pose_embedding.py:forward": METHOD,
@@ -106,6 +107,9 @@ ALLOWED = {
     "models/sdxl.py:sdxl_unet_params_from_torch": DEVICE,
     "models/sdxl.py:sdxl_text_encoder_params_from_torch": DEVICE,
     "models/sdxl.py:sdxl_text_encoder_2_params_from_torch": DEVICE,
+    "models/stepvideo.py:stepvideo_dit_params_from_torch": DEVICE,
+    "models/stepvideo.py:step1_params_from_torch": DEVICE,
+    "models/stepvideo_vae.py:stepvideo_vae_params_from_torch": DEVICE,
     "models/svd.py:svd_unet_params_from_torch": DEVICE,
     "models/svd.py:svd_vae_decoder_params_from_torch": DEVICE,
     "models/t5.py:forward": METHOD,
@@ -216,13 +220,18 @@ ALLOWED = {
 }
 
 
-# the modules of the video zoo's first four families: each is compared
+# the modules of the video zoo's families (SVD, Hunyuan-DiT, HunyuanVideo,
+# CogVideoX; then StepVideo, OmniGen and the flow-matching solvers): each is
+# compared
 PORTED_VIDEO_ZOO = (
     "schedulers/continuous_ode.py", "models/svd.py", "pipelines/svd_video.py",
     "prompters/sp_tokenizer.py", "models/hunyuan_dit.py", "prompters/hunyuan_dit_prompter.py",
     "pipelines/hunyuan_image.py", "models/hunyuan_video.py",
     "prompters/hunyuan_video_prompter.py", "pipelines/hunyuan_video.py", "models/cog.py",
-    "prompters/cog_prompter.py", "pipelines/cog_video.py")
+    "prompters/cog_prompter.py", "pipelines/cog_video.py",
+    "models/stepvideo.py", "models/stepvideo_vae.py", "prompters/stepvideo_prompter.py",
+    "pipelines/step_video.py", "models/omnigen.py", "prompters/omnigen_prompter.py",
+    "pipelines/omnigen_image.py", "schedulers/fm_solvers.py")
 
 
 def _pairs():
@@ -337,8 +346,8 @@ def test_repaired_arguments_bind_like_svi_tpus(qualname, argument):
 
 @pytest.mark.parametrize("rel", PORTED_VIDEO_ZOO)
 def test_video_zoo_module_is_compared(rel, differences):
-    """Each module of SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX has its
-    svi_tpu counterpart at the same path, defines every public name svi_tpu's
+    """Each module of SVD, Hunyuan-DiT, HunyuanVideo, CogVideoX, StepVideo,
+    OmniGen and the flow-matching solvers has its svi_tpu counterpart at the same path, defines every public name svi_tpu's
     does, and every signature left differing is on ALLOWED."""
     assert rel in _pairs()
     assert _members(_module("svi_tpu_torch", rel))

@@ -144,3 +144,47 @@ def frames(n, h, w, seed) -> np.ndarray:
     base = rng.integers(0, 256, (n, h // 8 + 1, w // 8 + 1, 3)).astype(np.float32)
     up = base.repeat(8, axis=1).repeat(8, axis=2)[:, :h, :w]
     return up.clip(0, 255).astype(np.uint8)
+
+
+# StepVideo: 2 heads of 128 (the RoPE split pins the head at 128), 2 blocks,
+# 8 latent channels, Step1 64 wide (the captions the DiT reads) with 4
+# heads in 2 groups; the VAE with 8 latent channels, one resnet a level, 32
+# and 64 channels (its group norms take 32 groups)
+STEP_DIT = dict(num_heads=2, head_dim=128, num_layers=2, in_channels=8, out_channels=8,
+                caption_channels=64, clip_channels=24)
+STEP1 = dict(dim=64, num_layers=2, num_heads=4, num_groups=2, ffn_dim=128, vocab=50)
+STEP_VAE = dict(z_channels=8, num_res_blocks=1, enc_ch=32, enc_ch_mult=(1, 1, 2, 2),
+                dec_ch=32, dec_ch_mult=(1, 1, 2, 2))
+
+
+def stepvideo_state_dicts(seed=0) -> dict:
+    from svi_tpu_torch.models import stepvideo as tsv
+    from svi_tpu_torch.models import stepvideo_vae as tsvae
+
+    return {"dit": tsv.stepvideo_dit_state_dict(seed, dtype=torch.float32, **STEP_DIT),
+            "step1": tsv.step1_state_dict(seed + 1, dtype=torch.float32, **STEP1),
+            "vae": tsvae.stepvideo_vae_state_dict(seed + 2, **STEP_VAE)}
+
+
+# OmniGen: Phi-3 64 wide, 2 layers of 4 heads in 2 key-value groups, a
+# 16 x 16 position table and LongRoPE factors for its 16-wide heads (the
+# shapes of svi_tpu's own OmniGen test); the SDXL VAE at the narrow SD plans
+# of torch_sd_fixtures (patched in by the caller)
+OMNIGEN = dict(hidden=64, num_layers=2, num_heads=4, num_kv_heads=2, intermediate=128,
+               vocab=50)
+OMNIGEN_POS_MAX = 16
+OMNIGEN_ROPE = (
+    ("base", 10000.0),
+    ("max_position_embeddings", 128),
+    ("original_max_position_embeddings", 64),
+    ("short_factor", (1.1, 1.3, 1.5, 1.7, 1.9, 2.1, 2.3, 2.5)),
+    ("long_factor", (2.0,) * 8),
+)
+
+
+def omnigen_state_dicts(seed=0) -> dict:
+    from svi_tpu_torch.models import omnigen as tog
+
+    return {"transformer": tog.omnigen_state_dict(seed, **OMNIGEN),
+            "vae_encoder": tsd.sd_vae_encoder_state_dict(seed + 1),
+            "vae_decoder": tsd.sd_vae_decoder_state_dict(seed + 2)}
