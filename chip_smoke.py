@@ -28,7 +28,11 @@ non-zero exit and no result line:
      single blocks' attention, B1 S4608, 24 heads of 128, bf16; its
      IP-Adapter's attention of 4096 and 4608 queries onto 128 image tokens;
      SD3-medium's joint attention, B2 S4250, 24 heads of 64, f32; the Kolors
-     UNet's cross-attention over ChatGLM's 256 tokens at both levels); K6
+     UNet's cross-attention over ChatGLM's 256 tokens at both levels), and
+     phase 8e's f32 backward on the (B, N, S, D) route (K5a's and K5b's
+     function, csrc/flash_bwd_f32.cu: SD 1.5's D40 self S4096 and cross
+     Sk77, D80 S1024 and its cross, D160 S256 and S64; SDXL's D64 S4096 N10,
+     S1024 N20 and cross Sk77, each kernel beside SDPA's f32 backward); K6
      beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
@@ -66,7 +70,10 @@ non-zero exit and no result line:
      unless the LoRA was fused, the loaded tensors are the written ones, the
      stitched frames are right, the tiled decode is within its bound of the
      untiled one (and two wrong assemblies are not), the forward kernels
-     ran, and every quantized linear went through w4a8_linear;
+     ran, and every quantized linear went through w4a8_linear; then the
+     gradio demo's core (SVIGradioDemo.initialize_models on these files,
+     generate_video for 2 film clips of 9 frames at 2 steps), its streamed
+     videos bit-equal to the same pipeline calls made by hand;
   4f. the variants: the tiny dance and talk pipelines on the card against
      the CPU; beside 4e's files a multitalk.safetensors (the 4 blocks'
      audio branches and audio_proj at the published widths), a dance LoRA
@@ -141,12 +148,17 @@ non-zero exit and no result line:
      CLIP ViT-L/14's text tower, the VAE encoder and decoder, AnimateDiff
      v2's 21 motion modules, one ControlNet); (c) one UNet + ControlNet +
      motion forward on them at 4 frames of 128x128, card against CPU; (d)
-     SDVideoPipelineRunner.run on a seeded 8-frame 512x512 video (one
-     8-frame window; 8a runs several), 3 steps at strength 0.9, the tile ControlNet at
+     SDVideoPipelineRunner.run on a seeded 4-frame 512x512 video (one
+     4-frame window; 8a runs several), 3 steps at strength 0.9, the tile ControlNet at
      scale 0.5, a Contrast smoother, with per-model seconds, peak memory
      and the f32 attention launches per head dim, which must be the plans'
      count; the smoother chain is FastBlend (its default ebsynth config, as
-     a Diffutoon config names it) then Contrast;
+     a Diffutoon config names it) then Contrast; (e) text-to-image LoRA
+     training (T2ILoRATrainer): a half-width UNet with 4 heads of 40, 80
+     and 160, 3 steps card against CPU, then the full-width UNet of (b) in
+     f32 at 512x512 (rank 4, 3 steps and one through vae_encode_fn on a
+     TextImageDataset row), its attention backward on the f32 kernels, 32
+     launches of each a step, and the save_lora round trip;
   9. the extensions and the SDXL family: (a) the narrow SDXL models (one
      head a block) through SDXLImagePipeline and SDXLVideoPipeline (a tile
      ControlNet Union unit, an IP-Adapter image), RIFE, FastBlend, ESRGAN
@@ -201,7 +213,7 @@ non-zero exit and no result line:
      phase 11's tables, (b) seeded files (StepVideo's DiT at 2 of 48 blocks
      and its VAE; OmniGen's Phi-3 transformer and the SDXL VAE), (c)
      forwards at a cut depth card against CPU (Step1 at 2 of 48 layers and
-     StepVideo also in bf16), (d) StepVideoPipeline at 544x992x51 in bf16
+     StepVideo also in bf16), (d) StepVideoPipeline at 544x992x17 in bf16
      with all 48 blocks seeded on the card (K1 sm90 twice a block a step)
      and OmnigenImagePipeline at 1024x1024 with a reference image (K1 f32
      D512 in its SDXL VAE), launches against the models' count; phase 3's
@@ -213,9 +225,10 @@ non-zero exit and no result line:
      as `launches_sdxl`, on phase 10's pipelines as `launches_kolors`,
      `launches_sd3` and `launches_flux`, on phase 11's as `launches_svd`,
      `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`,
-     on phase 12's as `launches_stepvideo` and `launches_omnigen`; K2's D88
-     and bf16 D64 entries count phase 11's), the nvidia-smi line, and the
-     result line.
+     on phase 12's as `launches_stepvideo` and `launches_omnigen`, on phase
+     8e's full-width trainer as `launches_t2i`; K2's D88 and bf16 D64
+     entries count phase 11's, the f32 backward's phase 8e's), the
+     nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
 
@@ -258,6 +271,29 @@ F32_BOUND = 1e-4
 # gradient once to bf16 (2^-8 relative); K4 sums dq in f32 (TMA reduce-adds)
 # in an order that changes from run to run.
 BF16_GRAD_REL_BOUND = 2e-2
+# f32 backward on the (B, N, S, D) route (csrc/flash_bwd_f32.cu, f32 FMA on
+# the CUDA cores) against the plain f32 backward (TF32 off) on the same
+# inputs: only the order of the f32 sums over up to 4096 keys or queries
+# differs. Bound: each gradient within 1e-4 of its own largest magnitude, or
+# within `f32_bwd_floor` where that is larger; a wrong tile, mask or scale
+# moves a gradient by its own size, and the plain backward with TF32 on
+# (about 1e-3 relative) fails the bound (checked at one cross row).
+F32_BWD_REL_BOUND = 1e-4
+
+
+def f32_bwd_floor(q, k, v, g, n: int, d: int, scale: float) -> float:
+    """What f32 rounding alone can leave in dq or dk where they are 0 but for
+    it (one key: p = 1, so ds = p (dO.v - delta) subtracts two equal values):
+    one ulp (2^-23) of |dO| |v| (the largest per-head rows; a bound on each
+    of the two), times the scale and the largest |q| or |k|, and times
+    sqrt(ceil(Sq / Sk)), for the queries whose rounding a key's dk sums at
+    random signs. q, k, v, g flat (B, S, N*D)."""
+    def row(t):
+        return t.unflatten(-1, (n, d)).norm(dim=-1).max().item()
+
+    share = -(-q.shape[1] // k.shape[1])
+    largest = max(q.abs().max().item(), k.abs().max().item())
+    return 2.0 ** -23 * scale * row(g) * row(v) * largest * share ** 0.5
 # int4 unpack + requantization (K3) is held bit for bit (torch.equal): one f32
 # product and one round-half-to-even per weight on both sides. So are the
 # W4A8 linear (its activation pre-pass: the same IEEE divisions and
@@ -352,6 +388,12 @@ KERNELS = {
                           "svi_tpu/ops/attention.py:585"),
     "flash_bwd_dkv/sm90": ("svi_tpu_torch/csrc/flash_bwd_split_sm90.cu",
                            "svi_tpu/ops/attention.py:646"),
+    # K5a's and K5b's function in f32 on the (B, N, S, D) route: the SD 1.5
+    # (D = 40, 80, 160) and SDXL (D = 64) UNets' attention backward, which
+    # the TPU computes in XLA (svi_tpu/ops/attention.py:963, _flash_bwd_xla);
+    # launched by phase 8e's text-to-image LoRA trainer
+    "flash_bwd_dq/f32": ("svi_tpu_torch/csrc/flash_bwd_f32.cu", "svi_tpu/ops/attention.py:585"),
+    "flash_bwd_dkv/f32": ("svi_tpu_torch/csrc/flash_bwd_f32.cu", "svi_tpu/ops/attention.py:646"),
     # the W4A8 linear replaces K3 on the inference path (K3 itself runs only
     # in the straight-through backward, off the main paths; phase 3 still
     # holds it bit for bit)
@@ -383,6 +425,7 @@ QUANT_F32 = ("flash_fwd_flat_q8/sm90_f32",)  # launched only by an f32 DiT's qk8
 QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linear")
 PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90/128",)  # launched only by the ring (phase 6)
 ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/sm90/64")  # launched by phase 11's pipelines
+T2I_KERNELS = ("flash_bwd_dq/f32", "flash_bwd_dkv/f32")  # launched by phase 8e's trainer
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
@@ -395,7 +438,9 @@ TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f
               "flash_fwd_flat_q8/sm90": "dit_self_attn_q8_qk8",
               "flash_fwd_flat_q8/sm90_f32": "slice_self_attn_q8_qk8_f32",
               "unpack_requant_int4": "ffn_0", "flash_fwd_bnsd/f32/88": "hunyuan_dit_self_attn_d88",
-              "flash_fwd_bnsd/sm90/64": "cogvideox_joint_attn_d64"}
+              "flash_fwd_bnsd/sm90/64": "cogvideox_joint_attn_d64",
+              "flash_bwd_dq/f32": "sd_unet_self_attn_d40_bwd",
+              "flash_bwd_dkv/f32": "sd_unet_self_attn_d40_bwd"}
 
 
 def log(msg: str) -> None:
@@ -799,6 +844,80 @@ def kernel_cases():
                     library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels},
                     **extra)
 
+    def f32_bwd_case(name, b, sq, sk, n, d, tf32_control=False):
+        """The f32 backward of the (B, N, S, D) route (csrc/flash_bwd_f32.cu),
+        as the SD and SDXL UNets' attention hands it over: q, k, v, out, dO
+        flat (B, S, N*D) f32, lse from K2's f32 forward; each kernel alone
+        against the plain backward, SDPA's f32 backward alone as the library
+        call, and flash_bwd_flat (delta computed once for both) beside them.
+        tf32_control: the plain backward with TF32 on must fail the bound on
+        every gradient (the bound tells f32 from TF32 products)."""
+        q = randn((b, sq, n * d), torch.float32)
+        k = randn((b, sk, n * d), torch.float32)
+        v = randn((b, sk, n * d), torch.float32)
+        g = randn((b, sq, n * d), torch.float32)
+        qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
+        out, lse = A.flash_fwd_bnsd(qh, kh, vh)
+        out = out.transpose(1, 2).flatten(2)
+        if A._bwd_route(n, d, sq, sk, sk) != "xla":
+            raise RuntimeError(f"{name}: not the (B, N, S, D) route")
+        args = (q, k, v, out, lse, g, d)
+        kernels = {"flash_bwd_dq/f32": lambda: A.flash_bwd_dq(*args),
+                   "flash_bwd_dkv/f32": lambda: A.flash_bwd_dkv(*args)}
+
+        def plain_backward():
+            views = [t.unflatten(-1, (n, d)) for t in (q, k, v, out)]
+            return [t.flatten(2) for t in A._flash_bwd_reference(
+                *views, lse, g.unflatten(-1, (n, d)), None, None, sk, d ** -0.5)]
+
+        plain = timed_calls(plain_backward)
+
+        def run():
+            ref = plain()
+            got = (kernels["flash_bwd_dq/f32"](),) + tuple(kernels["flash_bwd_dkv/f32"]())
+            floor = f32_bwd_floor(q, k, v, g, n, d, d ** -0.5)
+            bounds = [max(F32_BWD_REL_BOUND * r.abs().max().item(), floor) for r in ref]
+            errs = [err(x, r) for x, r in zip(got, ref)]
+            log(f"[bwd-f32] {name}: dq / dk / dv max abs err " + " / ".join(
+                f"{e:.3e}" for e in errs) + ", bounds " + " / ".join(
+                f"{b_:.3e}" for b_ in bounds) + f" ({F32_BWD_REL_BOUND} of each gradient's "
+                f"largest |value|, or the rounding floor {floor:.3e})")
+            if tf32_control:
+                saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    control = plain_backward()
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved
+                ratios = [err(x, r) / b_ for x, r, b_ in zip(control, ref, bounds)]
+                log(f"[bwd-f32] {name}: the plain backward with TF32 on, dq / dk / dv max abs "
+                    "err over the bound " + " / ".join(f"{x:.2f}" for x in ratios))
+                if min(ratios) <= 1:
+                    raise RuntimeError(f"{name}: the f32 backward's bound passes TF32 products")
+            return {"flash_bwd_dq/f32": (errs[0], bounds[0]),
+                    "flash_bwd_dkv/f32": worst((errs[1], bounds[1]), (errs[2], bounds[2]))}
+
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        gh = heads_first(g, n, d)
+        o_lib = F.scaled_dot_product_attention(*leaves)
+
+        def library():
+            """SDPA's f32 backward alone, on its saved forward."""
+            return torch.autograd.grad(o_lib, leaves, gh, retain_graph=True)
+
+        def library_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves)
+            return torch.autograd.grad(o, leaves, gh)
+
+        mm = 2 * b * n * sq * sk * d  # one matrix product of the backward
+        io = _nbytes(q, k, v, out, g) + 4 * b * n * sq  # inputs (lse f32)
+        work = {"flash_bwd_dq/f32": (3 * mm, io + _nbytes(q), F32_ACCURATE),
+                "flash_bwd_dkv/f32": (4 * mm, io + _nbytes(k, v), F32_ACCURATE)}
+        return dict(case=name, shape=[b, sq, sk, n, d], dtype="float32", run=run,
+                    kernels=kernels, plain=plain, library=library,
+                    library_fwd_bwd=library_fwd_bwd, work=work,
+                    split=lambda: A.flash_bwd_flat(*args))
+
     def ring_case(name, b, s, n, d, kv_len):
         """K2 (`flash_fwd_bnsd`, route sm90) at a ring step's shapes: q, k, v
         as (B, N, S, D) views of (B, S, N, D) shards, the block's valid keys
@@ -1008,6 +1127,20 @@ def kernel_cases():
     # K4's gate through K5a + K5b
     yield bwd_case("sp_self_attn_bwd_kvlen_onepass", 1, 17252, 34504, 40, 128, kv_len=34503)
     yield bwd_case("sp_self_attn_bwd_kvlen_split", 1, 2100, 4200, 40, 128, kv_len=4199)
+    # the text-to-image LoRA trainer's backward (phase 8e), f32 on the
+    # (B, N, S, D) route: SD 1.5 at 512x512 (64 x 64 latents, B1): 8 heads of
+    # 40 over 64 x 64 tokens, self and onto the 77 text keys, of 80 over
+    # 32 x 32, of 160 over 16 x 16 and the mid-block's 8 x 8; SDXL at
+    # 1024x1024: 10 heads of 64 over 64 x 64 (self and text), 20 over 32 x 32
+    yield f32_bwd_case("sd_unet_self_attn_d40_bwd", 1, 4096, 4096, 8, 40)
+    yield f32_bwd_case("sd_unet_cross_attn_d40_bwd", 1, 4096, 77, 8, 40, tf32_control=True)
+    yield f32_bwd_case("sd_unet_self_attn_d80_bwd", 1, 1024, 1024, 8, 80)
+    yield f32_bwd_case("sd_unet_cross_attn_d80_bwd", 1, 1024, 77, 8, 80)
+    yield f32_bwd_case("sd_unet_self_attn_d160_bwd", 1, 256, 256, 8, 160)
+    yield f32_bwd_case("sd_unet_mid_attn_d160_bwd", 1, 64, 64, 8, 160)
+    yield f32_bwd_case("sdxl_unet_self_attn_d64_bwd", 1, 4096, 4096, 10, 64)
+    yield f32_bwd_case("sdxl_unet_self_attn_d64_n20_bwd", 1, 1024, 1024, 20, 64)
+    yield f32_bwd_case("sdxl_unet_cross_attn_d64_bwd", 1, 4096, 77, 10, 64)
     # K2 at the ring's shapes: phase 6b's 81-frame forward over 2 ranks
     # (32760 tokens, blocks of 16380), a block with a padded tail, and one
     # of padding only
@@ -2228,6 +2361,79 @@ def run_driver(root: Path, tag: str, extra: list[str], card: str):
     return record, launches, timer
 
 
+GRADIO_CLIPS, GRADIO_STEPS, GRADIO_SEED = 2, 2, 3
+GRADIO_PROMPTS = "A lone explorer walks across rolling green hills.\nThe explorer pauses at the top."
+
+
+def phase_gradio_core(root: Path, card: str) -> None:
+    """(e') The gradio demo's core without gradio: `SVIGradioDemo.initialize_models`
+    on the driver's files (film mode, its LoRA pointed at the driver's LoRA
+    file), `generate_video` for GRADIO_CLIPS clips of SLICE_FRAMES frames at
+    GRADIO_STEPS steps from the driver's reference image (.npy), then the
+    same SVIVideoPipeline calls made by hand on the demo's pipeline: every
+    streamed cumulative video must equal the hand-made one bit for bit, and
+    both runs must launch K1 sm90 alike (counted, more than 0)."""
+    from svi_tpu_torch.scripts import gradio_demo as gd
+    from svi_tpu_torch.utils.image_process import calculate_dimensions, resize_uint8
+
+    modes = {**gd.MODEL_MODES, "film": {**gd.MODEL_MODES["film"],
+                                        "lora_path": str(root / "svi-shot.safetensors")}}
+    frame = np.load(root / "frame.npy")
+    with patched([(gd, "MODEL_MODES", modes)]):
+        demo = gd.SVIGradioDemo(str(root), output_dir=str(root / "gradio"), mode="film",
+                                save_format="npy")
+        t0 = time.perf_counter()
+        status = demo.initialize_models()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        streamed = list(demo.generate_video(
+            frame, GRADIO_PROMPTS, num_clips=GRADIO_CLIPS, num_steps=GRADIO_STEPS,
+            seed=GRADIO_SEED, num_frames=SLICE_FRAMES, max_width=SLICE_W))
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        demo_launches = read_counts()
+        cfg = gd.MODEL_MODES["film"]
+    pipe = demo.pipe
+    height, width = calculate_dimensions(frame, max_width=SLICE_W)
+    ref = resize_uint8(frame, width, height)
+    nmf = cfg["num_motion_frames"]
+    prompts = gd.SVIGradioDemo.parse_prompts(GRADIO_PROMPTS)
+    motion, by_hand, stages = [ref] * nmf, [], []
+    zero_counts()
+    t0 = time.perf_counter()
+    for clip in range(GRADIO_CLIPS):
+        video = pipe(prompt=prompts[clip % len(prompts)], negative_prompt=gd.NEGATIVE,
+                     input_image=motion, num_frames=SLICE_FRAMES,
+                     num_inference_steps=GRADIO_STEPS, cfg_scale=dict(text=5.0),
+                     seed=clip * GRADIO_SEED, tiled=False, random_ref_frame=ref,
+                     height=height, width=width, ref_pad_num=cfg["ref_pad_num"])
+        motion = video[-nmf:]
+        by_hand += video[:-nmf] if clip < GRADIO_CLIPS - 1 else video
+        stages.append(np.stack(by_hand))
+    torch.cuda.synchronize()
+    hand_s = time.perf_counter() - t0
+    hand_launches = read_counts()
+    got = [np.load(path) for _, path in streamed[:-1]]
+    equal = [bool(a.shape == b.shape and np.array_equal(a, b)) for a, b in zip(got, stages)]
+    k1 = (demo_launches["flash_fwd_flat/sm90/128"], hand_launches["flash_fwd_flat/sm90/128"])
+    info = json.loads((Path(streamed[-1][1]).parent / "generation_info.json").read_text())
+    log(f"[gradio] {status}: load {load_s:.2f}s; generate_video {GRADIO_CLIPS} clips of "
+        f"{SLICE_FRAMES} frames, {GRADIO_STEPS} steps at {width}x{height}: {demo_s:.2f}s, "
+        f"streamed {[s for s, _ in streamed]}; cumulative videos {[g.shape for g in got]} "
+        f"bit-equal to the hand-made calls ({hand_s:.2f}s): {equal}; K1 sm90 launches demo / "
+        f"by hand {k1}; generation_info {info['video_dimensions']} "
+        f"{info['cumulative_videos']}; {card}")
+    if len(got) != GRADIO_CLIPS or not all(equal) or float(got[-1].std()) <= 1.0:
+        raise RuntimeError("the gradio core's streamed videos are not the hand-made calls' "
+                           "frames, bit for bit, or are flat")
+    if not (k1[0] > 0 and k1[0] == k1[1]):
+        raise RuntimeError(f"the gradio core launched K1 sm90 {k1[0]} times, by hand {k1[1]}")
+    check_fwd_routes("the gradio core", need_f32=True)
+    del demo, pipe
+
+
 def check_driver_video(tag: str, sample: dict, clips: int) -> None:
     video = np.load(sample["path"])
     expect = (clips * SLICE_FRAMES - (clips - 1) * MOTION, SLICE_H, SLICE_W, 3)
@@ -2413,6 +2619,9 @@ def phase_driver(card: str) -> dict:
             f"{int_mm.calls} torch._int_mm calls; {card}")
         if not all(np.isfinite(v) for v in scores.values()):
             raise RuntimeError("a quantized clip's PSNR against bf16 is not finite")
+
+        # (e') the gradio demo's core on these files
+        phase_gradio_core(root, card)
 
         # 4f: the variants' drivers on these files and the ones they add
         phase_variants(root, card)
@@ -3433,7 +3642,7 @@ def phase_training():
         raise RuntimeError(f"the error buffers did not grow: {totals}")
     if min(n for k, n in launches.items()
            if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32 + PARALLEL_KERNELS
-           + ZOO_KERNELS) <= 0:
+           + ZOO_KERNELS + T2I_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -4457,8 +4666,10 @@ def phase_parallel_drivers(root: Path, common: list, data: dict, card: str) -> N
 # text) and SDVideoPipelineRunner
 # ---------------------------------------------------------------------------
 
-SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 8, 3, 0.9
-SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 8, 8, 0.5, 1.3, 1
+# (d)'s 4 frames in one window: cut from 8 to make room for (e) (the runner's
+# FastBlend pass took 10.7 of its 20.3 s at 8 frames)
+SD_H, SD_W, SD_FRAMES, SD_STEPS, SD_STRENGTH = 512, 512, 4, 3, 0.9
+SD_WINDOW, SD_STRIDE, SD_CN_SCALE, SD_CONTRAST, SD_SMOOTH_AT = 4, 4, 0.5, 1.3, 1
 SD_PROMPT = "a watercolor painting of a city street at dusk, soft light"
 SD_FILES = {"sd_unet": "sd15_unet.safetensors", "sd_text_encoder": "sd15_text_encoder.safetensors",
             "sd_vae_encoder": "sd15_vae_encoder.safetensors",
@@ -4721,8 +4932,9 @@ def phase_sd_full_forward(paths: dict, card: str) -> None:
 
 def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
     """(d) SDVideoPipelineRunner.run, the way users start a Diffutoon-style
-    render: a seeded 8-frame 512x512 .npy video (one 8-frame window, cut
-    from 16 to make room for phase 11; 8a blends windows of 2), the tile ControlNet on the same frames at
+    render: a seeded 4-frame 512x512 .npy video (one 4-frame window, cut
+    from 16 to 8 to make room for phase 11 and to 4 for (e); 8a blends
+    windows of 2), the tile ControlNet on the same frames at
     scale 0.5, 3 steps at strength 0.9, CFG 7.5, a Contrast smoother after
     step 1; frames,
     video.npy and config.json written. Returns the launches per entry."""
@@ -4812,10 +5024,202 @@ def phase_sd_runner(root: Path, paths: dict, card: str) -> dict:
             "flash_fwd_flat/f32": sum(launches["flash_fwd_flat"].values())}
 
 
-def phase_sd(card: str) -> dict:
+# phase 8e: text-to-image LoRA training (training.text_to_image.T2ILoRATrainer)
+# on the SD 1.5 UNet, f32; its attention backward is csrc/flash_bwd_f32.cu
+T2I_RANK, T2I_ALPHA, T2I_STEPS = 4, 4.0, 3
+T2I_LATENT = (1, 4, 64, 64)  # 512 x 512
+T2I_SMALL_LATENT = (1, 4, 16, 16)
+# The tiny trainer, card against CPU, f32 on both (written before the first
+# card run): the losses and the adapters after its steps within 1e-4
+# relative (f32 through some 60 layers forward and back, sums in another
+# order: SD_SMALL_REL). Its loss is weighted by T2I_SMALL_WEIGHT on both
+# devices (a scheduler whose training_weight says so, lr 1.0), so that every
+# gradient stays far below AdamW's eps and the step is linear in the
+# gradient: at weight 1 AdamW's first steps are lr * sign(g), and a few
+# gradient entries that cancel flip between two f32 summation orders
+# (tests/test_torch_text_to_image.py).
+T2I_SMALL_REL, T2I_SMALL_WEIGHT = 1e-4, 1e-9
+
+
+def t2i_expected_launches(plan, steps: int) -> dict:
+    """The f32 backward kernels' launches per head dim in `steps` training
+    steps, from the plan: each spatial transformer block runs self- and
+    cross-attention, each with one dq and one dk/dv launch. For SD 1.5's plan
+    a step is 32 of each: 10 at D = 40, 10 at D = 80, 12 at D = 160."""
+    per = {}
+    for desc in plan:
+        if desc[0] == "attn":
+            per[desc[2]] = per.get(desc[2], 0) + 2 * steps
+    return per
+
+
+def t2i_bwd_launches(path: str) -> dict:
+    """The f32 backward kernels' launches per head dim since the counts were
+    zeroed, the same for dq and dk/dv; fails if either kernel ran another
+    route or the two counts differ."""
+    from svi_tpu_torch.ops import attention as A
+
+    got = {}
+    for entry in (A.flash_bwd_dq, A.flash_bwd_dkv):
+        if any(k[:2] != ("f32", "float32") for k in entry.routes):
+            raise RuntimeError(f"{path}: a split backward launch took another route: "
+                               f"{dict(entry.routes)}")
+        got[entry.__name__] = {k[2]: n for k, n in sorted(entry.routes.items())}
+    if got["flash_bwd_dq"] != got["flash_bwd_dkv"]:
+        raise RuntimeError(f"{path}: dq and dk/dv launches differ: {got}")
+    return got["flash_bwd_dq"]
+
+
+def _weighted_ddim(weight: float):
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+
+    class Weighted(EnhancedDDIMScheduler):
+        def training_weight(self, timestep):
+            return weight
+
+    return Weighted()
+
+
+def phase_t2i_small(root: Path, card: str) -> None:
+    """(e, i) The tiny trainer card against CPU: a narrow SD UNet (the
+    published plan at half width, 4 heads a block: head dims 40, 80 and 160,
+    so that every attention backward takes the f32 kernels; one head would
+    take the flat layout, which has no f32 split kernel), rank 4, 3 steps on
+    the same latents and context, from the card trainer's adapters (saved,
+    then loaded by the CPU trainer)."""
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.training import text_to_image as t2i
+
+    fx = _sd_fixtures()
+    plan = fx.narrow_plan(sd.SD_UNET_PLAN, 2, heads=4)
+    rng = np.random.default_rng(21)
+    lat = rng.standard_normal(T2I_SMALL_LATENT).astype(np.float32)
+    emb = rng.standard_normal((1, 77, fx.TEXT_DIM)).astype(np.float32)
+    start = root / "t2i_small_start.safetensors"
+    kw = dict(learning_rate=1.0, lora_rank=T2I_RANK, lora_alpha=T2I_ALPHA, seed=5)
+    out, secs = {}, {}
+    with patched([(sd, "SD_UNET_PLAN", plan)]):
+        state = sd.sd_unet_state_dict(23, device="cuda", text_dim=fx.TEXT_DIM)
+        for device in ("cuda", "cpu"):
+            unet = sd.sd_unet_params_from_torch(state, device=device)
+            trainer = t2i.T2ILoRATrainer(unet, scheduler=_weighted_ddim(T2I_SMALL_WEIGHT),
+                                         pretrained_lora_path=None if device == "cuda"
+                                         else str(start), **kw)
+            if device == "cuda":
+                trainer.save_lora(str(start))
+                zero_counts()
+            t0 = time.perf_counter()
+            losses = [trainer.training_step(latents=lat, prompt_emb=emb)
+                      for _ in range(T2I_STEPS)]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = t2i_bwd_launches("the tiny trainer")
+            secs[device] = time.perf_counter() - t0
+            out[device] = (np.array(losses), {k: [t.detach().cpu() for t in ab.values()]
+                                              for k, ab in trainer.lora.items()})
+            del trainer, unet
+    (lc, ac), (lh, ah) = out["cuda"], out["cpu"]
+    loss_rel = float(np.abs(lc - lh).max() / np.abs(lh).max())
+    ad_rel = {name: _rel(torch.cat([ac[k][i].ravel() for k in ah]),
+                         torch.cat([ah[k][i].ravel() for k in ah]))
+              for i, name in enumerate(("A", "B"))}
+    want = t2i_expected_launches(plan, T2I_STEPS)
+    log(f"[t2i-small] 4 heads of 40 / 80 / 160, rank {T2I_RANK}, {T2I_STEPS} steps, card vs "
+        f"CPU: losses {loss_rel:.3e} ({lc.tolist()}), adapters A {ad_rel['A']:.3e} B "
+        f"{ad_rel['B']:.3e} (bound {T2I_SMALL_REL}); seconds card {secs['cuda']:.2f}, CPU "
+        f"{secs['cpu']:.2f}; f32 backward launches per head dim {launches} (expected {want}, "
+        f"each of dq and dk/dv); {card}")
+    if not (np.isfinite(lc).all() and loss_rel <= T2I_SMALL_REL
+            and max(ad_rel.values()) <= T2I_SMALL_REL):
+        raise RuntimeError("the tiny text-to-image trainer on the card disagrees with the CPU")
+    if launches != want:
+        raise RuntimeError(f"the tiny trainer launched {launches}, expected {want}")
+
+
+def phase_t2i_full(root: Path, paths: dict, card: str) -> dict:
+    """(e, ii) The SD 1.5 UNet at full width from (b)'s file, in f32, trained
+    as users start it: rank 4, alpha 4, the default targets (to_q, to_k,
+    to_v, to_out), the context from (b)'s text encoder, 3 steps on seeded
+    (1, 4, 64, 64) latents, then one step on a TextImageDataset row written
+    here (a 576x640 .npy image, resized and centre-cropped to 512x512) through
+    vae_encode_fn with (b)'s VAE encoder; then save_lora and its round trip.
+    Returns the run's launches per KERNELS entry."""
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.models.model_io import ModelManager, load_state_dict
+    from svi_tpu_torch.prompters.sd_prompter import SDPrompter
+    from svi_tpu_torch.training import text_to_image as t2i
+
+    kinds = ("sd_unet", "sd_text_encoder", "sd_vae_encoder")
+    mm = ModelManager(device="cuda")
+    t0 = time.perf_counter()
+    mm.load_models([paths[k] for k in kinds])
+    unet, te, enc = (mm.fetch_model(k) for k in kinds)
+    emb = SDPrompter().encode_prompt(te, SD_PROMPT)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    data, side = root / "t2i_data", 8 * T2I_LATENT[-1]
+    (data / "train").mkdir(parents=True)
+    np.save(data / "train" / "img0.npy", sd_frames(1, side + 64, side + 128, seed=33)[0])
+    (data / "train" / "metadata.csv").write_text("file_name,text\nimg0.npy,a city street\n")
+    item = t2i.TextImageDataset(str(data), steps_per_epoch=1, height=side, width=side)[0]
+    image = torch.from_numpy(item["image"])[None].cuda()
+    trainer = t2i.T2ILoRATrainer(unet, lora_rank=T2I_RANK, lora_alpha=T2I_ALPHA, seed=0)
+    lat = torch.randn(T2I_LATENT, generator=torch.Generator(device="cuda").manual_seed(7),
+                      device="cuda")
+    losses, secs = [], []
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(T2I_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < T2I_STEPS:
+            losses.append(trainer.training_step(latents=lat, prompt_emb=emb))
+        else:
+            losses.append(trainer.training_step(
+                batch_image=image, prompt_emb=emb,
+                vae_encode_fn=lambda x: sd.sd_vae_encode(enc, x)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = read_counts()
+    bwd = t2i_bwd_launches("the text-to-image trainer")
+    fwd = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frozen = all(p.grad is None for p in unet.parameters())
+    moved = max(ab["B"].detach().abs().max().item() for ab in trainer.lora.values())
+    path = root / "t2i_lora.safetensors"
+    t0 = time.perf_counter()
+    trainer.save_lora(str(path))
+    back = t2i.lora_from_state_dict(load_state_dict(str(path)), device="cuda")
+    save_s = time.perf_counter() - t0
+    same = sorted(back) == sorted(trainer.lora) and all(
+        torch.equal(back[k][n], ab[n].detach()) for k, ab in trainer.lora.items() for n in "AB")
+    steps = T2I_STEPS + 1
+    want = t2i_expected_launches(sd.SD_UNET_PLAN, steps)
+    want_fwd = {"flash_fwd_bnsd": {f"f32/float32/{d}": n for d, n in sorted(want.items())},
+                "flash_fwd_flat": {f"f32/float32/{sd.SD_VAE_ENCODER_PLAN[-2][1]}": 1}}
+    log(f"[t2i] SD 1.5 UNet f32 at 512x512, rank {T2I_RANK}, {len(trainer.lora)} sites: load "
+        f"{load_s:.2f}s; seconds per step {[round(x, 3) for x in secs]} (the last through "
+        f"vae_encode_fn on a TextImageDataset row); losses {[round(x, 6) for x in losses]}; "
+        f"peak memory {peak:.2f} GiB; save_lora + load {save_s:.2f}s ({path.stat().st_size} "
+        f"bytes, round trip {'bit-equal' if same else 'DIFFERS'}); max |B| {moved:.3e}; frozen "
+        f"weights without grads {frozen}; f32 backward launches per head dim {bwd} (expected "
+        f"{want}, each of dq and dk/dv), forwards {fwd}; {card}")
+    if not (np.isfinite(losses).all() and frozen and same and moved > 0):
+        raise RuntimeError("the text-to-image trainer's steps are not finite, moved a frozen "
+                           "weight, did not move B, or its LoRA file does not round-trip")
+    if bwd != want or fwd != want_fwd:
+        raise RuntimeError(f"the trainer launched {bwd} backward and {fwd} forward kernels, "
+                           f"expected {want} and {want_fwd}")
+    del trainer, mm, unet, te, enc
+    return launches
+
+
+def phase_sd(card: str) -> tuple[dict, dict]:
     """Phase 8: (a) the small SD video pipeline card vs CPU, (b) full-width
     files, (c) one full-width UNet + ControlNet + motion forward card vs CPU,
-    (d) the runner at 512x512x24. Returns (d)'s launches per KERNELS entry."""
+    (d) the runner at 512x512x4, (e) text-to-image LoRA training: the tiny
+    trainer card vs CPU, then the full-width UNet on (b)'s files. Returns
+    (d)'s and (e)'s launches per KERNELS entry."""
     import shutil
     import tempfile
 
@@ -4823,15 +5227,19 @@ def phase_sd(card: str) -> dict:
     phase_sd_small(card)
     root = Path(tempfile.mkdtemp(prefix="_sd_ckpt_", dir=REPO))
     try:
+        phase_t2i_small(root, card)
         paths = write_sd_checkpoints(root, card)
         phase_sd_full_forward(paths, card)
         launches = phase_sd_runner(root, paths, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2i_launches = phase_t2i_full(root, paths, card)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(root, ignore_errors=True)
     log(f"[sd] phase 8 passed in {time.perf_counter() - t0:.1f}s; {card}")
-    return launches
+    return launches, t2i_launches
 
 
 
@@ -5831,10 +6239,12 @@ ZOO_SIZES = {"svd": dict(height=576, width=1024, num_frames=25),
              "hunyuan_dit": dict(height=1024, width=1024),
              "hunyuan_video": dict(height=544, width=960, num_frames=33),
              "cog": dict(height=480, width=720, num_frames=49),
-             # StepVideo at 544 x 992 x 51 (9 latent frames, 18972 tokens; its
-             # default 204 frames: phase 3 times one attention at S75888),
-             # OmniGen at 1024 x 1024 with one 512 x 512 reference image
-             "stepvideo": dict(height=544, width=992, num_frames=51),
+             # StepVideo at 544 x 992 x 17 (3 latent frames, 6324 tokens: one
+             # 17-frame chunk of its chunked decode, cut from 51 frames and
+             # three chunks to make room for phase 8e; its default 204
+             # frames: phase 3 times one attention at S75888), OmniGen at
+             # 1024 x 1024 with one 512 x 512 reference image
+             "stepvideo": dict(height=544, width=992, num_frames=17),
              "omnigen": dict(height=1024, width=1024)}
 ZOO_FILES = {
     "svd": {"unet": "svd_xt_unet.safetensors", "vae_decoder": "svd_vae_decoder.safetensors",
@@ -6619,7 +7029,7 @@ def phase_step_omni(card: str) -> dict:
     flow-matching solvers card vs CPU; then, one family at a time through
     phase 11's tables and functions, (b) seeded files at the published
     widths, (c) forwards at a cut depth card vs CPU, (d) the pipelines at
-    full width, 2 steps: StepVideo at 544 x 992 x 51 with all 48 blocks,
+    full width, 2 steps: StepVideo at 544 x 992 x 17 with all 48 blocks,
     OmniGen at 1024 x 1024 with a reference image. Returns {family: launches
     per KERNELS entry}."""
     from svi_tpu_torch.models import sd
@@ -6667,6 +7077,7 @@ def main() -> int:
     build.load_flash_fwd_sm90()
     build.load_flash_fwd_f32()
     build.load_flash_bwd()
+    build.load_flash_bwd_f32()
     build.load_flash_bwd_sm90()
     build.load_flash_bwd_split_sm90()
     build.load_flash_fwd_q8()
@@ -6721,8 +7132,8 @@ def main() -> int:
     par_launches = phase_parallel(card)
     mark("phase 6")
 
-    # 8. the SD 1.5 video stack and its runner
-    sd_launches = phase_sd(card)
+    # 8. the SD 1.5 video stack, its runner and text-to-image LoRA training
+    sd_launches, t2i_launches = phase_sd(card)
     mark("phase 8")
 
     # 9. the extensions and the SDXL family
@@ -6749,13 +7160,15 @@ def main() -> int:
     # _sd3, _flux: phase 10's pipelines at 1024x1024; launches_svd,
     # _hunyuan_dit, _hunyuan_video, _cog: phase 11's pipelines at full width
     # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs);
-    # launches_stepvideo, _omnigen: phase 12's
+    # launches_stepvideo, _omnigen: phase 12's; launches_t2i: phase 8e's
+    # full-width text-to-image trainer (the f32 backward kernels' launches)
     kernels = []
     zoo_total = {e: sum(zoo_launches[f].get(e, 0) for f in ZOO_FAMILIES) for e in ZOO_KERNELS}
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
         launches = (zoo_total if entry in ZOO_KERNELS
+                    else t2i_launches if entry in T2I_KERNELS
                     else par_launches if entry in PARALLEL_KERNELS
                     else f32_q8_launches if entry in QUANT_F32
                     else train_q_launches if entry in QUANT_TRAIN else quant_launches
@@ -6767,6 +7180,7 @@ def main() -> int:
                         "launches_pose": pose_launches.get(entry, 0),
                         "launches_sd": sd_launches.get(entry, 0),
                         "launches_sdxl": xl_launches.get(entry, 0),
+                        "launches_t2i": t2i_launches.get(entry, 0),
                         **{f"launches_{fam}": fam_launches[fam].get(entry, 0)
                            for fam in ("kolors", "sd3", "flux")},
                         **{f"launches_{fam}": zoo_launches[fam].get(entry, 0)

@@ -25,6 +25,7 @@ CSRC = PACKAGE_DIR / "csrc"
 SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
 F32_SOURCE = CSRC / "flash_fwd_f32.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
+BWD_F32_SOURCE = CSRC / "flash_bwd_f32.cu"
 BWD_SM90_SOURCE = CSRC / "flash_bwd_sm90.cu"
 BWD_SPLIT_SM90_SOURCE = CSRC / "flash_bwd_split_sm90.cu"
 Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
@@ -163,6 +164,22 @@ def load_flash_bwd() -> ctypes.CDLL:
     lib.svi_flash_bwd_dq.argtypes = head + [_ptr] + tail  # dq
     lib.svi_flash_bwd_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
     for fn in (lib.svi_flash_bwd_dq, lib.svi_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_flash_bwd_f32() -> ctypes.CDLL:
+    """Build (if needed) and load the f32 split backward on the (B, N, S, D)
+    route (K5a's and K5b's function at head dims 40, 64, 80, 160; f32 FMA)
+    once per process."""
+    lib = ctypes.CDLL(str(build(BWD_F32_SOURCE).path))
+    head = [ctypes.c_int, _ptr, _ptr, _ptr, _ptr,  # head_dim, q, k, v, dO
+            _ptr, _ptr]  # lse, delta
+    tail = [_i64, _i64, _i64, _i64, ctypes.c_float, _STRIDES, _ptr]  # b, n, sq, sk, scale, ., stream
+    lib.svi_flash_bwd_f32_dq.argtypes = head + [_ptr] + tail  # dq
+    lib.svi_flash_bwd_f32_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
+    for fn in (lib.svi_flash_bwd_f32_dq, lib.svi_flash_bwd_f32_dkv):
         fn.restype = ctypes.c_int
     return lib
 

@@ -127,7 +127,7 @@ def init_params(kind: str, seed: int = 0, device="cuda", dtype=torch.float32,
     return cls({"layers": out}, layers)
 
 
-def params_from_jax(kind: str, params: list, device="cpu", dtype=torch.float32) -> ConvStack:
+def params_from_jax(kind: str, params: list, device="cuda", dtype=torch.float32) -> ConvStack:
     """svi_tpu's list of {"w": (k..., in, out), "b"} -> the `kind` stack."""
     cls, layers, _ = _KINDS[kind]
     nd = len(layers[0][0])

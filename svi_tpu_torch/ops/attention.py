@@ -15,7 +15,8 @@ instead):
   * `flash_bwd_onepass` -- K4's contract (`_bwd_onepass_kernel_flat`): dq, dk,
     dv in one pass over KV tiles, dq summed across them in f32;
   * `flash_bwd_dq`, `flash_bwd_dkv` -- K5a's and K5b's contracts
-    (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward;
+    (`_bwd_dq_kernel_flat`, `_bwd_dkv_kernel_flat`): the split backward, in
+    bf16 and, on the (B, N, S, D) route's f32 head dims, in f32;
   * `flash_fwd_flat_q8` -- K6's contract (`_fwd_kernel_flat_q8`): the int8
     forward on operands quantized by `_quant_prep` (the torch version of
     `_quant_prep_xla`), modes qk8 (int8 Q.K^T, P.V in v's type: bf16, or
@@ -32,8 +33,10 @@ in `.routes`. The one-pass backward (K4) launches
 csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass;
 the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
 bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
-rotated by the pre-pass), bf16 D = 64 csrc/flash_bwd.cu, each entry
-counting its launches per (route, dtype, head_dim) in `.routes`. The int8
+rotated by the pre-pass), bf16 D = 64 csrc/flash_bwd.cu, f32 D = 40, 64,
+80, 160 (the SD 1.5 and SDXL UNets, whose backward the JAX package runs in
+XLA, `_flash_bwd_xla`) csrc/flash_bwd_f32.cu, each entry counting its
+launches in `.launches` and per (route, dtype, head_dim) in `.routes`. The int8
 forward takes the route `_q8_route` names for the head dim: D = 128 runs
 csrc/flash_fwd_q8_sm90.cu (TMA + integer wgmma, 128-key tiles), D = 64
 csrc/flash_fwd_q8.cu (mma.sync, 64-key tiles); it counts its launches in
@@ -47,7 +50,9 @@ launch the kernel or raise. There is no fallback between them. The public ops
 differentiable in q, k and v and route as the JAX package does: forward
 through the flat kernel when D % 128 == 0 or N == 1 and the (B, N, S, D)
 entry otherwise (CLIP's D = 80); backward through K4 for long self-attention
-and K5a + K5b otherwise (`flash_bwd_flat`). `flash_attention_flat(quant=...)`
+and K5a + K5b otherwise (`flash_bwd_flat`; the (B, N, S, D) route's f32
+head dims take the f32 K5a + K5b). `attention_bnsd` is `flash_attention`
+on (B, N, S, D) tensors. `flash_attention_flat(quant=...)`
 runs the int8 forward, inference only: its backward raises.
 `flash_attention_with_lse` is forward only.
 """
@@ -340,9 +345,14 @@ def _flat_ok(n: int, head_dim: int) -> bool:
 
 # the split backward's kernels (K5a, K5b) per (dtype, head_dim): 'sm90' is
 # csrc/flash_bwd_split_sm90.cu (TMA + wgmma: the DiT's cross-attention and
-# short self-attention in training), 'mma' csrc/flash_bwd.cu (mma.sync)
-_SPLIT_BWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma"}
-_BWD_HEAD_DIMS = {torch.bfloat16: tuple(d for (_, d) in _SPLIT_BWD_ROUTES)}
+# short self-attention in training), 'mma' csrc/flash_bwd.cu (mma.sync),
+# 'f32' csrc/flash_bwd_f32.cu (f32 FMA: the head dims of the SD 1.5 (40, 80,
+# 160) and SDXL (64) UNets, which the JAX package's flat layout does not
+# take, on the (B, N, S, D) route)
+_SPLIT_BWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
+                     **{(torch.float32, d): "f32" for d in (40, 64, 80, 160)}}
+_BWD_HEAD_DIMS = {t: tuple(d for (t_, d) in _SPLIT_BWD_ROUTES if t_ == t)
+                  for t in (torch.bfloat16, torch.float32)}
 
 
 def _flash_bwd_reference(q4, k4, v4, out4, lse, g4, cos, sin, kv_len: int, scale: float):
@@ -526,16 +536,20 @@ def flash_bwd_onepass(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
 flash_bwd_onepass.launches = 0
 
 
-def _split_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+def _split_bwd_route(dtype: torch.dtype, head_dim: int, cos=None) -> str:
     """The split-backward kernels a CUDA call at (dtype, head_dim) takes:
-    'sm90' (bf16, D = 128) or 'mma' (bf16, D = 64). Raises for any other
+    'sm90' (bf16, D = 128), 'mma' (bf16, D = 64) or 'f32' (f32, D = 40, 64,
+    80, 160; no RoPE tables: the SD UNets have none). Raises for any other
     pair: nothing falls back."""
     if dtype not in _BWD_HEAD_DIMS:
-        raise TypeError(f"split flash backward kernels take bfloat16, not {dtype}")
+        raise TypeError(f"split flash backward kernels take bfloat16 or float32, not {dtype}")
     route = _SPLIT_BWD_ROUTES.get((dtype, head_dim))
     if route is None:
         raise ValueError(f"split flash backward kernels: head_dim {head_dim} not built for "
                          f"{dtype} (built: {_BWD_HEAD_DIMS[dtype]})")
+    if route == "f32" and cos is not None:
+        raise NotImplementedError("f32 flash backward kernels take no RoPE tables (the SD "
+                                  "UNets have none)")
     return route
 
 
@@ -546,14 +560,15 @@ def _split_prep(views, lse, cos, sin):
     """What K5a and K5b both read, checked and computed once per backward:
     (route, q4, k4, the route's lse, delta). 'sm90': q and k rotated by the
     forward's RoPE pre-pass (the kernels rotate dq and dk back), lse * log2(e)
-    and delta from `_bwd_prep`, padded to 128 rows; 'mma': q and k as given
-    (those kernels rotate them), the base-e lse, and delta in f32 (B, N, Sq)."""
+    and delta from `_bwd_prep`, padded to 128 rows; 'mma' and 'f32': q and k
+    as given (the 'mma' kernels rotate them), the base-e lse, and delta in
+    f32 (B, N, Sq)."""
     q4, k4, v4, o4, g4 = views
     _check_kernel_tensors("split flash backward", dict(q=q4, k=k4, v=v4, out=o4, dO=g4),
                           _BWD_HEAD_DIMS, cos, sin)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32 (B, N, Sq)")
-    route = _split_bwd_route(q4.dtype, q4.shape[-1])
+    route = _split_bwd_route(q4.dtype, q4.shape[-1], cos)
     if route == "sm90":
         lse2, delta = _bwd_prep(o4, g4, lse, _SPLIT_ROWS)
         if cos is not None:
@@ -591,6 +606,15 @@ def _launch_split(entry: str, prep, v4, g4, cos, sin, scale: float):
         if err != 0:
             raise RuntimeError(f"split flash backward ({entry}, sm90) launch failed: code {err} "
                                + _LAUNCH_FAILED)
+    elif route == "f32":
+        from ..kernels.build import load_flash_bwd_f32
+
+        err = getattr(load_flash_bwd_f32(), f"svi_flash_bwd_f32_{entry}")(
+            d, *head[:6], *(t.data_ptr() for t in outs), b, n, sq, sk, float(scale), strides,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"split flash backward ({entry}, f32) launch failed: cudaError "
+                               f"{err}")
     else:
         from ..kernels.build import load_flash_bwd
 
@@ -600,6 +624,7 @@ def _launch_split(entry: str, prep, v4, g4, cos, sin, scale: float):
             raise RuntimeError(f"split flash backward ({entry}, mma) launch failed: cudaError "
                                f"{err}")
     counter = flash_bwd_dq if entry == "dq" else flash_bwd_dkv
+    counter.launches += 1
     counter.routes[(route, str(q4.dtype).removeprefix("torch."), d)] += 1
     return grads[0] if entry == "dq" else grads
 
@@ -608,7 +633,7 @@ def flash_bwd_dq(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """K5a's contract (`_bwd_dq_kernel_flat`): arguments as `flash_bwd_onepass`;
     returns dq (B, Sq, N*D), rotated back when RoPE is given. Counts its
-    launches per (route, dtype, head_dim) in `.routes`."""
+    launches in `.launches` and per (route, dtype, head_dim) in `.routes`."""
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
@@ -617,6 +642,7 @@ def flash_bwd_dq(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                          scale)
 
 
+flash_bwd_dq.launches = 0
 flash_bwd_dq.routes = collections.Counter()
 
 
@@ -624,7 +650,7 @@ def flash_bwd_dkv(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                   scale: Optional[float] = None):
     """K5b's contract (`_bwd_dkv_kernel_flat`): arguments as `flash_bwd_onepass`;
     returns (dk, dv) (B, Sk, N*D), dk rotated back when RoPE is given. Counts
-    its launches per (route, dtype, head_dim) in `.routes`."""
+    its launches in `.launches` and per (route, dtype, head_dim) in `.routes`."""
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
     scale = head_dim ** -0.5 if scale is None else float(scale)
     if _on_cpu(q, k, v, out, lse, g, cos, sin):
@@ -633,6 +659,7 @@ def flash_bwd_dkv(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
                          scale)
 
 
+flash_bwd_dkv.launches = 0
 flash_bwd_dkv.routes = collections.Counter()
 
 
@@ -649,7 +676,10 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
     adds nothing to dq and its dk and dv are exactly 0, and the lse the
     forward saved is the one over the cut keys. With RoPE tables it raises
     (nothing calls it: the sequence-parallel path rotates q and k first).
-    The (B, N, S, D) head dims have no kernel and raise on the card."""
+    The (B, N, S, D) route (the JAX package's `_flash_bwd_xla`: head dims
+    the flat layout does not take) runs the f32 K5a + K5b of
+    csrc/flash_bwd_f32.cu at f32 D = 40, 64, 80, 160, with delta computed
+    once for both, and raises on the card for any other dtype or head dim."""
     sk = k.shape[1]
     kv_len = sk if kv_len is None else min(int(kv_len), sk)
     scale = head_dim ** -0.5 if scale is None else float(scale)
@@ -666,10 +696,11 @@ def flash_bwd_flat(q, k, v, out, lse, g, head_dim: int, cos=None, sin=None,
         return dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
     n = q.shape[-1] // head_dim
     route = _bwd_route(n, head_dim, q.shape[1], sk, sk)
-    if route == "xla":
+    if route == "xla" and _SPLIT_BWD_ROUTES.get((q.dtype, head_dim)) != "f32":
         raise NotImplementedError(
-            f"attention backward for {n} heads of {head_dim}: the (B, N, S, D) route has "
-            "no backward kernel")
+            f"attention backward for {n} heads of {head_dim} in {q.dtype}: the (B, N, S, D) "
+            f"route's backward kernel takes float32 with head_dim in "
+            f"{_BWD_HEAD_DIMS[torch.float32]}")
     if route == "onepass":
         return flash_bwd_onepass(q, k, v, out, lse, g, head_dim, cos, sin, scale)
     views = _bwd_views(q, k, v, out, lse, g, head_dim, cos, sin)
@@ -1145,6 +1176,15 @@ def flash_attention_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
     its forward is the `flash_fwd_self` operator that the save-attention
     policy keeps."""
     return _attention_flat(q, k, v, head_dim, None, None, kv_len, scale, self_attn=True)
+
+
+def attention_bnsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_len: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """`flash_attention` on the (B, N, S, D) layout: q (B, N, Sq, D); k, v
+    (B, N, Sk, D). Differentiable in q, k and v; returns (B, N, Sq, D)."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          kv_len=kv_len, scale=scale)
+    return out.transpose(1, 2)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,11 +1,9 @@
 """Prompt utilities shared by the prompters, port of
 svi_tpu/prompters/base_prompter.py: `tokenize_long_prompt` (tokenize
 unbounded, then again padded to a multiple of the 77-token window) and
-`BasePrompter` (the refiner / extender chain).
-
-The prompt refiners and extenders (the prompt tools: Omost, translators,
-beautifiers) are not ported: loading them with an empty list is a no-op, and
-naming a class raises.
+`BasePrompter` (the refiner / extender chain: each class named is built by
+its `from_model_manager`, e.g. `prompt_refiners.BeautifulPrompt`,
+`prompt_refiners.Translator`, `omost.OmostPromter`).
 """
 
 from __future__ import annotations
@@ -26,13 +24,6 @@ def tokenize_long_prompt(tokenizer, prompt: str, length: int = 77) -> np.ndarray
     return ids.reshape(ids.shape[1] // length, length)
 
 
-def _not_ported(kind: str, classes) -> None:
-    if list(classes):
-        raise NotImplementedError(
-            f"prompt {kind} {[getattr(c, '__name__', c) for c in classes]}: the prompt tools "
-            "are not ported yet (ROADMAP.md, Queue 1: the prompt tools)")
-
-
 class BasePrompter:
     """Refiners map prompt -> prompt (the positive branch only), extenders a
     prompt dict -> an enriched dict (regional prompts)."""
@@ -42,10 +33,12 @@ class BasePrompter:
         self.extenders = []
 
     def load_prompt_refiners(self, model_manager, refiner_classes=()):
-        _not_ported("refiners", refiner_classes)
+        for refiner_class in refiner_classes:
+            self.refiners.append(refiner_class.from_model_manager(model_manager))
 
     def load_prompt_extenders(self, model_manager, extender_classes=()):
-        _not_ported("extenders", extender_classes)
+        for extender_class in extender_classes:
+            self.extenders.append(extender_class.from_model_manager(model_manager))
 
     def process_prompt(self, prompt, positive=True):
         if isinstance(prompt, list):

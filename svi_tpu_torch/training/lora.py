@@ -130,7 +130,7 @@ def from_peft_state_dict(sd: dict, cfg: WanDiTConfig, rank=None, dtype=torch.flo
     return _tree(blocks)
 
 
-def params_from_jax(lora: dict, device="cpu") -> ParamTree:
+def params_from_jax(lora: dict, device="cuda") -> ParamTree:
     """The JAX package's stacked adapter pytree ({module: {key: {"a": (L, in, r),
     "b": (L, r, out)}}}, as numpy) -> per-block adapters."""
     n = next(np.asarray(leaf["a"]).shape[0] for sub in lora.values() for leaf in sub.values())

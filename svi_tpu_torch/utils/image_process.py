@@ -24,7 +24,9 @@ def _open_pil(path):
 
 
 def _image_size(image_input) -> tuple[int, int]:
-    """(width, height) of a PIL image or an image file."""
+    """(width, height) of a PIL image, an (H, W, C) array or an image file."""
+    if isinstance(image_input, np.ndarray):
+        return image_input.shape[1], image_input.shape[0]
     if _is_npy(image_input):
         shape = np.load(image_input, mmap_mode="r").shape
         return shape[1], shape[0]
@@ -103,8 +105,13 @@ def _box(x: np.ndarray) -> np.ndarray:
     return np.where((x > -0.5) & (x <= 0.5), 1.0, 0.0)
 
 
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """Pillow's bilinear filter: 1 - |x| on (-1, 1)."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
 # Pillow's filters and their supports
-_FILTERS = {"bicubic": (_bicubic, 2.0), "box": (_box, 0.5)}
+_FILTERS = {"bicubic": (_bicubic, 2.0), "box": (_box, 0.5), "bilinear": (_triangle, 1.0)}
 
 
 def _resample_coeffs(in_size: int, out_size: int, resample: str = "bicubic"):
@@ -148,7 +155,7 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int,
 def resize_uint8(image, width: int, height: int, resample: str = "bicubic") -> np.ndarray:
     """An (H, W, 3) uint8 frame (or a PIL image) resized to (height, width, 3)
     as Pillow's `Image.resize` does, byte for byte: bicubic (a = -0.5, its
-    default) or box, the support widened by the shrink factor, the
+    default), bilinear or box, the support widened by the shrink factor, the
     horizontal pass first, each pass in Pillow's 22-bit fixed point rounded
     to uint8."""
     arr = np.asarray(image)

@@ -33,17 +33,27 @@ def _rand(rng, shape):
 @pytest.mark.parametrize("dtype,head_dim,route", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 80, ValueError), (torch.bfloat16, 384, ValueError),
-    (torch.float32, 128, TypeError), (torch.float32, 64, TypeError),
-    (torch.float16, 128, TypeError),
+    (torch.float32, 128, ValueError), (torch.float32, 64, "f32"),
+    (torch.float16, 128, TypeError), (torch.float32, 40, "f32"), (torch.float32, 160, "f32"),
 ])
 def test_split_bwd_route(dtype, head_dim, route):
     """bf16 D = 128 takes the TMA + wgmma kernels, bf16 D = 64 the mma.sync
-    ones; every other pair raises (no fallback)."""
+    ones, f32 D = 40, 64, 80, 160 (the SD UNets) the f32 FMA ones; every
+    other pair raises (no fallback)."""
     if isinstance(route, str):
         assert tattn._split_bwd_route(dtype, head_dim) == route
     else:
         with pytest.raises(route):
             tattn._split_bwd_route(dtype, head_dim)
+
+
+def test_split_bwd_route_f32_takes_no_rope():
+    """The f32 kernels take no RoPE tables (the SD UNets have none): a call
+    with them raises instead of launching."""
+    cos = torch.zeros((4, 20))
+    with pytest.raises(NotImplementedError, match="no RoPE"):
+        tattn._split_bwd_route(torch.float32, 40, cos)
+    assert tattn._split_bwd_route(torch.bfloat16, 128, cos) == "sm90"
 
 
 def test_rope_decomposition_matches_pallas_fused_rope():

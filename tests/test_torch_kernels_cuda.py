@@ -3,8 +3,9 @@ bf16 D=128 and D=64 with its RoPE pre-pass, 3xTF32 for f32 --,
 at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
-D=64 --, the K3 int4 unpack, the W4A8 linear -- its activation pre-pass and
-its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
+D=64, f32 FMA for the (B, N, S, D) route's f32 D=40, 64, 80, 160, with a
+text-to-image trainer step on it --, the K3 int4 unpack, the W4A8 linear --
+its activation pre-pass and its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
 sm90 TMA + integer wgmma at D=128, mma.sync at D=64 --) against their plain
 PyTorch versions, on the card.
 
@@ -571,6 +572,115 @@ def test_split_bwd_strided_qkv_columns(rope):
     _check_grads(got, _plain_bwd(q, k, v, out, lse, g, d, cos, sin))
 
 
+# the f32 split backward (csrc/flash_bwd_f32.cu: f32 FMA) against the plain
+# f32 backward (TF32 off) on the same inputs: only the order of the sums over
+# up to a few thousand keys or queries differs, f32-level; each gradient
+# within 1e-4 of its own largest magnitude, far below what a wrong tile or
+# mask gives, or within the rounding floor where that is larger (one key
+# makes dq and dk exactly 0 but for rounding): one ulp (2^-23) of the
+# largest |dO| |v| over per-head rows, times the scale, the largest |q| or
+# |k| and sqrt(ceil(Sq / Sk)) (the queries whose rounding a key's dk sums)
+F32_BWD_REL_TOL = 1e-4
+F32_BWD_EDGES = (1, 63, 64, 65, 77, 128, 129)
+
+
+def _f32_bwd_inputs(b, sq, sk, n, d, seed):
+    q, k, v, g = (_rand((b, s, n * d), torch.float32, seed + i)
+                  for i, s in enumerate((sq, sk, sk, sq)))
+    out, lse = tattn._forward_flat(q, k, v, d, None, None, sk, d ** -0.5)
+    return q, k, v, out, lse, g
+
+
+def _f32_bwd_floor(q, k, v, g, d):
+    def row(t):
+        return t.unflatten(-1, (-1, d)).norm(dim=-1).max().item()
+
+    share = -(-q.shape[1] // k.shape[1])
+    largest = max(q.abs().max().item(), k.abs().max().item())
+    return 2.0 ** -23 * d ** -0.5 * row(g) * row(v) * largest * share ** 0.5
+
+
+def _check_grads_f32(got, want, q, k, v, g, d):
+    floor = _f32_bwd_floor(q, k, v, g, d)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == ref.dtype == torch.float32 and x.shape == ref.shape, name
+        assert torch.isfinite(x).all(), name
+        bound = max(F32_BWD_REL_TOL * ref.abs().max().item(), floor)
+        err = (x - ref).abs().max().item()
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (300, 77), (64, 257), (1000, 600)])
+def test_f32_bwd_kernels_match_plain(d, sq, sk):
+    """Each f32 entry alone at the four head dims of the SD 1.5 and SDXL
+    UNets: ragged Sq and Sk against the 64-row tiles of both kernels, text
+    keys (77), and several steps of each kernel's loop."""
+    n, b = 3, 2
+    args = _f32_bwd_inputs(b, sq, sk, n, d, 60)
+    before = (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches, _split_launches("f32"))
+    dq = tattn.flash_bwd_dq(*args, d)
+    dk, dv = tattn.flash_bwd_dkv(*args, d)
+    torch.cuda.synchronize()
+    assert tattn.flash_bwd_dq.launches == before[0] + 1
+    assert tattn.flash_bwd_dkv.launches == before[1] + 1
+    assert _split_launches("f32") == (before[2][0] + 1, before[2][1] + 1)
+    q, k, v, _, _, g = args
+    _check_grads_f32((dq, dk, dv), _plain_bwd(*args, d, None, None), q, k, v, g, d)
+
+
+@pytest.mark.parametrize("sk", F32_BWD_EDGES)
+@pytest.mark.parametrize("sq", F32_BWD_EDGES)
+def test_f32_bwd_tile_edges(sq, sk):
+    """flash_bwd_flat on the (B, N, S, D) route (3 heads of 40, B = 2) at
+    every pair of tile edges: one row, a tile less one, a tile, a tile and
+    one, the text's 77, two tiles and two tiles and one."""
+    d, n, b = 40, 3, 2
+    args = _f32_bwd_inputs(b, sq, sk, n, d, 70)
+    assert tattn._bwd_route(n, d, sq, sk, sk) == "xla"
+    before = _split_launches("f32")
+    got = tattn.flash_bwd_flat(*args, d)
+    torch.cuda.synchronize()
+    assert _split_launches("f32") == (before[0] + 1, before[1] + 1)
+    q, k, v, _, _, g = args
+    _check_grads_f32(got, _plain_bwd(*args, d, None, None), q, k, v, g, d)
+
+
+@pytest.mark.parametrize("layout", ["bsnd", "bnsd"])
+def test_f32_bwd_autograd_routes_to_the_kernels(layout):
+    """torch.autograd through `flash_attention` (B, S, N, D) and
+    `attention_bnsd` (B, N, S, D) at SD 1.5's cross-attention (8 heads of
+    80 against 77 text keys): one f32 forward, one launch of each backward
+    kernel, gradients against the plain backward."""
+    d, n, b, sq, sk = 80, 8, 1, 1024, 77
+    q, k, v, g = (_rand(shape, torch.float32, 80 + i) for i, shape in
+                  enumerate(((b, sq, n, d), (b, sk, n, d), (b, sk, n, d), (b, sq, n, d))))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = _split_launches("f32")
+    if layout == "bsnd":
+        out = tattn.flash_attention(*leaves)
+        out.backward(g)
+    else:
+        out = tattn.attention_bnsd(*(t.transpose(1, 2) for t in leaves))
+        out.backward(g.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert _split_launches("f32") == (before[0] + 1, before[1] + 1)
+    flat = [t.flatten(2) for t in (q, k, v)]
+    out_ref, lse = tattn._forward_flat(*flat, d, None, None, sk, d ** -0.5)
+    want = _plain_bwd(*flat, out_ref, lse, g.flatten(2), d, None, None)
+    _check_grads_f32([t.grad.flatten(2) for t in leaves], want, *flat, g.flatten(2), d)
+
+
+def test_f32_bwd_unbuilt_pairs_raise():
+    """The (B, N, S, D) route's backward on the card takes f32 at D = 40,
+    64, 80, 160 only: f32 D = 88 and bf16 D = 80 raise (no fallback)."""
+    for dtype, d in ((torch.float32, 88), (torch.bfloat16, 80)):
+        q = _rand((1, 70, 2 * d), dtype, 90)
+        lse = torch.zeros((1, 2, 70), device="cuda")
+        with pytest.raises(NotImplementedError, match="route's backward kernel"):
+            tattn.flash_bwd_flat(q, q, q, q, lse, q, d)
+
+
 def test_split_bwd_misaligned_view_raises():
     """A view whose data_ptr is off 16-byte alignment cannot feed TMA: the
     split backward raises instead of launching."""
@@ -1026,3 +1136,64 @@ def test_f32_convs_ignore_the_process_tf32_switch():
         torch.backends.cudnn.allow_tf32 = saved
     for a, b in zip(outs[True], outs[False]):
         assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The text-to-image LoRA trainer on the f32 backward kernels
+# ---------------------------------------------------------------------------
+
+
+def test_t2i_trainer_step_card_matches_cpu(tmp_path):
+    """One T2ILoRATrainer step of a narrow SD UNet (the published plan at
+    half width, 4 heads of 40, 80 and 160) on the card against the CPU from
+    the same adapters: the loss and the adapters within 1e-4 relative (f32
+    through some 60 layers forward and back, sums in another order), the
+    loss weighted by 1e-9 on both so that AdamW's step stays linear in the
+    gradient; every attention backward on the f32 kernels, 32 launches of
+    each: 10 at D = 40, 10 at D = 80, 12 at D = 160."""
+    import numpy as np
+    import torch_sd_fixtures as fx
+
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+    from svi_tpu_torch.training import text_to_image as t2i
+
+    class Weighted(EnhancedDDIMScheduler):
+        def training_weight(self, timestep):
+            return 1e-9
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(sd, "SD_UNET_PLAN", fx.narrow_plan(sd.SD_UNET_PLAN, 2, heads=4))
+    try:
+        state = sd.sd_unet_state_dict(23, text_dim=fx.TEXT_DIM)
+        rng = np.random.default_rng(21)
+        lat = rng.standard_normal((1, 4, 16, 16)).astype(np.float32)
+        emb = rng.standard_normal((1, 77, fx.TEXT_DIM)).astype(np.float32)
+        start = tmp_path / "start.safetensors"
+        out = {}
+        for device in ("cuda", "cpu"):
+            trainer = t2i.T2ILoRATrainer(
+                sd.sd_unet_params_from_torch(state, device=device), scheduler=Weighted(),
+                learning_rate=1.0, lora_rank=4, lora_alpha=4.0, seed=5,
+                pretrained_lora_path=None if device == "cuda" else str(start))
+            if device == "cuda":
+                trainer.save_lora(str(start))
+                before = _split_launches("f32")
+                routes = dict(tattn.flash_bwd_dq.routes)
+            loss = trainer.training_step(latents=lat, prompt_emb=emb)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert _split_launches("f32") == (before[0] + 32, before[1] + 32)
+                grew = {k[2]: n - routes.get(k, 0) for k, n in tattn.flash_bwd_dq.routes.items()
+                        if k[0] == "f32" and n > routes.get(k, 0)}
+                assert grew == {40: 10, 80: 10, 160: 12}
+            out[device] = (loss, {k: [t.detach().cpu() for t in ab.values()]
+                                  for k, ab in trainer.lora.items()})
+    finally:
+        mp.undo()
+    (lc, ac), (lh, ah) = out["cuda"], out["cpu"]
+    assert np.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh)
+    for i in range(2):
+        got = torch.cat([ac[k][i].ravel() for k in ah])
+        want = torch.cat([ah[k][i].ravel() for k in ah])
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -72,6 +72,12 @@ def test_port_imports_no_jax():
         "import svi_tpu_torch.prompters.stepvideo_prompter, svi_tpu_torch.pipelines.step_video\n"
         "import svi_tpu_torch.models.omnigen, svi_tpu_torch.prompters.omnigen_prompter\n"
         "import svi_tpu_torch.pipelines.omnigen_image, svi_tpu_torch.schedulers.fm_solvers\n"
+        "import svi_tpu_torch.training.text_to_image, svi_tpu_torch.scripts.gradio_demo\n"
+        "import svi_tpu_torch.prompters.prompt_refiners, svi_tpu_torch.prompters.omost\n"
+        "import svi_tpu_torch.utils.qwen_vl, svi_tpu_torch.utils.prompt_extend\n"
+        "import svi_tpu_torch.utils.vace_processor\n"
+        "import svi_tpu_torch.models, svi_tpu_torch.pipelines, svi_tpu_torch.prompters\n"
+        "import svi_tpu_torch.schedulers, svi_tpu_torch.utils, svi_tpu_torch.ops\n"
         "from svi_tpu_torch.prompters import sp_tokenizer\n"
         "sp_tokenizer.default_chatglm_tokenizer().encode('一只猫')\n"
         "sp_tokenizer.default_bert_tokenizer()('一只猫')\n"
@@ -197,7 +203,8 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                          (build.BWD_SM90_SOURCE, "flash_bwd_sm90"),
                          (build.BWD_SPLIT_SM90_SOURCE, "flash_bwd_split_sm90"),
                          (build.Q8_SM90_SOURCE, "flash_fwd_q8_sm90"),
-                         (build.W4A8_SOURCE, "w4a8_gemm_sm90")):
+                         (build.W4A8_SOURCE, "w4a8_gemm_sm90"),
+                         (build.BWD_F32_SOURCE, "flash_bwd_f32")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
         assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
@@ -211,16 +218,19 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                                    "svd_unet_from_checkpoint", "hunyuan_dit_from_checkpoint",
                                    "hunyuan_video_dit_from_checkpoint", "cog_dit_from_checkpoint",
                                    "stepvideo_dit_from_checkpoint", "step1_from_checkpoint",
-                                   "stepvideo_vae_from_checkpoint", "omnigen_from_checkpoint"])
+                                   "stepvideo_vae_from_checkpoint", "omnigen_from_checkpoint",
+                                   "lora_from_jax", "unianimate_from_jax",
+                                   "t2i_lora_from_state_dict", "gradio_demo"])
 def test_entry_points_default_to_the_card(entry):
     import inspect
 
     from svi_tpu_torch.models import (clip_vision, cog, hunyuan_dit, hunyuan_video, omnigen,
-                                      stepvideo, stepvideo_vae, svd, t5, wan_dit, wan_vae)
+                                      stepvideo, stepvideo_vae, svd, t5, unianimate, wan_dit,
+                                      wan_vae)
     from svi_tpu_torch.models.model_io import ModelManager
     from svi_tpu_torch.pipelines.svi_video import SVIVideoPipeline
-    from svi_tpu_torch.scripts import test_svi
-    from svi_tpu_torch.training import ErrorRecyclingTrainer
+    from svi_tpu_torch.scripts import gradio_demo, test_svi
+    from svi_tpu_torch.training import ErrorRecyclingTrainer, lora, text_to_image
     from svi_tpu_torch.utils import audio
 
     fn = {"wan_dit": wan_dit.init_params, "dit_int4": wan_dit.init_params_int4,
@@ -240,7 +250,10 @@ def test_entry_points_default_to_the_card(entry):
           "stepvideo_dit_from_checkpoint": stepvideo.stepvideo_dit_params_from_torch,
           "step1_from_checkpoint": stepvideo.step1_params_from_torch,
           "stepvideo_vae_from_checkpoint": stepvideo_vae.stepvideo_vae_params_from_torch,
-          "omnigen_from_checkpoint": omnigen.omnigen_params_from_torch}[entry]
+          "omnigen_from_checkpoint": omnigen.omnigen_params_from_torch,
+          "lora_from_jax": lora.params_from_jax, "unianimate_from_jax": unianimate.params_from_jax,
+          "t2i_lora_from_state_dict": text_to_image.lora_from_state_dict,
+          "gradio_demo": gradio_demo.SVIGradioDemo}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -335,12 +348,16 @@ def test_non_cpu_tensor_without_kernel_raises_quantized():
                                 None, 64)
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_non_cpu_tensor_without_kernel_raises_backward(d):
-    """The same for the split backward's entries on both routes, the whole
-    split backward and its lse / delta prep: no plain fallback."""
-    n = 2 if d == 128 else 1  # the flat layout (split route) at both head dims
-    q = torch.empty(1, 8, n * d, dtype=torch.bfloat16, device="meta")
+@pytest.mark.parametrize("d,dtype", [pytest.param(64, torch.bfloat16, id="64"),
+                                     pytest.param(128, torch.bfloat16, id="128"),
+                                     pytest.param(40, torch.float32, id="f32-40"),
+                                     pytest.param(64, torch.float32, id="f32-64")])
+def test_non_cpu_tensor_without_kernel_raises_backward(d, dtype):
+    """The same for the split backward's entries on every route, the whole
+    split backward and its lse / delta prep: no plain fallback. bf16: the
+    flat layout at both head dims; f32: two heads, the (B, N, S, D) route."""
+    n = 2 if d == 128 or dtype == torch.float32 else 1
+    q = torch.empty(1, 8, n * d, dtype=dtype, device="meta")
     lse = torch.empty(1, n, 8, device="meta")
     for call in (lambda: tattn.flash_bwd_dq(q, q, q, q, lse, q, d),
                  lambda: tattn.flash_bwd_dkv(q, q, q, q, lse, q, d),

@@ -91,7 +91,7 @@ def _port_single(params, cfg_kw, inp, lora=None):
     dit = tdit.params_from_jax(_host(params), tdit.WanDiTConfig(dtype=torch.float32, **cfg_kw))
     t = {k: None if v is None else (tuple(map(torch.from_numpy, v)) if isinstance(v, tuple)
                                      else torch.from_numpy(v)) for k, v in inp.items()}
-    kw = dict(lora=None if lora is None else tlora.params_from_jax(_host(lora)), lora_scale=0.5)
+    kw = dict(lora=None if lora is None else tlora.params_from_jax(_host(lora), device="cpu"), lora_scale=0.5)
     with torch.no_grad():
         return dit(t["x"], t["t"], t["ctx"], t.get("clip"), t.get("y"), t.get("cond"),
                    audio_embed_tuple=t.get("audio"), **kw).numpy()

@@ -200,15 +200,37 @@ def test_textual_inversion_and_long_prompt_match_jax(sds, tmp_path):
 
 
 def test_prompt_tools_raise_and_empty_lists_are_no_ops():
+    """The prompt tools are ported: each class named is built by its
+    `from_model_manager(model_manager)` and chained (refiners on the
+    positive branch only, extenders on the prompt dict); empty lists are
+    no-ops. (The name is kept from when naming a class raised.)"""
     from svi_tpu_torch.prompters.base_prompter import BasePrompter
 
+    seen = []
+
+    class Upper:
+        @staticmethod
+        def from_model_manager(mm):
+            seen.append(mm)
+            return lambda prompt, positive=True: prompt.upper() if positive else prompt
+
+    class Regions:
+        @staticmethod
+        def from_model_manager(mm):
+            seen.append(mm)
+            return lambda d: {**d, "prompts": [d["prompt"] + " left"]}
+
     p = BasePrompter()
-    p.load_prompt_refiners(None, [])
-    p.load_prompt_extenders(None, ())
-    with pytest.raises(NotImplementedError, match="prompt tools"):
-        p.load_prompt_refiners(None, [object])
-    with pytest.raises(NotImplementedError, match="prompt tools"):
-        p.load_prompt_extenders(None, [object])
+    p.load_prompt_refiners("mm", [])
+    p.load_prompt_extenders("mm", ())
+    assert p.refiners == [] and p.extenders == [] and seen == []
+    assert p.process_prompt("a cat") == "a cat"
+    p.load_prompt_refiners("mm", [Upper])
+    p.load_prompt_extenders("mm", [Regions])
+    assert seen == ["mm", "mm"]
+    assert p.process_prompt(["a cat", "a dog"]) == ["A CAT", "A DOG"]
+    assert p.process_prompt("a cat", positive=False) == "a cat"
+    assert p.extend_prompt("a cat") == {"prompt": "a cat", "prompts": ["a cat left"]}
 
 
 # ---------------------------------------------------------------------------

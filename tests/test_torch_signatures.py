@@ -204,6 +204,8 @@ ALLOWED = {
     "schedulers/flow_match.py:tree_flatten": JAX_ONLY,
     "schedulers/flow_match.py:tree_unflatten": JAX_ONLY,
     "training/lora.py:init_lora_params": KEY,
+    "training/text_to_image.py:init_lora": KEY,
+    "training/text_to_image.py:lora_from_state_dict": DEVICE,
     "training/lora.py:from_peft_state_dict": DEVICE,
     "training/trainer.py:make_optimizer": MODULE,
     "training/trainer.py:shard_optimizer_state": (
@@ -232,6 +234,15 @@ PORTED_VIDEO_ZOO = (
     "models/stepvideo.py", "models/stepvideo_vae.py", "prompters/stepvideo_prompter.py",
     "pipelines/step_video.py", "models/omnigen.py", "prompters/omnigen_prompter.py",
     "pipelines/omnigen_image.py", "schedulers/fm_solvers.py")
+
+
+# the modules of the last slice: the prompt tools, the text-to-image trainer
+# and the subpackages' exports
+PORTED_LAST_SLICE = (
+    "prompters/prompt_refiners.py", "prompters/omost.py", "utils/qwen_vl.py",
+    "utils/prompt_extend.py", "utils/vace_processor.py", "training/text_to_image.py",
+    "pipelines/__init__.py", "models/__init__.py", "prompters/__init__.py",
+    "schedulers/__init__.py", "training/__init__.py", "utils/__init__.py", "ops/__init__.py")
 
 
 def _pairs():
@@ -351,5 +362,18 @@ def test_video_zoo_module_is_compared(rel, differences):
     does, and every signature left differing is on ALLOWED."""
     assert rel in _pairs()
     assert _members(_module("svi_tpu_torch", rel))
+    ours = {k: v for k, v in differences.items() if k.startswith(rel + ":")}
+    assert all(k in ALLOWED and v != "missing in the port" for k, v in ours.items()), ours
+
+
+@pytest.mark.parametrize("rel", PORTED_LAST_SLICE)
+def test_last_slice_module_is_compared(rel, differences):
+    """Each module of the last slice has its svi_tpu counterpart at the same
+    path, and every signature left differing is on ALLOWED (the packages'
+    `__init__` files define no public function of their own: their exports
+    are held by tests/test_torch_prompt_tools.py)."""
+    assert rel in _pairs()
+    if not rel.endswith("__init__.py"):
+        assert _members(_module("svi_tpu_torch", rel))
     ours = {k: v for k, v in differences.items() if k.startswith(rel + ":")}
     assert all(k in ALLOWED and v != "missing in the port" for k, v in ours.items()), ours

@@ -93,7 +93,7 @@ def _trainers(use_remat: bool = True):
     jt.lora = jax.tree.map(lambda x: x + 0.02, jt.lora)
     tt = TTrainer(tdit.params_from_jax(jax.tree.map(np.asarray, params), ct), TConfig(**kw),
                   device="cpu")
-    tt.lora = tlora.params_from_jax(jax.tree.map(np.asarray, jt.lora))
+    tt.lora = tlora.params_from_jax(jax.tree.map(np.asarray, jt.lora), device="cpu")
     # the same banked errors in every grid, so that injection happens
     data = np.random.default_rng(3)
     for t in jt.buffers.grid_timesteps:
@@ -184,7 +184,7 @@ def test_peft_export_round_trip_matches_jax():
     jl = jlora.init_lora_params(jax.random.PRNGKey(1), cj, rank=4)
     jl = jax.tree.map(lambda x: x + 0.5, jl)  # B non-zero too
     want = jlora.to_peft_state_dict(jl, prefix="pipe.dit.")
-    got = tlora.to_peft_state_dict(tlora.params_from_jax(jax.tree.map(np.asarray, jl)),
+    got = tlora.to_peft_state_dict(tlora.params_from_jax(jax.tree.map(np.asarray, jl), device="cpu"),
                                    prefix="pipe.dit.")
     assert got.keys() == want.keys()
     for k in want:

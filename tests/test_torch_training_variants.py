@@ -91,7 +91,7 @@ def _trainers(variant, use_remat=True, **extra):
         jt.lora = jax.tree.map(lambda x: x + 0.02, jt.lora)  # B non-zero: every A moves
     tt = TTrainer(tdit.params_from_jax(_host(params), ct), TConfig(**kw), device="cpu")
     if "lora" in jt.trainable:
-        tt.lora = tlora.params_from_jax(_host(jt.lora))
+        tt.lora = tlora.params_from_jax(_host(jt.lora), device="cpu")
     if "pose" in jt.trainable:
         tt.pose_params = tpose.params_from_jax(_host(jt.trainable["pose"]))
     jt.opt_state = jt.optimizer.init(jt.trainable)
@@ -128,7 +128,7 @@ def _jax_trainables(jt) -> dict:
     for kind, tree in jt.trainable.items():
         tree = _host(tree)
         if kind == "lora":
-            blocks = tlora.params_from_jax(tree)
+            blocks = tlora.params_from_jax(tree, device="cpu")
             out.update({f"lora.{k}": v.detach().numpy()
                         for k, v in blocks.named_parameters()})
         elif kind == "pose":
@@ -292,7 +292,7 @@ def test_save_attention_and_offload_give_plain_gradients(variant, group, monkeyp
 def _lora_and_pose_trainers():
     jt, tt = _trainers("pose")
     jt.lora = jax.tree.map(lambda x: x * 1.5 + 0.01, jt.lora)
-    tt.lora = tlora.params_from_jax(_host(jt.lora))
+    tt.lora = tlora.params_from_jax(_host(jt.lora), device="cpu")
     return jt, tt
 
 

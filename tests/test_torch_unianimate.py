@@ -87,7 +87,7 @@ def test_stacks_match_svi_tpu(kind, shape):
     x = (rng.integers(0, 255, shape) if kind == "randomref"
          else rng.standard_normal(shape)).astype(np.float32)
     want = np.asarray(forward(params, jnp.asarray(x)))
-    model = tua.params_from_jax(kind, _host(params))
+    model = tua.params_from_jax(kind, _host(params), device="cpu")
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
@@ -171,11 +171,14 @@ def _pipes(models, name):
         jpipe.dwpose_embedding = side["dwpose_embedding"]
         jpipe.randomref_embedding_pose = side["randomref"]
         tpipe.dwpose_embedding = tpose.params_from_jax(_host(side["dwpose_embedding"]))
-        tpipe.randomref_embedding_pose = tua.params_from_jax("randomref", _host(side["randomref"]))
+        tpipe.randomref_embedding_pose = tua.params_from_jax("randomref", _host(side["randomref"]),
+                                                              device="cpu")
     if name == "WanRepalceAnyoneVideoPipeline":
         jpipe.learn_in_embedding, jpipe.inpaint_embedding = side["learn_in"], side["inpaint"]
-        tpipe.learn_in_embedding = tua.params_from_jax("learn_in", _host(side["learn_in"]))
-        tpipe.inpaint_embedding = tua.params_from_jax("inpaint", _host(side["inpaint"]))
+        tpipe.learn_in_embedding = tua.params_from_jax("learn_in", _host(side["learn_in"]),
+                                                        device="cpu")
+        tpipe.inpaint_embedding = tua.params_from_jax("inpaint", _host(side["inpaint"]),
+                                                       device="cpu")
     return jpipe, tpipe
 
 
@@ -283,7 +286,7 @@ def test_side_modules_load_through_the_model_manager(models):
         _host(side["dwpose_embedding"]))))
     for kind in ("randomref", "learn_in", "inpaint"):
         sd.update(tua.torch_state_dict_from_params(kind, tua.params_from_jax(
-            kind, _host(side[kind]))))
+            kind, _host(side[kind]), device="cpu")))
     mm = model_io.ModelManager(torch_dtype=torch.float32, device="cpu")
     mm.state_dict_new_module.update(model_io.extract_side_modules(
         {f"pipe.dit.{k}": v for k, v in sd.items()}))

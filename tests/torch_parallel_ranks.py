@@ -141,7 +141,7 @@ def forwards(rank, world, cases):
         with torch.no_grad():
             if kind == "sp":
                 lora = None if case.get("lora") is None else lora_mod.params_from_jax(
-                    case["lora"])
+                    case["lora"], device="cpu")
                 out = forward_sp(dit, x, t, ctx, clip, y, cond, mesh=mesh, lora=lora,
                                  audio_embed_tuple=audio, **kw)
             elif kind == "tp":
@@ -178,7 +178,7 @@ def lora_grads(rank, world, cases):
         mesh = make_mesh(*case["mesh"])
         dit = _dit(case["params"], case["cfg"])
         (x, t, ctx, clip, y, cond), audio = _inputs(case["inputs"])
-        lora = lora_mod.params_from_jax(case["lora"])
+        lora = lora_mod.params_from_jax(case["lora"], device="cpu")
         calls["n"] = 0
         out = forward_sp(dit, x, t, ctx, clip, y, cond, mesh=mesh, lora=lora, lora_scale=0.5,
                          audio_embed_tuple=audio, **case["kw"])
@@ -200,7 +200,7 @@ def _trainer(case, mesh, **overrides):
     trainer = ErrorRecyclingTrainer(_dit(case["params"], case["cfg"]),
                                     TrainerConfig(**dict(case["train"], **overrides)),
                                     mesh=mesh, device="cpu")
-    trainer.lora = lora_mod.params_from_jax(case["lora"])
+    trainer.lora = lora_mod.params_from_jax(case["lora"], device="cpu")
     for t, add, err in case["banked"]:
         getattr(trainer.buffers, add)(err, t)
     return trainer
