@@ -7,7 +7,9 @@ Phases, each printing what it found; any failure ends the run with a
 non-zero exit and no result line:
   1. environment: capability probe, nvidia-smi name and power limit, the TF32
      switches (left at PyTorch's defaults, as users run them);
-  2. build: nvcc builds every kernel source of svi_tpu_torch/csrc, all at once;
+  2. build: nvcc builds every kernel source of svi_tpu_torch/csrc, all at once
+     (the two forwards with many head dims, flash_fwd_f32.cu and
+     flash_fwd_bf16.cu, one library per group of head dims);
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
@@ -32,7 +34,12 @@ non-zero exit and no result line:
      phase 8e's f32 backward on the (B, N, S, D) route (K5a's and K5b's
      function, csrc/flash_bwd_f32.cu: SD 1.5's D40 self S4096 and cross
      Sk77, D80 S1024 and its cross, D160 S256 and S64; SDXL's D64 S4096 N10,
-     S1024 N20 and cross Sk77, each kernel beside SDPA's f32 backward); K6
+     S1024 N20 and cross Sk77, each kernel beside SDPA's f32 backward); the
+     bf16 route (csrc/flash_fwd_bf16.cu) at the bf16 paths' shapes (SD 1.5's
+     D40 self B2 S4096 N8 and its 77-key cross, D80 S1024, D160 S256;
+     Hunyuan-DiT's D88 B2 S4096 N16 self and Sk333 cross; one head of 512
+     over 4096 and 16384 tokens; and its other head dims, one head of 384
+     and 8 heads of 32) beside bf16 SDPA; K6
      beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
@@ -158,7 +165,14 @@ non-zero exit and no result line:
      and 160, 3 steps card against CPU, then the full-width UNet of (b) in
      f32 at 512x512 (rank 4, 3 steps and one through vae_encode_fn on a
      TextImageDataset row), its attention backward on the f32 kernels, 32
-     launches of each a step, and the save_lora round trip;
+     launches of each a step, and the save_lora round trip; (f) the bf16
+     paths on the bf16 route (csrc/flash_fwd_bf16.cu): the narrow bf16
+     SDImagePipeline (a half-width UNet, 4 heads of 40 / 80 / 160, the VAE
+     decoder at full width), FluxImagePipeline at its default bf16 (its VAE
+     too) and HunyuanDiTImagePipeline(dtype=bf16) (2 heads of 88), card
+     against CPU; then SDImagePipeline(dtype=bf16) on (b)'s files at
+     512x512, 2 steps, CFG 7.5, with seconds a step, peak memory and the
+     launches per route, which must be the plan's count;
   9. the extensions and the SDXL family: (a) the narrow SDXL models (one
      head a block) through SDXLImagePipeline and SDXLVideoPipeline (a tile
      ControlNet Union unit, an IP-Adapter image), RIFE, FastBlend, ESRGAN
@@ -178,14 +192,16 @@ non-zero exit and no result line:
      with a ControlNet unit, an IP-Adapter embedding, TeaCache and one EliGen
      entity, card against CPU; then one family at a time, its files freed
      before the next: (b) seeded files at the published widths (ChatGLM3-6B
-     at 2 of 28 layers, the Kolors UNet, SDXL's VAE; SD3-medium's MMDiT,
-     CLIP-L, OpenCLIP bigG, its VAE; FLUX.1-dev's DiT at 2 + 2 of 19 + 38
+     at 2 of 28 layers, the Kolors UNet, SDXL's VAE; SD3-medium's MMDiT at
+     2 of 24 blocks, CLIP-L, OpenCLIP bigG at 2 of 32 layers, its VAE;
+     FLUX.1-dev's DiT at 2 + 2 of 19 + 38
      blocks, CLIP-L, its VAE; T5-XXL at 2 of 24 layers; a cut file's
      parameter count at the published depth is computed from its blocks and
      held to the published count), (c) one forward at a cut depth card
      against CPU (FLUX in f32 and in bf16), (d) the pipeline on those files
      at 1024x1024, 2 steps (Kolors: the 256-token prompt, CFG 7.5; SD3:
-     batched CFG 7.5, T5 on; FLUX: embedded guidance 3.5), with per-part
+     batched CFG 7.5, T5 on; FLUX: embedded guidance 3.5, its VAE in its
+     bf16: K1's bf16 route at one head of 512), with per-part
      seconds, peak memory and the attention launches, which must be the
      loaded models' count;
  11. SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX: (a) the narrow models of
@@ -199,7 +215,9 @@ non-zero exit and no result line:
      decoder; HunyuanVideo's 13B DiT at 2 + 2 of 20 + 40 blocks, its causal
      VAE decoder, CLIP-L; CogVideoX-5B's DiT at 2 of 42 blocks and VAE
      decoder with T5-XXL at 2 of 24 layers), (c) one forward at a cut depth
-     card against CPU (HunyuanVideo and CogVideoX also in bf16), (d) the
+     card against CPU (HunyuanVideo and CogVideoX also in bf16, and
+     Hunyuan-DiT in bf16 on the bf16 route at D88, its launches counted),
+     (d) the
      pipeline on those files at full width, 2 steps (SVD 576x1024x25,
      Hunyuan-DiT 1024x1024, HunyuanVideo 544x960x33, CogVideoX 480x720x49),
      with per-part seconds, peak memory and the attention launches, which
@@ -226,8 +244,10 @@ non-zero exit and no result line:
      `launches_sd3` and `launches_flux`, on phase 11's as `launches_svd`,
      `launches_hunyuan_dit`, `launches_hunyuan_video` and `launches_cog`,
      on phase 12's as `launches_stepvideo` and `launches_omnigen`, on phase
-     8e's full-width trainer as `launches_t2i`; K2's D88 and bf16 D64
-     entries count phase 11's, the f32 backward's phase 8e's), the
+     8e's full-width trainer as `launches_t2i`, on each bf16 path as
+     `launches_bf16_paths`; K2's D88 and bf16 D64 entries count phase 11's,
+     the f32 backward's phase 8e's, the bf16 route's the bf16 paths' (8f's
+     SD 1.5 image pipeline, 10d's FLUX, 11c's Hunyuan-DiT forward)), the
      nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -414,6 +434,15 @@ KERNELS = {
                               "svi_tpu/ops/attention.py:465"),
     "flash_fwd_bnsd/sm90/64": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                                "svi_tpu/ops/attention.py:465"),
+    # K2 and K1 at one head in bf16 at the head dims the sm90 kernel does
+    # not take (route bf16, csrc/flash_fwd_bf16.cu): the SD 1.5 UNet's 8
+    # heads of 40 / 80 / 160 and Hunyuan-DiT's 16 heads of 88 (K2), the VAE
+    # mid-blocks' one head of 512 (K1); launched by the bf16 paths (phase
+    # 8f's SD 1.5 image pipeline, 10d's FLUX decode, 11c's Hunyuan-DiT)
+    "flash_fwd_bnsd/bf16": ("svi_tpu_torch/csrc/flash_fwd_bf16.cu",
+                            "svi_tpu/ops/attention.py:465"),
+    "flash_fwd_flat/bf16/512": ("svi_tpu_torch/csrc/flash_fwd_bf16.cu",
+                                "svi_tpu/ops/attention.py:75"),
     # K3 standalone: the straight-through backward of every W4A8 linear that
     # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -426,6 +455,11 @@ QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linea
 PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90/128",)  # launched only by the ring (phase 6)
 ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/sm90/64")  # launched by phase 11's pipelines
 T2I_KERNELS = ("flash_bwd_dq/f32", "flash_bwd_dkv/f32")  # launched by phase 8e's trainer
+BF16_KERNELS = ("flash_fwd_bnsd/bf16", "flash_fwd_flat/bf16/512")  # launched by the bf16 paths
+# each bf16 path's launches per KERNELS name, read just after its run (the
+# counts zeroed just before it): 8f's SD 1.5 image pipeline, 10d's FLUX
+# pipeline (its VAE decode), 11c's Hunyuan-DiT forward
+BF16_PATH_LAUNCHES: dict = {}
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
 TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f32": "vae_mid_attn",
@@ -440,7 +474,9 @@ TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f
               "unpack_requant_int4": "ffn_0", "flash_fwd_bnsd/f32/88": "hunyuan_dit_self_attn_d88",
               "flash_fwd_bnsd/sm90/64": "cogvideox_joint_attn_d64",
               "flash_bwd_dq/f32": "sd_unet_self_attn_d40_bwd",
-              "flash_bwd_dkv/f32": "sd_unet_self_attn_d40_bwd"}
+              "flash_bwd_dkv/f32": "sd_unet_self_attn_d40_bwd",
+              "flash_fwd_bnsd/bf16": "sd_unet_self_attn_d40_bf16",
+              "flash_fwd_flat/bf16/512": "vae_mid_attn_d512_s16384_bf16"}
 
 
 def log(msg: str) -> None:
@@ -557,6 +593,19 @@ def read_counts() -> dict:
     return {name: sum(n for key, n in fn.routes.items()
                       if key[0] == route and dim in (None, key[2])) if route
             else fn.launches for name, (fn, route, dim) in launch_counters().items()}
+
+
+def per_kernel(launches: dict) -> dict:
+    """Forward launches as `sd_launches` gives them ({entry: {"route/dtype/
+    head_dim": n}}) per KERNELS name of those entries."""
+    counts = {}
+    for name, (_, route, dim) in launch_counters().items():
+        entry = name.partition("/")[0]
+        if entry in launches and route:
+            counts[name] = sum(n for key, n in launches[entry].items()
+                               if key.split("/")[0] == route
+                               and dim in (None, int(key.split("/")[2])))
+    return counts
 
 
 def check_fwd_routes(path: str, need_f32: bool = False, need_d128: bool = True,
@@ -719,18 +768,32 @@ def kernel_cases():
                     work={entry: (4 * b * n * sq * sk * d, _nbytes(q, k, v, q) + 4 * b * n * sq,
                                   F32_ACCURATE)})
 
-    def bnsd_bf16_case(name, b, s, n, d, kv_len=None):
-        """K2 in bf16 at D = 64 (route sm90, csrc/flash_fwd_sm90.cu): q, k, v
-        as (B, N, S, D) views of (B, S, N*D) projections, as CogVideoX's joint
-        attention hands them over; keys at or past kv_len masked. The exp2
-        floor (one exp2 a score) is printed beside the tensor-core bound."""
-        q, k, v = (randn((b, s, n * d), torch.bfloat16) for _ in range(3))
+    def bnsd_bf16_case(name, b, sq, sk, n, d, kv_len=None, flat=False):
+        """K2 in bf16 (route sm90 at D = 64, csrc/flash_fwd_sm90.cu:
+        CogVideoX's joint attention; route bf16 at the head dims the sm90
+        kernel does not take, csrc/flash_fwd_bf16.cu), or with flat K1 at
+        one head (the flat entry on column slices of one qkv tensor, as the
+        VAE mid-blocks hand them over): q, k, v from their own projections,
+        (B, S, N*D), as (B, N, S, D) views for K2; keys at or past kv_len
+        masked. The bound is at the true head dim (the bf16 route pads D40's
+        and D88's last k-step in registers only); the exp2 floor (one exp2 a
+        score) is printed beside it."""
+        if flat:
+            qkv = randn((b, sq, 3 * d), torch.bfloat16)
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        else:
+            q = randn((b, sq, n * d), torch.bfloat16)
+            k, v = (randn((b, sk, n * d), torch.bfloat16) for _ in range(2))
         qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
-        entry = "flash_fwd_bnsd/sm90/64"
-        kv = s if kv_len is None else kv_len
-        mask = None if kv == s else (torch.arange(s, device="cuda") < kv)[None, None, None]
+        route = A._fwd_route(torch.bfloat16, d)
+        entry = (f"flash_fwd_flat/{route}/{d}" if flat
+                 else f"flash_fwd_bnsd/{route}" + (f"/{d}" if route == "sm90" else ""))
+        kv = sk if kv_len is None else kv_len
+        mask = None if kv == sk else (torch.arange(sk, device="cuda") < kv)[None, None, None]
 
         def kernel():
+            if flat:
+                return A.flash_fwd_flat(q, k, v, d, kv_len=kv)
             out, lse = A.flash_fwd_bnsd(qh, kh, vh, kv_len=kv)
             return out.transpose(1, 2).flatten(2), lse
 
@@ -743,19 +806,19 @@ def kernel_cases():
         def run():
             (out, lse), (ref_out, ref_lse) = kernel(), plain()
             out_max = ref_out.float().abs().max().item()
-            out_err = err(out, ref_out)
+            out_err, lse_err = err(out, ref_out), err(lse, ref_lse)
             out_bound = min(BF16_OUT_BOUND, BF16_OUT_REL * out_max)
             log(f"[fwd] {name}: out max abs err {out_err:.3e}, bound {out_bound:.3e} (the "
                 f"smaller of {BF16_OUT_BOUND} and {BF16_OUT_REL} of the largest |out| "
-                f"{out_max:.3e})")
-            return {entry: worst((out_err, out_bound), (err(lse, ref_lse), BF16_LSE_BOUND))}
+                f"{out_max:.3e}); lse max abs err {lse_err:.3e}, bound {BF16_LSE_BOUND}")
+            return {entry: worst((out_err, out_bound), (lse_err, BF16_LSE_BOUND))}
 
-        return dict(case=name, shape=[b, s, s, n, d], dtype="bfloat16", run=run,
+        return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
                     kernels={entry: kernel}, plain=plain,
                     library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                    work={entry: (4 * b * n * s * kv * d, _nbytes(q, k, v, q) + 4 * b * n * s,
+                    work={entry: (4 * b * n * sq * kv * d, _nbytes(q, k, v, q) + 4 * b * n * sq,
                                   PEAK_BF16)},
-                    exp2_floor_ms=1e3 * b * n * s * kv / EXP2_PER_S)
+                    exp2_floor_ms=1e3 * b * n * sq * kv / EXP2_PER_S)
 
     def bwd_case(name, b, sq, sk, n, d, grid=None, kv_len=None):
         """One backward at the route the autograd function picks for it. With
@@ -1102,8 +1165,8 @@ def kernel_cases():
                    entry="flash_fwd_bnsd/f32/88")
     yield f32_case("hunyuan_dit_cross_attn_d88", 2, 4096, 333, 16, 88,
                    entry="flash_fwd_bnsd/f32/88")
-    yield bnsd_bf16_case("cogvideox_joint_attn_d64", 2, 17776, 48, 64)
-    yield bnsd_bf16_case("cogvideox_ragged_d64_kv500", 2, 514, 48, 64, kv_len=500)
+    yield bnsd_bf16_case("cogvideox_joint_attn_d64", 2, 17776, 17776, 48, 64)
+    yield bnsd_bf16_case("cogvideox_ragged_d64_kv500", 2, 514, 514, 48, 64, kv_len=500)
     yield fwd_case("hunyuan_video_group_a", 1, 118871, 118871, 24, 128)
     yield fwd_case("hunyuan_video_group_b", 1, 185, 185, 24, 128)
     # phase 12's shape: StepVideo's self-attention at its default 544 x 992 x
@@ -1111,6 +1174,26 @@ def kernel_cases():
     # K1 sm90; q and k are rotated in torch before the kernel, so the kernel,
     # SDPA and the plain version take the same rotated q and k)
     yield fwd_case("stepvideo_self_attn_s75888", 1, 75888, 75888, 48, 128)
+    # the bf16 paths' shapes (route bf16, csrc/flash_fwd_bf16.cu): the SD 1.5
+    # UNet at 512 x 512 with batched CFG (B2; 8 heads of 40 over 64 x 64
+    # tokens and the 77-token text, 80 over 32 x 32, 160 over 16 x 16),
+    # Hunyuan-DiT at 1024 x 1024 (B2, 16 heads of 88, self and the 77 + 256
+    # text tokens), the VAE mid-block's one head of 512 over the SD VAE's
+    # 64 x 64 and the SDXL / SD3 / FLUX VAE's 128 x 128 tokens
+    yield bnsd_bf16_case("sd_unet_self_attn_d40_bf16", 2, 4096, 4096, 8, 40)
+    yield bnsd_bf16_case("sd_unet_cross_attn_d40_bf16", 2, 4096, 77, 8, 40)
+    yield bnsd_bf16_case("sd_unet_self_attn_d80_bf16", 2, 1024, 1024, 8, 80)
+    yield bnsd_bf16_case("sd_unet_self_attn_d160_bf16", 2, 256, 256, 8, 160)
+    yield bnsd_bf16_case("hunyuan_dit_self_attn_d88_bf16", 2, 4096, 4096, 16, 88)
+    yield bnsd_bf16_case("hunyuan_dit_cross_attn_d88_bf16", 2, 4096, 333, 16, 88)
+    yield bnsd_bf16_case("sd_vae_mid_attn_d512_bf16", 1, 4096, 4096, 1, 512, flat=True)
+    yield bnsd_bf16_case("vae_mid_attn_d512_s16384_bf16", 1, 16384, 16384, 1, 512, flat=True)
+    # the route's other two head dims, which no bf16 pipeline of the
+    # repository reaches, through K2's entry: one head of 384 at the Wan VAE's
+    # mid-block shape (B2 S6240; the VAE runs f32) and 8 heads of 32 at the
+    # tiny DiTs' 9-frame token count (S4680)
+    yield bnsd_bf16_case("wan_vae_mid_attn_d384_bf16", 2, 6240, 6240, 1, 384)
+    yield bnsd_bf16_case("tiny_dit_self_attn_d32_bf16", 1, 4680, 4680, 8, 32)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
     # tokens) through K4, the same at 81 frames, and K5 for cross-attention
@@ -3642,7 +3725,7 @@ def phase_training():
         raise RuntimeError(f"the error buffers did not grow: {totals}")
     if min(n for k, n in launches.items()
            if k not in QUANT_KERNELS + QUANT_TRAIN + QUANT_F32 + PARALLEL_KERNELS
-           + ZOO_KERNELS + T2I_KERNELS) <= 0:
+           + ZOO_KERNELS + T2I_KERNELS + BF16_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched on the training path: {launches}")
     # every block's self-attention backward in every step takes K4
     k4_expected = TRAIN_STEPS * wan_dit.WAN_14B_I2V.num_layers
@@ -5214,12 +5297,224 @@ def phase_t2i_full(root: Path, paths: dict, card: str) -> dict:
     return launches
 
 
+# phase 8f: the bf16 paths (route bf16, csrc/flash_fwd_bf16.cu). Card against
+# CPU, bf16 on both (written before the first card run): the two round to
+# bf16 in other places (the kernel rounds P for P.V where the plain version
+# keeps f32; cuBLAS and the CPU's GEMMs sum in other orders), which moves a
+# bf16 model by bf16 roundings (2^-9 relative) through every layer, and
+# CFG amplifies each step's difference: the decoded images within 0.15 of
+# their scale, the bound tests/test_torch_bf16_paths.py holds the port's
+# bf16 SD pipeline to against svi_tpu's on the CPU for the same reason.
+BF16_SMALL_REL = 0.15
+SD_BF16_H, SD_BF16_W, SD_BF16_STEPS = 512, 512, 2
+
+
+def bf16_expected_launches(plan_attn: dict, passes: int, vae_calls: int,
+                           vae_d: int = 512) -> dict:
+    """The bf16 paths' forward launches per (route, dtype, head dim):
+    plan_attn {(n_heads, head_dim): attentions a pass}, routed as
+    `flash_attention` routes them (the flat entry for one head or D % 128 ==
+    0, else (B, N, S, D)), and the VAE decoder's mid-block (one head of
+    vae_d) once a call."""
+    from svi_tpu_torch.ops import attention as A
+
+    want = {"flash_fwd_bnsd": {}, "flash_fwd_flat": {}}
+
+    def add(n, d, count):
+        entry = "flash_fwd_flat" if A._flat_ok(n, d) else "flash_fwd_bnsd"
+        key = f"{A._fwd_route(torch.bfloat16, d)}/bfloat16/{d}"
+        want[entry][key] = want[entry].get(key, 0) + count
+
+    for (n, d), count in plan_attn.items():
+        add(n, d, count * passes)
+    if vae_calls:
+        add(1, vae_d, vae_calls)
+    return want
+
+
+def sd_plan_attn(plan) -> dict:
+    """{(heads, head dim): attentions a UNet pass}: self and cross a block."""
+    out = {}
+    for desc in plan:
+        if desc[0] == "attn":
+            out[(desc[1], desc[2])] = out.get((desc[1], desc[2]), 0) + 2
+    return out
+
+
+def bf16_small_pipelines(device):
+    """Phase 8f's narrow bf16 pipelines on `device`, each in bf16 through its
+    normal entry point, with the decoded image captured: SDImagePipeline on
+    a half-width SD 1.5 UNet (4 heads of 40 / 80 / 160, the card's route
+    bf16) and the SD VAE decoder at full width (one head of 512), 64 x 64, 2
+    steps, CFG 7.5 (one batch of two); FluxImagePipeline at its default
+    dtype (bf16, the VAE too) on the CPU tests' DiT (one head of 128, route
+    sm90) and FLUX's VAE decoder at full width, 64 x 64, 2 steps;
+    HunyuanDiTImagePipeline(dtype=bf16) on a DiT of 2 heads of 88 (route
+    bf16) with the SD VAE decoder at full width, 64 x 64, 2 steps, CFG 5.
+    {name: (pipeline, kwargs, captured list, expected launches)}."""
+    from svi_tpu_torch.models import flux, hunyuan_dit, sd, t5
+    from svi_tpu_torch.pipelines import hunyuan_image
+    from svi_tpu_torch.pipelines.flux_image import FluxImagePipeline
+    from svi_tpu_torch.pipelines.sd_image import SDImagePipeline
+    from svi_tpu_torch.prompters.hunyuan_dit_prompter import HunyuanDiTPrompter
+    from svi_tpu_torch.prompters.sp_tokenizer import default_t5_tokenizer
+
+    vfx, fx = _video_fixtures(), _sd_fixtures()
+    kw, bf16 = dict(device=device), torch.bfloat16
+    out = {}
+    plan = fx.narrow_plan(sd.SD_UNET_PLAN, 2, heads=4)
+    with patched([(sd, "SD_UNET_PLAN", plan)]):
+        unet = sd.sd_unet_params_from_torch(sd.sd_unet_state_dict(71, text_dim=fx.TEXT_DIM), **kw)
+    te = sd.sd_text_encoder_params_from_torch(sd.sd_text_encoder_state_dict(
+        72, dim=fx.TEXT_DIM, num_layers=fx.TEXT_LAYERS), **kw)
+    dec = sd.sd_vae_decoder_params_from_torch(sd.sd_vae_decoder_state_dict(73), **kw)
+    pipe = SDImagePipeline(unet, te, vae_decoder=dec, dtype=bf16)
+    out["sd_image"] = (pipe, dict(prompt=SD_PROMPT, negative_prompt="blurry", cfg_scale=7.5,
+                                  height=64, width=64, num_inference_steps=2, seed=1),
+                       [(sd, "SD_UNET_PLAN", plan)],
+                       bf16_expected_launches(sd_plan_attn(plan), 2, 1))
+    fl = fx.flux_state_dicts(74)  # its VAE at the published SD3 / FLUX plans
+    flt5 = t5.params_from_torch_state_dict(fl["t5"], fl["t5_cfg"], **kw)
+    pipe = FluxImagePipeline(
+        flux.flux_dit_params_from_torch(fl["dit"], **kw),
+        sd.sd_text_encoder_params_from_torch(fl["te1"], **kw), (flt5, flt5.cfg, None),
+        vae_decoder_params=flux.flux_vae_decoder_params_from_torch(fl["vae_decoder"], **kw))
+    blocks = len(pipe.dit_params["blocks"]) + len(pipe.dit_params["single_blocks"])
+    out["flux"] = (pipe, dict(prompt=FLUX_PROMPT, height=64, width=64, num_inference_steps=2,
+                              t5_sequence_length=16, seed=2), [],
+                   bf16_expected_launches({(1, fx.FLUX_DIM): blocks}, 2, 1))
+    d = vfx.HY_DIT
+    prompter = HunyuanDiTPrompter(TableEncoder(50000, d["text_dim"], 1), None,
+                                  TableEncoder(32128, d["t5_dim"], 2), default_t5_tokenizer())
+    with patched([(hunyuan_dit, "NUM_HEADS", 2)]):
+        pipe = hunyuan_image.HunyuanDiTImagePipeline(
+            hunyuan_dit.hunyuan_dit_params_from_torch(hunyuan_dit.hunyuan_dit_state_dict(
+                76, **(d | dict(dim=2 * 88))), **kw), prompter,
+            vae_decoder_params=sd.sd_vae_decoder_params_from_torch(
+                sd.sd_vae_decoder_state_dict(77), **kw), dtype=bf16, num_layers_down=vfx.HY_DOWN)
+    n_blocks = len(pipe.dit_params["blocks"])
+    out["hunyuan_dit"] = (pipe, dict(prompt=ZOO_PROMPT_ZH, negative_prompt="模糊", cfg_scale=5.0,
+                                     height=64, width=64, num_inference_steps=2, seed=3),
+                          [(hunyuan_dit, "NUM_HEADS", 2)],
+                          bf16_expected_launches({(2, 88): 2 * n_blocks}, 2 * 2, 1))
+    return out
+
+
+def phase_bf16_small(card: str) -> dict:
+    """(f, i) The narrow bf16 pipelines of `bf16_small_pipelines` on the card
+    and on the CPU: the decoded images (before the uint8 cast) within
+    BF16_SMALL_REL of their scale, each card run's launches equal to its
+    models' count (the bf16 route at D40 / D80 / D160 / D88 / D512). Returns
+    the card's launches per KERNELS name."""
+    got, launches, secs = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        for name, (pipe, kw, sets, want) in bf16_small_pipelines(device).items():
+            store = got.setdefault((name, device), [])
+            _capture(pipe, store)
+            zero_counts()
+            t0 = time.perf_counter()
+            with patched(sets), torch.inference_mode():
+                image = pipe(**kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches[name] = sd_launches()
+                if launches[name] != want:
+                    raise RuntimeError(f"the small bf16 {name} pipeline launched "
+                                       f"{launches[name]}, expected {want}")
+            secs[(name, device)] = round(time.perf_counter() - t0, 2)
+            if image.shape != (64, 64, 3) or not torch.isfinite(store[0]).all():
+                raise RuntimeError(f"the small bf16 {name} pipeline gave {image.shape}, or a "
+                                   f"decode that is not finite")
+            del pipe
+    names = sorted({n for n, _ in got})
+    rels = {n: _rel(got[(n, "cuda")][0], got[(n, "cpu")][0]) for n in names}
+    log(f"[bf16-small] bf16 pipelines card vs CPU, decoded images "
+        f"{ {k: f'{v:.3e}' for k, v in rels.items()} } (bound {BF16_SMALL_REL}); seconds "
+        f"{secs}; launches {launches}; {card}")
+    if max(rels.values()) > BF16_SMALL_REL:
+        raise RuntimeError("the small bf16 pipelines on the card disagree with the CPU")
+    total = {}
+    for counts in launches.values():
+        _add_counts(total, per_kernel(counts))
+    return total
+
+
+def phase_sd_bf16(paths: dict, card: str) -> dict:
+    """(f, ii) SDImagePipeline(dtype=bf16), the SD 1.5 image pipeline as its
+    notes recommend it, on (b)'s files at full width (the converters' f32
+    weights cast to bf16 by the pipeline): text-to-image at 512 x 512, 2
+    steps, CFG 7.5 (one UNet batch of two), the VAE decode. Per-part
+    seconds, seconds a step, peak memory, and the bf16 route's launches
+    against the plan's count. Returns the launches per KERNELS name."""
+    from svi_tpu_torch.models import sd
+    from svi_tpu_torch.models.model_io import load_state_dict
+    from svi_tpu_torch.pipelines.sd_image import SDImagePipeline
+    from svi_tpu_torch.prompters.sd_prompter import SDPrompter
+    from svi_tpu_torch.schedulers.ddim import EnhancedDDIMScheduler
+
+    t0 = time.perf_counter()
+    pipe = SDImagePipeline(
+        sd.sd_unet_params_from_torch(load_state_dict(paths["sd_unet"]), device="cuda"),
+        sd.sd_text_encoder_params_from_torch(load_state_dict(paths["sd_text_encoder"]),
+                                             device="cuda"),
+        vae_decoder=sd.sd_vae_decoder_params_from_torch(load_state_dict(paths["sd_vae_decoder"]),
+                                                        device="cuda"), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if any(p.dtype != torch.bfloat16 for m in (pipe.unet, pipe.text_encoder, pipe.vae_decoder)
+           for p in m.parameters()):
+        raise RuntimeError("SDImagePipeline(dtype=bf16) kept a weight in another dtype")
+    timer, step_marks = PhaseTimer(), []
+    step = EnhancedDDIMScheduler.step
+
+    def timed_step(self, *a, **kw):
+        out = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_marks.append(time.perf_counter())
+        return out
+
+    sets = [(sd, "sd_unet_forward", timer.wrap("unet", sd.sd_unet_forward)),
+            (sd, "sd_vae_decode", timer.wrap("vae_decode", sd.sd_vae_decode)),
+            (SDPrompter, "encode_prompt", timer.wrap("text_encoder", SDPrompter.encode_prompt)),
+            (EnhancedDDIMScheduler, "step", timed_step)]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(sets):
+        image = pipe(SD_PROMPT, negative_prompt="blurry, low quality", cfg_scale=7.5,
+                     height=SD_BF16_H, width=SD_BF16_W, num_inference_steps=SD_BF16_STEPS,
+                     seed=0)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = sd_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = {k: sum(v) for k, v in timer.seconds.items()}
+    calls = {k: len(v) for k, v in timer.seconds.items()}
+    step_s = [b - a for a, b in zip([t0] + step_marks, step_marks)]
+    log(f"[sd-bf16] SDImagePipeline(dtype=bf16) at {SD_BF16_H}x{SD_BF16_W}, {SD_BF16_STEPS} "
+        f"steps, CFG 7.5 (one batch of two): load {load_s:.2f}s, {total:.2f}s in all; seconds "
+        f"a step (the first with the prompts) {[round(x, 3) for x in step_s]}; seconds (calls): "
+        + ", ".join(f"{k} {secs[k]:.3f} ({calls[k]})" for k in secs)
+        + f"; peak memory {peak:.2f} GiB; launches {launches}; {card}")
+    want = bf16_expected_launches(sd_plan_attn(sd.SD_UNET_PLAN), SD_BF16_STEPS, 1, next(
+        d[1] for d in sd.SD_VAE_DECODER_PLAN if d[0] == "vae_attn"))
+    if launches != want:
+        raise RuntimeError(f"the bf16 SD image pipeline launched {launches}, expected {want}")
+    if image.shape != (SD_BF16_H, SD_BF16_W, 3) or image.dtype != np.uint8 or image.std() == 0:
+        raise RuntimeError(f"the bf16 SD image is {image.shape} {image.dtype}, or flat")
+    del pipe
+    return per_kernel(launches)
+
+
 def phase_sd(card: str) -> tuple[dict, dict]:
     """Phase 8: (a) the small SD video pipeline card vs CPU, (b) full-width
     files, (c) one full-width UNet + ControlNet + motion forward card vs CPU,
     (d) the runner at 512x512x4, (e) text-to-image LoRA training: the tiny
-    trainer card vs CPU, then the full-width UNet on (b)'s files. Returns
-    (d)'s and (e)'s launches per KERNELS entry."""
+    trainer card vs CPU, then the full-width UNet on (b)'s files, (f) the
+    bf16 paths: the narrow bf16 SD, FLUX and Hunyuan-DiT pipelines card vs
+    CPU, then the SD 1.5 image pipeline in bf16 on (b)'s files. Returns
+    (d)'s and (e)'s launches per KERNELS entry; (f)'s full-width run's are
+    kept in BF16_PATH_LAUNCHES."""
     import shutil
     import tempfile
 
@@ -5234,6 +5529,12 @@ def phase_sd(card: str) -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
         t2i_launches = phase_t2i_full(root, paths, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phase_bf16_small(card)
+        BF16_PATH_LAUNCHES["sd_image"] = phase_sd_bf16(paths, card)
+        log(f"[time] phase 8f: {time.perf_counter() - t1:.1f}s")
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5452,8 +5753,8 @@ def phase_xl_small(root: Path, card: str) -> None:
 
 def write_xl_checkpoints(root: Path, card: str) -> dict:
     """(b) Seeded files at the published widths in the reference's naming:
-    SDXL base 1.0 (UNet, CLIP ViT-L text, OpenCLIP bigG text, VAE encoder and
-    decoder; f16 as it ships), AnimateDiff-SDXL's motion modules, ControlNet
+    SDXL base 1.0 (UNet, CLIP ViT-L text, OpenCLIP bigG text at 2 of its 32
+    layers (WRITTEN_DEPTH), VAE encoder and decoder; f16 as it ships), AnimateDiff-SDXL's motion modules, ControlNet
     Union SDXL, IP-Adapter SDXL and its ViT-H/14 image encoder (f16),
     RRDBNet x4 and IFNet (f32), CLIP ViT-L/14 with the aesthetic MLP and
     open_clip ViT-H/14 (f16)."""
@@ -5485,8 +5786,13 @@ def write_xl_checkpoints(root: Path, card: str) -> dict:
     t0 = time.perf_counter()
     paths, sizes, params = {}, {}, {}
     for i, (kind, (make, dtype)) in enumerate(makers.items()):
-        state = make(seed=81 + i, device="cuda", dtype=dtype)
+        depth, published = WRITTEN_DEPTH.get(("xl", kind), ({}, {}))
+        state = make(seed=81 + i, device="cuda", dtype=dtype, **depth)
         params[kind] = sum(t.numel() for t in state.values())
+        if published:
+            full = full_depth_params(state, published)
+            log(f"[xl-files] {kind} cut in depth: {full / 1e6:.1f}M parameters at the "
+                "published depth")
         path = str(root / XL_FILES[kind])
         sizes[kind] = save_file(state, path)
         paths[kind] = str(root / "clip-vit-large-patch14") if kind == "clip-large" else path
@@ -5777,10 +6083,12 @@ FAM_PARAMS = {("kolors", "chatglm"): 6_243_584_000, ("sd3", "dit"): 2_084_951_10
 # card against the CPU's f32 one at 5e-2 (bf16 weights and activations: 2^-8
 # a rounding, over two blocks' sums)
 FAM_SMALL_REL, FAM_FULL_REL, FLUX_BF16_REL, FAM_LEVELS = 1e-4, 1e-3, 5e-2, 1
-FAM_CUT = {"kolors": "ChatGLM3 at 2 of 28 layers, the UNet whole", "sd3": "2 of 24 blocks",
+FAM_CUT = {"kolors": "ChatGLM3 at 2 of 28 layers, the UNet whole",
+           "sd3": "the file's 2 of 24 blocks",
            "flux": "1 of 19 joint and 1 of 38 single blocks"}  # (c)'s depths
-# (d)'s depths are the files' (WRITTEN_DEPTH): ChatGLM3 2 of 28 layers, FLUX
-# 2 + 2 of 19 + 38 blocks
+# (d)'s depths are the files' (WRITTEN_DEPTH): ChatGLM3 2 of 28 layers, the
+# MMDiT 2 of 24 blocks and OpenCLIP bigG 2 of 32 layers, FLUX 2 + 2 of 19 +
+# 38 blocks
 
 
 def _capture(pipe, store: list, attr="vae_output_to_image"):
@@ -5896,6 +6204,9 @@ def phase_families_small(card: str) -> None:
 # computed from it: the blocks written times the published depth.
 WRITTEN_DEPTH = {
     ("kolors", "chatglm"): (dict(num_layers=2), {"encoder.layers.": 28}),
+    ("sd3", "dit"): (dict(num_layers=2), {"blocks.": 24}),
+    ("sd3", "te2"): (dict(num_layers=2), {"encoders.": 32}),
+    ("xl", "sdxl_text_encoder_2"): (dict(num_layers=2), {"encoders.": 32}),
     ("flux", "dit"): (dict(num_joint=2, num_single=2), {"blocks.": 19, "single_blocks.": 38}),
     ("hunyuan_video", "dit"): (dict(num_double=2, num_single=2),
                                {"double_blocks.": 20, "single_blocks.": 40}),
@@ -5951,8 +6262,9 @@ def write_checkpoints(family: str, makers: dict, files: dict, root: Path, seed: 
 def write_family_checkpoints(family: str, root: Path, card: str) -> dict:
     """(b) One family's seeded files at the published widths in the
     reference's names: Kolors (ChatGLM3-6B f16 at 2 of 28 layers, the Kolors
-    UNet f16, SDXL's VAE decoder f16), SD3-medium (the MMDiT, CLIP-L,
-    OpenCLIP bigG, the 16-channel VAE decoder, f16) or FLUX.1-dev (the DiT
+    UNet f16, SDXL's VAE decoder f16), SD3-medium (the MMDiT at 2 of 24
+    blocks, CLIP-L, OpenCLIP bigG at 2 of 32 layers, the 16-channel VAE
+    decoder, f16) or FLUX.1-dev (the DiT
     with its guidance embedder at 2 + 2 of 19 + 38 blocks, CLIP-L, the VAE
     decoder, bf16); SD3 and FLUX each with T5-XXL at 2 of its 24 layers
     (bf16)."""
@@ -6000,8 +6312,8 @@ def phase_family_forward(family: str, paths: dict, card: str) -> None:
     """(c) One forward of the family's full-width model at a cut depth, card
     against CPU: ChatGLM3 at 2 of 28 layers on the 256-token Kolors prompt
     (its pooled and prompt embeddings) and the Kolors UNet whole on 2 x 4 x 16
-    x 16 latents over those 256 tokens and that pooled embedding; the MMDiT at its first and last block
-    on 2 x 16 x 32 x 32 latents and 154 tokens; FLUX at one joint and one
+    x 16 latents over those 256 tokens and that pooled embedding; the MMDiT at the file's 2
+    blocks on 2 x 16 x 32 x 32 latents and 154 tokens; FLUX at one joint and one
     single block on 1 x 16 x 32 x 32 latents and 64 tokens, in f32 and, on
     the card, in bf16."""
     from svi_tpu_torch.models import flux, kolors, sd3, sdxl
@@ -6025,7 +6337,7 @@ def phase_family_forward(family: str, paths: dict, card: str) -> None:
                                        e.repeat(2, 1, 1), tids.to(device), p.repeat(2, 1))
             return {"pooled": p, "prompt_emb": e, "unet": y}
     elif family == "sd3":
-        dit_sd = _cut(load_state_dict(paths["dit"]), {"blocks.": [0, 23]})
+        dit_sd = load_state_dict(paths["dit"])  # the file's 2 blocks
         lat = torch.randn((2, 16, 32, 32), generator=g)
         ctx = torch.randn((2, 154, 4096), generator=g)
         pooled = torch.randn((2, 2048), generator=g)
@@ -6080,10 +6392,12 @@ def phase_family_forward(family: str, paths: dict, card: str) -> None:
 def family_expected_launches(family: str, pipe) -> dict:
     """Phase 10d's attention launches per (route, dtype, head dim), from the
     models: Kolors' UNet plan once a step (CFG as one batch of two), the
-    MMDiT's 24 joint attentions a step (B2, 24 heads of 64: K2), FLUX's joint
+    MMDiT's joint attention a block a step (the loaded MMDiT's; B2, 24 heads
+    of 64: K2), FLUX's joint
     and single blocks a step (the loaded DiT's; B1, 24 heads of 128, bf16:
-    K1 sm90); the VAE decode's mid-block once (K1, f32 D512). ChatGLM, CLIP
-    and T5 run the plain softmax."""
+    K1 sm90); the VAE decode's mid-block once (K1 at D512: f32 for Kolors
+    and SD3, bf16 for FLUX, whose pipeline runs its VAE in its bf16). ChatGLM,
+    CLIP and T5 run the plain softmax."""
     from svi_tpu_torch.models import sd
 
     vae = {f"f32/float32/{sd.SD_VAE_DECODER_PLAN[1][1]}": 1}
@@ -6091,10 +6405,12 @@ def family_expected_launches(family: str, pipe) -> dict:
         return xl_expected_launches(passes=FAM_STEPS, vae_calls=1, with_controlnet=False,
                                     with_motion=False)
     if family == "sd3":
-        return {"flash_fwd_bnsd": {"f32/float32/64": 24 * FAM_STEPS}, "flash_fwd_flat": vae}
+        m = pipe.dit_params  # SD3-medium's blocks are joint blocks only, the last one final
+        blocks = len(m["dual_blocks"]) + len(m["mid_blocks"]) + 1
+        return {"flash_fwd_bnsd": {"f32/float32/64": blocks * FAM_STEPS}, "flash_fwd_flat": vae}
     blocks = len(pipe.dit_params["blocks"]) + len(pipe.dit_params["single_blocks"])
     return {"flash_fwd_bnsd": {}, "flash_fwd_flat": {"sm90/bfloat16/128": blocks * FAM_STEPS,
-                                                     **vae}}
+                                                     "bf16/bfloat16/512": 1}}
 
 
 def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
@@ -6188,12 +6504,9 @@ def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    out = {}
-    for entry in ("flash_fwd_flat", "flash_fwd_bnsd"):
-        for key, n in launches[entry].items():
-            name = f"{entry}/{key.split('/')[0]}"
-            out[name] = out.get(name, 0) + n
-    return out
+    if family == "flux":  # a bf16 path: its VAE decode runs the bf16 route at D512
+        BF16_PATH_LAUNCHES["flux"] = per_kernel(launches)
+    return per_kernel(launches)
 
 
 def phase_families(card: str) -> dict:
@@ -6577,7 +6890,8 @@ def write_zoo_checkpoints(family: str, root: Path, card: str) -> dict:
 
 def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
     """(c) One forward of the family's full-width model at a cut depth, card
-    against CPU (f32), and for the bf16 families also in bf16 on the card:
+    against CPU (f32), and for the bf16 families and Hunyuan-DiT (a bf16 path
+    on the bf16 route at D88) also in bf16 on the card:
     the SVD UNet whole on 2 frames of 8 x 8 latents; Hunyuan-DiT's first 3
     down blocks and last up block on 2 x 32 x 32 latents; HunyuanVideo's
     first double and single block on 2 x 8 x 8 latents; CogVideoX's file's 2
@@ -6681,7 +6995,7 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
             return {"transformer": out}
     outs, secs = {}, {}
     runs = [("cuda", torch.float32), ("cpu", torch.float32)]
-    if ZOO_DTYPE[family] == torch.bfloat16:
+    if ZOO_DTYPE[family] == torch.bfloat16 or family == "hunyuan_dit":
         runs.insert(1, ("cuda", torch.bfloat16))
     for device, dtype in runs:
         with torch.inference_mode():
@@ -6706,6 +7020,14 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
         + f"; seconds (loads included) {secs}; launches of the last card run {launches}; {card}")
     if max(rel.values()) > ZOO_FULL_REL or (bf16 and max(bf16.values()) > ZOO_BF16_REL):
         raise RuntimeError(f"the full-width {family} forward on the card disagrees with the CPU")
+    if family == "hunyuan_dit":
+        # a bf16 path: the bf16 run (the last card run) on the bf16 route at
+        # D88, self- and cross-attention in each of the 4 blocks, B2 in one call
+        want = {"flash_fwd_bnsd": {"bf16/bfloat16/88": 2 * 4}, "flash_fwd_flat": {}}
+        if launches != want:
+            raise RuntimeError(f"the bf16 Hunyuan-DiT forward launched {launches}, expected "
+                               f"{want}")
+        BF16_PATH_LAUNCHES["hunyuan_dit_forward"] = per_kernel(launches)
 
 
 def zoo_expected_launches(family: str, pipe) -> dict:
@@ -6921,14 +7243,7 @@ def phase_zoo_pipeline(family: str, ld: dict, card: str) -> dict:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    counts = {}
-    for name, (_, route, dim) in launch_counters().items():
-        entry = name.partition("/")[0]
-        if entry in launches and route:
-            counts[name] = sum(n for key, n in launches[entry].items()
-                               if key.split("/")[0] == route
-                               and dim in (None, int(key.split("/")[2])))
-    return counts
+    return per_kernel(launches)
 
 
 def run_zoo_family(family: str, card: str) -> dict:
@@ -7076,6 +7391,7 @@ def main() -> int:
             + " | ".join(ptxas))
     build.load_flash_fwd_sm90()
     build.load_flash_fwd_f32()
+    build.load_flash_fwd_bf16()
     build.load_flash_bwd()
     build.load_flash_bwd_f32()
     build.load_flash_bwd_sm90()
@@ -7161,13 +7477,16 @@ def main() -> int:
     # _hunyuan_dit, _hunyuan_video, _cog: phase 11's pipelines at full width
     # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs);
     # launches_stepvideo, _omnigen: phase 12's; launches_t2i: phase 8e's
-    # full-width text-to-image trainer (the f32 backward kernels' launches)
+    # full-width text-to-image trainer (the f32 backward kernels' launches);
+    # the bf16 route's launches: the bf16 paths' (8f, 10d's FLUX, 11c), each
+    # path's in launches_bf16_paths
     kernels = []
     zoo_total = {e: sum(zoo_launches[f].get(e, 0) for f in ZOO_FAMILIES) for e in ZOO_KERNELS}
+    bf16_total = {e: sum(c.get(e, 0) for c in BF16_PATH_LAUNCHES.values()) for e in BF16_KERNELS}
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])
-        launches = (zoo_total if entry in ZOO_KERNELS
+        launches = (bf16_total if entry in BF16_KERNELS else zoo_total if entry in ZOO_KERNELS
                     else t2i_launches if entry in T2I_KERNELS
                     else par_launches if entry in PARALLEL_KERNELS
                     else f32_q8_launches if entry in QUANT_F32
@@ -7181,6 +7500,8 @@ def main() -> int:
                         "launches_sd": sd_launches.get(entry, 0),
                         "launches_sdxl": xl_launches.get(entry, 0),
                         "launches_t2i": t2i_launches.get(entry, 0),
+                        "launches_bf16_paths": {path: c.get(entry, 0)
+                                                for path, c in BF16_PATH_LAUNCHES.items()},
                         **{f"launches_{fam}": fam_launches[fam].get(entry, 0)
                            for fam in ("kolors", "sd3", "flux")},
                         **{f"launches_{fam}": zoo_launches[fam].get(entry, 0)

@@ -49,6 +49,11 @@
 // on its way to the registers: in the second K/V stage while tile 0 loads
 // into the first, or, where BM rows of Q outgrow one stage (D = 512), in both
 // stages before tile 0 is issued.
+//
+// kernels/build.py builds this source once per group of head dims, each in
+// an nvcc of its own (-DSVI_GROUP -DSVI_D<d> for each head dim of the
+// group), so that no one library sets the build's wall; without SVI_GROUP
+// every head dim is built.
 
 #include "flash_common.cuh"
 
@@ -369,22 +374,46 @@ template <bool ROPE>
 cudaError_t dispatch(int head_dim, const Params& p, long long batch, cudaStream_t st) {
   if (p.sq <= 16) {
     switch (head_dim) {
+#if !defined(SVI_GROUP) || defined(SVI_D40)
       case 40: return launch<Cfg<40, 1, 1, 16>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D80)
       case 80: return launch<Cfg<80, 1, 1, 16>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D160)
       case 160: return launch<Cfg<160, 1, 2, 16>, ROPE>(p, batch, st);
+#endif
       default: break;
     }
   }
   switch (head_dim) {
+#if !defined(SVI_GROUP) || defined(SVI_D32)
     case 32: return launch<Cfg<32, 4, 1, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D40)
     case 40: return launch<Cfg<40, 4, 1, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D64)
     case 64: return launch<Cfg<64, 4, 1, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D80)
     case 80: return launch<Cfg<80, 2, 1, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D88)
     case 88: return launch<Cfg<88, 4, 1, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D128)
     case 128: return launch<Cfg<128, 4, 2, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D160)
     case 160: return launch<Cfg<160, 4, 2, 64>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D384)
     case 384: return launch<Cfg<384, 2, 4, 32>, ROPE>(p, batch, st);
+#endif
+#if !defined(SVI_GROUP) || defined(SVI_D512)
     case 512: return launch<Cfg<512, 2, 4, 16>, ROPE>(p, batch, st);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,10 +25,14 @@ instead):
 The forward entries (a layout is only strides) take the route `_fwd_route`
 names for the dtype and head dim: bf16 D = 128 (every DiT attention) and
 D = 64 (CogVideoX's 48 heads) run csrc/flash_fwd_sm90.cu (TMA + wgmma,
-warp-specialised), after its RoPE pre-pass `rope_rotate_flat` when tables
-are given; f32 (the VAEs, CLIP, the SD 1.5 UNet, ControlNet and motion
-modules, Hunyuan-DiT's D = 88) runs csrc/flash_fwd_f32.cu (3xTF32 on the
-tensor cores). Each entry counts its launches per (route, dtype, head_dim)
+warp-specialised); bf16 at D = 32, 40, 80, 88, 160, 384, 512 (the SD
+family's UNets, ControlNets and motion modules, Hunyuan-DiT's 16 heads of
+88, the VAE mid-blocks' one head of 512) runs csrc/flash_fwd_bf16.cu
+(mma.sync, warps owning head-dim slices); both bf16 routes run the RoPE
+pre-pass `rope_rotate_flat` first when tables are given. f32 (the VAEs,
+CLIP, the SD 1.5 UNet, ControlNet and motion modules, Hunyuan-DiT's D = 88)
+runs csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores), at the same head
+dims as bf16. Each entry counts its launches per (route, dtype, head_dim)
 in `.routes`. The one-pass backward (K4) launches
 csrc/flash_bwd_sm90.cu (TMA + wgmma) on q and k rotated by the pre-pass;
 the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
@@ -70,10 +74,14 @@ _LOG2E = 1.4426950408889634
 # the forward kernel that serves each (dtype, head_dim) on the card, and the
 # `kernels.build` loader of each route's library: 'sm90' is
 # csrc/flash_fwd_sm90.cu (TMA + wgmma: every DiT attention, CogVideoX's
-# D = 64), 'f32' csrc/flash_fwd_f32.cu (3xTF32 mma.sync)
-_FWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "sm90",
-               **{(torch.float32, d): "f32" for d in (32, 40, 64, 80, 88, 128, 160, 384, 512)}}
-_FWD_LOADERS = {"sm90": "load_flash_fwd_sm90", "f32": "load_flash_fwd_f32"}
+# D = 64), 'bf16' csrc/flash_fwd_bf16.cu (bf16 mma.sync: the other head
+# dims), 'f32' csrc/flash_fwd_f32.cu (3xTF32 mma.sync)
+_HEAD_DIMS = (32, 40, 64, 80, 88, 128, 160, 384, 512)
+_FWD_ROUTES = {**{(torch.bfloat16, d): "sm90" if d in (64, 128) else "bf16"
+                  for d in _HEAD_DIMS},
+               **{(torch.float32, d): "f32" for d in _HEAD_DIMS}}
+_FWD_LOADERS = {"sm90": "load_flash_fwd_sm90", "bf16": "load_flash_fwd_bf16",
+                "f32": "load_flash_fwd_f32"}
 _KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
                      for dt in (torch.bfloat16, torch.float32)}
 _REFERENCE_TILE_BYTES = 1 << 30  # bound on one f32 score tile of the plain version
@@ -191,9 +199,10 @@ def _strides12(*views) -> ctypes.Array:
 
 
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel a CUDA call at (dtype, head_dim) takes: 'sm90'
-    (bf16, D = 128 or 64) or 'f32' (f32, D in 32, 40, 64, 80, 88, 128, 160,
-    384, 512; 3xTF32). Raises for any other pair: nothing falls back."""
+    """The forward kernel a CUDA call at (dtype, head_dim) takes, for D in
+    32, 40, 64, 80, 88, 128, 160, 384, 512: 'sm90' (bf16, D = 128 or 64;
+    TMA + wgmma), 'bf16' (bf16, the other seven; mma.sync) or 'f32' (f32;
+    3xTF32). Raises for any other pair: nothing falls back."""
     if dtype not in _KERNEL_HEAD_DIMS:
         raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
     route = _FWD_ROUTES.get((dtype, head_dim))
@@ -249,9 +258,10 @@ rope_rotate_flat.launches = 0
 
 def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
     """Launch the forward kernel of the route on the current stream (no
-    synchronisation). out4 is a preallocated (B, Sq, N, D) view. The 'sm90'
-    route rotates q and k with the RoPE pre-pass first. Returns (lse
-    (B, N, Sq), the route's counter key (route, dtype, head_dim))."""
+    synchronisation). out4 is a preallocated (B, Sq, N, D) view. The bf16
+    routes ('sm90', 'bf16') rotate q and k with the RoPE pre-pass first.
+    Returns (lse (B, N, Sq), the route's counter key (route, dtype,
+    head_dim))."""
     _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
                           _KERNEL_HEAD_DIMS, cos, sin)
     b, sq, n, d = q4.shape
@@ -262,9 +272,10 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
     from ..kernels import build
 
     lib = getattr(build, _FWD_LOADERS[route])()
+    if route != "f32" and cos is not None:
+        q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
+        cos = sin = None
     if route == "sm90":
-        if cos is not None:
-            q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
         err = lib.svi_flash_fwd_sm90(
             d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
             b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
@@ -273,14 +284,14 @@ def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
                 f"flash forward (sm90) launch failed: code {err} (a cudaError; 10000: "
                 "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
                 "CUresult r)")
-    else:
-        err = lib.svi_flash_fwd_f32(
+    else:  # 'f32' and 'bf16' share one C argument list
+        err = getattr(lib, f"svi_flash_fwd_{route}")(
             d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
             b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
         if err != 0:
-            raise RuntimeError(f"flash forward (f32) launch failed: cudaError {err}")
+            raise RuntimeError(f"flash forward ({route}) launch failed: cudaError {err}")
     return lse, (route, str(dtype).removeprefix("torch."), d)
 
 

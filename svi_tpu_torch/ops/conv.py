@@ -7,7 +7,12 @@ convolutions in f32, so the port runs each of them through `conv_f32`: an f32
 convolution runs under cuDNN's flags with TF32 off and every other flag as
 the caller left it, restored on exit, in the forward and, where a gradient
 is taken (the pose stack in training), in its backward too. The caller's
-process state is never changed; other dtypes run the convolution as it is.
+process state is never changed. Other dtypes (the SD family's, FLUX's and
+Hunyuan-DiT's bf16 VAEs and UNets) run the convolution without its bias and
+add the bias to the rounded result in that dtype, as the JAX package's
+`conv(x, w) + b.astype(x.dtype)` rounds twice; a bias inside the
+convolution would round once, and moved 30% of the values of a bf16
+convolution by one ulp against the JAX package's.
 """
 
 from __future__ import annotations
@@ -63,10 +68,13 @@ class _F32Conv(torch.autograd.Function):
 def conv_f32(conv, x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1, padding=0,
              dilation=1, groups=1) -> torch.Tensor:
     """conv (F.conv1d, F.conv2d or F.conv3d) of x: in full f32 when x is f32
-    (cuDNN TF32 off, scoped, in the forward and the backward), as it is for
-    any other dtype."""
+    (cuDNN TF32 off, scoped, in the forward and the backward); in any other
+    dtype the bias is added to the rounded convolution in that dtype."""
     if x.dtype != torch.float32:
-        return conv(x, weight, bias, stride, padding, dilation, groups)
+        y = conv(x, weight, None, stride, padding, dilation, groups)
+        if bias is None:
+            return y
+        return y + bias.to(y.dtype).reshape(-1, *([1] * (y.ndim - 2)))
     return _F32Conv.apply(conv, x, weight, bias, stride, padding, dilation, groups)
 
 

@@ -8,12 +8,11 @@ entity prompts (on the negative branch too, and inpainting), and TeaCache.
 
 `controlnet_units`: (params, conditioning, scale, processor_id_index), the
 conditioning an (H, W, 3) uint8 image (VAE-encoded here) or ready
-(1, 16, h/8, w/8) latents. Models are the port's `ParamTree`s in the
-pipeline's dtype (bf16 by default) on the device they lie on, but for the
-VAE, which stays f32 (svi_tpu casts it to the pipeline's dtype; the card's
-attention kernels have its one head of 512 in f32 only); `t5` is a
-(T5Encoder, cfg, tokenizer) triple; images and entity masks are (H, W, 3)
-uint8 arrays.
+(1, 16, h/8, w/8) latents. Models are the port's `ParamTree`s cast to the
+pipeline's dtype (bf16 by default), the VAE too, as svi_tpu casts them, on
+the device they lie on (the VAE mid-block's one head of 512 runs the bf16
+kernel on the card); `t5` is a (T5Encoder, cfg, tokenizer) triple; images
+and entity masks are (H, W, 3) uint8 arrays.
 """
 
 from __future__ import annotations
@@ -28,8 +27,6 @@ from ..utils.image_process import resize_nearest_uint8
 from .base import (check_resize_height_width, control_noise_via_local_prompts, extend_prompt,
                    generate_noise, preprocess_image)
 from .sd_image import cast_model, model_device, vae_output_to_frames
-
-VAE_DTYPE = torch.float32
 
 
 class FluxTeaCache:
@@ -84,8 +81,8 @@ class FluxImagePipeline:
         self.dit_params = cast_model(dit_params, dtype)
         self.text_encoder_1_params = cast_model(text_encoder_1_params, dtype)
         self.t5 = t5
-        self.vae_encoder_params = cast_model(vae_encoder_params, VAE_DTYPE)
-        self.vae_decoder_params = cast_model(vae_decoder_params, VAE_DTYPE)
+        self.vae_encoder_params = cast_model(vae_encoder_params, dtype)
+        self.vae_decoder_params = cast_model(vae_decoder_params, dtype)
         self.dtype = dtype
         self.device = model_device(self.dit_params)
 
@@ -110,7 +107,7 @@ class FluxImagePipeline:
         """An (H, W, 3) uint8 image -> latents in the pipeline's dtype."""
         return flux.flux_vae_encode(
             self.vae_encoder_params,
-            torch.from_numpy(preprocess_image(image)).to(self.device, VAE_DTYPE),
+            torch.from_numpy(preprocess_image(image)).to(self.device, self.dtype),
             **tiler_kwargs).to(self.dtype)
 
     def encode_prompt(self, prompt, t5_sequence_length=512):
@@ -278,4 +275,4 @@ class FluxImagePipeline:
             latents = self.scheduler.step(noise_pred.float(), timestep, latents.float()).to(dt)
 
         return self.vae_output_to_image(flux.flux_vae_decode(
-            self.vae_decoder_params, latents.to(VAE_DTYPE), **vae_tiler))
+            self.vae_decoder_params, latents.to(self.dtype), **vae_tiler))

@@ -26,12 +26,17 @@ F32_TOL = 1e-5
 @pytest.mark.parametrize("dtype,head_dim,route", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
     *((torch.float32, d, "f32") for d in (32, 64, 80, 128, 384)),
-    (torch.bfloat16, 80, None),
+    # the SD 1.5 family's bf16 head dims run the bf16 kernel (they raised
+    # before it was built)
+    (torch.bfloat16, 80, "bf16"),
     # the SD 1.5 family's f32 head dims; a pair with no kernel still raises
     *((torch.float32, d, "f32") for d in (40, 160, 512)),
-    (torch.float32, 96, None), (torch.bfloat16, 40, None),
+    (torch.float32, 96, None), (torch.bfloat16, 40, "bf16"),
     # Hunyuan-DiT's 16 heads of 88
-    (torch.float32, 88, "f32"), (torch.bfloat16, 88, None),
+    (torch.float32, 88, "f32"), (torch.bfloat16, 88, "bf16"),
+    # the rest of the bf16 kernel's head dims; bf16 D96 still raises
+    *((torch.bfloat16, d, "bf16") for d in (32, 160, 384, 512)),
+    (torch.bfloat16, 96, None),
 ])
 def test_fwd_route(dtype, head_dim, route):
     if route is None:
@@ -41,10 +46,18 @@ def test_fwd_route(dtype, head_dim, route):
         assert tattn._fwd_route(dtype, head_dim) == route
 
 
+def test_both_dtypes_build_the_same_head_dims():
+    """Every head dim the f32 kernel is built for has a bf16 kernel too."""
+    bf16, f32 = (tattn._KERNEL_HEAD_DIMS[t] for t in (torch.bfloat16, torch.float32))
+    assert bf16 == f32 == (32, 40, 64, 80, 88, 128, 160, 384, 512)
+
+
 def test_every_fwd_route_loads_a_source_that_exists(monkeypatch):
-    """Each route of `_FWD_ROUTES` names a `kernels.build` loader (the one
-    `_launch` calls), and that loader builds a source under csrc/ that
-    exists; nvcc and the library load are stubbed (no card here)."""
+    """Each (dtype, head dim) of `_FWD_ROUTES` names a `kernels.build` loader
+    (the one `_launch` calls), and calling its entry at that head dim builds
+    a source under csrc/ that exists, for a grouped source the group that
+    holds the head dim; nvcc and the library load are stubbed (no card
+    here)."""
     import ctypes
     from types import SimpleNamespace
     from unittest import mock
@@ -52,14 +65,19 @@ def test_every_fwd_route_loads_a_source_that_exists(monkeypatch):
     from svi_tpu_torch.kernels import build
 
     built = []
-    monkeypatch.setattr(build, "build", lambda src: built.append(src) or SimpleNamespace(
-        path=src))
+    monkeypatch.setattr(build, "build", lambda src, head_dims=(): built.append(
+        (src, head_dims)) or SimpleNamespace(path=src))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: mock.MagicMock())
-    routes = set(tattn._FWD_ROUTES.values())
-    assert routes == set(tattn._FWD_LOADERS)
-    for route in sorted(routes):
-        getattr(build, tattn._FWD_LOADERS[route]).__wrapped__()
-        assert built[-1].is_file() and built[-1].parent == build.CSRC, (route, built[-1])
+    build._load_fwd_group.cache_clear()
+    assert set(tattn._FWD_ROUTES.values()) == set(tattn._FWD_LOADERS)
+    for (dtype, d), route in sorted(tattn._FWD_ROUTES.items(), key=str):
+        build._load_fwd_group.cache_clear()
+        lib = getattr(build, tattn._FWD_LOADERS[route]).__wrapped__()
+        getattr(lib, f"svi_flash_fwd_{route}")(d)
+        src, group = built[-1]
+        assert src.is_file() and src.parent == build.CSRC, (route, src)
+        assert group == () or d in group, (route, d, group)
+    build._load_fwd_group.cache_clear()
 
 
 def _rope_inputs(dtype):

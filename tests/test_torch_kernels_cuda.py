@@ -1,5 +1,6 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
-bf16 D=128 and D=64 with its RoPE pre-pass, 3xTF32 for f32 --,
+bf16 D=128 and D=64 with its RoPE pre-pass, bf16 mma.sync for bf16 D=32, 40,
+80, 88, 160, 384, 512, 3xTF32 for f32 --,
 at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
@@ -463,6 +464,142 @@ def test_all_keys_masked_gives_finite_lse(dtype):
     out, lse = tattn.flash_fwd_bnsd(q, q, q, kv_len=0)
     torch.cuda.synchronize()
     assert torch.isfinite(lse).all() and (out == 0).all()
+
+
+# the bf16 mma.sync kernel's head dims (route "bf16", csrc/flash_fwd_bf16.cu):
+# 64-row CTAs and 64-key tiles at D <= 160 (16 rows and 16-key tiles when
+# Sq <= 16 at D = 40, 80, 160), 32-row CTAs and 32-key tiles at 384 and 512
+BF16_DIMS = (32, 40, 80, 88, 160, 384, 512)
+BF16_EDGES = [(1, 1), (16, 77), (17, 33), (63, 65), (65, 129), (189, 300)]
+
+
+def _bf16_launches(d):
+    return (tattn.flash_fwd_flat.routes[("bf16", "bfloat16", d)]
+            + tattn.flash_fwd_bnsd.routes[("bf16", "bfloat16", d)])
+
+
+def _bf16_bnsd(b, sq, sk, n, d, seed):
+    """q, k, v as (B, N, S, D) views of (B, S, N * D) rows, and their
+    (B, S, N, D) views for the plain version."""
+    q = _rand((b, sq, n * d), torch.bfloat16, seed)
+    k, v = (_rand((b, sk, n * d), torch.bfloat16, seed + 1 + i) for i in range(2))
+    views = [t.unflatten(-1, (n, d)) for t in (q, k, v)]
+    return [t.transpose(1, 2) for t in views], views
+
+
+@pytest.mark.parametrize("sq,sk", BF16_EDGES)
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_tile_edges(d, sq, sk):
+    """bf16 through the (B, N, S, D) entry on strided views, Sq and Sk on
+    each side of the row and key tile edges (and the short-query tiles at
+    Sq <= 16), route "bf16"."""
+    heads, views = _bf16_bnsd(2, sq, sk, 3, d, 170)
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*heads)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, sk, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 33, 150, 299])
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_kv_len(d, kv_len):
+    """kv_len < Sk: Sk 300 (5 key tiles of 64, 10 of 32: the 2-stage ring
+    wraps), kv_len one key, mid-tile, and one short; 0 masks every key (out
+    0, lse -1e30 + log(1e-30), finite)."""
+    heads, views = _bf16_bnsd(2, 70, 300, 2, d, 180)
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    if kv_len == 0:  # the plain version's -1e30 mask averages v instead
+        assert (got[0] == 0).all() and torch.isfinite(got[1]).all()
+        assert (got[1] <= -1e30).all()
+        return
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, kv_len, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_strided_qkv_columns(d):
+    """q, k and v as (B, N, S, D) views of column slices of one
+    (B, S, 3 * N * D) tensor (row stride 3 * N * D, as a fused projection
+    hands them over), cross-attention shaped: Sq 200, Sk 77 from another
+    slice of rows."""
+    n, b = 2, 2
+    qkv = _rand((b, 200, 3 * n * d), torch.bfloat16, 190)
+    q = qkv[..., :n * d]
+    k, v = qkv[:, 50:127, n * d:2 * n * d], qkv[:, 50:127, 2 * n * d:]
+    views = [t.unflatten(-1, (n, d)) for t in (q, k, v)]
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*(t.transpose(1, 2) for t in views))
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, 77, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_single_head_flat_rope(d):
+    """One head through the flat entry (the JAX routing's flat case for
+    N = 1, as the VAE mid-blocks call it) with RoPE tables: q and k through
+    the pre-pass, then the kernel; q, k, v column slices of one
+    (B, S, 3 * D) tensor."""
+    b, s = 2, 300
+    qkv = _rand((b, s, 3 * d), torch.bfloat16, 200)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    cos, sin = _tables(s, d)
+    before, rope_before = _bf16_launches(d), tattn.rope_rotate_flat.launches
+    got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd_flat.routes[("bf16", "bfloat16", d)] > 0
+    assert _bf16_launches(d) == before + 1
+    assert tattn.rope_rotate_flat.launches == rope_before + 2
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (1, d)) for t in (q, k, v)), cos, sin, s, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_misaligned_view_raises(d):
+    """A view whose data_ptr is 8 bytes off 16-byte alignment: the wrapper
+    raises before any launch."""
+    b, s, n = 1, 64, 2
+    flat = _rand((b * s * n * d + 4,), torch.bfloat16, 210)
+    q = flat[4:].view(b, s, n, d).transpose(1, 2)
+    before = _bf16_launches(d)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_fwd_bnsd(q, q, q)
+    assert _bf16_launches(d) == before
+
+
+@pytest.mark.parametrize("case", ["sd_self_d40", "sd_cross_d80", "hunyuan_dit_self_d88",
+                                  "vae_mid_d512"])
+def test_bf16_kernel_at_the_pipelines_shapes(case):
+    """The bf16 pipelines' shapes: SD 1.5's self-attention at 512 x 512 with
+    batched CFG (B2 S4096 N8 D40), its D80 cross-attention over 77 tokens,
+    Hunyuan-DiT's B2 S4096 N16 D88 and the SDXL / SD3 / FLUX VAE's one head
+    of 512 over 128 x 128 tokens, the last through the flat entry on column
+    slices of one qkv tensor."""
+    b, sq, sk, n, d = {"sd_self_d40": (2, 4096, 4096, 8, 40),
+                       "sd_cross_d80": (2, 1024, 77, 8, 80),
+                       "hunyuan_dit_self_d88": (2, 4096, 4096, 16, 88),
+                       "vae_mid_d512": (1, 16384, 16384, 1, 512)}[case]
+    before = _bf16_launches(d)
+    if n == 1:
+        qkv = _rand((b, sq, 3 * d), torch.bfloat16, 220)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        got = tattn.flash_fwd_flat(q, k, v, d)
+        views = [t.unflatten(-1, (1, d)) for t in (q, k, v)]
+    else:
+        heads, views = _bf16_bnsd(b, sq, sk, n, d, 230)
+        got = tattn.flash_fwd_bnsd(*heads)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, sk, d ** -0.5)
+    o_ref = o_ref.flatten(2) if n == 1 else o_ref.transpose(1, 2)
+    _check(got, (o_ref, lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
 
 
 def test_unsupported_head_dim_raises():

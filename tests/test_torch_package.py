@@ -204,10 +204,22 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                          (build.BWD_SPLIT_SM90_SOURCE, "flash_bwd_split_sm90"),
                          (build.Q8_SM90_SOURCE, "flash_fwd_q8_sm90"),
                          (build.W4A8_SOURCE, "w4a8_gemm_sm90"),
-                         (build.BWD_F32_SOURCE, "flash_bwd_f32")):
+                         (build.BWD_F32_SOURCE, "flash_bwd_f32"),
+                         (build.BF16_SOURCE, "flash_fwd_bf16")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
         assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
+    # a grouped source builds one library per group of head dims, each with
+    # the group's defines, every head dim in one group
+    for source, groups in build.HEAD_DIM_GROUPS.items():
+        dims = [d for g in groups for d in g]
+        assert len(dims) == len(set(dims))
+        libs = {build.library_path(source, g) for g in groups}
+        assert len(libs) == len(groups) and build.library_path(source) not in libs
+        cmd = build.nvcc_command("nvcc", source, out, groups[0])
+        assert "-DSVI_GROUP" in cmd and all(f"-DSVI_D{d}" in cmd for d in groups[0])
+    assert len(build.units()) == len(list(build.CSRC.glob("*.cu"))) + sum(
+        len(g) - 1 for g in build.HEAD_DIM_GROUPS.values())
 
 
 @pytest.mark.parametrize("entry", ["wan_dit", "t5", "clip_vision", "wan_vae", "pipeline",
