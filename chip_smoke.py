@@ -9,7 +9,7 @@ non-zero exit and no result line:
      switches (left at PyTorch's defaults, as users run them);
   2. build: nvcc builds every kernel source of svi_tpu_torch/csrc, all at once
      (the two forwards with many head dims, flash_fwd_f32.cu and
-     flash_fwd_bf16.cu, one library per group of head dims);
+     flash_fwd_sm90.cu, one library per group of head dims);
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
@@ -35,11 +35,13 @@ non-zero exit and no result line:
      function, csrc/flash_bwd_f32.cu: SD 1.5's D40 self S4096 and cross
      Sk77, D80 S1024 and its cross, D160 S256 and S64; SDXL's D64 S4096 N10,
      S1024 N20 and cross Sk77, each kernel beside SDPA's f32 backward); the
-     bf16 route (csrc/flash_fwd_bf16.cu) at the bf16 paths' shapes (SD 1.5's
-     D40 self B2 S4096 N8 and its 77-key cross, D80 S1024, D160 S256;
-     Hunyuan-DiT's D88 B2 S4096 N16 self and Sk333 cross; one head of 512
-     over 4096 and 16384 tokens; and its other head dims, one head of 384
-     and 8 heads of 32) beside bf16 SDPA; K6
+     sm90 route's other bf16 head dims (csrc/flash_fwd_sm90.cu) at the bf16
+     paths' shapes (SD 1.5's D40 self B2 S4096 N8 and its 77-key cross, D80
+     S1024, D160 S256, AnimateDiff's D40 temporal attention over 4096
+     batches of 16 frames on the packed short-sequence kernel; Hunyuan-DiT's
+     D88 B2 S4096 N16 self and Sk333 cross; one head of 512 over 4096 and
+     16384 tokens on the column-split kernel; and the other head dims, one
+     head of 384 and 8 heads of 32) beside bf16 SDPA; K6
      beside K1 at the same shape
      and the exp2 floor; K6's f32 route (qk8 with f32 v and out, P.V in
      3xTF32) at the slice's shape beside SDPA in f32; for context, the int8
@@ -166,11 +168,14 @@ non-zero exit and no result line:
      f32 at 512x512 (rank 4, 3 steps and one through vae_encode_fn on a
      TextImageDataset row), its attention backward on the f32 kernels, 32
      launches of each a step, and the save_lora round trip; (f) the bf16
-     paths on the bf16 route (csrc/flash_fwd_bf16.cu): the narrow bf16
+     paths on the sm90 route (csrc/flash_fwd_sm90.cu) at the head dims that
+     are not 64 or 128: the narrow bf16
      SDImagePipeline (a half-width UNet, 4 heads of 40 / 80 / 160, the VAE
      decoder at full width), FluxImagePipeline at its default bf16 (its VAE
      too) and HunyuanDiTImagePipeline(dtype=bf16) (2 heads of 88), card
-     against CPU; then SDImagePipeline(dtype=bf16) on (b)'s files at
+     against CPU; AnimateDiff's motion modules in bf16 at the SD UNet's three
+     widths on 16 frames (the packed short-sequence kernel), card against
+     CPU; then SDImagePipeline(dtype=bf16) on (b)'s files at
      512x512, 2 steps, CFG 7.5, with seconds a step, peak memory and the
      launches per route, which must be the plan's count;
   9. the extensions and the SDXL family: (a) the narrow SDXL models (one
@@ -201,7 +206,7 @@ non-zero exit and no result line:
      against CPU (FLUX in f32 and in bf16), (d) the pipeline on those files
      at 1024x1024, 2 steps (Kolors: the 256-token prompt, CFG 7.5; SD3:
      batched CFG 7.5, T5 on; FLUX: embedded guidance 3.5, its VAE in its
-     bf16: K1's bf16 route at one head of 512), with per-part
+     bf16: K1's sm90 route at one head of 512), with per-part
      seconds, peak memory and the attention launches, which must be the
      loaded models' count;
  11. SVD, Hunyuan-DiT, HunyuanVideo and CogVideoX: (a) the narrow models of
@@ -216,7 +221,7 @@ non-zero exit and no result line:
      VAE decoder, CLIP-L; CogVideoX-5B's DiT at 2 of 42 blocks and VAE
      decoder with T5-XXL at 2 of 24 layers), (c) one forward at a cut depth
      card against CPU (HunyuanVideo and CogVideoX also in bf16, and
-     Hunyuan-DiT in bf16 on the bf16 route at D88, its launches counted),
+     Hunyuan-DiT in bf16 on the sm90 route at D88, its launches counted),
      (d) the
      pipeline on those files at full width, 2 steps (SVD 576x1024x25,
      Hunyuan-DiT 1024x1024, HunyuanVideo 544x960x33, CogVideoX 480x720x49),
@@ -246,8 +251,9 @@ non-zero exit and no result line:
      on phase 12's as `launches_stepvideo` and `launches_omnigen`, on phase
      8e's full-width trainer as `launches_t2i`, on each bf16 path as
      `launches_bf16_paths`; K2's D88 and bf16 D64 entries count phase 11's,
-     the f32 backward's phase 8e's, the bf16 route's the bf16 paths' (8f's
-     SD 1.5 image pipeline, 10d's FLUX, 11c's Hunyuan-DiT forward)), the
+     the f32 backward's phase 8e's, the sm90 route's other bf16 head dims'
+     the bf16 paths' (8f's SD 1.5 image pipeline and motion modules, 10d's
+     FLUX, 11c's Hunyuan-DiT forward)), the
      nvidia-smi line, and the result line.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -434,15 +440,18 @@ KERNELS = {
                               "svi_tpu/ops/attention.py:465"),
     "flash_fwd_bnsd/sm90/64": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
                                "svi_tpu/ops/attention.py:465"),
-    # K2 and K1 at one head in bf16 at the head dims the sm90 kernel does
-    # not take (route bf16, csrc/flash_fwd_bf16.cu): the SD 1.5 UNet's 8
-    # heads of 40 / 80 / 160 and Hunyuan-DiT's 16 heads of 88 (K2), the VAE
-    # mid-blocks' one head of 512 (K1); launched by the bf16 paths (phase
-    # 8f's SD 1.5 image pipeline, 10d's FLUX decode, 11c's Hunyuan-DiT)
-    "flash_fwd_bnsd/bf16": ("svi_tpu_torch/csrc/flash_fwd_bf16.cu",
-                            "svi_tpu/ops/attention.py:465"),
-    "flash_fwd_flat/bf16/512": ("svi_tpu_torch/csrc/flash_fwd_bf16.cu",
-                                "svi_tpu/ops/attention.py:75"),
+    # K2 and K1 at one head in bf16 at the head dims other than 64 and 128
+    # (route sm90, csrc/flash_fwd_sm90.cu; a name's last part lists its head
+    # dims): the SD 1.5 UNet's 8 heads of 40 / 80 / 160 and Hunyuan-DiT's 16
+    # heads of 88 (K2; the D64 / D128 kernel over zero-filled head-dim boxes,
+    # and the packed kernel at Sq and Sk <= 16), the VAE mid-blocks' one head
+    # of 512 (K1; the column-split kernel); launched by the bf16 paths (phase
+    # 8f's SD 1.5 image pipeline and motion modules, 10d's FLUX decode, 11c's
+    # Hunyuan-DiT)
+    "flash_fwd_bnsd/sm90/32+40+80+88+160": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                                            "svi_tpu/ops/attention.py:465"),
+    "flash_fwd_flat/sm90/384+512": ("svi_tpu_torch/csrc/flash_fwd_sm90.cu",
+                                    "svi_tpu/ops/attention.py:75"),
     # K3 standalone: the straight-through backward of every W4A8 linear that
     # needs dx, when LoRA trains on an int4_w4a8 base (phases 5a', 5b, 5c)
     "unpack_requant_int4": ("svi_tpu_torch/csrc/quant_unpack.cu",
@@ -455,10 +464,11 @@ QUANT_MODULE_ENTRIES = ("unpack_requant_int4", "quantize_rows_int8", "w4a8_linea
 PARALLEL_KERNELS = ("flash_fwd_bnsd/sm90/128",)  # launched only by the ring (phase 6)
 ZOO_KERNELS = ("flash_fwd_bnsd/f32/88", "flash_fwd_bnsd/sm90/64")  # launched by phase 11's pipelines
 T2I_KERNELS = ("flash_bwd_dq/f32", "flash_bwd_dkv/f32")  # launched by phase 8e's trainer
-BF16_KERNELS = ("flash_fwd_bnsd/bf16", "flash_fwd_flat/bf16/512")  # launched by the bf16 paths
+# launched by the bf16 paths
+BF16_KERNELS = ("flash_fwd_bnsd/sm90/32+40+80+88+160", "flash_fwd_flat/sm90/384+512")
 # each bf16 path's launches per KERNELS name, read just after its run (the
-# counts zeroed just before it): 8f's SD 1.5 image pipeline, 10d's FLUX
-# pipeline (its VAE decode), 11c's Hunyuan-DiT forward
+# counts zeroed just before it): 8f's SD 1.5 image pipeline and motion
+# modules, 10d's FLUX pipeline (its VAE decode), 11c's Hunyuan-DiT forward
 BF16_PATH_LAUNCHES: dict = {}
 # the case whose times stand for each kernel in the JSON line: the shape the
 # kernel's main path gives it
@@ -475,8 +485,8 @@ TIMED_CASE = {"flash_fwd_flat/sm90/128": "dit_self_attn_rope", "flash_fwd_flat/f
               "flash_fwd_bnsd/sm90/64": "cogvideox_joint_attn_d64",
               "flash_bwd_dq/f32": "sd_unet_self_attn_d40_bwd",
               "flash_bwd_dkv/f32": "sd_unet_self_attn_d40_bwd",
-              "flash_fwd_bnsd/bf16": "sd_unet_self_attn_d40_bf16",
-              "flash_fwd_flat/bf16/512": "vae_mid_attn_d512_s16384_bf16"}
+              "flash_fwd_bnsd/sm90/32+40+80+88+160": "sd_unet_self_attn_d40_bf16",
+              "flash_fwd_flat/sm90/384+512": "vae_mid_attn_d512_s16384_bf16"}
 
 
 def log(msg: str) -> None:
@@ -566,17 +576,25 @@ def bound(flops: float, nbytes: float, peak) -> tuple[float, str, str]:
 
 def launch_counters():
     """KERNELS name -> (the wrapper that counts its launches, its route or '',
-    the head dim or None)."""
+    its head dims ('a+b+c' in the name) or None)."""
     from svi_tpu_torch.ops import attention as A
     from svi_tpu_torch.ops import quant_matmul as Q
 
     out = {}
     for name in KERNELS:
         entry, _, route = name.partition("/")
-        route, _, dim = route.partition("/")
+        route, _, dims = route.partition("/")
         out[name] = (getattr(Q if entry in QUANT_MODULE_ENTRIES else A, entry), route,
-                     int(dim) if dim else None)
+                     tuple(map(int, dims.split("+"))) if dims else None)
     return out
+
+
+def kernel_name(entry: str, route: str, head_dim: int) -> str:
+    """The KERNELS name that counts `entry`'s launches on `route` at head_dim."""
+    for name, (fn, r, dims) in launch_counters().items():
+        if fn.__name__ == entry and r == route and (dims is None or head_dim in dims):
+            return name
+    raise KeyError(f"no KERNELS name counts {entry} on route {route} at D={head_dim}")
 
 
 def zero_counts() -> None:
@@ -591,20 +609,20 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: sum(n for key, n in fn.routes.items()
-                      if key[0] == route and dim in (None, key[2])) if route
-            else fn.launches for name, (fn, route, dim) in launch_counters().items()}
+                      if key[0] == route and (dims is None or key[2] in dims)) if route
+            else fn.launches for name, (fn, route, dims) in launch_counters().items()}
 
 
 def per_kernel(launches: dict) -> dict:
     """Forward launches as `sd_launches` gives them ({entry: {"route/dtype/
     head_dim": n}}) per KERNELS name of those entries."""
     counts = {}
-    for name, (_, route, dim) in launch_counters().items():
+    for name, (_, route, dims) in launch_counters().items():
         entry = name.partition("/")[0]
         if entry in launches and route:
             counts[name] = sum(n for key, n in launches[entry].items()
                                if key.split("/")[0] == route
-                               and dim in (None, int(key.split("/")[2])))
+                               and (dims is None or int(key.split("/")[2]) in dims))
     return counts
 
 
@@ -769,15 +787,16 @@ def kernel_cases():
                                   F32_ACCURATE)})
 
     def bnsd_bf16_case(name, b, sq, sk, n, d, kv_len=None, flat=False):
-        """K2 in bf16 (route sm90 at D = 64, csrc/flash_fwd_sm90.cu:
-        CogVideoX's joint attention; route bf16 at the head dims the sm90
-        kernel does not take, csrc/flash_fwd_bf16.cu), or with flat K1 at
-        one head (the flat entry on column slices of one qkv tensor, as the
-        VAE mid-blocks hand them over): q, k, v from their own projections,
+        """K2 in bf16 (route sm90, csrc/flash_fwd_sm90.cu: CogVideoX's joint
+        attention at D = 64; the other head dims over zero-filled head-dim
+        boxes, or packed four (batch, head) items a tile at Sq and Sk <= 16),
+        or with flat K1 at one head (the flat entry on column slices of one
+        qkv tensor, as the VAE mid-blocks hand them over; the column-split
+        kernel at D = 384 and 512): q, k, v from their own projections,
         (B, S, N*D), as (B, N, S, D) views for K2; keys at or past kv_len
-        masked. The bound is at the true head dim (the bf16 route pads D40's
-        and D88's last k-step in registers only); the exp2 floor (one exp2 a
-        score) is printed beside it."""
+        masked. The bound is at the true head dim (the kernel pads D40 to 64
+        columns, D88 to 128, D160 to 192); the exp2 floor (one exp2 a score)
+        is printed beside it."""
         if flat:
             qkv = randn((b, sq, 3 * d), torch.bfloat16)
             q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
@@ -785,9 +804,8 @@ def kernel_cases():
             q = randn((b, sq, n * d), torch.bfloat16)
             k, v = (randn((b, sk, n * d), torch.bfloat16) for _ in range(2))
         qh, kh, vh = (heads_first(t, n, d) for t in (q, k, v))
-        route = A._fwd_route(torch.bfloat16, d)
-        entry = (f"flash_fwd_flat/{route}/{d}" if flat
-                 else f"flash_fwd_bnsd/{route}" + (f"/{d}" if route == "sm90" else ""))
+        entry = kernel_name("flash_fwd_flat" if flat else "flash_fwd_bnsd",
+                            A._fwd_route(torch.bfloat16, d), d)
         kv = sk if kv_len is None else kv_len
         mask = None if kv == sk else (torch.arange(sk, device="cuda") < kv)[None, None, None]
 
@@ -1174,7 +1192,7 @@ def kernel_cases():
     # K1 sm90; q and k are rotated in torch before the kernel, so the kernel,
     # SDPA and the plain version take the same rotated q and k)
     yield fwd_case("stepvideo_self_attn_s75888", 1, 75888, 75888, 48, 128)
-    # the bf16 paths' shapes (route bf16, csrc/flash_fwd_bf16.cu): the SD 1.5
+    # the bf16 paths' shapes (route sm90, csrc/flash_fwd_sm90.cu): the SD 1.5
     # UNet at 512 x 512 with batched CFG (B2; 8 heads of 40 over 64 x 64
     # tokens and the 77-token text, 80 over 32 x 32, 160 over 16 x 16),
     # Hunyuan-DiT at 1024 x 1024 (B2, 16 heads of 88, self and the 77 + 256
@@ -1184,15 +1202,19 @@ def kernel_cases():
     yield bnsd_bf16_case("sd_unet_cross_attn_d40_bf16", 2, 4096, 77, 8, 40)
     yield bnsd_bf16_case("sd_unet_self_attn_d80_bf16", 2, 1024, 1024, 8, 80)
     yield bnsd_bf16_case("sd_unet_self_attn_d160_bf16", 2, 256, 256, 8, 160)
+    # AnimateDiff's temporal attention in bf16 (an SD video pipeline run in
+    # bf16): 16 frames over the 64 x 64 pixels of the first level, 8 heads of
+    # 40, the f32 row sd_motion_attn_d40's shape; the packed kernel
+    yield bnsd_bf16_case("animatediff_motion_d40_bf16", 4096, 16, 16, 8, 40)
     yield bnsd_bf16_case("hunyuan_dit_self_attn_d88_bf16", 2, 4096, 4096, 16, 88)
     yield bnsd_bf16_case("hunyuan_dit_cross_attn_d88_bf16", 2, 4096, 333, 16, 88)
     yield bnsd_bf16_case("sd_vae_mid_attn_d512_bf16", 1, 4096, 4096, 1, 512, flat=True)
     yield bnsd_bf16_case("vae_mid_attn_d512_s16384_bf16", 1, 16384, 16384, 1, 512, flat=True)
     # the route's other two head dims, which no bf16 pipeline of the
-    # repository reaches, through K2's entry: one head of 384 at the Wan VAE's
-    # mid-block shape (B2 S6240; the VAE runs f32) and 8 heads of 32 at the
-    # tiny DiTs' 9-frame token count (S4680)
-    yield bnsd_bf16_case("wan_vae_mid_attn_d384_bf16", 2, 6240, 6240, 1, 384)
+    # repository reaches: one head of 384 through K1's flat entry at the Wan
+    # VAE's mid-block shape (B2 S6240; the VAE runs f32) and, through K2's, 8
+    # heads of 32 at the tiny DiTs' 9-frame token count (S4680)
+    yield bnsd_bf16_case("wan_vae_mid_attn_d384_bf16", 2, 6240, 6240, 1, 384, flat=True)
     yield bnsd_bf16_case("tiny_dit_self_attn_d32_bf16", 1, 4680, 4680, 8, 32)
 
     # backward: the training slice's self-attention (21 frames, 6 x 30 x 52
@@ -5297,7 +5319,7 @@ def phase_t2i_full(root: Path, paths: dict, card: str) -> dict:
     return launches
 
 
-# phase 8f: the bf16 paths (route bf16, csrc/flash_fwd_bf16.cu). Card against
+# phase 8f: the bf16 paths (route sm90, csrc/flash_fwd_sm90.cu). Card against
 # CPU, bf16 on both (written before the first card run): the two round to
 # bf16 in other places (the kernel rounds P for P.V where the plain version
 # keeps f32; cuBLAS and the CPU's GEMMs sum in other orders), which moves a
@@ -5345,12 +5367,12 @@ def bf16_small_pipelines(device):
     """Phase 8f's narrow bf16 pipelines on `device`, each in bf16 through its
     normal entry point, with the decoded image captured: SDImagePipeline on
     a half-width SD 1.5 UNet (4 heads of 40 / 80 / 160, the card's route
-    bf16) and the SD VAE decoder at full width (one head of 512), 64 x 64, 2
+    sm90) and the SD VAE decoder at full width (one head of 512), 64 x 64, 2
     steps, CFG 7.5 (one batch of two); FluxImagePipeline at its default
     dtype (bf16, the VAE too) on the CPU tests' DiT (one head of 128, route
     sm90) and FLUX's VAE decoder at full width, 64 x 64, 2 steps;
     HunyuanDiTImagePipeline(dtype=bf16) on a DiT of 2 heads of 88 (route
-    bf16) with the SD VAE decoder at full width, 64 x 64, 2 steps, CFG 5.
+    sm90) with the SD VAE decoder at full width, 64 x 64, 2 steps, CFG 5.
     {name: (pipeline, kwargs, captured list, expected launches)}."""
     from svi_tpu_torch.models import flux, hunyuan_dit, sd, t5
     from svi_tpu_torch.pipelines import hunyuan_image
@@ -5404,7 +5426,7 @@ def phase_bf16_small(card: str) -> dict:
     """(f, i) The narrow bf16 pipelines of `bf16_small_pipelines` on the card
     and on the CPU: the decoded images (before the uint8 cast) within
     BF16_SMALL_REL of their scale, each card run's launches equal to its
-    models' count (the bf16 route at D40 / D80 / D160 / D88 / D512). Returns
+    models' count (the sm90 route at D40 / D80 / D160 / D88 / D512). Returns
     the card's launches per KERNELS name."""
     got, launches, secs = {}, {}, {}
     for device in ("cuda", "cpu"):
@@ -5444,7 +5466,7 @@ def phase_sd_bf16(paths: dict, card: str) -> dict:
     notes recommend it, on (b)'s files at full width (the converters' f32
     weights cast to bf16 by the pipeline): text-to-image at 512 x 512, 2
     steps, CFG 7.5 (one UNet batch of two), the VAE decode. Per-part
-    seconds, seconds a step, peak memory, and the bf16 route's launches
+    seconds, seconds a step, peak memory, and the sm90 route's launches
     against the plan's count. Returns the launches per KERNELS name."""
     from svi_tpu_torch.models import sd
     from svi_tpu_torch.models.model_io import load_state_dict
@@ -5506,13 +5528,83 @@ def phase_sd_bf16(paths: dict, card: str) -> dict:
     return per_kernel(launches)
 
 
+# phase 8f (iii): one AnimateDiff motion module in bf16 a width, card against
+# CPU, bf16 on both (written before its first card run): one call through
+# the module's norms, projections, two temporal attentions and its FFN,
+# each side rounding to bf16 in its own places (cuBLAS and the CPU's GEMMs
+# sum in other orders; the kernel rounds P for P.V): bf16 roundings (2^-9
+# relative) through one block, on top of the residual input; the bound of
+# one bf16 model call against the CPU (ZOO_BF16_REL's reading for a whole
+# DiT is 1e-2).
+MOTION_BF16_REL = 5e-2
+MOTION_FRAMES = 16
+# the SD 1.5 UNet's widths: channels -> the latent side of the level at
+# 256 x 256 (half 512's, so that the CPU's bf16 run of the 1280-wide module
+# stays at seconds; the kernel's batch is still 8 x 64 to 8 x 1024 items)
+MOTION_LEVELS = {320: 32, 640: 16, 1280: 8}
+
+
+def phase_motion_bf16(card: str) -> dict:
+    """(f, iii) AnimateDiff's motion modules in bf16, the temporal attention
+    an SD video pipeline run in bf16 gives the kernel: Sq = Sk = 16 frames
+    over every (pixel, head) of a level, on the packed short-sequence kernel.
+    The first module of each of the SD UNet's widths (320, 640, 1280
+    channels: 8 heads of 40, 80, 160) at the published widths, one call on
+    16 frames at its level's side at 256 x 256, bf16 weights and input from
+    a seed, card against CPU within MOTION_BF16_REL of the output's scale;
+    each card call's launches are its two attentions, at its head dim on the
+    sm90 route. Returns the launches per KERNELS name."""
+    from svi_tpu_torch.models import motion as mo
+    from svi_tpu_torch.models import sd
+
+    chans = mo.plan_channels(sd.SD_UNET_PLAN)
+    bids = {}
+    for bid in sorted(mo.SD_MOTION_CALL_MAP):
+        bids.setdefault(chans[bid], bid)
+    call_map = {bids[c]: i for i, c in enumerate(MOTION_LEVELS)}
+    sdm = mo.sd_motion_state_dict(seed=81, call_map=call_map)
+    rng = np.random.default_rng(82)
+    inputs = {c: rng.standard_normal((MOTION_FRAMES, c, side, side), dtype=np.float32)
+              for c, side in MOTION_LEVELS.items()}
+    total, outs, secs = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        params = mo.motion_params_from_torch(sdm, device=device, dtype=torch.bfloat16)
+        for i, c in enumerate(MOTION_LEVELS):
+            x = torch.from_numpy(inputs[c]).to(device, torch.bfloat16)
+            head_dim = c // mo.NUM_HEADS
+            zero_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                y = mo.temporal_block(params["motion_modules"][i], x, mo.NUM_HEADS, head_dim)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = sd_launches()
+                want = {"flash_fwd_bnsd": {f"sm90/bfloat16/{head_dim}": 2},
+                        "flash_fwd_flat": {}}
+                if launches != want:
+                    raise RuntimeError(f"the bf16 motion module at D{head_dim} launched "
+                                       f"{launches}, expected {want}")
+                _add_counts(total, per_kernel(launches))
+            secs[(c, device)] = round(time.perf_counter() - t0, 3)
+            outs[(c, device)] = y.float().cpu()
+        del params
+    rels = {c: _rel(outs[(c, "cuda")], outs[(c, "cpu")]) for c in MOTION_LEVELS}
+    log(f"[motion-bf16] AnimateDiff motion modules in bf16, {MOTION_FRAMES} frames, card vs "
+        f"CPU by channels {({c: f'{r:.3e}' for c, r in rels.items()})} (bound "
+        f"{MOTION_BF16_REL}); seconds {secs}; launches {total}; {card}")
+    if max(rels.values()) > MOTION_BF16_REL:
+        raise RuntimeError("a bf16 motion module on the card disagrees with the CPU")
+    return total
+
+
 def phase_sd(card: str) -> tuple[dict, dict]:
     """Phase 8: (a) the small SD video pipeline card vs CPU, (b) full-width
     files, (c) one full-width UNet + ControlNet + motion forward card vs CPU,
     (d) the runner at 512x512x4, (e) text-to-image LoRA training: the tiny
     trainer card vs CPU, then the full-width UNet on (b)'s files, (f) the
     bf16 paths: the narrow bf16 SD, FLUX and Hunyuan-DiT pipelines card vs
-    CPU, then the SD 1.5 image pipeline in bf16 on (b)'s files. Returns
+    CPU, the motion modules in bf16 card vs CPU, then the SD 1.5 image
+    pipeline in bf16 on (b)'s files. Returns
     (d)'s and (e)'s launches per KERNELS entry; (f)'s full-width run's are
     kept in BF16_PATH_LAUNCHES."""
     import shutil
@@ -5533,6 +5625,7 @@ def phase_sd(card: str) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         phase_bf16_small(card)
+        BF16_PATH_LAUNCHES["motion"] = phase_motion_bf16(card)
         BF16_PATH_LAUNCHES["sd_image"] = phase_sd_bf16(paths, card)
         log(f"[time] phase 8f: {time.perf_counter() - t1:.1f}s")
     finally:
@@ -6410,7 +6503,7 @@ def family_expected_launches(family: str, pipe) -> dict:
         return {"flash_fwd_bnsd": {"f32/float32/64": blocks * FAM_STEPS}, "flash_fwd_flat": vae}
     blocks = len(pipe.dit_params["blocks"]) + len(pipe.dit_params["single_blocks"])
     return {"flash_fwd_bnsd": {}, "flash_fwd_flat": {"sm90/bfloat16/128": blocks * FAM_STEPS,
-                                                     "bf16/bfloat16/512": 1}}
+                                                     "sm90/bfloat16/512": 1}}
 
 
 def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
@@ -6504,7 +6597,7 @@ def phase_family_pipeline(family: str, paths: dict, card: str) -> dict:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    if family == "flux":  # a bf16 path: its VAE decode runs the bf16 route at D512
+    if family == "flux":  # a bf16 path: its VAE decode runs the sm90 route at D512
         BF16_PATH_LAUNCHES["flux"] = per_kernel(launches)
     return per_kernel(launches)
 
@@ -6891,7 +6984,7 @@ def write_zoo_checkpoints(family: str, root: Path, card: str) -> dict:
 def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
     """(c) One forward of the family's full-width model at a cut depth, card
     against CPU (f32), and for the bf16 families and Hunyuan-DiT (a bf16 path
-    on the bf16 route at D88) also in bf16 on the card:
+    on the sm90 route at D88) also in bf16 on the card:
     the SVD UNet whole on 2 frames of 8 x 8 latents; Hunyuan-DiT's first 3
     down blocks and last up block on 2 x 32 x 32 latents; HunyuanVideo's
     first double and single block on 2 x 8 x 8 latents; CogVideoX's file's 2
@@ -7021,9 +7114,9 @@ def phase_zoo_forward(family: str, ld: dict, card: str) -> None:
     if max(rel.values()) > ZOO_FULL_REL or (bf16 and max(bf16.values()) > ZOO_BF16_REL):
         raise RuntimeError(f"the full-width {family} forward on the card disagrees with the CPU")
     if family == "hunyuan_dit":
-        # a bf16 path: the bf16 run (the last card run) on the bf16 route at
+        # a bf16 path: the bf16 run (the last card run) on the sm90 route at
         # D88, self- and cross-attention in each of the 4 blocks, B2 in one call
-        want = {"flash_fwd_bnsd": {"bf16/bfloat16/88": 2 * 4}, "flash_fwd_flat": {}}
+        want = {"flash_fwd_bnsd": {"sm90/bfloat16/88": 2 * 4}, "flash_fwd_flat": {}}
         if launches != want:
             raise RuntimeError(f"the bf16 Hunyuan-DiT forward launched {launches}, expected "
                                f"{want}")
@@ -7391,7 +7484,6 @@ def main() -> int:
             + " | ".join(ptxas))
     build.load_flash_fwd_sm90()
     build.load_flash_fwd_f32()
-    build.load_flash_fwd_bf16()
     build.load_flash_bwd()
     build.load_flash_bwd_f32()
     build.load_flash_bwd_sm90()
@@ -7478,11 +7570,13 @@ def main() -> int:
     # (the f32 D = 88 and bf16 D = 64 entries' launches are theirs);
     # launches_stepvideo, _omnigen: phase 12's; launches_t2i: phase 8e's
     # full-width text-to-image trainer (the f32 backward kernels' launches);
-    # the bf16 route's launches: the bf16 paths' (8f, 10d's FLUX, 11c), each
-    # path's in launches_bf16_paths
+    # the sm90 route's other bf16 head dims' launches: the bf16 paths' (8f,
+    # 10d's FLUX, 11c), each path's in launches_bf16_paths
     kernels = []
     zoo_total = {e: sum(zoo_launches[f].get(e, 0) for f in ZOO_FAMILIES) for e in ZOO_KERNELS}
     bf16_total = {e: sum(c.get(e, 0) for c in BF16_PATH_LAUNCHES.values()) for e in BF16_KERNELS}
+    if min(bf16_total.values()) <= 0:
+        raise RuntimeError(f"a kernel was not launched on the bf16 paths: {BF16_PATH_LAUNCHES}")
     for entry, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["entry"] == entry]
         timed = next(r for r in mine if r["case"] == TIMED_CASE[entry])

@@ -28,7 +28,6 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"
 F32_SOURCE = CSRC / "flash_fwd_f32.cu"
-BF16_SOURCE = CSRC / "flash_fwd_bf16.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 BWD_F32_SOURCE = CSRC / "flash_bwd_f32.cu"
 BWD_SM90_SOURCE = CSRC / "flash_bwd_sm90.cu"
@@ -42,11 +41,13 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # sources built as one library per group of head dims (-DSVI_GROUP -DSVI_D<d>
 # for each head dim of a group; the source compiles only those): all nine f32
 # head dims with and without RoPE in one nvcc took 47.7 s against <= 17 s for
-# each other source
+# each other source. The bf16 forward's first group (D = 64 and 128, the
+# DiTs' and CogVideoX's) also serves the RoPE pre-pass (`ROPE_GROUP`).
 HEAD_DIM_GROUPS = {
     F32_SOURCE: ((32, 40), (64, 80), (88, 128), (160, 384), (512,)),
-    BF16_SOURCE: ((32, 40, 80), (88, 160), (384, 512)),
+    SM90_SOURCE: ((64, 128), (32, 40), (80, 88), (160,), (384, 512)),
 }
+ROPE_GROUP = (64, 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +136,7 @@ def build_all() -> dict[str, BuildResult]:
 
 _i64, _ptr = ctypes.c_int64, ctypes.c_void_p
 _STRIDES = ctypes.POINTER(_i64)
-# the C entry of flash_fwd_f32.cu and flash_fwd_bf16.cu (one argument list)
+# the C entry of flash_fwd_f32.cu
 _FWD_ARGTYPES = [
     ctypes.c_int,  # head_dim
     _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # q, k, v, out, lse, cos, sin
@@ -148,7 +149,10 @@ _FWD_ARGTYPES = [
 
 @functools.lru_cache(maxsize=None)
 def _load_fwd_group(source: Path, head_dims: tuple) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build(source, head_dims).path))
+    path = build(source, head_dims).path
+    if source == SM90_SOURCE:
+        return bind_flash_fwd_sm90(path)
+    lib = ctypes.CDLL(str(path))
     entry = getattr(lib, f"svi_{source.stem}")
     entry.argtypes = _FWD_ARGTYPES
     entry.restype = ctypes.c_int
@@ -158,17 +162,22 @@ def _load_fwd_group(source: Path, head_dims: tuple) -> ctypes.CDLL:
 class _ByHeadDim:
     """The C entry `svi_<stem>(head_dim, ...)` of a grouped source: each call
     goes to the library of the group that holds head_dim, built (if needed)
-    and loaded at the first call of that group."""
+    and loaded at the first call of that group; the entry is looked up once
+    per head dim."""
 
     def __init__(self, source: Path):
         self.source = source
+        self.entries = {}
 
     def __call__(self, head_dim: int, *args) -> int:
-        group = next((g for g in HEAD_DIM_GROUPS[self.source] if head_dim in g), None)
-        if group is None:
-            raise ValueError(f"no library of {self.source.name} holds head_dim {head_dim}")
-        return getattr(_load_fwd_group(self.source, group), f"svi_{self.source.stem}")(
-            head_dim, *args)
+        entry = self.entries.get(head_dim)
+        if entry is None:
+            group = next((g for g in HEAD_DIM_GROUPS[self.source] if head_dim in g), None)
+            if group is None:
+                raise ValueError(f"no library of {self.source.name} holds head_dim {head_dim}")
+            entry = getattr(_load_fwd_group(self.source, group), f"svi_{self.source.stem}")
+            self.entries[head_dim] = entry
+        return entry(head_dim, *args)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,22 +189,19 @@ def load_flash_fwd_f32() -> types.SimpleNamespace:
 
 
 @functools.lru_cache(maxsize=None)
-def load_flash_fwd_bf16() -> types.SimpleNamespace:
-    """The bf16 forward on mma.sync at D = 32, 40, 80, 88, 160, 384, 512:
-    `svi_flash_fwd_bf16(head_dim, ...)` (the f32 entry's arguments) builds
-    (if needed) and loads its head dim's library once per process."""
-    return types.SimpleNamespace(svi_flash_fwd_bf16=_ByHeadDim(BF16_SOURCE))
-
-
-@functools.lru_cache(maxsize=None)
-def load_flash_fwd_sm90() -> ctypes.CDLL:
-    """Build (if needed) and load the Hopper bf16 forward at D=128 and D=64
-    (TMA + wgmma) and its RoPE pre-pass once per process."""
-    return bind_flash_fwd_sm90(build(SM90_SOURCE).path)
+def load_flash_fwd_sm90() -> types.SimpleNamespace:
+    """The Hopper bf16 forward (TMA + wgmma) at every head dim:
+    `svi_flash_fwd_sm90(head_dim, ...)` builds (if needed) and loads its head
+    dim's library once per process; `svi_rope_rotate(...)`, the RoPE
+    pre-pass, is ROPE_GROUP's library's."""
+    rope = _load_fwd_group(SM90_SOURCE, ROPE_GROUP).svi_rope_rotate
+    return types.SimpleNamespace(svi_flash_fwd_sm90=_ByHeadDim(SM90_SOURCE),
+                                 svi_rope_rotate=rope)
 
 
 def bind_flash_fwd_sm90(path: Path) -> ctypes.CDLL:
-    """Load a library built from flash_fwd_sm90.cu and declare its entries."""
+    """Load a library built from flash_fwd_sm90.cu (all head dims, or one
+    group's) and declare its entries."""
     lib = ctypes.CDLL(str(path))
     lib.svi_flash_fwd_sm90.argtypes = [
         ctypes.c_int,  # head_dim

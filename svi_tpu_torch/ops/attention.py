@@ -23,12 +23,14 @@ instead):
     f32 in 3xTF32 at D = 128) and qk8pv8 (int8 P.V too).
 
 The forward entries (a layout is only strides) take the route `_fwd_route`
-names for the dtype and head dim: bf16 D = 128 (every DiT attention) and
-D = 64 (CogVideoX's 48 heads) run csrc/flash_fwd_sm90.cu (TMA + wgmma,
-warp-specialised); bf16 at D = 32, 40, 80, 88, 160, 384, 512 (the SD
-family's UNets, ControlNets and motion modules, Hunyuan-DiT's 16 heads of
-88, the VAE mid-blocks' one head of 512) runs csrc/flash_fwd_bf16.cu
-(mma.sync, warps owning head-dim slices); both bf16 routes run the RoPE
+names for the dtype and head dim: bf16 at every head dim runs
+csrc/flash_fwd_sm90.cu (TMA + wgmma, warp-specialised): D = 128 (every DiT
+attention) and D = 64 (CogVideoX's 48 heads) as they were, D = 32, 40, 80,
+88, 160 (the SD family's UNets, ControlNets and motion modules,
+Hunyuan-DiT's 16 heads of 88) on the same kernel over zero-filled head-dim
+boxes (short sequences, Sq and Sk <= 16, on a packed kernel of four
+(batch, head) items a tile), D = 384, 512 (the VAE mid-blocks' one head)
+on a kernel whose two warpgroups split O's columns; it runs the RoPE
 pre-pass `rope_rotate_flat` first when tables are given. f32 (the VAEs,
 CLIP, the SD 1.5 UNet, ControlNet and motion modules, Hunyuan-DiT's D = 88)
 runs csrc/flash_fwd_f32.cu (3xTF32 on the tensor cores), at the same head
@@ -73,15 +75,12 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 # the forward kernel that serves each (dtype, head_dim) on the card, and the
 # `kernels.build` loader of each route's library: 'sm90' is
-# csrc/flash_fwd_sm90.cu (TMA + wgmma: every DiT attention, CogVideoX's
-# D = 64), 'bf16' csrc/flash_fwd_bf16.cu (bf16 mma.sync: the other head
-# dims), 'f32' csrc/flash_fwd_f32.cu (3xTF32 mma.sync)
+# csrc/flash_fwd_sm90.cu (TMA + wgmma: every bf16 head dim), 'f32'
+# csrc/flash_fwd_f32.cu (3xTF32 mma.sync)
 _HEAD_DIMS = (32, 40, 64, 80, 88, 128, 160, 384, 512)
-_FWD_ROUTES = {**{(torch.bfloat16, d): "sm90" if d in (64, 128) else "bf16"
-                  for d in _HEAD_DIMS},
+_FWD_ROUTES = {**{(torch.bfloat16, d): "sm90" for d in _HEAD_DIMS},
                **{(torch.float32, d): "f32" for d in _HEAD_DIMS}}
-_FWD_LOADERS = {"sm90": "load_flash_fwd_sm90", "bf16": "load_flash_fwd_bf16",
-                "f32": "load_flash_fwd_f32"}
+_FWD_LOADERS = {"sm90": "load_flash_fwd_sm90", "f32": "load_flash_fwd_f32"}
 _KERNEL_HEAD_DIMS = {dt: tuple(d for (t, d) in _FWD_ROUTES if t == dt)
                      for dt in (torch.bfloat16, torch.float32)}
 _REFERENCE_TILE_BYTES = 1 << 30  # bound on one f32 score tile of the plain version
@@ -166,31 +165,38 @@ def _check_inputs(q4, k4, v4, cos, sin, kv_len: int) -> None:
             raise ValueError(f"rope tables {tuple(cos.shape)} do not cover ({need}, {d // 2})")
 
 
-def _check_kernel_tensors(what: str, named: dict, head_dims: dict, cos, sin) -> None:
+def _check_kernel_tensors(what: str, named: dict, head_dims: dict, cos, sin) -> list:
     """Device, type, head dim, stride and alignment checks of a kernel launch;
-    raises on anything the kernel does not take."""
-    tensors = list(named.values()) + ([cos, sin] if cos is not None else [])
-    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+    raises on anything the kernel does not take. Returns the (b, s, n)
+    element strides of the named (B, S, N, D) views, in their order (one
+    pass over each view: the forward's wrappers run at every call)."""
+    first = next(iter(named.values()))
+    device, dtype, d = first.device, first.dtype, first.shape[-1]
+    tensors = (*named.values(), *((cos, sin) if cos is not None else ()))
+    if device.type != "cuda" or any(t.device != device for t in tensors):
         raise RuntimeError(f"{what}: every tensor must be on one CUDA device "
                            f"(got {sorted({str(t.device) for t in tensors})})")
-    first = next(iter(named.values()))
-    dtype, d = first.dtype, first.shape[-1]
     if dtype not in head_dims or any(t.dtype != dtype for t in named.values()):
         raise TypeError(f"{what} kernel takes {sorted(map(str, head_dims))} inputs of one "
                         f"dtype, not {sorted({str(t.dtype) for t in named.values()})}")
     if d not in head_dims[dtype]:
         raise ValueError(f"{what} kernel: head_dim {d} not built for {dtype} "
                          f"(built: {head_dims[dtype]})")
+    size = first.element_size()  # a power of two: the or of the strides tests them all
+    strides = []
     for name, t in named.items():
-        if t.stride(-1) != 1:
+        st = t.stride()
+        if st[-1] != 1:
             raise ValueError(f"{what} kernel: {name} must be contiguous in its last dim")
-        if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or ((st[0] | st[1] | st[2]) * size) % 16:
             raise ValueError(f"{what} kernel: {name} must be 16-byte aligned with strides "
                              "that are multiples of 16 bytes")
+        strides += st[:3]
     if cos is not None:
         if cos.dtype != torch.float32 or sin.dtype != torch.float32 \
                 or not cos.is_contiguous() or not sin.is_contiguous():
             raise ValueError("rope tables must be contiguous float32")
+    return strides
 
 
 def _strides12(*views) -> ctypes.Array:
@@ -200,9 +206,8 @@ def _strides12(*views) -> ctypes.Array:
 
 def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel a CUDA call at (dtype, head_dim) takes, for D in
-    32, 40, 64, 80, 88, 128, 160, 384, 512: 'sm90' (bf16, D = 128 or 64;
-    TMA + wgmma), 'bf16' (bf16, the other seven; mma.sync) or 'f32' (f32;
-    3xTF32). Raises for any other pair: nothing falls back."""
+    32, 40, 64, 80, 88, 128, 160, 384, 512: 'sm90' (bf16; TMA + wgmma) or
+    'f32' (f32; 3xTF32). Raises for any other pair: nothing falls back."""
     if dtype not in _KERNEL_HEAD_DIMS:
         raise TypeError(f"flash forward kernel takes bfloat16 or float32, not {dtype}")
     route = _FWD_ROUTES.get((dtype, head_dim))
@@ -256,43 +261,54 @@ def rope_rotate_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 rope_rotate_flat.launches = 0
 
 
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+_FWD_LIBS: dict = {}  # route -> its library, loaded at the route's first launch
+
+
 def _launch(q4, k4, v4, out4, cos, sin, kv_len: int, scale: float) -> tuple:
     """Launch the forward kernel of the route on the current stream (no
     synchronisation). out4 is a preallocated (B, Sq, N, D) view. The bf16
-    routes ('sm90', 'bf16') rotate q and k with the RoPE pre-pass first.
+    route ('sm90') rotates q and k with the RoPE pre-pass first.
     Returns (lse (B, N, Sq), the route's counter key (route, dtype,
-    head_dim))."""
-    _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
-                          _KERNEL_HEAD_DIMS, cos, sin)
+    head_dim)). Host time is what a short call costs (the card runs a
+    short sequence's kernel in 10-20 us): the checks take one pass over each
+    view, the library is looked up once per route, the stream is read raw."""
+    strides = _check_kernel_tensors("flash forward", dict(q=q4, k=k4, v=v4, out=out4),
+                                    _KERNEL_HEAD_DIMS, cos, sin)
     b, sq, n, d = q4.shape
     dtype = q4.dtype
     route = _fwd_route(dtype, d)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q4.device)
-    stream = torch.cuda.current_stream(q4.device).cuda_stream
-    from ..kernels import build
+    stream = torch._C._cuda_getCurrentRawStream(q4.device.index)
+    lib = _FWD_LIBS.get(route)
+    if lib is None:
+        from ..kernels import build
 
-    lib = getattr(build, _FWD_LOADERS[route])()
+        lib = _FWD_LIBS[route] = getattr(build, _FWD_LOADERS[route])()
     if route != "f32" and cos is not None:
         q4, k4 = _rope_rotate4(q4, cos, sin), _rope_rotate4(k4, cos, sin)
+        strides[:6] = (*q4.stride()[:3], *k4.stride()[:3])
         cos = sin = None
     if route == "sm90":
         err = lib.svi_flash_fwd_sm90(
             d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
-            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
+            b, n, sq, k4.shape[1], kv_len, float(scale), (ctypes.c_int64 * 12)(*strides),
+            stream)
         if err != 0:
             raise RuntimeError(
                 f"flash forward (sm90) launch failed: code {err} (a cudaError; 10000: "
                 "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode returned "
                 "CUresult r)")
-    else:  # 'f32' and 'bf16' share one C argument list
-        err = getattr(lib, f"svi_flash_fwd_{route}")(
+    else:
+        err = lib.svi_flash_fwd_f32(
             d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(), lse.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
-            b, n, sq, k4.shape[1], kv_len, float(scale), _strides12(q4, k4, v4, out4), stream)
+            b, n, sq, k4.shape[1], kv_len, float(scale), (ctypes.c_int64 * 12)(*strides),
+            stream)
         if err != 0:
             raise RuntimeError(f"flash forward ({route}) launch failed: cudaError {err}")
-    return lse, (route, str(dtype).removeprefix("torch."), d)
+    return lse, (route, _DTYPE_NAMES[dtype], d)
 
 
 def flash_fwd_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: int,

@@ -26,16 +26,17 @@ F32_TOL = 1e-5
 @pytest.mark.parametrize("dtype,head_dim,route", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
     *((torch.float32, d, "f32") for d in (32, 64, 80, 128, 384)),
-    # the SD 1.5 family's bf16 head dims run the bf16 kernel (they raised
-    # before it was built)
-    (torch.bfloat16, 80, "bf16"),
+    # the SD 1.5 family's bf16 head dims run the sm90 kernel over zero-filled
+    # head-dim boxes (they raised before any kernel took them)
+    (torch.bfloat16, 80, "sm90"),
     # the SD 1.5 family's f32 head dims; a pair with no kernel still raises
     *((torch.float32, d, "f32") for d in (40, 160, 512)),
-    (torch.float32, 96, None), (torch.bfloat16, 40, "bf16"),
+    (torch.float32, 96, None), (torch.bfloat16, 40, "sm90"),
     # Hunyuan-DiT's 16 heads of 88
-    (torch.float32, 88, "f32"), (torch.bfloat16, 88, "bf16"),
-    # the rest of the bf16 kernel's head dims; bf16 D96 still raises
-    *((torch.bfloat16, d, "bf16") for d in (32, 160, 384, 512)),
+    (torch.float32, 88, "f32"), (torch.bfloat16, 88, "sm90"),
+    # the rest of the bf16 head dims (384 and 512 on the column-split
+    # kernel); bf16 D96 still raises
+    *((torch.bfloat16, d, "sm90") for d in (32, 160, 384, 512)),
     (torch.bfloat16, 96, None),
 ])
 def test_fwd_route(dtype, head_dim, route):

@@ -1,5 +1,5 @@
 """The port's bf16 paths against svi_tpu on the CPU: the attention entries at
-the head dims the card's bf16 kernel (csrc/flash_fwd_bf16.cu) serves, the SD
+the head dims the card's bf16 kernel (csrc/flash_fwd_sm90.cu) serves, the SD
 1.5 image pipeline in bf16, FLUX's VAE decode in the pipeline's bf16 (svi_tpu
 casts the VAE to it; the port kept it in f32 before the bf16 kernel) and one
 Hunyuan-DiT forward in bf16.
@@ -98,10 +98,10 @@ def _assert_model_close(got, want, f32_want, bound=BF16_MODEL_REL) -> None:
                                               (88, 16, 64, 45, 40), (160, 8, 16, 16, None)])
 def test_bf16_attention_bnsd_matches_svi_tpu(d, n, sq, sk, kv_len):
     """svi_tpu's bf16 `attention_bnsd` (its XLA path on the CPU) and the
-    port's (the plain version on the CPU; the card's route is "bf16") at the
+    port's (the plain version on the CPU; the card's route is "sm90") at the
     SD UNet's D40 self- and cross-attention, Hunyuan-DiT's D88 with masked
     keys and the SD UNet's D160 at AnimateDiff's 16 frames."""
-    assert tattn._fwd_route(torch.bfloat16, d) == "bf16"
+    assert tattn._fwd_route(torch.bfloat16, d) == "sm90"
     rng = np.random.default_rng(d + sk)
     q, k, v = (rng.standard_normal((2, n, s, d)).astype(np.float32) for s in (sq, sk, sk))
     (jq, tq), (jk, tk), (jv, tv) = map(_bf16_pair, (q, k, v))
@@ -117,9 +117,9 @@ def test_bf16_attention_bnsd_matches_svi_tpu(d, n, sq, sk, kv_len):
 
 def test_bf16_single_head_512_flat_matches_svi_tpu():
     """One head of 512 through the flat entry, as the VAE mid-blocks call it
-    (K1's contract; the card's route is "bf16"), q, k, v column slices of
+    (K1's contract; the card's route is "sm90"), q, k, v column slices of
     one qkv tensor."""
-    assert tattn._fwd_route(torch.bfloat16, 512) == "bf16"
+    assert tattn._fwd_route(torch.bfloat16, 512) == "sm90"
     qkv = np.random.default_rng(5).standard_normal((1, 96, 3 * 512)).astype(np.float32)
     jqkv, tqkv = _bf16_pair(qkv)
     want = jattn.flash_attention_flat(jqkv[..., :512], jqkv[..., 512:1024], jqkv[..., 1024:],
@@ -214,8 +214,8 @@ def test_flux_pipeline_decodes_in_its_bf16(monkeypatch):
 def test_hunyuan_dit_forward_bf16_matches_svi_tpu(monkeypatch):
     """One Hunyuan-DiT forward in bf16 (the narrow DiT of
     tests/test_torch_hunyuan_dit.py: 16 heads of 8; on the card its 16 heads
-    of 88 take route "bf16"), B2 as CFG batches it, 8 x 8 latents."""
-    assert tattn._fwd_route(torch.bfloat16, 88) == "bf16"
+    of 88 take route "sm90"), B2 as CFG batches it, 8 x 8 latents."""
+    assert tattn._fwd_route(torch.bfloat16, 88) == "sm90"
     fx.patch_narrow_plans(monkeypatch)
     sds = vfx.hunyuan_dit_state_dicts(seed=51)
     jdit = jhy.hunyuan_dit_params_from_torch(fx.to_numpy(sds["dit"]))

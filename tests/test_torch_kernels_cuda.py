@@ -1,6 +1,7 @@
 """The CUDA kernels (the flash forward on each route -- sm90 TMA + wgmma for
-bf16 D=128 and D=64 with its RoPE pre-pass, bf16 mma.sync for bf16 D=32, 40,
-80, 88, 160, 384, 512, 3xTF32 for f32 --,
+bf16 at every head dim with its RoPE pre-pass: D=128 and D=64, D=32, 40, 80,
+88, 160 over zero-filled head-dim boxes and on the packed short-sequence
+kernel, D=384 and 512 on the column-split kernel; 3xTF32 for f32 --,
 at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
@@ -466,16 +467,19 @@ def test_all_keys_masked_gives_finite_lse(dtype):
     assert torch.isfinite(lse).all() and (out == 0).all()
 
 
-# the bf16 mma.sync kernel's head dims (route "bf16", csrc/flash_fwd_bf16.cu):
-# 64-row CTAs and 64-key tiles at D <= 160 (16 rows and 16-key tiles when
-# Sq <= 16 at D = 40, 80, 160), 32-row CTAs and 32-key tiles at 384 and 512
+# the sm90 kernels' head dims other than 64 and 128 (route "sm90",
+# csrc/flash_fwd_sm90.cu): tiles of DP = D rounded up to 64 columns, zero-filled
+# by TMA past D; 192-row CTAs and 128-key tiles at D = 32, 40, 128-row CTAs and
+# 128-key tiles at 80, 88, 128-row CTAs and 64-key tiles at 160; four
+# (batch, head) items of 16 rows a tile when Sq and Sk <= 16; 64-row CTAs
+# whose two warpgroups split O's columns, 64-key tiles, at 384 and 512
 BF16_DIMS = (32, 40, 80, 88, 160, 384, 512)
 BF16_EDGES = [(1, 1), (16, 77), (17, 33), (63, 65), (65, 129), (189, 300)]
 
 
 def _bf16_launches(d):
-    return (tattn.flash_fwd_flat.routes[("bf16", "bfloat16", d)]
-            + tattn.flash_fwd_bnsd.routes[("bf16", "bfloat16", d)])
+    return (tattn.flash_fwd_flat.routes[("sm90", "bfloat16", d)]
+            + tattn.flash_fwd_bnsd.routes[("sm90", "bfloat16", d)])
 
 
 def _bf16_bnsd(b, sq, sk, n, d, seed):
@@ -491,8 +495,8 @@ def _bf16_bnsd(b, sq, sk, n, d, seed):
 @pytest.mark.parametrize("d", BF16_DIMS)
 def test_bf16_kernel_tile_edges(d, sq, sk):
     """bf16 through the (B, N, S, D) entry on strided views, Sq and Sk on
-    each side of the row and key tile edges (and the short-query tiles at
-    Sq <= 16), route "bf16"."""
+    each side of the row and key tile edges (and the packed short-sequence
+    kernel at Sq and Sk <= 16), route "sm90"."""
     heads, views = _bf16_bnsd(2, sq, sk, 3, d, 170)
     before = _bf16_launches(d)
     got = tattn.flash_fwd_bnsd(*heads)
@@ -505,9 +509,9 @@ def test_bf16_kernel_tile_edges(d, sq, sk):
 @pytest.mark.parametrize("kv_len", [0, 1, 33, 150, 299])
 @pytest.mark.parametrize("d", BF16_DIMS)
 def test_bf16_kernel_kv_len(d, kv_len):
-    """kv_len < Sk: Sk 300 (5 key tiles of 64, 10 of 32: the 2-stage ring
-    wraps), kv_len one key, mid-tile, and one short; 0 masks every key (out
-    0, lse -1e30 + log(1e-30), finite)."""
+    """kv_len < Sk: Sk 300 (3 key tiles of 128, 5 of 64), kv_len one key,
+    mid-tile, and one short; 0 masks every key (out 0, lse -1e30 +
+    log(1e-30), finite)."""
     heads, views = _bf16_bnsd(2, 70, 300, 2, d, 180)
     before = _bf16_launches(d)
     got = tattn.flash_fwd_bnsd(*heads, kv_len=kv_len)
@@ -553,11 +557,106 @@ def test_bf16_kernel_single_head_flat_rope(d):
     before, rope_before = _bf16_launches(d), tattn.rope_rotate_flat.launches
     got = tattn.flash_fwd_flat(q, k, v, d, cos=cos, sin=sin)
     torch.cuda.synchronize()
-    assert tattn.flash_fwd_flat.routes[("bf16", "bfloat16", d)] > 0
+    assert tattn.flash_fwd_flat.routes[("sm90", "bfloat16", d)] > 0
     assert _bf16_launches(d) == before + 1
     assert tattn.rope_rotate_flat.launches == rope_before + 2
     o_ref, lse_ref = tattn._flash_fwd_reference(
         *(t.unflatten(-1, (1, d)) for t in (q, k, v)), cos, sin, s, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("sk,kv_len", [(1000, 650), (700, 577)])
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_kv_len_inside_the_last_tile(d, sk, kv_len):
+    """kv_len inside the last key tile of a longer ring (tile 6 of 128 keys
+    or 11 of 64; the ring of 3 or 4 stages wraps, the single K and V
+    buffers of D = 384 / 512 refill ten times): only the last tile is
+    masked, past kv_len."""
+    heads, views = _bf16_bnsd(1, 130, sk, 2, d, 240)
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, kv_len, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("d", [40, 88, 160])
+def test_bf16_kernel_pad_columns_never_touch_a_neighbour(d):
+    """Three heads through the flat entry, each of q, k, v cut from five
+    heads of one (B, S, 5 D) tensor whose first and last heads hold values
+    1e4 times larger: a box wider than D that read the next head's columns
+    would move the result far past the bound. The kernel's own out (B, S,
+    3 D) has adjacent heads, each written by other CTAs: a store of a box's
+    pad columns would overwrite the next head's."""
+    b, s, n = 2, 200, 3
+
+    def cut(seed):
+        full = _rand((b, s, (n + 2) * d), torch.bfloat16, seed)
+        full[..., :d] *= 1e4
+        full[..., (n + 1) * d:] *= 1e4
+        return full[..., d:(n + 1) * d]
+
+    q, k, v = cut(250), cut(251), cut(252)
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_flat(q, k, v, d)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (n, d)) for t in (q, k, v)), None, None, s, d ** -0.5)
+    _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("layout", ["bsnd", "bnsd"])
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_bf16_kernel_last_head_ends_its_allocation(d, layout):
+    """q, k and v each in an allocation of exactly its size, contiguous as
+    (B, S, N, D) or as (B, N, S, D): the last head's last row ends the
+    allocation, so a box that read columns past D, or rows past S, would
+    read past it."""
+    b, sq, sk, n = 1, 130, 70, 2
+    shapes = [(b, s, n, d) if layout == "bsnd" else (b, n, s, d) for s in (sq, sk, sk)]
+    q, k, v = (_rand(shape, torch.bfloat16, 260 + i) for i, shape in enumerate(shapes))
+    views = [t if layout == "bsnd" else t.transpose(1, 2) for t in (q, k, v)]
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*(t.transpose(1, 2) for t in views))
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, sk, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(1024, 16, 16, None), (1025, 9, 13, 11)])
+@pytest.mark.parametrize("d", [32, 40, 80, 88, 160])
+def test_bf16_kernel_short_sequences_many_batches(d, b, sq, sk, kv_len):
+    """AnimateDiff's temporal attention (16 frames over thousands of (pixel,
+    head) batches) on the packed kernel: four (batch, head) items a 64-row
+    tile; B 1025 x N 3 items leave the last tile three phantom items (never
+    stored), and Sq 9 / Sk 13 / kv_len 11 leave rows and keys of each item
+    empty."""
+    n = 3
+    heads, views = _bf16_bnsd(b, sq, sk, n, d, 270)
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_bnsd(*heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(*views, None, None, kv_len or sk, d ** -0.5)
+    _check(got, (o_ref.transpose(1, 2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
+
+
+@pytest.mark.parametrize("s", [1000, 4096])
+@pytest.mark.parametrize("d", [384, 512])
+def test_bf16_wide_kernel_fewer_ctas_than_sms(d, s):
+    """One head of 384 or 512 through the flat entry at B1: 16 or 64 CTAs of
+    64 rows for the card's 132 SMs."""
+    qkv = _rand((1, s, 3 * d), torch.bfloat16, 280)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    before = _bf16_launches(d)
+    got = tattn.flash_fwd_flat(q, k, v, d)
+    torch.cuda.synchronize()
+    assert _bf16_launches(d) == before + 1
+    o_ref, lse_ref = tattn._flash_fwd_reference(
+        *(t.unflatten(-1, (1, d)) for t in (q, k, v)), None, None, s, d ** -0.5)
     _check(got, (o_ref.flatten(2), lse_ref), BF16_OUT_TOL, BF16_LSE_TOL, BF16_OUT_REL)
 
 

@@ -204,8 +204,7 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                          (build.BWD_SPLIT_SM90_SOURCE, "flash_bwd_split_sm90"),
                          (build.Q8_SM90_SOURCE, "flash_fwd_q8_sm90"),
                          (build.W4A8_SOURCE, "w4a8_gemm_sm90"),
-                         (build.BWD_F32_SOURCE, "flash_bwd_f32"),
-                         (build.BF16_SOURCE, "flash_fwd_bf16")):
+                         (build.BWD_F32_SOURCE, "flash_bwd_f32")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
         assert lib.name.startswith(f"lib{stem}_") and lib.parent == out.parent
