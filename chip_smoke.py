@@ -9,7 +9,8 @@ non-zero exit and no result line:
      switches (left at PyTorch's defaults, as users run them);
   2. build: nvcc builds every kernel source of svi_tpu_torch/csrc, all at once
      (the two forwards with many head dims, flash_fwd_f32.cu and
-     flash_fwd_sm90.cu, one library per group of head dims);
+     flash_fwd_sm90.cu, and the f32 backward flash_bwd_f32.cu, one library
+     per group of head dims);
   3. each kernel against its plain PyTorch version at the main paths' shapes
      (max abs error with its bound, median CUDA-event times of the kernel, the
      plain version and the one PyTorch call that computes the same function,
@@ -32,9 +33,11 @@ non-zero exit and no result line:
      SD3-medium's joint attention, B2 S4250, 24 heads of 64, f32; the Kolors
      UNet's cross-attention over ChatGLM's 256 tokens at both levels), and
      phase 8e's f32 backward on the (B, N, S, D) route (K5a's and K5b's
-     function, csrc/flash_bwd_f32.cu: SD 1.5's D40 self S4096 and cross
-     Sk77, D80 S1024 and its cross, D160 S256 and S64; SDXL's D64 S4096 N10,
-     S1024 N20 and cross Sk77, each kernel beside SDPA's f32 backward); the
+     function, csrc/flash_bwd_f32.cu, 3xTF32 on the tensor cores with dk /
+     dv over query chunks where the grid is small: SD 1.5's D40 self S4096
+     and cross Sk77, D80 S1024 and its cross, D160 S256 and S64; SDXL's D64
+     S4096 N10, S1024 N20 and cross Sk77, each kernel beside SDPA's f32
+     backward); the
      sm90 route's other bf16 head dims (csrc/flash_fwd_sm90.cu) at the bf16
      paths' shapes (SD 1.5's D40 self B2 S4096 N8 and its 77-key cross, D80
      S1024, D160 S256, AnimateDiff's D40 temporal attention over 4096
@@ -297,11 +300,13 @@ F32_BOUND = 1e-4
 # gradient once to bf16 (2^-8 relative); K4 sums dq in f32 (TMA reduce-adds)
 # in an order that changes from run to run.
 BF16_GRAD_REL_BOUND = 2e-2
-# f32 backward on the (B, N, S, D) route (csrc/flash_bwd_f32.cu, f32 FMA on
-# the CUDA cores) against the plain f32 backward (TF32 off) on the same
-# inputs: only the order of the f32 sums over up to 4096 keys or queries
-# differs. Bound: each gradient within 1e-4 of its own largest magnitude, or
-# within `f32_bwd_floor` where that is larger; a wrong tile, mask or scale
+# f32 backward on the (B, N, S, D) route (csrc/flash_bwd_f32.cu, every
+# product in 3xTF32 on the tensor cores, about 2^-21 relative, f32-level)
+# against the plain f32 backward (TF32 off) on the same inputs: f32 rounding
+# and the order of the f32 sums over up to 4096 keys or queries (in dk / dv
+# also over query chunks) differ. Bound: each gradient within 1e-4 of its
+# own largest magnitude, or within `f32_bwd_floor` where that is larger (one
+# key: dS = P (dP - delta) cancels to rounding); a wrong tile, mask or scale
 # moves a gradient by its own size, and the plain backward with TF32 on
 # (about 1e-3 relative) fails the bound (checked at one cross row).
 F32_BWD_REL_BOUND = 1e-4

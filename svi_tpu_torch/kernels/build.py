@@ -5,7 +5,7 @@ library in `svi_tpu_torch/kernels/_build` (listed in `.gitignore`), named by
 a hash of the source and the headers beside it, so a fresh checkout builds
 itself and an edited source rebuilds. The libraries have a plain C interface:
 no PyTorch headers, so a build takes seconds instead of minutes. The two
-forwards with many head dims (`HEAD_DIM_GROUPS`) are built as one library per
+forwards and the f32 backward (`HEAD_DIM_GROUPS`) are built as one library per
 group of head dims, each an nvcc of its own, so that `build_all`, which
 starts every nvcc at once, is not held up by one long compile.
 """
@@ -41,11 +41,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # sources built as one library per group of head dims (-DSVI_GROUP -DSVI_D<d>
 # for each head dim of a group; the source compiles only those): all nine f32
 # head dims with and without RoPE in one nvcc took 47.7 s against <= 17 s for
-# each other source. The bf16 forward's first group (D = 64 and 128, the
-# DiTs' and CogVideoX's) also serves the RoPE pre-pass (`ROPE_GROUP`).
+# each other source; the f32 backward's D = 80 and 160 in one nvcc took 28.2 s
+# among all the builds, the longest. The bf16 forward's first group (D = 64
+# and 128, the DiTs' and CogVideoX's) also serves the RoPE pre-pass
+# (`ROPE_GROUP`).
 HEAD_DIM_GROUPS = {
     F32_SOURCE: ((32, 40), (64, 80), (88, 128), (160, 384), (512,)),
     SM90_SOURCE: ((64, 128), (32, 40), (80, 88), (160,), (384, 512)),
+    BWD_F32_SOURCE: ((40,), (64,), (80,), (160,)),
 }
 ROPE_GROUP = (64, 128)
 
@@ -149,9 +152,13 @@ _FWD_ARGTYPES = [
 
 @functools.lru_cache(maxsize=None)
 def _load_fwd_group(source: Path, head_dims: tuple) -> ctypes.CDLL:
+    """The library of one group of head dims of a grouped source (the two
+    forwards, and the f32 backward), its entries declared."""
     path = build(source, head_dims).path
     if source == SM90_SOURCE:
         return bind_flash_fwd_sm90(path)
+    if source == BWD_F32_SOURCE:
+        return bind_flash_bwd_f32(path)
     lib = ctypes.CDLL(str(path))
     entry = getattr(lib, f"svi_{source.stem}")
     entry.argtypes = _FWD_ARGTYPES
@@ -160,13 +167,14 @@ def _load_fwd_group(source: Path, head_dims: tuple) -> ctypes.CDLL:
 
 
 class _ByHeadDim:
-    """The C entry `svi_<stem>(head_dim, ...)` of a grouped source: each call
-    goes to the library of the group that holds head_dim, built (if needed)
-    and loaded at the first call of that group; the entry is looked up once
-    per head dim."""
+    """The C entry `svi_<stem>(head_dim, ...)` (or `name`) of a grouped
+    source: each call goes to the library of the group that holds head_dim,
+    built (if needed) and loaded at the first call of that group; the entry
+    is looked up once per head dim."""
 
-    def __init__(self, source: Path):
+    def __init__(self, source: Path, name: str = ""):
         self.source = source
+        self.name = name or f"svi_{source.stem}"
         self.entries = {}
 
     def __call__(self, head_dim: int, *args) -> int:
@@ -175,7 +183,7 @@ class _ByHeadDim:
             group = next((g for g in HEAD_DIM_GROUPS[self.source] if head_dim in g), None)
             if group is None:
                 raise ValueError(f"no library of {self.source.name} holds head_dim {head_dim}")
-            entry = getattr(_load_fwd_group(self.source, group), f"svi_{self.source.stem}")
+            entry = getattr(_load_fwd_group(self.source, group), self.name)
             self.entries[head_dim] = entry
         return entry(head_dim, *args)
 
@@ -238,16 +246,26 @@ def load_flash_bwd() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def load_flash_bwd_f32() -> ctypes.CDLL:
-    """Build (if needed) and load the f32 split backward on the (B, N, S, D)
-    route (K5a's and K5b's function at head dims 40, 64, 80, 160; f32 FMA)
-    once per process."""
-    lib = ctypes.CDLL(str(build(BWD_F32_SOURCE).path))
+def load_flash_bwd_f32() -> types.SimpleNamespace:
+    """The f32 split backward on the (B, N, S, D) route (K5a's and K5b's
+    function at head dims 40, 64, 80, 160; 3xTF32 tensor cores):
+    `svi_flash_bwd_f32_dq(head_dim, ...)` and `svi_flash_bwd_f32_dkv(head_dim,
+    ...)` build (if needed) and load their head dim's library once per
+    process."""
+    return types.SimpleNamespace(**{name: _ByHeadDim(BWD_F32_SOURCE, name) for name in
+                                    ("svi_flash_bwd_f32_dq", "svi_flash_bwd_f32_dkv")})
+
+
+def bind_flash_bwd_f32(path: Path) -> ctypes.CDLL:
+    """Load a library built from flash_bwd_f32.cu (all head dims, or one
+    group's) and declare its two entries."""
+    lib = ctypes.CDLL(str(path))
     head = [ctypes.c_int, _ptr, _ptr, _ptr, _ptr,  # head_dim, q, k, v, dO
             _ptr, _ptr]  # lse, delta
     tail = [_i64, _i64, _i64, _i64, ctypes.c_float, _STRIDES, _ptr]  # b, n, sq, sk, scale, ., stream
     lib.svi_flash_bwd_f32_dq.argtypes = head + [_ptr] + tail  # dq
-    lib.svi_flash_bwd_f32_dkv.argtypes = head + [_ptr, _ptr] + tail  # dk, dv
+    # dk, dv, dk and dv scratch of the query chunks, the chunk count
+    lib.svi_flash_bwd_f32_dkv.argtypes = head + [_ptr, _ptr, _ptr, _ptr, _i64] + tail
     for fn in (lib.svi_flash_bwd_f32_dq, lib.svi_flash_bwd_f32_dkv):
         fn.restype = ctypes.c_int
     return lib

@@ -41,8 +41,10 @@ the split backward (K5a, K5b) takes the route `_split_bwd_route` names:
 bf16 D = 128 runs csrc/flash_bwd_split_sm90.cu (TMA + wgmma, on q and k
 rotated by the pre-pass), bf16 D = 64 csrc/flash_bwd.cu, f32 D = 40, 64,
 80, 160 (the SD 1.5 and SDXL UNets, whose backward the JAX package runs in
-XLA, `_flash_bwd_xla`) csrc/flash_bwd_f32.cu, each entry counting its
-launches in `.launches` and per (route, dtype, head_dim) in `.routes`. The int8
+XLA, `_flash_bwd_xla`) csrc/flash_bwd_f32.cu (3xTF32 on the tensor
+cores; dk / dv over the query chunks `_f32_dkv_chunks` picks), each entry
+counting its launches in `.launches` and per (route, dtype, head_dim) in
+`.routes`. The int8
 forward takes the route `_q8_route` names for the head dim: D = 128 runs
 csrc/flash_fwd_q8_sm90.cu (TMA + integer wgmma, 128-key tiles), D = 64
 csrc/flash_fwd_q8.cu (mma.sync, 64-key tiles); it counts its launches in
@@ -373,9 +375,9 @@ def _flat_ok(n: int, head_dim: int) -> bool:
 # the split backward's kernels (K5a, K5b) per (dtype, head_dim): 'sm90' is
 # csrc/flash_bwd_split_sm90.cu (TMA + wgmma: the DiT's cross-attention and
 # short self-attention in training), 'mma' csrc/flash_bwd.cu (mma.sync),
-# 'f32' csrc/flash_bwd_f32.cu (f32 FMA: the head dims of the SD 1.5 (40, 80,
-# 160) and SDXL (64) UNets, which the JAX package's flat layout does not
-# take, on the (B, N, S, D) route)
+# 'f32' csrc/flash_bwd_f32.cu (3xTF32 on mma.sync, cp.async rings: the head
+# dims of the SD 1.5 (40, 80, 160) and SDXL (64) UNets, which the JAX
+# package's flat layout does not take, on the (B, N, S, D) route)
 _SPLIT_BWD_ROUTES = {(torch.bfloat16, 128): "sm90", (torch.bfloat16, 64): "mma",
                      **{(torch.float32, d): "f32" for d in (40, 64, 80, 160)}}
 _BWD_HEAD_DIMS = {t: tuple(d for (t_, d) in _SPLIT_BWD_ROUTES if t_ == t)
@@ -581,6 +583,26 @@ def _split_bwd_route(dtype: torch.dtype, head_dim: int, cos=None) -> str:
 
 
 _SPLIT_ROWS = 128  # query rows per CTA of the sm90 dq kernel: lse2 and delta are padded to it
+_F32_DKV_KEYS = 64  # keys per CTA of csrc/flash_bwd_f32.cu's dk / dv kernel
+_F32_CHUNK_ROWS = 64  # its query chunks are whole multiples of this many rows
+_F32_CHUNK_MIN_UNITS = 2  # and hold at least this many such units
+
+
+def _f32_dkv_chunks(b: int, n: int, sq: int, sk: int, sms: int) -> int:
+    """Query chunks of the f32 dk / dv kernel (csrc/flash_bwd_f32.cu), K5b's
+    host rule (csrc/flash_bwd_split_sm90.cu `pick_chunks`) over its grid of
+    64-key tiles x heads x batch: the fewest chunks that give at least two
+    waves of the card's `sms` SMs with the last wave 90% full, each chunk at
+    least `_F32_CHUNK_MIN_UNITS` units of 64 queries (one chunk where that
+    allows no more). SD 1.5's 77 text keys at Sq 4096 and 8 heads: 16 CTAs
+    alone, 23 chunks."""
+    ctas = -(-sk // _F32_DKV_KEYS) * n * b
+    c_max = max(1, -(-sq // _F32_CHUNK_ROWS) // _F32_CHUNK_MIN_UNITS)
+    for c in range(1, c_max):
+        total = ctas * c
+        if total >= 2 * sms and 10 * total >= 9 * -(-total // sms) * sms:
+            return c
+    return c_max
 
 
 def _split_prep(views, lse, cos, sin):
@@ -636,9 +658,16 @@ def _launch_split(entry: str, prep, v4, g4, cos, sin, scale: float):
     elif route == "f32":
         from ..kernels.build import load_flash_bwd_f32
 
+        chunks = ()
+        if entry == "dkv":  # partial dk, dv of each query chunk, summed in order, freed on return
+            c = _f32_dkv_chunks(b, n, sq, sk, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            parts = [torch.empty((c, b, sk, n * d), dtype=torch.float32, device=dev)
+                     for _ in range(2)] if c > 1 else ()
+            chunks = (*(t.data_ptr() for t in parts), c) if c > 1 else (None, None, 1)
         err = getattr(load_flash_bwd_f32(), f"svi_flash_bwd_f32_{entry}")(
-            d, *head[:6], *(t.data_ptr() for t in outs), b, n, sq, sk, float(scale), strides,
-            stream)
+            d, *head[:6], *(t.data_ptr() for t in outs), *chunks, b, n, sq, sk, float(scale),
+            strides, stream)
         if err != 0:
             raise RuntimeError(f"split flash backward ({entry}, f32) launch failed: cudaError "
                                f"{err}")

@@ -38,7 +38,7 @@ def _rand(rng, shape):
 ])
 def test_split_bwd_route(dtype, head_dim, route):
     """bf16 D = 128 takes the TMA + wgmma kernels, bf16 D = 64 the mma.sync
-    ones, f32 D = 40, 64, 80, 160 (the SD UNets) the f32 FMA ones; every
+    ones, f32 D = 40, 64, 80, 160 (the SD UNets) the 3xTF32 ones; every
     other pair raises (no fallback)."""
     if isinstance(route, str):
         assert tattn._split_bwd_route(dtype, head_dim) == route
@@ -54,6 +54,30 @@ def test_split_bwd_route_f32_takes_no_rope():
     with pytest.raises(NotImplementedError, match="no RoPE"):
         tattn._split_bwd_route(torch.float32, 40, cos)
     assert tattn._split_bwd_route(torch.bfloat16, 128, cos) == "sm90"
+
+
+@pytest.mark.parametrize("b,n,sq,sk,chunks", [
+    (1, 8, 4096, 4096, 1), (1, 8, 4096, 77, 23), (1, 8, 1024, 1024, 3), (1, 8, 1024, 77, 8),
+    (1, 8, 256, 256, 2), (1, 8, 64, 64, 1), (1, 10, 4096, 4096, 1), (1, 20, 1024, 1024, 2),
+    (1, 10, 4096, 77, 18), (2, 20, 1024, 77, 6), (1, 1, 192, 64, 1), (1, 1, 193, 64, 2),
+    (1, 1, 33792, 64, 264), (1, 1, 0, 64, 1),
+])
+def test_f32_dkv_chunk_rule(b, n, sq, sk, chunks):
+    """The query chunks of the f32 dk / dv kernel on a 132-SM card at the
+    phase-3 rows of chip_smoke.py and the card tests' edges: the fewest
+    that make two waves with the last 90% full, each chunk at least two
+    64-query units, one chunk where the queries allow no more."""
+    got = tattn._f32_dkv_chunks(b, n, sq, sk, 132)
+    assert got == chunks
+    units = -(-sq // 64)
+    assert 1 <= got <= max(1, units // 2)
+    ctas = -(-sk // 64) * n * b * got
+    waves = -(-ctas // 132)
+    if got < max(1, units // 2):  # stopped early: the grid fills the card
+        assert ctas >= 264 and 10 * ctas >= 9 * waves * 132
+    if got > 1:  # no fewer chunks would do
+        fewer = -(-sk // 64) * n * b * (got - 1)
+        assert fewer < 264 or 10 * fewer < 9 * -(-fewer // 132) * 132
 
 
 def test_rope_decomposition_matches_pallas_fused_rope():

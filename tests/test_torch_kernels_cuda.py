@@ -5,7 +5,7 @@ kernel, D=384 and 512 on the column-split kernel; 3xTF32 for f32 --,
 at every head dim it is built for (D = 88 for Hunyuan-DiT), the K4
 backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
-D=64, f32 FMA for the (B, N, S, D) route's f32 D=40, 64, 80, 160, with a
+D=64, 3xTF32 for the (B, N, S, D) route's f32 D=40, 64, 80, 160, with a
 text-to-image trainer step on it --, the K3 int4 unpack, the W4A8 linear --
 its activation pre-pass and its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
 sm90 TMA + integer wgmma at D=128, mma.sync at D=64 --) against their plain
@@ -808,10 +808,12 @@ def test_split_bwd_strided_qkv_columns(rope):
     _check_grads(got, _plain_bwd(q, k, v, out, lse, g, d, cos, sin))
 
 
-# the f32 split backward (csrc/flash_bwd_f32.cu: f32 FMA) against the plain
-# f32 backward (TF32 off) on the same inputs: only the order of the sums over
-# up to a few thousand keys or queries differs, f32-level; each gradient
-# within 1e-4 of its own largest magnitude, far below what a wrong tile or
+# the f32 split backward (csrc/flash_bwd_f32.cu: 3xTF32 on the tensor cores,
+# about 2^-21 relative per product) against the plain f32 backward (TF32 off)
+# on the same inputs: f32-level rounding and the order of the sums over up
+# to a few thousand keys or queries (and, in dk / dv, over query chunks)
+# differ; each gradient within 1e-4 of its own largest magnitude, far below
+# what a wrong tile or
 # mask gives, or within the rounding floor where that is larger (one key
 # makes dq and dk exactly 0 but for rounding): one ulp (2^-23) of the
 # largest |dO| |v| over per-head rows, times the scale, the largest |q| or
@@ -880,6 +882,78 @@ def test_f32_bwd_tile_edges(sq, sk):
     assert _split_launches("f32") == (before[0] + 1, before[1] + 1)
     q, k, v, _, _, g = args
     _check_grads_f32(got, _plain_bwd(*args, d, None, None), q, k, v, g, d)
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _f32_chunks(b, n, sq, sk):
+    return tattn._f32_dkv_chunks(b, n, sq, sk, _sms())
+
+
+def _check_dkv_f32(dk, dv, want, q, k, v, g, d):
+    floor = _f32_bwd_floor(q, k, v, g, d)
+    for name, x, ref in (("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert x.dtype == ref.dtype == torch.float32 and x.shape == ref.shape, name
+        assert torch.isfinite(x).all(), name
+        bound = max(F32_BWD_REL_TOL * ref.abs().max().item(), floor)
+        err = (x - ref).abs().max().item()
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("sq", ["one", 192, 193, 256, 257, "most"])
+def test_f32_bwd_dkv_query_chunks(d, sq):
+    """dk / dv of one 50-key tile (one head, B = 1: a grid of one CTA a
+    chunk) across the query-chunk rule: Sq in one chunk (100), the last Sq
+    of one chunk and the first of two (192, 193: the chunks meet at query 128), the second chunk
+    ending on a 64-query unit and one query past it (256, 257), and the
+    most chunks the rule picks (two waves of the card's SMs, at Sq = 256 x
+    SMs), against the plain backward."""
+    sms = _sms()
+    sq, want_chunks = {"one": (100, 1), 192: (192, 1), 193: (193, 2), 256: (256, 2),
+                       257: (257, 2), "most": (256 * sms, 2 * sms)}[sq]
+    sk, n, b = 50, 1, 1
+    assert _f32_chunks(b, n, sq, sk) == want_chunks
+    args = _f32_bwd_inputs(b, sq, sk, n, d, 100)
+    before = _split_launches("f32")
+    dk, dv = tattn.flash_bwd_dkv(*args, d)
+    torch.cuda.synchronize()
+    assert _split_launches("f32") == (before[0], before[1] + 1)
+    q, k, v, _, _, g = args
+    _check_dkv_f32(dk, dv, _plain_bwd(*args, d, None, None), q, k, v, g, d)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(1024, 77), (128, 600)])
+def test_f32_bwd_kernels_are_deterministic(d, sq, sk):
+    """dq and dk / dv twice on the same inputs, bit for bit: SD's 77 text
+    keys (8 heads: dk / dv over query chunks, their partials summed in
+    order) and 128 queries (one chunk) over 600 keys (dq's sums flushed
+    from the registers twice)."""
+    n, b = 8, 1
+    args = _f32_bwd_inputs(b, sq, sk, n, d, 110)
+    assert (_f32_chunks(b, n, sq, sk) > 1) == (sk == 77)
+    first = (tattn.flash_bwd_dq(*args, d), *tattn.flash_bwd_dkv(*args, d))
+    second = (tattn.flash_bwd_dq(*args, d), *tattn.flash_bwd_dkv(*args, d))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+def test_f32_bwd_dkv_sdxl_n20_under_one_wave():
+    """dk / dv at SDXL's 32 x 32 level (20 heads of 64) against the 77 text
+    keys at B = 2: 80 CTAs, under one wave of the card, so the queries are
+    cut into chunks; against the plain backward."""
+    b, sq, sk, n, d = 2, 1024, 77, 20, 64
+    assert -(-sk // 64) * n * b < _sms()
+    assert _f32_chunks(b, n, sq, sk) > 1
+    args = _f32_bwd_inputs(b, sq, sk, n, d, 120)
+    dk, dv = tattn.flash_bwd_dkv(*args, d)
+    torch.cuda.synchronize()
+    q, k, v, _, _, g = args
+    _check_dkv_f32(dk, dv, _plain_bwd(*args, d, None, None), q, k, v, g, d)
 
 
 @pytest.mark.parametrize("layout", ["bsnd", "bnsd"])
