@@ -17,7 +17,11 @@ non-zero exit and no result line:
      the kernel call's device time without host gaps, and the least time
      the card could take for the work); the W4A8 linear at the 14B's
      shapes bit for bit, beside torch._int_mm alone and the chain it
-     replaced (K3, `_int8_exec`, the bias); the f32 kernel at the SD 1.5
+     replaced (K3, `_int8_exec`, the bias), and the fused straight-through
+     input gradient `w4a8_dgrad` (`[w4a8-dgrad]` lines; no path takes it)
+     beside the chain the backward runs (K3, the bf16 cast, g * s8, cuBLAS)
+     and torch.matmul alone; K5a / K5b and K6 at bf16 D=64 (no path takes
+     them); the f32 kernel at the SD 1.5
      stack's shapes (head dims 40, 160 and 512, the UNet's 77-key
      cross-attention, AnimateDiff's 16-frame temporal attention over 4096
      batches) and the SDXL stack's at 1024x1024 (heads of 64 over 4096 and
@@ -325,6 +329,25 @@ def f32_bwd_floor(q, k, v, g, n: int, d: int, scale: float) -> float:
     share = -(-q.shape[1] // k.shape[1])
     largest = max(q.abs().max().item(), k.abs().max().item())
     return 2.0 ** -23 * scale * row(g) * row(v) * largest * share ** 0.5
+
+
+def dgrad_err_bound(gs, w8, exact) -> float:
+    """How far two computations of bf16(gs @ W8) with f32 sums can lie apart
+    (the W4A8 input gradient against its plain version, cuBLAS; gs and W8
+    exact in bf16, so every product is exact in f32): each rounds its f32
+    sum once to bf16, so the two can land on neighbouring bf16 values, one
+    ulp of |dx| <= 2^-7 of the largest |dx| (exact: the f64 product); and
+    each sums in f32 in its own order: a tensor-core k16 step adds 16 exact
+    products to the f32 accumulator with one rounding, at most an ulp
+    (2^-23) of the running sum, itself at most sum_n |gs W8|, so each side is
+    within (N/16 + 1) such roundings of the exact sum, the two within twice
+    that. A wrong scale, nibble or tile moves dx by a share of its own size.
+    tests/test_torch_kernels_cuda.py holds the card tests to the same."""
+    n = gs.shape[-1]
+    terms = (gs.double().abs() @ w8.double().abs()).max().item()
+    return 2.0 ** -7 * exact.abs().max().item() + 2 * (n / 16 + 1) * 2.0 ** -23 * terms
+
+
 # int4 unpack + requantization (K3) is held bit for bit (torch.equal): one f32
 # product and one round-half-to-even per weight on both sides. So are the
 # W4A8 linear (its activation pre-pass: the same IEEE divisions and
@@ -858,13 +881,15 @@ def kernel_cases():
         out, lse = A.flash_fwd_flat(q, k_full, v_full, d, cos=cos, sin=sin, kv_len=kv)
         k, v = k_full[:, :kv], v_full[:, :kv]  # the keys the kernels see
         route = A._bwd_route(n, d, sq, kv, kv)
+        split = A._split_bwd_route(torch.bfloat16, d)  # sm90 at D = 128, mma at D = 64
+        dq_name, dkv_name = f"flash_bwd_dq/{split}", f"flash_bwd_dkv/{split}"
         args = (q, k, v, out, lse, g, d)
         rope = dict(cos=cos, sin=sin)
         if route == "onepass":
             kernels = {"flash_bwd_onepass": lambda: A.flash_bwd_onepass(*args, **rope)}
         else:
-            kernels = {"flash_bwd_dq/sm90": lambda: A.flash_bwd_dq(*args, **rope),
-                       "flash_bwd_dkv/sm90": lambda: A.flash_bwd_dkv(*args, **rope)}
+            kernels = {dq_name: lambda: A.flash_bwd_dq(*args, **rope),
+                       dkv_name: lambda: A.flash_bwd_dkv(*args, **rope)}
 
         @timed_calls
         def plain():
@@ -883,15 +908,15 @@ def kernel_cases():
                 got["flash_bwd_onepass"] = kernels["flash_bwd_onepass"]()
                 pairs = {"flash_bwd_onepass": (0, 1, 2)}
             else:
-                got["flash_bwd_dq/sm90"] = (kernels["flash_bwd_dq/sm90"](),)
-                got["flash_bwd_dkv/sm90"] = kernels["flash_bwd_dkv/sm90"]()
-                pairs = {"flash_bwd_dq/sm90": (0,), "flash_bwd_dkv/sm90": (1, 2)}
+                got[dq_name] = (kernels[dq_name](),)
+                got[dkv_name] = kernels[dkv_name]()
+                pairs = {dq_name: (0,), dkv_name: (1, 2)}
             res = {}
             for entry, idx in pairs.items():
                 res[entry] = worst(*((err(x, ref[i]),
                                       BF16_GRAD_REL_BOUND * ref[i].float().abs().max().item())
                                      for x, i in zip(got[entry], idx)))
-            if route == "split":
+            if route == "split" and split == "sm90":
                 # the prep both kernels read: lse * log2(e) bit for bit, delta
                 # an f32 sum of 128 products in another order
                 o4, g4 = out.unflatten(-1, (n, d)), g.unflatten(-1, (n, d))
@@ -901,7 +926,7 @@ def kernel_cases():
                                err(delta, want[1]) / want[1].abs().max().item())
                 log(f"[bwd-prep] {name}: lse2 {'bit-exact' if prep_err < float('inf') else 'DIFFERS'}, "
                     f"delta max err {prep_err:.3e} of the largest |delta| (bound 1e-5)")
-                res["flash_bwd_dq/sm90"] = worst(res["flash_bwd_dq/sm90"], (prep_err, 1e-5))
+                res[dq_name] = worst(res[dq_name], (prep_err, 1e-5))
             return res
 
         leaves = [heads_first(q, n, d, cos, sin).detach().requires_grad_(),
@@ -921,10 +946,12 @@ def kernel_cases():
         mm = 2 * b * n * sq * kv * d  # one matrix product of the backward
         io = _nbytes(q, k, v, out, g) + 4 * b * n * sq  # inputs (lse f32)
         work = {"flash_bwd_onepass": (5 * mm, io + _nbytes(q, k, v), PEAK_BF16),
-                "flash_bwd_dq/sm90": (3 * mm, io + _nbytes(q), PEAK_BF16),
-                "flash_bwd_dkv/sm90": (4 * mm, io + _nbytes(k, v), PEAK_BF16)}
-        extra = {} if route == "onepass" else dict(
-            split=lambda: A.flash_bwd_flat(q, k, v, out, lse, g, d, **rope))
+                dq_name: (3 * mm, io + _nbytes(q), PEAK_BF16),
+                dkv_name: (4 * mm, io + _nbytes(k, v), PEAK_BF16)}
+        # flash_bwd_flat beside the split kernels (it routes bf16 D = 64 at 80
+        # heads to the (B, N, S, D) route, which takes f32 only)
+        extra = dict(split=lambda: A.flash_bwd_flat(q, k, v, out, lse, g, d, **rope)) \
+            if route == "split" else {}
         return dict(case=name, shape=[b, sq, sk, n, d], dtype="bfloat16", run=run,
                     kernels=kernels, plain=plain, library=library,
                     library_fwd_bwd=library_fwd_bwd, work={e: work[e] for e in kernels},
@@ -1237,6 +1264,10 @@ def kernel_cases():
     # K4's gate through K5a + K5b
     yield bwd_case("sp_self_attn_bwd_kvlen_onepass", 1, 17252, 34504, 40, 128, kv_len=34503)
     yield bwd_case("sp_self_attn_bwd_kvlen_split", 1, 2100, 4200, 40, 128, kv_len=4199)
+    # K5a / K5b at bf16 D = 64 (route mma, csrc/flash_bwd.cu; no path takes it:
+    # the DiTs train at D = 128) at the 14B's width in 64-wide heads (no RoPE:
+    # the DiT's 3-axis tables are laid out for D = 128)
+    yield bwd_case("dit_self_attn_bwd_d64", 1, 9360, 9360, 80, 64)
     # the text-to-image LoRA trainer's backward (phase 8e), f32 on the
     # (B, N, S, D) route: SD 1.5 at 512x512 (64 x 64 latents, B1): 8 heads of
     # 40 over 64 x 64 tokens, self and onto the 77 text keys, of 80 over
@@ -1368,13 +1399,87 @@ def kernel_cases():
     yield w4a8_case("w4a8_cross_attn_k_text", 1024, 5120, 5120)
     yield w4a8_case("w4a8_time_embedding_0", 2, 5120, 256)
 
+    def ratio(a, b):
+        return "not measured" if a is None or b is None else f"{a / b:.2f}"
+
+    def dgrad_case(name, m, n, k):
+        """The fused W4A8 input gradient `w4a8_dgrad` (no path takes it: the
+        training backward runs the chain, faster on this card) on a weight of
+        the 14B DiT's shape (out n, in k) quantized by the port's own
+        quantizer, with a cotangent of m tokens, against the plain version
+        (K3's plain unpack, g * bf16(s8), cuBLAS) within `dgrad_err_bound`;
+        as the control, the plain version against the exact (f64) product of
+        the same bf16 operands, rounded to bf16, within the same bound.
+        Beside it: the chain the backward runs (the standalone K3, then
+        `_straight_through_dx`: the bf16 cast, g * s8 and cuBLAS) and
+        torch.matmul(gs, W8 in bf16) alone on operands made beforehand (the
+        product without the transforms: the library call)."""
+        packed, scale = wan_dit._quantize_leaf_int4(randn((n, k), torch.bfloat16) * 0.02)
+        r, s8 = wan_dit._w4a8_leaves(scale)
+        del scale
+        g = randn((m, n), torch.bfloat16) * 1e-3
+        gs = g * s8.reshape(-1).to(torch.bfloat16)
+        wb = Q.unpack_requant_int4(packed, r).to(torch.bfloat16)
+
+        def kernel():
+            return Q.w4a8_dgrad(g, packed, r, s8)
+
+        @timed_calls
+        def plain():
+            return Q._w4a8_dgrad_reference(g, packed, r, s8)
+
+        def chain():
+            return Q._straight_through_dx(g, Q.unpack_requant_int4(packed, r), s8)
+
+        def library():
+            return torch.matmul(gs, wb)
+
+        io = _nbytes(g, packed, r, s8) + 2 * m * k
+
+        def run():
+            got, ref = kernel(), plain()
+            exact = gs.double() @ wb.double()
+            err_bound = dgrad_err_bound(gs, wb, exact)
+            exact = exact.to(torch.bfloat16)
+            got_err, control = err(got, ref), err(ref, exact)
+            del exact, got, ref
+            chain_ms, chain_dev = ms_pair(chain)
+            lib_ms, lib_dev = ms_pair(library)
+            new_ms, new_dev = ms_pair(kernel)
+            bound_ms = bound(2 * m * n * k, io, PEAK_BF16)[0]
+            log(f"[w4a8-dgrad] {name} M{m} N{n} K{k}: max abs err {got_err:.3e} against the "
+                f"plain version, the plain version {control:.3e} against the exact product, "
+                f"bound {err_bound:.3e}; w4a8_dgrad {new_ms:.4f} ms (device {new_dev}); the "
+                f"chain the backward runs (K3, the bf16 cast, g * s8, cuBLAS) {chain_ms:.4f} ms "
+                f"(device {chain_dev}); torch.matmul alone {lib_ms:.4f} ms (device {lib_dev}); "
+                f"bound {bound_ms:.4f} ms; device time over the bound {ratio(new_dev, bound_ms)}, "
+                f"over torch.matmul {ratio(new_dev, lib_dev)}, over the chain "
+                f"{ratio(new_dev, chain_dev)}")
+            if control > err_bound:
+                raise RuntimeError(f"{name}: the plain version (cuBLAS) is {control:.3e} from the "
+                                   f"exact product, past the bound {err_bound:.3e}")
+            return {"w4a8_dgrad": (got_err, err_bound)}
+
+        return dict(case=name, shape=[m, n, k], dtype="bf16 x int4 (W4A8 input gradient)",
+                    run=run, kernels={"w4a8_dgrad": kernel}, plain=plain, library=library,
+                    work={"w4a8_dgrad": (2 * m * n * k, io, PEAK_BF16)})
+
+    # the fused input gradient at the training slice's 9360 tokens
+    # (21 frames): ffn.0's and ffn.2's weights, a 5120 x 5120 projection and
+    # the head (64 outputs)
+    yield dgrad_case("w4a8_dgrad_ffn_0", 9360, 13824, 5120)
+    yield dgrad_case("w4a8_dgrad_ffn_2", 9360, 5120, 13824)
+    yield dgrad_case("w4a8_dgrad_self_attn_q", 9360, 5120, 5120)
+    yield dgrad_case("w4a8_dgrad_head", 9360, 64, 5120)
+
     def q8_case(name, quant, b, sq, sk, n, d, grid=None, kv_len=None, dtype=torch.bfloat16):
         """K6 on `_quant_prep`'s operands (the prep is torch code, outside the
         kernel, as the JAX package keeps it in XLA); dtype f32: q, k, v and
         out in f32, the qk8 kernel of route sm90_f32."""
         pv8 = quant == "qk8pv8"
         f32 = dtype == torch.float32
-        entry = "flash_fwd_flat_q8/sm90_f32" if f32 else "flash_fwd_flat_q8/sm90"
+        # sm90 at D = 128, mma at D = 64 (bf16)
+        entry = "flash_fwd_flat_q8/sm90_f32" if f32 else f"flash_fwd_flat_q8/{A._q8_route(d)}"
         out_rel, lse_bound = (Q8_F32_OUT_REL, Q8_F32_LSE_BOUND) if f32 else (Q8_OUT_REL,
                                                                           Q8_LSE_BOUND)
         q = randn((b, sq, n * d), dtype)
@@ -1447,6 +1552,9 @@ def kernel_cases():
                   grid=(3, 30, 52), dtype=torch.float32)
     yield q8_case("masked_kv_len_q8_qk8_f32", "qk8", 2, 4680, 4680, 40, 128,
                   grid=(3, 30, 52), kv_len=4100, dtype=torch.float32)
+    # K6 at D = 64 (route mma, csrc/flash_fwd_q8.cu; no path takes it: the
+    # DiTs attend at D = 128) at the 14B's width in 64-wide heads, no RoPE
+    yield q8_case("dit_self_attn_q8_qk8_d64", "qk8", 1, 9360, 9360, 80, 64)
 
 
 PLAIN_ONE_CALL_MS = 1000.0
@@ -7497,6 +7605,7 @@ def main() -> int:
     build.load_flash_fwd_q8_sm90()
     build.load_quant_unpack()
     build.load_w4a8_gemm()
+    build.load_w4a8_dgrad()
     log(f"[build] all sources in {time.perf_counter() - t0:.2f}s")
 
     marks = [t_start]

@@ -6,21 +6,28 @@
 // (out, in), so the packed weight is (N, K/2) int8 and the group ratios are
 // (N, K/G) f32; the output is (N, K) int8, the transpose of the JAX kernel's
 // (K, N), which is the column-major B operand torch._int_mm takes as w8.t().
+// The W4A8 paths fuse it: the forward into w4a8_gemm_sm90.cu, the bf16
+// straight-through backward into w4a8_dgrad_sm90.cu; this kernel serves the
+// f32 straight-through backward.
 //
 // Packing (half-split): byte [n, i] holds input i in its low nibble and input
 // i + K/2 in its high nibble, both sign-extended int4. Each output is
 //   clip(rint(float(w4) * r[n, input / G]), -127, 127)
-// with one f32 multiply and round-half-to-even (__float2int_rn), bit-equal to
-// jnp.round of the same product.
+// with one f32 multiply and round-half-to-even (an FADD of 1.5 * 2^23), bit-
+// equal to jnp.round of the same product.
 //
 // What bounds it on this card: bytes. It reads 0.5 byte of packed weight and
 // writes 1 byte of int8 per weight, plus the small (N, K/G) ratio table:
 // ~1.5 bytes per weight, ~108 MB for a 5120 x 13824 ffn linear (~32 us at
-// 3.35 TB/s). The design is the plain one: each thread reads 4 packed bytes
-// of one row as one 32-bit word and writes two 32-bit words, one to each
-// half of the output row; rows are walked by the grid's y dimension. When K/2
-// is not a multiple of 4 a one-byte-per-thread instantiation runs instead.
-// Fusing the unpack into an int8 GEMM's operand load is left for later work.
+// 3.35 TB/s). The design keeps the memory system busy and the arithmetic out
+// of its way: each thread of a grid sized to the SMs walks 16-byte vectors
+// of packed bytes (one 16-byte load, two 16-byte stores: 32 outputs); the
+// vector's low and high runs of 16 inputs each lie in one group (G % 16 ==
+// 0), so each reads its ratio once, its group index a shift (G a power of
+// two) or one division, all in 32-bit arithmetic; a weight costs a few
+// integer and f32 instructions (the nibble placed in the mantissa of 2^23
+// makes it a float). Shapes outside that (K/2 or G not a multiple of 16, a
+// misaligned pointer: only the tiny test configs) take a byte-wise kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,53 +36,81 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int8_t requant(int w4, float r) {
-  int v = __float2int_rn(static_cast<float>(w4) * r);
-  v = v < -127 ? -127 : (v > 127 ? 127 : v);
-  return static_cast<int8_t>(v);
+// the low byte of the result is rint(clamp(w4 * r, -127, 127)) in two's
+// complement (clamping first is the same: +-127 are integers)
+__device__ __forceinline__ uint32_t requant_bits(float w4, float r) {
+  const float y = fminf(fmaxf(__fmul_rn(w4, r), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(y, 12582912.f));
 }
 
-template <int V>
+// the nibble u in bits 0-3 of x (the bits above it ignored) -> its int8 in
+// the low byte: 2^23 + (u ^ 8), less 2^23 + 8, is the signed nibble
+__device__ __forceinline__ uint32_t requant_nibble(uint32_t x, float r) {
+  const float w4 = __fsub_rn(__uint_as_float(((x ^ 8u) & 0xFu) | 0x4B000000u), 8388616.f);
+  return requant_bits(w4, r);
+}
+
+// four nibbles (bits 0-3 of each byte of w after the shift) -> four int8
+__device__ __forceinline__ uint32_t requant4(uint32_t w, int shift, float r) {
+  const uint32_t x = w >> shift;
+  return __byte_perm(__byte_perm(requant_nibble(x, r), requant_nibble(x >> 8, r), 0x0040),
+                     __byte_perm(requant_nibble(x >> 16, r), requant_nibble(x >> 24, r), 0x0040),
+                     0x5410);
+}
+
+__device__ __forceinline__ uint4 requant16(uint4 w, int shift, float r) {
+  return make_uint4(requant4(w.x, shift, r), requant4(w.y, shift, r), requant4(w.z, shift, r),
+                    requant4(w.w, shift, r));
+}
+
+// one 16-byte vector of packed bytes per step: vector v is row v / vpr,
+// bytes 16 (v % vpr) .. + 15; group index = input >> gshift, or input /
+// group when gshift < 0
 __global__ void __launch_bounds__(kThreads)
-unpack_requant_kernel(const int8_t* __restrict__ wp, const float* __restrict__ r,
-                      int8_t* __restrict__ out, long long n_rows, long long kh,
-                      long long n_groups, int group) {
-  const long long vec = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (vec * V >= kh) return;
-  const long long i0 = vec * V;
-  for (long long row = blockIdx.y; row < n_rows; row += gridDim.y) {
-    const int8_t* src = wp + row * kh + i0;
-    const float* rrow = r + row * n_groups;
-    int8_t* dst = out + row * 2 * kh + i0;
-    if (V == 4) {
-      const uint32_t word = *reinterpret_cast<const uint32_t*>(src);
-      uint32_t lo = 0u, hi = 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int x = static_cast<int8_t>((word >> (8 * j)) & 0xFFu);
-        const int w_lo = ((x & 0xF) ^ 8) - 8;  // sign-extended low nibble
-        const int w_hi = x >> 4;                // arithmetic shift of the signed byte
-        lo |= (uint32_t)(uint8_t)requant(w_lo, rrow[(i0 + j) / group]) << (8 * j);
-        hi |= (uint32_t)(uint8_t)requant(w_hi, rrow[(i0 + j + kh) / group]) << (8 * j);
-      }
-      *reinterpret_cast<uint32_t*>(dst) = lo;
-      *reinterpret_cast<uint32_t*>(dst + kh) = hi;
-    } else {
-      const int x = src[0];
-      dst[0] = requant(((x & 0xF) ^ 8) - 8, rrow[i0 / group]);
-      dst[kh] = requant(x >> 4, rrow[(i0 + kh) / group]);
-    }
+    unpack_requant16_kernel(const uint4* __restrict__ wp, const float* __restrict__ r,
+                            uint4* __restrict__ out, uint32_t n_vecs, uint32_t vpr,
+                            uint32_t n_groups, int gshift, uint32_t group) {
+  for (uint32_t v = blockIdx.x * kThreads + threadIdx.x; v < n_vecs;
+       v += gridDim.x * kThreads) {
+    const uint32_t row = v / vpr, c = v - row * vpr;
+    const uint32_t lo = 16 * c, hi = lo + 16 * vpr;  // the first low and high input
+    const uint4 w = __ldg(wp + v);
+    const float* rrow = r + (size_t)row * n_groups;
+    const float r_lo = __ldg(rrow + (gshift >= 0 ? lo >> gshift : lo / group));
+    const float r_hi = __ldg(rrow + (gshift >= 0 ? hi >> gshift : hi / group));
+    uint4* orow = out + (size_t)row * 2 * vpr;
+    orow[c] = requant16(w, 0, r_lo);
+    orow[vpr + c] = requant16(w, 4, r_hi);
   }
 }
 
-template <int V>
-cudaError_t launch(const int8_t* wp, const float* r, int8_t* out, long long n_rows,
-                   long long kh, long long n_groups, int group, cudaStream_t st) {
-  const long long vecs = kh / V;
-  const dim3 grid((unsigned)((vecs + kThreads - 1) / kThreads),
-                  (unsigned)(n_rows < 65535 ? n_rows : 65535));
-  unpack_requant_kernel<V><<<grid, kThreads, 0, st>>>(wp, r, out, n_rows, kh, n_groups, group);
-  return cudaGetLastError();
+// any shape: one packed byte per step
+__global__ void __launch_bounds__(kThreads)
+    unpack_requant1_kernel(const uint8_t* __restrict__ wp, const float* __restrict__ r,
+                           uint8_t* __restrict__ out, long long n_bytes, long long kh,
+                           long long n_groups, long long group) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n_bytes;
+       i += (long long)gridDim.x * kThreads) {
+    const long long row = i / kh, col = i - row * kh;
+    const float* rrow = r + row * n_groups;
+    const uint32_t w = wp[i];
+    uint8_t* orow = out + row * 2 * kh;
+    orow[col] = (uint8_t)requant_nibble(w, rrow[col / group]);
+    orow[kh + col] = (uint8_t)requant_nibble(w >> 4, rrow[(kh + col) / group]);
+  }
+}
+
+int grid_for(long long items) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  const long long resident = 8LL * sms;  // 2048 threads an SM
+  return (int)(blocks < resident ? blocks : resident);
 }
 
 }  // namespace
@@ -90,10 +125,19 @@ extern "C" int svi_unpack_requant_int4(const void* wp, const float* r, void* out
   if (group <= 0 || (2 * kh) % group != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const long long n_groups = 2 * kh / group;
-  const int8_t* w = static_cast<const int8_t*>(wp);
-  int8_t* o = static_cast<int8_t*>(out);
-  const bool aligned = kh % 4 == 0 && reinterpret_cast<uintptr_t>(wp) % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  return (int)(aligned ? launch<4>(w, r, o, n_rows, kh, n_groups, group, st)
-                       : launch<1>(w, r, o, n_rows, kh, n_groups, group, st));
+  const bool vec = kh % 16 == 0 && group % 16 == 0 && n_rows * kh / 16 < 0x7FFFFFFFll &&
+                   reinterpret_cast<uintptr_t>(wp) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    const long long n_vecs = n_rows * kh / 16;
+    const int gshift = (group & (group - 1)) == 0 ? __builtin_ctz((unsigned)group) : -1;
+    unpack_requant16_kernel<<<grid_for(n_vecs), kThreads, 0, st>>>(
+        static_cast<const uint4*>(wp), r, static_cast<uint4*>(out), (uint32_t)n_vecs,
+        (uint32_t)(kh / 16), (uint32_t)n_groups, gshift, (uint32_t)group);
+  } else {
+    unpack_requant1_kernel<<<grid_for(n_rows * kh), kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(wp), r, static_cast<uint8_t*>(out), n_rows * kh, kh,
+        n_groups, group);
+  }
+  return (int)cudaGetLastError();
 }

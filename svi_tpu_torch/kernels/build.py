@@ -36,6 +36,7 @@ Q8_SOURCE = CSRC / "flash_fwd_q8.cu"
 Q8_SM90_SOURCE = CSRC / "flash_fwd_q8_sm90.cu"
 UNPACK_SOURCE = CSRC / "quant_unpack.cu"
 W4A8_SOURCE = CSRC / "w4a8_gemm_sm90.cu"
+DGRAD_SOURCE = CSRC / "w4a8_dgrad_sm90.cu"
 BUILD_DIR = PACKAGE_DIR / "kernels" / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # sources built as one library per group of head dims (-DSVI_GROUP -DSVI_D<d>
@@ -356,6 +357,21 @@ def load_w4a8_gemm() -> ctypes.CDLL:
     ]
     for fn in (lib.svi_w4a8_quantize_rows, lib.svi_w4a8_gemm):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_w4a8_dgrad() -> ctypes.CDLL:
+    """Build (if needed) and load the W4A8 linear's straight-through input
+    gradient (W8 made in shared memory, bf16 wgmma) once per process."""
+    lib = ctypes.CDLL(str(build(DGRAD_SOURCE).path))
+    lib.svi_w4a8_dgrad.argtypes = [
+        _ptr, _ptr, _i64,  # g, packed weight, its row bytes
+        _ptr, _ptr, _ptr,  # r, s8, dx
+        _i64, _i64, _i64, ctypes.c_int,  # m, n, k, group
+        _ptr,  # cudaStream_t
+    ]
+    lib.svi_w4a8_dgrad.restype = ctypes.c_int
     return lib
 
 

@@ -41,7 +41,8 @@ from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_cont
 from ..ops.attention import (div_exact, flash_attention, flash_attention_flat,
                              save_attention_policy)
 from ..ops.norms import gelu_tanh, layer_norm, modulate, rms_norm
-from ..ops.quant_matmul import unpack_int4, unpack_requant_int4, w4a8_linear
+from ..ops.quant_matmul import (_straight_through_dx, unpack_int4, unpack_requant_int4,
+                                w4a8_linear)
 from ..ops.rope import rope_angles_for_grid, sinusoidal_embedding_1d
 from .params import Init, ParamTree, convert_tree, unstack
 
@@ -126,11 +127,6 @@ class _Int8Exec(torch.autograd.Function):
     def backward(ctx, g):
         w8i, col_scale = ctx.saved_tensors
         return _straight_through_dx(g, w8i, col_scale), None, None
-
-
-def _straight_through_dx(g: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor):
-    """`_int8_exec_bwd`: dx = (g · col_scale) @ w8i in g's dtype."""
-    return (g * col_scale.reshape(-1).to(g.dtype)) @ w8i.to(g.dtype)
 
 
 def _int8_exec(x: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor) -> torch.Tensor:

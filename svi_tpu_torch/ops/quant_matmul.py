@@ -1,4 +1,5 @@
-"""The W4A8 linear and the int4 unpack + per-channel int8 requantization.
+"""The W4A8 linear, the int4 unpack + per-channel int8 requantization, and a
+fused kernel for the linear's straight-through input gradient.
 
 Port of svi_tpu/ops/quant_matmul.py and of the W4A8 branch of the JAX
 package's `_dense`, which unpacks the weight (K3) and hands it to
@@ -11,7 +12,14 @@ runs all of it in two kernels: `quantize_rows_int8` (x -> x8, xs) and the
 GEMM, which unpacks and requantizes the int4 weight in shared memory, so
 neither the int8 weight nor the int32 product reaches device memory.
 `unpack_requant_int4` (K3: csrc/quant_unpack.cu) stays as the standalone
-unpack, which the straight-through backward uses.
+unpack, which the straight-through backward (`_int8_exec_bwd`, dx = (g * s8)
+@ W8 in g's dtype) uses before the bf16 cast, the scaling and cuBLAS.
+
+    dx = w4a8_dgrad(g, w_q4, r_q4, s8_q4)      # csrc/w4a8_dgrad_sm90.cu
+
+computes that backward in one kernel (the bf16 W8 tile made in shared
+memory, g scaled in registers). On the H100 it is slower than the chain at
+the 14B's shapes, so no path calls it yet.
 
 Layout: the port keeps linear weights as (out, in) = (N, K). The packed int4
 weight is (N, K/2) int8, HALF-SPLIT: byte [n, i] holds input i as its low
@@ -20,10 +28,11 @@ transposed). `r` (N, K/G) f32 is the per-group requantization ratio
 scale_g / smax_c * 127/7 (models.wan_dit._w4a8_leaves), so the (N, K) int8
 output lives on the per-output-channel s8 grid.
 
-`unpack_requant_int4`, `quantize_rows_int8` and `w4a8_linear` count their
-kernel launches in `.launches`. CPU tensors take the plain versions
+`unpack_requant_int4`, `quantize_rows_int8`, `w4a8_linear` and `w4a8_dgrad`
+count their kernel launches in `.launches`. CPU tensors take the plain versions
 (`_unpack_requant_reference`, `_quantize_rows_reference`,
-`_w4a8_linear_reference`); CUDA tensors launch the kernels or raise.
+`_w4a8_linear_reference`, `_w4a8_dgrad_reference`); CUDA tensors launch the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -238,3 +247,76 @@ def w4a8_linear(x: torch.Tensor, w_q4: torch.Tensor, r_q4: torch.Tensor, s8_q4: 
 
 
 w4a8_linear.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The straight-through input gradient of the W4A8 linear
+# ---------------------------------------------------------------------------
+
+
+def _straight_through_dx(g: torch.Tensor, w8i: torch.Tensor, col_scale: torch.Tensor):
+    """`_int8_exec_bwd`: dx = (g · col_scale) @ w8i in g's dtype."""
+    return (g * col_scale.reshape(-1).to(g.dtype)) @ w8i.to(g.dtype)
+
+
+def _w4a8_dgrad_reference(g, w_q4, r_q4, s8_q4):
+    """Plain version of `w4a8_dgrad`: the chain it fuses, K3's plain unpack
+    then `_int8_exec_bwd`'s dx = bf16(g · bf16(s8)) @ bf16(W8)."""
+    return _straight_through_dx(g, _unpack_requant_reference(w_q4, r_q4), s8_q4)
+
+
+def w4a8_dgrad(g: torch.Tensor, w_q4: torch.Tensor, r_q4: torch.Tensor,
+               s8_q4: torch.Tensor) -> torch.Tensor:
+    """The W4A8 linear's straight-through input gradient in one kernel: g
+    (..., N) bf16, the cotangent of `w4a8_linear`'s output; w_q4 (N, K/2),
+    r_q4 (N, K/G), s8_q4 (N, 1) its weight leaves. Returns dx (..., K) bf16:
+    dx = (g · s8) @ W8 with W8 = K3's requantized weight (`_int8_exec_bwd`).
+    On the card it launches csrc/w4a8_dgrad_sm90.cu (W8 made in shared
+    memory, g scaled in registers, f32 sums; its launches in `.launches`),
+    within f32 summation order and one bf16 rounding of the plain version.
+    Every M >= 1 is taken; the shapes are those of `w4a8_shape_error`."""
+    if not supports_unpack_requant(w_q4, r_q4):
+        raise ValueError(f"w4a8_dgrad: packed {tuple(w_q4.shape)} {w_q4.dtype} and ratios "
+                         f"{tuple(r_q4.shape)} {r_q4.dtype} are not a (N, K/2) int8 weight with "
+                         "(N, K/G) f32 group ratios")
+    n, kh = w_q4.shape
+    k = 2 * kh
+    if g.shape[-1] != n or s8_q4.numel() != n:
+        raise ValueError(f"w4a8_dgrad: g {tuple(g.shape)}, weight (N={n}, K={k}), s8 "
+                         f"{tuple(s8_q4.shape)}")
+    named = (g, w_q4, r_q4, s8_q4)
+    if all(t.device.type == "cpu" for t in named):
+        return _w4a8_dgrad_reference(g, w_q4, r_q4, s8_q4)
+    if not all(t.is_cuda for t in named) or len({t.device for t in named}) != 1:
+        raise RuntimeError("w4a8_dgrad: every tensor must be on one CUDA device (got "
+                           f"{sorted({str(t.device) for t in named})})")
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"w4a8_dgrad kernel: g must be bfloat16, got {g.dtype}")
+    why = w4a8_shape_error(k, n, k // r_q4.shape[1])
+    if why is not None:
+        raise ValueError(f"w4a8_dgrad kernel: {why}")
+    g2 = g.reshape(-1, n).contiguous()
+    m = g2.shape[0]
+    dx = torch.empty((m, k), dtype=g.dtype, device=g.device)
+    if m == 0:
+        return dx.reshape(*g.shape[:-1], k)
+    # TMA reads the packed weight: its rows must be 16-byte multiples, so with
+    # K/2 % 16 != 0 (only the tiny test configs) it is read from a copy with
+    # padded rows
+    w = w_q4.contiguous() if kh % 16 == 0 else F.pad(w_q4, (0, -kh % 16))
+    r = r_q4.contiguous()
+    s8 = s8_q4.reshape(-1).float().contiguous()
+    from ..kernels.build import load_w4a8_dgrad
+
+    err = load_w4a8_dgrad().svi_w4a8_dgrad(
+        g2.data_ptr(), w.data_ptr(), w.shape[1], r.data_ptr(), s8.data_ptr(), dx.data_ptr(), m,
+        n, k, k // r.shape[1], torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w4a8_dgrad kernel launch failed: {err} (a cudaError; 10000: "
+                           "cuTensorMapEncodeTiled not found; 20000 + r: the tensor-map encode "
+                           "returned CUresult r)")
+    w4a8_dgrad.launches += 1
+    return dx.reshape(*g.shape[:-1], k)
+
+
+w4a8_dgrad.launches = 0

@@ -7,7 +7,9 @@ backward (TMA + wgmma), the K5a / K5b backward on each route -- sm90
 TMA + wgmma for bf16 D=128 with its lse / delta prep, mma.sync for bf16
 D=64, 3xTF32 for the (B, N, S, D) route's f32 D=40, 64, 80, 160, with a
 text-to-image trainer step on it --, the K3 int4 unpack, the W4A8 linear --
-its activation pre-pass and its int4-unpacking int8 GEMM -- and the K6 int8 forward on each route --
+its activation pre-pass and its int4-unpacking int8 GEMM --, its
+straight-through input gradient (W8 made in shared memory, bf16 wgmma)
+and the K6 int8 forward on each route --
 sm90 TMA + integer wgmma at D=128, mma.sync at D=64 --) against their plain
 PyTorch versions, on the card.
 
@@ -1141,10 +1143,11 @@ def test_k2_ring_block_matches_plain(kv_len):
 
 
 @pytest.mark.parametrize("n,k,group", [(13824, 5120, 128), (77, 256, 128), (5, 32, 16),
-                                       (3, 20, 10)])
+                                       (7, 192, 48), (9, 256, 32), (3, 20, 10)])
 def test_unpack_requant_kernel_bit_exact(n, k, group):
-    """Odd N, a small K, and K/2 = 10 (not a multiple of 4: the byte-wise
-    instantiation) against the plain version on the same card tensors."""
+    """Odd N, a small K, a group that is no power of two (the division) and
+    K/2 = 10 (not a multiple of 16: the byte-wise kernel) against the plain
+    version on the same card tensors."""
     from svi_tpu_torch.ops import quant_matmul as tqm
 
     g = torch.Generator(device="cuda").manual_seed(n)
@@ -1363,6 +1366,88 @@ def test_w4a8_linear_3d_input_and_unsupported_shapes_raise():
         tqm.w4a8_linear(x, packed[:60], r[:60], s8[:60])
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tqm.w4a8_linear(x.half(), packed, r, s8)
+
+
+# ---------------------------------------------------------------------------
+# The W4A8 straight-through input gradient (csrc/w4a8_dgrad_sm90.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dgrad_bound(gs: torch.Tensor, w8: torch.Tensor, exact: torch.Tensor) -> float:
+    """How far two computations of bf16(gs @ W8) with f32 sums can lie apart
+    (gs and W8 exact in bf16, so every product is exact in f32): each rounds
+    its f32 sum once to bf16, so the two can land on neighbouring bf16
+    values, one ulp of |dx| <= 2^-7 of the largest |dx|; and each sums in
+    f32 in its own order: a tensor-core k16 step adds 16 exact products to
+    the f32 accumulator with one rounding, at most an ulp (2^-23) of the
+    running sum, itself at most sum_n |gs W8|, so each side is within (N/16
+    + 1) such roundings of the exact sum, and the two within twice that."""
+    n = gs.shape[-1]
+    terms = (gs.double().abs() @ w8.double().abs()).max().item()
+    return 2.0 ** -7 * exact.abs().max().item() + 2 * (n / 16 + 1) * 2.0 ** -23 * terms
+
+
+def _dgrad_operands(m, n, k, group, seed):
+    from svi_tpu_torch.models import wan_dit
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+    packed, scale = wan_dit._quantize_leaf_int4(w, group)
+    r, s8 = wan_dit._w4a8_leaves(scale)
+    g = (torch.randn((m, n), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+    return g, packed, r, s8
+
+
+# M = 1, 17, 255, 257 at the 14B's shapes (a 5120 x 5120 projection, ffn.0's
+# and ffn.2's weights) and ragged ones (N and K/2 no multiples of the 64-row
+# and 64-byte tiles, the second row tile of one row); the slice's 9360 rows
+# at a narrow width; the tiny configs' K = 48 (packed rows of 24 bytes) and
+# K = 32 with groups of 16
+DGRAD_CASES = [(1, 5120, 5120, 128), (17, 13824, 5120, 128), (255, 5120, 13824, 128),
+               (257, 328, 400, 16), (9360, 328, 256, 128), (257, 1280, 1280, 128),
+               (17, 64, 48, 16), (40, 128, 32, 16)]
+
+
+@pytest.mark.parametrize("m,n,k,group", DGRAD_CASES)
+def test_w4a8_dgrad_kernel_within_bound_of_plain(m, n, k, group):
+    """The kernel against its plain version (K3's plain unpack, g * bf16(s8)
+    and cuBLAS's bf16 product) within `_dgrad_bound`; as the control, both
+    against the exact product (f64) of the same bf16 operands, rounded to
+    bf16, within the same bound. One launch, no standalone K3."""
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    g, packed, r, s8 = _dgrad_operands(m, n, k, group, m + n + k)
+    before = (tqm.w4a8_dgrad.launches, tqm.unpack_requant_int4.launches)
+    got = tqm.w4a8_dgrad(g, packed, r, s8)
+    torch.cuda.synchronize()
+    assert (tqm.w4a8_dgrad.launches, tqm.unpack_requant_int4.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == (m, k) and torch.isfinite(got).all()
+    want = tqm._w4a8_dgrad_reference(g, packed, r, s8)
+    gs = g * s8.reshape(-1).to(torch.bfloat16)
+    w8 = tqm._unpack_requant_reference(packed, r)
+    exact = gs.double() @ w8.double()
+    bound = _dgrad_bound(gs, w8, exact)
+    exact = exact.to(torch.bfloat16).float()
+    for a, b in ((got, want), (want, exact), (got, exact)):
+        assert (a.float() - b.float()).abs().max().item() <= bound, (bound, a, b)
+
+
+def test_w4a8_dgrad_3d_cotangent_and_unsupported_inputs():
+    """g with leading dims; a dtype or shape the kernel does not take raises."""
+    from svi_tpu_torch.ops import quant_matmul as tqm
+
+    g, packed, r, s8 = _dgrad_operands(2 * 150, 256, 512, 128, 9)
+    got = tqm.w4a8_dgrad(g.reshape(2, 150, 256), packed, r, s8)
+    assert got.shape == (2, 150, 512)
+    assert torch.equal(got.reshape(300, 512), tqm.w4a8_dgrad(g, packed, r, s8))
+    before = tqm.w4a8_dgrad.launches
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="bfloat16"):
+            tqm.w4a8_dgrad(g.to(dtype), packed, r, s8)
+    assert tqm.w4a8_dgrad.launches == before
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tqm.w4a8_dgrad(g[:, :60], packed[:60], r[:60], s8[:60])
 
 
 def test_int4_w4a8_lora_backward_matches_the_cpu_and_counts_k3():

@@ -204,6 +204,7 @@ def test_build_command_targets_sm90a_into_an_ignored_dir():
                          (build.BWD_SPLIT_SM90_SOURCE, "flash_bwd_split_sm90"),
                          (build.Q8_SM90_SOURCE, "flash_fwd_q8_sm90"),
                          (build.W4A8_SOURCE, "w4a8_gemm_sm90"),
+                         (build.DGRAD_SOURCE, "w4a8_dgrad_sm90"),
                          (build.BWD_F32_SOURCE, "flash_bwd_f32")):
         assert source in build.CSRC.glob("*.cu")
         lib = build.library_path(source)
@@ -342,12 +343,16 @@ def test_non_cpu_tensor_without_kernel_raises():
 
 
 def test_non_cpu_tensor_without_kernel_raises_quantized():
-    """The same for K3's and K6's entries."""
+    """The same for K3's, the W4A8 input gradient's and K6's entries."""
     from svi_tpu_torch.ops import quant_matmul as tqm
 
     with pytest.raises(RuntimeError, match="CUDA"):
         tqm.unpack_requant_int4(torch.empty(8, 64, dtype=torch.int8, device="meta"),
                                 torch.empty(8, 1, device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tqm.w4a8_dgrad(torch.empty(3, 8, dtype=torch.bfloat16, device="meta"),
+                       torch.empty(8, 64, dtype=torch.int8, device="meta"),
+                       torch.empty(8, 8, device="meta"), torch.empty(8, 1, device="meta"))
     q8 = torch.empty(1, 8, 2 * 64, dtype=torch.int8, device="meta")
     qs = torch.empty(1, 2, 8, device="meta")
     kscale = torch.empty(1, 2, device="meta")
